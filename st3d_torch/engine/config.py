@@ -1,4 +1,4 @@
-"""Pipeline configuration and the second-approach argument parser
+"""Pipeline configuration and the argument parsers of both approaches
 (counterpart of ``st3d/engine/config.py``): the same flag names and
 defaults, plus ``--device``.
 
@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 
 def _str2bool(v) -> bool:
@@ -73,6 +73,17 @@ class PipelineConfig:
     tile_parallel: bool = False
     device: str = "cuda"                  # cuda | cpu
 
+    def loss_weights(self) -> Dict[str, float]:
+        return {
+            "mesh_edge_loss_weight": self.mesh_edge_loss_weight,
+            "mesh_laplacian_smoothing_weight":
+                self.mesh_laplacian_smoothing_weight,
+            "mesh_normal_consistency_weight":
+                self.mesh_normal_consistency_weight,
+            "mesh_verts_weight": self.mesh_verts_weight,
+            "main_loss_weight": self.main_loss_weight,
+        }
+
 
 def _add_shared(p: argparse.ArgumentParser) -> None:
     p.add_argument("--n_views", default=6, type=int,
@@ -131,6 +142,19 @@ def _add_shared(p: argparse.ArgumentParser) -> None:
                    choices=["cuda", "cpu"],
                    help="cuda runs the hand-written kernels and raises "
                    "without a GPU; cpu runs their plain versions")
+
+
+def parse_first_approach(argv=None) -> PipelineConfig:
+    p = argparse.ArgumentParser(description="first approach (2D ST -> MSE)")
+    _add_shared(p)
+    p.add_argument("--n_mse_steps", default=100, type=int)
+    p.add_argument("--n_style_transfer_steps", default=3000, type=int)
+    p.add_argument("--output_path", default="./output_first", type=str)
+    p.add_argument("--style_transfer_init", default="content", type=str,
+                   choices=["noise", "current", "content"])
+    p.add_argument("--style_transfer_lr", default=0.01, type=float)
+    p.add_argument("--mse_lr", default=0.01, type=float)
+    return PipelineConfig(**vars(p.parse_args(argv)))
 
 
 def parse_second_approach(argv=None) -> PipelineConfig:

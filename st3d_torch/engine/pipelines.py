@@ -1,14 +1,23 @@
-"""The second-approach pipeline (counterpart of
-``st3d/engine/pipelines.py::run_second_approach``), texture target.
+"""The two pipelines (counterpart of ``st3d/engine/pipelines.py``), texture
+target.
 
-Per view batch, hoisted out of the epoch loop: the content render, the
-style/content targets and the hard-mode visibility. Per step: shade the
-covered pixels from the cached UVs, composite the background, run VGG-19 to
-conv5_1 with in-model Grams, take ``style_content_loss``, backpropagate and
-let Adam update the texture. On a CUDA device every conv, Gram and raster
-pass goes through the hand-written kernels (st3d_torch/kernels).
+First approach (``run_first_approach``), per view batch: render the
+content, stylise it in 2D (``style_transfer``, hot loop A), write
+``2d_style_transfer/view_k.png``, then take ``n_mse_steps`` Adam steps on
+the texture against the masked MSE to the stylised images, with the
+visibility hoisted out of the loop. ``log.txt`` holds ``Batch i, Step s,
+Loss v`` per MSE step.
 
-Outputs follow the reference layout: ``log.txt`` (``Epoch e, Loss v``),
+Second approach (``run_second_approach``), per view batch, hoisted out of
+the epoch loop: the content render, the style/content targets and the
+hard-mode visibility. Per step: shade the covered pixels from the cached
+UVs, composite the background, run VGG-19 to conv5_1 with in-model Grams,
+take ``style_content_loss``, backpropagate and let Adam update the texture.
+On a CUDA device every conv, Gram and raster pass of either approach goes
+through the hand-written kernels (st3d_torch/kernels).
+
+Second-approach outputs follow the reference layout: ``log.txt``
+(``Epoch e, Loss v``),
 ``metrics.jsonl`` (with ``step_s``, the wall time of the epoch up to a
 device synchronisation and a host fetch of its loss), ``current_images/``,
 ``final_render/view_i.png`` (12 fixed views) and ``final.obj`` (+ .mtl +
@@ -32,12 +41,14 @@ from st3d_torch.core.mesh import Mesh, finalize_mesh
 from st3d_torch.engine.background import apply_background
 from st3d_torch.engine.config import PipelineConfig
 from st3d_torch.engine.optim import apply_params, setup_optimizations
+from st3d_torch.engine.style_transfer2d import style_transfer
 from st3d_torch.io.image import load_as_tensor, resize_bilinear_chw, save_image
 from st3d_torch.io.obj import load_mesh, save_mesh
 from st3d_torch.models.vgg import get_features, get_vgg
 from st3d_torch.ops.losses import (
     CONTENT_LAYER,
     StyleContentTargets,
+    compute_first_approach_loss,
     style_content_loss,
 )
 from st3d_torch.render.rasterize import RasterizationSettings
@@ -115,6 +126,102 @@ def save_render(mesh: Mesh, cameras: FoVPerspectiveCameras,
         save_image(imgs[i], os.path.join(path, f"view_{i}.png"))
 
 
+def _compute_dtype(cfg: PipelineConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+def _finish(cfg: PipelineConfig, content_mesh: Mesh, params,
+            settings: RasterizationSettings, device) -> Mesh:
+    """Write ``final_render/`` (12 fixed views) and ``final.obj``; returns
+    the final clamped mesh."""
+    final = finalize_mesh(apply_params(content_mesh, params))
+    save_render(final, build_fixed_cameras(12, seed=cfg.seed).to(device),
+                settings, os.path.join(cfg.output_path, "final_render"))
+    save_mesh(final, os.path.join(cfg.output_path, "final.obj"))
+    return final
+
+
+def run_first_approach(cfg: PipelineConfig) -> Mesh:
+    """Stylise each view batch in 2D, then fit the texture to the stylised
+    views by masked MSE through the renderer; returns the final (clamped)
+    mesh."""
+    why = _unsupported(cfg)
+    if why:
+        raise NotImplementedError(f"st3d_torch does not run {why}")
+    device = resolve_device(cfg.device)
+    st_dir = os.path.join(cfg.output_path, "2d_style_transfer")
+    os.makedirs(st_dir, exist_ok=True)
+
+    content_mesh = load_scene(cfg).to(device)
+    settings = RasterizationSettings(
+        image_size=cfg.size, blur_radius=cfg.blur_radius,
+        faces_per_pixel=cfg.faces_per_pixel, soft=cfg.soft_raster)
+    vgg = get_vgg(cfg.vgg_weights, device=device)
+    cameras = build_cameras(cfg).to(device)
+    params, optimizer = setup_optimizations(cfg.optimization_target,
+                                            content_mesh, cfg.mse_lr)
+    weights = cfg.loss_weights()
+    dtype = _compute_dtype(cfg)
+    gen = torch.Generator(device=device).manual_seed(cfg.seed)
+    style = load_as_tensor(resolve_asset(cfg.style_path), size=cfg.size)
+    logger = RunLogger(cfg.output_path)
+
+    for i, b0, b1 in _batches(cfg.n_views, cfg.batch_size):
+        cams_b = cameras[b0:b1]
+        style_b = style[None].expand(b1 - b0, -1, -1, -1).to(device)
+        with torch.no_grad():
+            vis = compact_visibility(
+                precompute_visibility(content_mesh, cams_b, settings))
+            cimgs, cmasks = render_meshes(content_mesh, cams_b, settings)
+            content_b = apply_background(cimgs, cmasks,
+                                         cfg.content_background, style_b, gen)
+            if cfg.style_transfer_init == "noise":
+                init = torch.rand(content_b.shape, generator=gen,
+                                  dtype=content_b.dtype, device=device)
+            elif cfg.style_transfer_init == "content":
+                init = content_b
+            elif cfg.style_transfer_init == "current":
+                cur_imgs, cur_masks = render_meshes(
+                    apply_params(content_mesh, params), cams_b, settings)
+                init = apply_background(cur_imgs, cur_masks,
+                                        cfg.current_background, style_b, gen)
+            else:
+                raise ValueError(
+                    f"unknown style_transfer_init {cfg.style_transfer_init!r}")
+
+        applied = style_transfer(
+            init, content_b, style_b, vgg, steps=cfg.n_style_transfer_steps,
+            style_weight=cfg.style_weight, content_weight=cfg.content_weight,
+            lr=cfg.style_transfer_lr, dtype=dtype).clamp(0.0, 1.0)
+        for j in range(b1 - b0):
+            save_image(applied[j], os.path.join(
+                st_dir, f"view_{i * cfg.batch_size + j}.png"))
+
+        # Hot loop B: the texture against the stylised views, NHWC.
+        target = applied.permute(0, 2, 3, 1)
+        losses = []
+        for _ in range(cfg.n_mse_steps):
+            optimizer.zero_grad(set_to_none=True)
+            mesh = apply_params(content_mesh, params)
+            rgba = render_rgba_static(mesh, vis, settings)
+            imgs = rgba[..., :3]
+            masks = (rgba[..., 3:4] > 0).to(imgs.dtype)
+            loss = compute_first_approach_loss(
+                imgs, masks, target, mesh.verts, content_mesh.verts, mesh,
+                weights, cfg.optimization_target)
+            loss.backward()
+            optimizer.step()
+            losses.append(loss.detach())
+        # One host fetch per batch, not one per step.
+        for s, value in enumerate(torch.stack(losses).tolist()
+                                  if losses else []):
+            logger.log_step(i, s, value)
+
+    final = _finish(cfg, content_mesh, params, settings, device)
+    logger.close()
+    return final
+
+
 def run_second_approach(cfg: PipelineConfig) -> Mesh:
     """Optimise the texture against the VGG style/content loss; returns the
     final (clamped) mesh."""
@@ -134,7 +241,7 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
     cameras = build_cameras(cfg).to(device)
     params, optimizer = setup_optimizations(cfg.optimization_target,
                                             content_mesh, cfg.lr)
-    dtype = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+    dtype = _compute_dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     style = load_as_tensor(resolve_asset(cfg.style_path), size=cfg.size)
     content_noise = cfg.content_background == "noise"
@@ -195,9 +302,6 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
         logger.log_epoch(epoch, loss_value,
                          step_s=time.perf_counter() - t0)
 
-    final = finalize_mesh(apply_params(content_mesh, params))
-    save_render(final, build_fixed_cameras(12, seed=cfg.seed).to(device),
-                settings, os.path.join(cfg.output_path, "final_render"))
-    save_mesh(final, os.path.join(cfg.output_path, "final.obj"))
+    final = _finish(cfg, content_mesh, params, settings, device)
     logger.close()
     return final

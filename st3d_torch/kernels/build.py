@@ -6,8 +6,9 @@ compiled, so a build takes seconds. Libraries land in ``build/st3d_torch/``
 at the repository root, named by a hash of the source and the flags, so an
 edited source rebuilds and an unchanged one is reused.
 
-Nothing here runs at import: the first CUDA launch of a kernel builds it.
-A missing ``nvcc`` or a failed build raises; there is no fallback.
+Nothing here runs at import: the first CUDA launch of a kernel builds it,
+and ``build_all`` builds every source at once, one nvcc process each. A
+missing ``nvcc`` or a failed build raises; there is no fallback.
 """
 
 from __future__ import annotations
@@ -32,9 +33,12 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # into FMAs (see raster_hard.cu).
 EXTRA_FLAGS: Dict[str, List[str]] = {"raster_hard": ["-fmad=false"]}
 
-KERNEL_SOURCES = ("raster_hard", "conv3x3_nhwc", "gram_nhwc")
+KERNEL_SOURCES = ("raster_hard", "conv3x3_nhwc", "gram_nhwc", "conv1_1_stats",
+                  "conv1_1_bwd", "conv3x3_relu_pool", "pool_route_conv3x3_bwd")
+DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_SYMBOLS: Dict[str, object] = {}
 BUILD_SECONDS: Dict[str, float] = {}
 
 
@@ -63,26 +67,42 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
-    returns the library path. Raises ``RuntimeError`` with nvcc's output on
-    failure."""
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` unless an up-to-date library exists;
+    returns None or (process, temporary output, library path, command,
+    start time)."""
     out = library_path(name)
     if os.path.isfile(out):
-        return out
+        return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [nvcc_path()] + _flags(name) + [
         "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return proc, tmp, out, cmd, time.perf_counter()
+
+
+def _finish(name: str, started) -> str:
+    """Wait for a build from ``_start``; returns the library path. Raises
+    ``RuntimeError`` with nvcc's output on failure."""
+    proc, tmp, out, cmd, t0 = started
+    stdout, stderr = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed for {name}.cu ({proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+            f"{' '.join(cmd)}\n{stdout}\n{stderr}")
     os.replace(tmp, out)
     BUILD_SECONDS[name] = time.perf_counter() - t0
     return out
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
+    returns the library path. Raises ``RuntimeError`` with nvcc's output on
+    failure."""
+    started = _start(name)
+    return library_path(name) if started is None else _finish(name, started)
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -94,11 +114,52 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def build_all() -> Dict[str, float]:
-    """Build and load every kernel library; returns seconds per build (0 for
-    a library that was already built)."""
+    """Build and load every kernel library, one nvcc process per source, all
+    started together; returns seconds per build (0 for a library that was
+    already built). Every build is waited for before a failure raises."""
+    started = {n: _start(n) for n in KERNEL_SOURCES}
+    errors = []
+    for name, st in started.items():
+        if st is not None:
+            try:
+                _finish(name, st)
+            except RuntimeError as e:
+                errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
     for name in KERNEL_SOURCES:
         load(name)
     return {n: BUILD_SECONDS.get(n, 0.0) for n in KERNEL_SOURCES}
+
+
+def symbol(lib: str, name: str, n_ptr: int, n_int: int):
+    """``name`` of ``csrc/<lib>.cu`` with its C signature: ``n_ptr``
+    pointers, ``n_int`` ints, then the stream; returns the cudaError_t."""
+    key = f"{lib}:{name}"
+    fn = _SYMBOLS.get(key)
+    if fn is None:
+        fn = getattr(load(lib), name)
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _SYMBOLS[key] = fn
+    return fn
+
+
+def check_operands(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is on one CUDA device with one dtype the
+    kernels take (float32 or bfloat16)."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expected CPU or CUDA tensors, got {dev}")
+    dt = tensors[0].dtype
+    if dt not in DTYPE_SUFFIX:
+        raise TypeError(f"{name}: dtype {dt} not supported (float32, bfloat16)")
+    for t in tensors[1:]:
+        if t.device != dev or t.dtype != dt:
+            raise ValueError(
+                f"{name}: all operands must share device {dev} and dtype "
+                f"{dt}; got {t.device} {t.dtype}")
 
 
 def check(err: int, what: str) -> None:

@@ -1,7 +1,7 @@
-"""3x3 convolution and Gram kernels for the VGG stack, with their gradients.
+"""3x3 convolution kernels for the VGG stack, with their gradients.
 
-Counterpart of ``st3d/kernels/conv_pallas.py`` in the slice configuration
-(no packed conv1_2, no fused pool). Two hand-written CUDA kernels:
+Counterpart of ``st3d/kernels/conv_pallas.py``. Four hand-written CUDA
+kernels:
 
 - K2 ``conv3x3_nhwc`` (``csrc/conv3x3_nhwc.cu``): 3x3 SAME stride-1 conv +
   bias (+ ReLU), NHWC activations, HWIO weights, float32 accumulation,
@@ -10,6 +10,12 @@ Counterpart of ``st3d/kernels/conv_pallas.py`` in the slice configuration
   cotangent with flipped, IO-transposed weights and a zero bias.
 - K3 ``gram_nhwc`` (``csrc/gram_nhwc.cu``): per-image unnormalised Gram
   ``yᵀy`` from y in its stored dtype, into float32.
+- ``conv3x3_relu_pool`` (``csrc/conv3x3_relu_pool.cu``) and its backward
+  ``pool_route_conv3x3_bwd`` (``csrc/pool_route_conv3x3_bwd.cu``): conv +
+  bias + ReLU + 2x2 max-pool with the window index, and the input gradient
+  routed by that index. Together they are ``conv3x3_bias_relu_pool_packed``
+  (K5), and ``kernels/stage1.py`` runs them as conv1_2 of stage 1 (K4b,
+  K4d). They take any Cin/Cout, so they also compute K8's function.
 
 Each wrapper takes its kernel for a CUDA tensor and its plain PyTorch
 version, defined beside it, for a CPU tensor; nothing else. The plain
@@ -17,14 +23,13 @@ versions are also what ``chip_smoke.py`` holds the kernels against.
 ``LAUNCHES`` counts kernel launches (plain-version calls do not count).
 
 VGG weights are frozen, so the autograd functions give the input gradient
-only, exactly as the JAX custom VJPs do (conv_pallas.py:455-501, 649-681).
-The ReLU mask and the Gram term of the cotangent are torch ops, as they
-were XLA ops outside the TPU kernel.
+only, exactly as the JAX custom VJPs do (conv_pallas.py:455-501, 649-681,
+934-997). The ReLU mask and the Gram term of the cotangent are torch ops,
+as they were XLA ops outside the TPU kernel.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Tuple
 
 import torch
@@ -32,44 +37,15 @@ import torch.nn.functional as F
 
 from st3d_torch.kernels import build
 
-LAUNCHES: Dict[str, int] = {"conv3x3_nhwc": 0, "gram_nhwc": 0}
-
-_DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-_FNS: Dict[str, object] = {}
+LAUNCHES: Dict[str, int] = {"conv3x3_nhwc": 0, "gram_nhwc": 0,
+                            "conv3x3_relu_pool": 0,
+                            "pool_route_conv3x3_bwd": 0}
 
 # Gram split-K: enough (tile, image, slice) blocks to cover the 132 SMs a
 # few times over; a slice is never shorter than 256 pixels.
 _GRAM_TARGET_BLOCKS = 4 * 132
 _GRAM_MIN_SLICE = 256
 _GRAM_TILE = 64
-
-
-def _fn(lib: str, symbol: str, n_ptr: int, n_int: int):
-    """``symbol`` of ``csrc/<lib>.cu`` with its C signature: ``n_ptr``
-    pointers, ``n_int`` ints, then the stream."""
-    key = f"{lib}:{symbol}"
-    fn = _FNS.get(key)
-    if fn is None:
-        fn = getattr(build.load(lib), symbol)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FNS[key] = fn
-    return fn
-
-
-def _check_cuda(name: str, *tensors: torch.Tensor) -> None:
-    dev = tensors[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: expected CPU or CUDA tensors, got {dev}")
-    dt = tensors[0].dtype
-    if dt not in _DTYPE_SUFFIX:
-        raise TypeError(f"{name}: dtype {dt} not supported (float32, bfloat16)")
-    for t in tensors[1:]:
-        if t.device != dev or t.dtype != dt:
-            raise ValueError(
-                f"{name}: all operands must share device {dev} and dtype "
-                f"{dt}; got {t.device} {t.dtype}")
 
 
 # ---------------------------------------------------------------------------
@@ -115,13 +91,14 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     cin, cout = _conv_shapes(x, w, b)
     if x.device.type == "cpu":
         return conv3x3_nhwc_plain(x, w, b, relu)
-    _check_cuda("conv3x3_nhwc", x, w, b)
+    build.check_operands("conv3x3_nhwc", x, w, b)
     bsz, h, wd, _ = x.shape
     x = x.contiguous()
     wf = w.reshape(9 * cin, cout).contiguous()
     b = b.contiguous()
     y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
-    fn = _fn("conv3x3_nhwc", "st3d_conv3x3_nhwc_" + _DTYPE_SUFFIX[x.dtype], 4, 6)
+    fn = build.symbol("conv3x3_nhwc",
+                      "st3d_conv3x3_nhwc_" + build.DTYPE_SUFFIX[x.dtype], 4, 6)
     err = fn(x.data_ptr(), wf.data_ptr(), b.data_ptr(), y.data_ptr(),
              bsz, h, wd, cin, cout, int(relu), build.stream_handle(x.device))
     build.check(err, "conv3x3_nhwc")
@@ -129,12 +106,17 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y
 
 
+def transpose_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """HWIO weights of the input gradient of a SAME conv with ``w``: the
+    kernel flipped in space, in and out channels swapped."""
+    return torch.flip(w, dims=(0, 1)).permute(0, 1, 3, 2).to(dtype)
+
+
 def _transpose_conv(ct: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Input gradient of the SAME conv: K2 on the cotangent with the
     spatially flipped, IO-transposed kernel and a zero bias."""
-    wt = torch.flip(w, dims=(0, 1)).permute(0, 1, 3, 2).to(ct.dtype)
     zb = torch.zeros(w.shape[2], dtype=ct.dtype, device=ct.device)
-    return conv3x3_nhwc(ct, wt, zb)
+    return conv3x3_nhwc(ct, transpose_weights(w, ct.dtype), zb)
 
 
 class _Conv3x3Bias(torch.autograd.Function):
@@ -233,7 +215,7 @@ def gram_nhwc(y: torch.Tensor) -> torch.Tensor:
     ``gram_nhwc_diff`` and ``conv3x3_bias_gram``."""
     if y.device.type == "cpu":
         return gram_nhwc_plain(y)
-    _check_cuda("gram_nhwc", y)
+    build.check_operands("gram_nhwc", y)
     bsz, c = y.shape[0], y.shape[-1]
     pixels = y.numel() // (bsz * c)
     y = y.contiguous()
@@ -241,7 +223,8 @@ def gram_nhwc(y: torch.Tensor) -> torch.Tensor:
     partial = torch.empty((bsz, slices, c, c), dtype=torch.float32,
                           device=y.device)
     g = torch.empty((bsz, c, c), dtype=torch.float32, device=y.device)
-    fn = _fn("gram_nhwc", "st3d_gram_nhwc_" + _DTYPE_SUFFIX[y.dtype], 3, 5)
+    fn = build.symbol("gram_nhwc",
+                      "st3d_gram_nhwc_" + build.DTYPE_SUFFIX[y.dtype], 3, 5)
     err = fn(y.data_ptr(), partial.data_ptr(), g.data_ptr(), bsz, pixels, c,
              slices, slice_len, build.stream_handle(y.device))
     build.check(err, "gram_nhwc")
@@ -264,3 +247,160 @@ class _GramNHWC(torch.autograd.Function):
 def gram_nhwc_diff(y: torch.Tensor) -> torch.Tensor:
     """``gram_nhwc`` (K3), differentiable in ``y``."""
     return _GramNHWC.apply(y)
+
+
+# ---------------------------------------------------------------------------
+# Conv + bias + ReLU + 2x2 max-pool with the window index (K5, K4b), and its
+# index-routed input gradient (K5's backward, K4d)
+# ---------------------------------------------------------------------------
+
+def _pool_dims(x: torch.Tensor) -> Tuple[int, int]:
+    h, wd = x.shape[1], x.shape[2]
+    if h % 2 or wd % 2:
+        raise ValueError(f"2x2 pool needs even H and W, got {tuple(x.shape)}")
+    return h // 2, wd // 2
+
+
+def pool4_first_max(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """2x2 max-pool of a float32 (B, H, W, C) with the window index: the
+    position of the first maximum in scan order ((0,0), (0,1), (1,0),
+    (1,1)), by strict comparisons (conv_pallas.py:739 ``_pool4_first_max``).
+    Returns (pooled float32, idx uint8)."""
+    bsz, h, wd, c = y.shape
+    win = y.reshape(bsz, h // 2, 2, wd // 2, 2, c)
+    c0, c1 = win[:, :, 0, :, 0], win[:, :, 0, :, 1]
+    c2, c3 = win[:, :, 1, :, 0], win[:, :, 1, :, 1]
+    w01 = (c1 > c0).to(torch.uint8)
+    w23 = (c3 > c2).to(torch.uint8)
+    m01, m23 = torch.maximum(c0, c1), torch.maximum(c2, c3)
+    idx = torch.where(m23 > m01, 2 + w23, w01)
+    return torch.maximum(m01, m23), idx
+
+
+def conv3x3_relu_pool_plain(x: torch.Tensor, w: torch.Tensor,
+                            b: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``conv3x3_relu_pool``: K2's plain conv with ReLU
+    (one rounding into ``x.dtype``), then the first-max pool on the rounded
+    values."""
+    _pool_dims(x)
+    pooled, idx = pool4_first_max(conv3x3_nhwc_plain(x, w, b, True).float())
+    return pooled.to(x.dtype), idx
+
+
+def conv3x3_relu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """maxpool2x2(relu(conv3x3_same(x, w) + b)) for x (B,H,W,Cin) with H, W
+    even, w HWIO: pooled (B,H/2,W/2,Cout) in ``x.dtype`` and idx uint8 in
+    {0..3} (``pool4_first_max``'s rule, on output-dtype values)."""
+    cin, cout = _conv_shapes(x, w, b)
+    hp, wp = _pool_dims(x)
+    if x.device.type == "cpu":
+        return conv3x3_relu_pool_plain(x, w, b)
+    build.check_operands("conv3x3_relu_pool", x, w, b)
+    bsz, h, wd, _ = x.shape
+    x = x.contiguous()
+    wf = w.reshape(9 * cin, cout).contiguous()
+    b = b.contiguous()
+    pooled = torch.empty((bsz, hp, wp, cout), dtype=x.dtype, device=x.device)
+    idx = torch.empty((bsz, hp, wp, cout), dtype=torch.uint8, device=x.device)
+    fn = build.symbol("conv3x3_relu_pool", "st3d_conv3x3_relu_pool_"
+                      + build.DTYPE_SUFFIX[x.dtype], 5, 5)
+    err = fn(x.data_ptr(), wf.data_ptr(), b.data_ptr(), pooled.data_ptr(),
+             idx.data_ptr(), bsz, h, wd, cin, cout,
+             build.stream_handle(x.device))
+    build.check(err, "conv3x3_relu_pool")
+    LAUNCHES["conv3x3_relu_pool"] += 1
+    return pooled, idx
+
+
+def _route_shapes(ct, pooled, idx, w):
+    if ct.dim() != 4 or w.dim() != 4 or w.shape[:2] != (3, 3):
+        raise ValueError(
+            f"pool_route_conv3x3_bwd: want ct (B,H/2,W/2,C) and w "
+            f"(3,3,Cin,C), got {tuple(ct.shape)} and {tuple(w.shape)}")
+    if pooled.shape != ct.shape or idx.shape != ct.shape or (
+            w.shape[3] != ct.shape[3]):
+        raise ValueError(
+            f"pool_route_conv3x3_bwd: shape mismatch ct {tuple(ct.shape)}, "
+            f"pooled {tuple(pooled.shape)}, idx {tuple(idx.shape)}, w "
+            f"{tuple(w.shape)}")
+    if idx.dtype != torch.uint8:
+        raise TypeError(f"pool_route_conv3x3_bwd: idx must be uint8, got "
+                        f"{idx.dtype}")
+    return w.shape[2], w.shape[3]
+
+
+def route_pool_cotangent(ct: torch.Tensor, pooled: torch.Tensor,
+                         idx: torch.Tensor) -> torch.Tensor:
+    """(B,H/2,W/2,C) pooled cotangent -> (B,H,W,C) in ``ct.dtype``: each
+    value masked by ``pooled > 0`` and put at the window position ``idx``
+    names, zeros elsewhere."""
+    bsz, hp, wp, c = ct.shape
+    d = ct * (pooled > 0).to(ct.dtype)
+    parts = torch.stack([d * (idx == q).to(ct.dtype) for q in range(4)], 3)
+    return (parts.reshape(bsz, hp, wp, 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(bsz, 2 * hp, 2 * wp, c))
+
+
+def pool_route_conv3x3_bwd_plain(ct: torch.Tensor, pooled: torch.Tensor,
+                                 idx: torch.Tensor,
+                                 w: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``pool_route_conv3x3_bwd``: the routed cotangent
+    through K2's plain transpose conv (float32 sum, one rounding)."""
+    cin, _ = _route_shapes(ct, pooled, idx, w)
+    zb = torch.zeros(cin, dtype=ct.dtype, device=ct.device)
+    return conv3x3_nhwc_plain(route_pool_cotangent(ct, pooled, idx),
+                              transpose_weights(w, ct.dtype), zb)
+
+
+def pool_route_conv3x3_bwd(ct: torch.Tensor, pooled: torch.Tensor,
+                           idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Input gradient of ``conv3x3_relu_pool`` with forward weights ``w``
+    (3,3,Cin,C): dz (B,H,W,Cin) in ``ct.dtype`` from the pooled cotangent
+    ``ct``, the forward's ``pooled`` and ``idx``."""
+    cin, c = _route_shapes(ct, pooled, idx, w)
+    if ct.device.type == "cpu":
+        return pool_route_conv3x3_bwd_plain(ct, pooled, idx, w)
+    build.check_operands("pool_route_conv3x3_bwd", ct, pooled)
+    if idx.device != ct.device:
+        raise ValueError(f"pool_route_conv3x3_bwd: idx on {idx.device}, "
+                         f"ct on {ct.device}")
+    bsz, hp, wp, _ = ct.shape
+    ct, pooled, idx = ct.contiguous(), pooled.contiguous(), idx.contiguous()
+    wt = transpose_weights(w, ct.dtype).reshape(9 * c, cin).contiguous()
+    dz = torch.empty((bsz, 2 * hp, 2 * wp, cin), dtype=ct.dtype,
+                     device=ct.device)
+    fn = build.symbol("pool_route_conv3x3_bwd", "st3d_pool_route_conv3x3_bwd_"
+                      + build.DTYPE_SUFFIX[ct.dtype], 5, 5)
+    err = fn(ct.data_ptr(), pooled.data_ptr(), idx.data_ptr(), wt.data_ptr(),
+             dz.data_ptr(), bsz, 2 * hp, 2 * wp, c, cin,
+             build.stream_handle(ct.device))
+    build.check(err, "pool_route_conv3x3_bwd")
+    LAUNCHES["pool_route_conv3x3_bwd"] += 1
+    return dz
+
+
+class _Conv3x3BiasReluPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        pooled, idx = conv3x3_relu_pool(x, w, b)
+        ctx.save_for_backward(w, pooled, idx)
+        ctx.mark_non_differentiable(idx)
+        return pooled, idx
+
+    @staticmethod
+    def backward(ctx, ct_p, _ct_idx):
+        w, pooled, idx = ctx.saved_tensors
+        return (pool_route_conv3x3_bwd(ct_p.to(pooled.dtype), pooled, idx, w),
+                None, None)
+
+
+def conv3x3_bias_relu_pool_packed(x: torch.Tensor, w: torch.Tensor,
+                                  b: torch.Tensor
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(pooled, idx)`` of maxpool2x2(relu(conv3x3_same(x) + b)), NHWC x
+    with even H and W, differentiable in ``x`` (conv_pallas.py:897, K5):
+    forward ``conv3x3_relu_pool``, backward ``pool_route_conv3x3_bwd``. The
+    TPU's space-to-depth packing has no counterpart; the name is kept."""
+    return _Conv3x3BiasReluPool.apply(x, w, b)

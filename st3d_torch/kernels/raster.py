@@ -21,7 +21,6 @@ launches.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -37,7 +36,6 @@ TILE_PIXELS = 256     # pixels per block (csrc/raster_hard.cu TILE)
 N_COEFF_ROWS = 20
 
 LAUNCHES: Dict[str, int] = {"raster_hard": 0}
-_FN = {}
 
 
 def face_coeffs(face_verts: torch.Tensor) -> torch.Tensor:
@@ -193,17 +191,6 @@ def raster_hard_plain(coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
     return p2f, zbuf
 
 
-def _kernel_fn():
-    fn = _FN.get("raster_hard")
-    if fn is None:
-        fn = build.load("raster_hard").st3d_raster_hard
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _FN["raster_hard"] = fn
-    return fn
-
-
 def raster_hard(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 on preprocessed faces: coeffs (N, 20, F_pad) float32, bounds
@@ -224,9 +211,10 @@ def raster_hard(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int
     bounds = bounds.contiguous()
     p2f = torch.empty((n, h * w), dtype=torch.int32, device=coeffs.device)
     zbuf = torch.empty((n, h * w), dtype=torch.float32, device=coeffs.device)
-    err = _kernel_fn()(coeffs.data_ptr(), bounds.data_ptr(), p2f.data_ptr(),
-                       zbuf.data_ptr(), n, h, w, f_pad, f_pad // FACE_CHUNK,
-                       build.stream_handle(coeffs.device))
+    fn = build.symbol("raster_hard", "st3d_raster_hard", 4, 5)
+    err = fn(coeffs.data_ptr(), bounds.data_ptr(), p2f.data_ptr(),
+             zbuf.data_ptr(), n, h, w, f_pad, f_pad // FACE_CHUNK,
+             build.stream_handle(coeffs.device))
     build.check(err, "raster_hard")
     LAUNCHES["raster_hard"] += 1
     return p2f, zbuf

@@ -5,18 +5,31 @@ conv4_2 and conv5_1 (torchvision indices 0, 5, 10, 19, 21, 28); inputs are
 raw [0, 1] RGB; the stack stops after conv5_1. Weights are frozen, stored
 HWIO, and activations run NHWC, as in the JAX package.
 
-``get_features`` dispatches as the JAX package does with
-``ST3D_NO_STAGE1_V2=1 ST3D_NO_PACKED1=1`` on a TPU:
-  * conv1_1 is an im2col matmul; with ``gram1`` its Gram comes from
-    ``gram1_closed_form`` on the patch statistics, whose PᵀP is K3;
+``get_features`` dispatches as the JAX package does by default on a TPU
+(st3d/models/vgg.py:404-448, 496-520):
+  * stage 1: with ``gram1``, conv1_1 wanted, and H and W multiples of 8 (the
+    shape gate of ``_pallas_conv_ok``), conv1_1, its Gram statistics,
+    conv1_2 and pool1 are ``kernels.stage1``: ``conv1_1_relu_stats``
+    (kernels A/B) and ``conv1_2_relu_pool`` (C/D); conv1_1's Gram is
+    ``gram1_closed_form`` of the statistics. ``ST3D_NO_STAGE1_V2`` switches
+    this route off; ``ST3D_STAGE1=v3`` asks for kernels not ported yet (K10)
+    and raises. The JAX gate's other half, ``stage1_supported``'s band-row
+    checks (stage1_pallas.py:889-905), sizes TPU VMEM tiles and has no
+    counterpart here;
+  * otherwise conv1_1 is an im2col matmul, and with ``gram1`` its Gram comes
+    from ``gram1_closed_form`` on the patch statistics, whose PᵀP is K3;
+  * a non-tap conv followed by a pool, with Cin < 128 and even H and W
+    (conv1_2 when stage 1 is off), is ``conv3x3_bias_relu_pool_packed``
+    (K5: kernels C/D) and takes the pool with it; ``ST3D_NO_PACKED1``
+    switches this route off;
   * conv2_1, conv3_1, conv4_1 and conv5_1 with ``gram1`` are
     ``conv3x3_bias_gram`` (K2 then K3; the taps come back as Grams);
   * the other non-tap layers are ``conv3x3_bias_relu`` (K2 with ReLU);
   * conv4_2 and the taps without ``gram1`` are ``conv3x3_bias``;
-  * pooling is ``max_pool2d``.
-Every backward is K2 on flipped weights. The JAX package's phase-packed
-stage 1 (stage1_pallas.py) and packed conv1_2 (conv_pallas.py,
-conv3x3_bias_relu_pool_packed) are not yet ported.
+  * the remaining pools are ``max_pool2d``.
+With both switches set this is the dispatch of the port's first slice.
+Every other backward is K2 on flipped weights. The same dispatch runs on
+the CPU (plain versions) and on the GPU (kernels).
 
 Weights resolve as in the JAX package: explicit path, then
 ``$ST3D_VGG_WEIGHTS``, then ``<repo>/weights/vgg19_imagenet.npz``, then a
@@ -39,8 +52,10 @@ from st3d_torch.kernels.conv import (
     conv3x3_bias,
     conv3x3_bias_gram,
     conv3x3_bias_relu,
+    conv3x3_bias_relu_pool_packed,
     gram_nhwc_diff,
 )
+from st3d_torch.kernels.stage1 import conv1_1_relu_stats, conv1_2_relu_pool
 
 VGG19_CFG: Tuple = (
     64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -185,6 +200,30 @@ def gram1_closed_form(ptp: torch.Tensor, s27: torch.Tensor, w: torch.Tensor,
             + float(n_pixels) * bf[None, :, None] * bf[None, None, :])
 
 
+def _stage1_route(x: torch.Tensor, gram1: bool, wanted) -> bool:
+    """Whether conv1_1 .. pool1 take the stage-1 kernels (vgg.py:219-238 of
+    the JAX package, less its TPU tiling checks)."""
+    if os.environ.get("ST3D_NO_STAGE1_V2"):
+        return False
+    if not (gram1 and "conv1_1" in wanted):
+        return False
+    if x.shape[1] % 8 or x.shape[2] % 8:
+        return False
+    if os.environ.get("ST3D_STAGE1") == "v3":
+        raise NotImplementedError(
+            "ST3D_STAGE1=v3: the stage-1 v3 kernels (K10a-d, "
+            "st3d/kernels/stage1v3_pallas.py) are not ported yet (ROADMAP "
+            "queue 2)")
+    return True
+
+
+def _packed_pool_route(x: torch.Tensor) -> bool:
+    """Whether a pre-pool non-tap conv takes K5 (vgg.py:503-507 of the JAX
+    package): Cin < 128 and even H and W, unless ``ST3D_NO_PACKED1``."""
+    return (x.shape[3] < 128 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0
+            and not os.environ.get("ST3D_NO_PACKED1"))
+
+
 def _max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     """MaxPool2d(2, 2) on NHWC (floor mode)."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
@@ -215,15 +254,36 @@ def get_features(images: torch.Tensor, model: VGG19,
     kernels, biases = model.kernels, model.biases
 
     conv_i = 0
-    for v in VGG19_CFG:
+    skip_pool = False
+    skip_convs = 0
+    for cfg_i, v in enumerate(VGG19_CFG):
         if v == "M":
-            x = _max_pool_2x2(x)
+            if skip_pool:
+                skip_pool = False
+            else:
+                x = _max_pool_2x2(x)
+            continue
+        if skip_convs:                 # consumed by stage 1
+            skip_convs -= 1
+            conv_i += 1
             continue
         w = kernels[conv_i].to(dtype)
         b = biases[conv_i].to(dtype)
         name = name_by_conv.get(conv_i)
+        next_is_pool = (cfg_i + 1 < len(VGG19_CFG)
+                        and VGG19_CFG[cfg_i + 1] == "M")
         did_relu = False
-        if conv_i == 0:
+        if conv_i == 0 and _stage1_route(x, gram1, wanted):
+            bsz, h, wd, _ = x.shape
+            z, ptp, s27 = conv1_1_relu_stats(x, w, b)
+            feats["conv1_1:gram"] = gram1_closed_form(
+                ptp, s27, kernels[0], biases[0], h * wd)
+            x, _ = conv1_2_relu_pool(z, kernels[1].to(dtype),
+                                     biases[1].to(dtype))
+            skip_convs = 1             # conv1_2 consumed here
+            skip_pool = True           # pool1 consumed here
+            did_relu = True
+        elif conv_i == 0:
             # Cin=3: an im2col matmul (patch order (dy, dx, c) matches the
             # HWIO flatten).
             bsz, h, wd, _ = x.shape
@@ -241,6 +301,10 @@ def get_features(images: torch.Tensor, model: VGG19,
         elif gram1 and conv_i in FUSED_GRAM_CONVS and name in wanted:
             x, g = conv3x3_bias_gram(x, w, b)
             feats[name + ":gram"] = g
+        elif name is None and next_is_pool and _packed_pool_route(x):
+            x, _ = conv3x3_bias_relu_pool_packed(x, w, b)
+            skip_pool = True
+            did_relu = True
         elif name is None:
             x = conv3x3_bias_relu(x, w, b)
             did_relu = True

@@ -1,5 +1,5 @@
-"""Style/content perceptual loss (counterpart of the step subset of
-``st3d/ops/losses.py``).
+"""Style/content perceptual loss and the first approach's masked MSE
+(counterpart of ``st3d/ops/losses.py``, texture target).
 
 Reference quirks kept exactly: the Gram is UNNORMALISED, the per-layer
 style divisor is ``C**2 * H**2`` (height squared, not H*W), computed in
@@ -13,6 +13,7 @@ from typing import Dict
 
 import torch
 
+from st3d_torch.core.mesh import Mesh
 from st3d_torch.kernels.conv import gram_nhwc_diff
 from st3d_torch.models.vgg import VGG19, get_features
 
@@ -94,3 +95,37 @@ def style_content_loss(current_features: Dict[str, torch.Tensor],
         layer_loss = torch.mean((g - targets.style_grams[layer]) ** 2)
         style_loss = style_loss + layer_loss / (float(c) ** 2 * float(h) ** 2)
     return content_weight * content_loss + style_weight * style_loss
+
+
+def compute_perceptual_loss(current_imgs: torch.Tensor,
+                            content_imgs: torch.Tensor,
+                            style_imgs: torch.Tensor, model: VGG19,
+                            style_weight: float = 1e6,
+                            content_weight: float = 1.0) -> torch.Tensor:
+    """Reference-signature perceptual loss on NCHW images: the targets and
+    the current features are all extracted here (float32, NCHW taps).
+    Prefer ``StyleContentTargets`` hoisted out of a step loop."""
+    if not (current_imgs.shape[0] == content_imgs.shape[0]
+            == style_imgs.shape[0]):
+        raise ValueError("current, content and style batches differ in size")
+    targets = StyleContentTargets.create(content_imgs, style_imgs, model)
+    return style_content_loss(get_features(current_imgs, model), targets,
+                              style_weight, content_weight)
+
+
+def compute_first_approach_loss(rendered: torch.Tensor, masks: torch.Tensor,
+                                target_rendered: torch.Tensor,
+                                verts: torch.Tensor,
+                                target_verts: torch.Tensor, mesh: Mesh,
+                                weights: Dict[str, float],
+                                opt_type: str) -> torch.Tensor:
+    """Masked MSE against the 2D-stylized targets. For the texture target
+    ``main_loss_weight`` is ignored, as in the reference; the mesh and both
+    targets add the mesh regularizers, which are not ported yet."""
+    if opt_type in ("mesh", "both"):
+        raise NotImplementedError(
+            f"opt_type={opt_type!r}: the mesh regularizers are ROADMAP queue "
+            "1 item 11")
+    if opt_type != "texture":
+        raise ValueError(f"unknown opt_type {opt_type!r}")
+    return mse_loss(rendered * masks, target_rendered * masks)

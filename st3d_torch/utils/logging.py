@@ -20,6 +20,12 @@ class RunLogger:
             self._jsonl = open(os.path.join(output_path, "metrics.jsonl"), "w")
         self._t0 = time.time()
 
+    def log_step(self, batch: int, step: int, loss: float, **extra) -> None:
+        """First-approach format: ``Batch i, Step s, Loss v``."""
+        self._fh.write(f"Batch {batch}, Step {step}, Loss {loss}\n")
+        self._fh.flush()
+        self._metric(dict(batch=batch, step=step, loss=loss, **extra))
+
     def log_epoch(self, epoch: int, loss: float, **extra) -> None:
         """Second-approach format: ``Epoch e, Loss v``."""
         self._fh.write(f"Epoch {epoch}, Loss {loss}\n")

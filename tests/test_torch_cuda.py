@@ -91,3 +91,144 @@ def test_conv_gram_gradient_matches_plain_path(dev):
                                           torch.tensor(ctg, device=d)))
         grads.append(xt.grad.cpu())
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# Stage 1 and the packed pool: kernels A (conv1_1_stats), B (conv1_1_bwd),
+# C (conv3x3_relu_pool) and D (pool_route_conv3x3_bwd)
+# ---------------------------------------------------------------------------
+
+def _rel_err(got, ref):
+    """max|got - ref| / max|ref|."""
+    return float((got.float() - ref.float()).abs().max()
+                 / ref.float().abs().max())
+
+
+def _idx_mismatch_where_separated(idx, idx_ref, pre_pool, tol):
+    """idx cells that differ where the top two of the window (plain
+    pre-pool values) are more than ``tol`` apart."""
+    bsz, h, wd, c = pre_pool.shape
+    win = pre_pool.float().reshape(bsz, h // 2, 2, wd // 2, 2, c)
+    win = win.permute(0, 1, 3, 5, 2, 4).reshape(bsz, h // 2, wd // 2, c, 4)
+    top2 = win.sort(dim=-1).values[..., -2:]
+    separated = (top2[..., 1] - top2[..., 0]) > tol
+    assert separated.float().mean() > 0.5
+    return int(((idx != idx_ref) & separated).sum())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("shape", [(2, 24, 40), (1, 37, 19)])
+def test_conv1_1_stats_kernel_matches_plain(dev, dtype, tol, shape):
+    from st3d_torch.kernels import stage1 as ks1
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand(shape + (3,), generator=g, device=dev).to(dtype)
+    w = (torch.randn((3, 3, 3, 64), generator=g, device=dev) * 0.3).to(dtype)
+    b = (torch.randn((64,), generator=g, device=dev) * 0.1).to(dtype)
+    n0 = ks1.LAUNCHES["conv1_1_stats"]
+    z, ptp, s27 = ks1.conv1_1_stats(x, w, b)
+    z_p, ptp_p, s27_p = ks1.conv1_1_stats_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert ks1.LAUNCHES["conv1_1_stats"] == n0 + 1
+    assert z.dtype == dtype and ptp.dtype == s27.dtype == torch.float32
+    assert _rel_err(z, z_p) <= tol
+    for got, ref in ((ptp, ptp_p), (s27, s27_p)):
+        assert torch.linalg.norm(got - ref) <= 1e-4 * torch.linalg.norm(ref)
+    again = ks1.conv1_1_stats(x, w, b)                  # deterministic sums
+    assert torch.equal(again[1], ptp) and torch.equal(again[2], s27)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("shape", [(2, 24, 40), (1, 37, 19)])
+def test_conv1_1_bwd_kernel_matches_plain(dev, dtype, tol, shape):
+    from st3d_torch.kernels import stage1 as ks1
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.rand(shape + (3,), generator=g, device=dev).to(dtype)
+    w = (torch.randn((3, 3, 3, 64), generator=g, device=dev) * 0.3).to(dtype)
+    b = (torch.randn((64,), generator=g, device=dev) * 0.1).to(dtype)
+    z = ks1.conv1_1_stats_plain(x, w, b)[0]
+    dz = torch.randn(z.shape, generator=g, device=dev).to(dtype)
+    dg = torch.randn((shape[0], 27, 27), generator=g, device=dev) * 1e-2
+    sym = dg + dg.transpose(1, 2)
+    ds = torch.randn((shape[0], 27), generator=g, device=dev) * 1e-2
+    n0 = ks1.LAUNCHES["conv1_1_bwd"]
+    dx = ks1.conv1_1_bwd(x, dz, z, w, sym, ds)
+    ref = ks1.conv1_1_bwd_plain(x, dz, z, w, sym, ds)
+    torch.cuda.synchronize()
+    assert ks1.LAUNCHES["conv1_1_bwd"] == n0 + 1
+    assert dx.dtype == dtype and _rel_err(dx, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("shape,cout", [((2, 24, 40, 64), 64),
+                                        ((1, 18, 26, 24), 40)])
+def test_conv3x3_relu_pool_kernel_matches_plain(dev, dtype, tol, shape, cout):
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    w = (torch.randn((3, 3, shape[3], cout), generator=g, device=dev)
+         * (2.0 / (9 * shape[3])) ** 0.5).to(dtype)
+    b = (torch.randn((cout,), generator=g, device=dev) * 0.1).to(dtype)
+    n0 = kconv.LAUNCHES["conv3x3_relu_pool"]
+    p, idx = kconv.conv3x3_relu_pool(x, w, b)
+    p_ref, idx_ref = kconv.conv3x3_relu_pool_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert kconv.LAUNCHES["conv3x3_relu_pool"] == n0 + 1
+    assert p.dtype == dtype and idx.dtype == torch.uint8
+    assert _rel_err(p, p_ref) <= tol
+    pre = kconv.conv3x3_nhwc_plain(x, w, b, True)
+    scale = float(p_ref.float().abs().max())
+    assert _idx_mismatch_where_separated(idx, idx_ref, pre, tol * scale) == 0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("shape,cout", [((2, 24, 40, 64), 64),
+                                        ((1, 18, 26, 24), 40)])
+def test_pool_route_bwd_kernel_matches_plain(dev, dtype, tol, shape, cout):
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    w = (torch.randn((3, 3, shape[3], cout), generator=g, device=dev)
+         * (2.0 / (9 * shape[3])) ** 0.5).to(dtype)
+    b = (torch.randn((cout,), generator=g, device=dev) * 0.1).to(dtype)
+    p, idx = kconv.conv3x3_relu_pool_plain(x, w, b)
+    ct = torch.randn(p.shape, generator=g, device=dev).to(dtype)
+    n0 = kconv.LAUNCHES["pool_route_conv3x3_bwd"]
+    dz = kconv.pool_route_conv3x3_bwd(ct, p, idx, w)
+    ref = kconv.pool_route_conv3x3_bwd_plain(ct, p, idx, w)
+    torch.cuda.synchronize()
+    assert kconv.LAUNCHES["pool_route_conv3x3_bwd"] == n0 + 1
+    assert dz.shape == x.shape and dz.dtype == dtype
+    assert _rel_err(dz, ref) <= tol
+
+
+def test_stage1_gradient_matches_plain_path(dev):
+    """conv1_1_relu_stats -> Gram and conv1_2_relu_pool on CUDA tensors
+    (kernels A-D) against the same functions on CPU copies (plain
+    versions), float32: values and the input gradient."""
+    from st3d_torch.kernels import stage1 as ks1
+    from st3d_torch.models.vgg import gram1_closed_form
+
+    rng = np.random.RandomState(8)
+    x = rng.rand(2, 32, 24, 3).astype(np.float32)
+    w1 = (rng.randn(3, 3, 3, 64) * 0.2).astype(np.float32)
+    b1 = (rng.randn(64) * 0.1).astype(np.float32)
+    w2 = (rng.randn(3, 3, 64, 64) * 0.05).astype(np.float32)
+    b2 = (rng.randn(64) * 0.1).astype(np.float32)
+    ct = rng.randn(2, 16, 12, 64).astype(np.float32)
+    ctg = (rng.randn(2, 64, 64) * 1e-3).astype(np.float32)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        t = [torch.tensor(a, device=d) for a in (w1, b1, w2, b2)]
+        xt = torch.tensor(x, device=d, requires_grad=True)
+        z, ptp, s27 = ks1.conv1_1_relu_stats(xt, t[0], t[1])
+        gm = gram1_closed_form(ptp, s27, t[0], t[1], 32 * 24)
+        p, _ = ks1.conv1_2_relu_pool(z, t[2], t[3])
+        torch.autograd.backward((p, gm), (torch.tensor(ct, device=d),
+                                          torch.tensor(ctg, device=d)))
+        outs.append([v.detach().cpu() for v in (p, gm, xt.grad)])
+    for got, ref in zip(*outs):
+        assert _rel_err(got, ref) <= 1e-4

@@ -28,6 +28,8 @@ def test_port_imports_no_jax_and_no_st3d():
         "import st3d_torch, st3d_torch.second_approach\n"
         "import st3d_torch.kernels.conv, st3d_torch.kernels.raster\n"
         "import st3d_torch.convert, st3d_torch.engine.pipelines\n"
+        "import st3d_torch.first_approach, st3d_torch.kernels.stage1\n"
+        "import st3d_torch.engine.style_transfer2d\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'st3d' not in sys.modules, 'st3d imported'\n"
         "print('clean')\n")
@@ -78,8 +80,9 @@ def test_cuda_without_gpu_raises(monkeypatch, tmp_path):
         pipelines.resolve_device("cuda")
     cfg = pipelines.PipelineConfig(output_path=str(tmp_path / "o"),
                                    device="cuda")
-    with pytest.raises(RuntimeError, match="no CUDA GPU"):
-        pipelines.run_second_approach(cfg)
+    for run in (pipelines.run_second_approach, pipelines.run_first_approach):
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            run(cfg)
     assert pipelines.resolve_device("cpu").type == "cpu"
 
 

@@ -24,6 +24,17 @@ from st3d_torch.second_approach import main
 SIZE = 64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the CPU. With torch's default of one thread per
+    core they oversubscribe it, and at these sizes the thread pool's waits
+    then cost more than the work (a 64² run took 150 times longer)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _read_log(path):
     with open(path) as f:
         lines = f.read().strip().splitlines()

@@ -14,6 +14,17 @@ from st3d_torch.convert import vgg19_from_numpy
 from st3d_torch.models import vgg as tvgg
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The test workers share the CPU. With torch's default of one thread per
+    core they oversubscribe it, and at these sizes the thread pool's waits
+    then cost more than the work (a 64² run took 150 times longer)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     jm = jvgg.init_random_vgg19(0)
