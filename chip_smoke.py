@@ -11,6 +11,15 @@ Phases; any failure raises and the script exits non-zero:
    PyTorch version on the same inputs (TF32 off for the plain versions):
    K1 ``raster_hard`` (4 fixed views at 512², ico-sphere level 4):
    pix_to_face exactly equal, zbuf within rtol 1e-6;
+   K1's soft mode ``raster_soft`` (the same faces, sigma 1 px):
+   pix_to_face and nearest_face exactly equal, zbuf within rtol 1e-6;
+   K7 ``raster_topk`` (the same faces, K=4 with a 3 px window as SoftRas
+   runs it, and K+slack=5 with the window of blur_radius 1e-4): ids
+   exactly equal;
+   K6 ``raster_stream``, forced, at 81,920 faces and 256² against its plain
+   version (hard and soft: pix_to_face and nearest exactly equal, zbuf
+   within rtol 1e-6), and at 327,680 faces x 512² x 4 against K1 (hard and
+   soft: pix_to_face and zbuf bit-equal);
    K2 ``conv3x3_nhwc`` (every VGG conv shape at batch 4, bf16 and f32,
    forward and input gradient): bf16 max-abs error <= 1e-2 * max|plain|,
    f32 max-abs error <= 1e-4 * max|plain|;
@@ -23,7 +32,16 @@ Phases; any failure raises and the script exits non-zero:
    relative Frobenius error <= 1e-4 (sums of 2¹⁸ terms per image, taken in
    another order); idx equal wherever the plain top two of the window
    differ by more than the output tolerance.
-   Times are CUDA-event means after warm-up (bf16).
+   Times are CUDA-event means after warm-up (bf16). Each kernel's bound is
+   the larger of the bytes it must move over 3.35 TB/s and its operations
+   over the H100's peak for their type (989 TFLOP/s bf16 tensor, 67
+   TFLOP/s float32). A raster kernel's operations are counted on the
+   (pixel, face) pairs the function needs on this data (each pixel against
+   the faces whose bbox, widened by the soft margin or the top-K window,
+   holds it; for K7's 1/z plane only the eligible ones), not on the pairs
+   the kernel's chunk cull leaves. The library time is one PyTorch call
+   computing the same function where there is one (``F.conv2d``,
+   ``torch.bmm``).
 3. The second approach (``st3d_torch.second_approach.main``) at 512², 4
    views, batch 4, bf16, 20 epochs on a seeded synthetic scene, on the
    default VGG route: every loss finite, the last below the first,
@@ -31,20 +49,37 @@ Phases; any failure raises and the script exits non-zero:
    Then 5 epochs each on PR 1's route (``ST3D_NO_STAGE1_V2=1
    ST3D_NO_PACKED1=1``: K1-K3 only) and on the K5 route
    (``ST3D_NO_STAGE1_V2=1``: C and D, not A and B).
+   Then the vertex optimisation, ``--optimization_target both`` at 512², 4
+   views, bf16, 10 epochs, in four raster modes: hard at ico level 4 (K1),
+   ``--soft_raster true`` (K1's soft mode), ``--soft_raster true
+   --faces_per_pixel 4`` (K7) and hard at level 7, 327,680 faces (K6); then
+   ``--optimization_target mesh`` with the hard blur window
+   (``--blur_radius 1e-4 --faces_per_pixel 2``: K7 with slack slots). Each:
+   finite losses, the last below the first, the vertices of ``final.obj``
+   moved, and the mode's raster kernel launched once per step plus once
+   each for the content render and the final render (and, with the blur
+   window, the two saturation checks), beside the VGG kernels; the median
+   step time of the last 5 epochs.
 4. The first approach (``st3d_torch.first_approach.main``) at 512², 4 views,
    batch 4, bf16, 30 style-transfer and 20 MSE steps: finite losses, the MSE
    loss falling, four ``2d_style_transfer/`` views, 12 ``final_render/``
    views and ``final.obj``, all seven kernels launched; then the ms per
    hot-loop-A step (``style_transfer`` at the same shape, after warm-up).
+   Then ``--optimization_target both`` (hard, level 4, 5 + 5 steps): finite
+   losses, falling after the first MSE step (whose Adam update moves every
+   vertex coordinate by lr, as in the JAX package), K1 once per MSE step.
 5. Both entry points at 64² f32 on the GPU against the same runs on the CPU
-   (plain versions): losses within rtol 1e-3.
-6. One JSON line with the kernels' results, then the last line
+   (plain versions), and the second approach with ``--optimization_target
+   both --soft_raster true``: losses within rtol 1e-3.
+6. The wall seconds of each phase, the card's name and power limit, one
+   JSON line with the kernels' results, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero before printing any result.
 """
 
+import functools
 import json
 import math
 import os
@@ -61,9 +96,37 @@ ROUTE_EPOCHS = 5
 ST_STEPS = 30
 MSE_STEPS = 20
 ICO_LEVEL = 4
+STREAM_LEVEL = 7                 # 327,680 faces: past the resident budget
+BOTH_EPOCHS = 10
+FA_BOTH_STEPS = 5
+HBM_BYTES_S = 3.35e12            # H100 SXM
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 # The VGG routes: the switches each sets, and the kernels it must launch.
 KERNELS = ("raster_hard", "conv3x3_nhwc", "gram_nhwc", "conv1_1_stats",
            "conv1_1_bwd", "conv3x3_relu_pool", "pool_route_conv3x3_bwd")
+RASTER_KERNELS = ("raster_hard", "raster_soft", "raster_stream",
+                  "raster_topk")
+# The vertex-optimisation runs: target, extra flags, ico level, the raster
+# kernel. The hard blur window (K7 with slack slots) also rasterizes twice
+# more for the saturation diagnostic, at the first render and the final one.
+VERTEX_RUNS = {
+    "hard": ("both", [], ICO_LEVEL, "raster_hard"),
+    "soft": ("both", ["--soft_raster", "true"], ICO_LEVEL, "raster_soft"),
+    "softras": ("both", ["--soft_raster", "true", "--faces_per_pixel", "4"],
+                ICO_LEVEL, "raster_topk"),
+    "stream": ("both", [], STREAM_LEVEL, "raster_stream"),
+    "blur": ("mesh", ["--blur_radius", "1e-4", "--faces_per_pixel", "2"],
+             ICO_LEVEL, "raster_topk"),
+}
+# Operations per (pixel, face) pair as the kernels run them. Hard: 4 affine
+# planes (2 mul + 2 add each) and 4 compares. Soft adds the signed distance
+# (3 mul, 2 min), the bbox distance (4 sub, 3 min), their min and 1
+# compare. Top-K: every pair gets the 3 barycentric planes and the soft
+# distance with its compare ("test"); only eligible pairs (sd > -window)
+# get the 1/z plane and its compare with the K-th slot ("eligible").
+# Insertions into the K slots are not counted.
+PAIR_OPS = {"hard": 20, "soft": 34, "topk_test": 26, "topk_eligible": 5}
 ROUTES = {
     "default": ({}, set(KERNELS)),
     "pr1": ({"ST3D_NO_STAGE1_V2": "1", "ST3D_NO_PACKED1": "1"},
@@ -85,6 +148,29 @@ def fail(msg):
     raise RuntimeError(msg)
 
 
+def smi():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(
+            ).splitlines()[0]
+
+
+def bound(flops, nbytes, rate):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over ``rate``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / rate
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def with_bound(rec, flops, nbytes, rate, library_ms=None):
+    rec["bound_ms"], rec["bound_by"] = bound(flops, nbytes, rate)
+    rec["library_ms"] = library_ms
+    return rec
+
+
 def cuda_ms(fn, reps=10, warmup=2):
     import torch
 
@@ -104,11 +190,7 @@ def card_phase():
     import torch
     from st3d_torch.kernels import build
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    print(smi.splitlines()[0])
+    print(smi())
     nvcc = subprocess.run([build.nvcc_path(), "--version"],
                           capture_output=True, text=True, check=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -119,18 +201,94 @@ def card_phase():
           + json.dumps({k: round(v, 2) for k, v in secs.items()}))
 
 
-def raster_check(dev):
-    import torch
-    from st3d_torch.core.cameras import build_fixed_cameras
+@functools.lru_cache(maxsize=None)
+def sphere(level):
+    """The ico-sphere at ``level`` on the CPU (built once: level 7 takes
+    seconds in Python)."""
     from st3d_torch.core.primitives import ico_sphere
-    from st3d_torch.kernels.raster import (
-        preprocess, raster_hard, raster_hard_plain)
+
+    return ico_sphere(level=level)
+
+
+def sphere_faces(dev, level, size):
+    """Screen face verts (VIEWS, F, 3, 3) of the ico-sphere at ``level``
+    under the fixed cameras, and the preprocessed coefficients."""
+    from st3d_torch.core.cameras import build_fixed_cameras
+    from st3d_torch.kernels.raster import preprocess
     from st3d_torch.render.rasterize import face_verts_screen
 
-    mesh = ico_sphere(level=ICO_LEVEL).to(dev)
+    mesh = sphere(level).to(dev)
     cams = build_fixed_cameras(VIEWS, seed=0).to(dev)
-    fv = face_verts_screen(mesh.verts, mesh.faces, cams, SIZE)
+    fv = face_verts_screen(mesh.verts, mesh.faces, cams, size)
     coeffs, bounds, _ = preprocess(fv)
+    return fv, coeffs, bounds
+
+
+def tested_pairs(bounds, size, tile, margin):
+    """(pixel, face) pairs a culling kernel tests on this data: the chunks
+    whose row band meets each tile's rows (+ margin), 128 faces each (a
+    property of the kernels' design, printed beside the pairs needed)."""
+    from st3d_torch.kernels.raster import FACE_CHUNK, _band_overlap
+
+    ov = _band_overlap(bounds, size, size, tile, margin)
+    return int(ov.sum()) * tile * FACE_CHUNK
+
+
+def _bbox_spans(coeffs, size, margin):
+    """Per face (N, F_pad): the first pixel column and row inside its screen
+    bbox (coefficient rows 15-18) widened by ``margin``, and how many
+    columns and rows (int64); empty for invalid and padding faces."""
+    import torch
+
+    box = coeffs[:, 15:19, :]                   # xmin, xmax, ymin, ymax
+    lo = torch.ceil(torch.clamp(box[:, 0::2] - margin, min=0.0))
+    hi = torch.floor(torch.clamp(box[:, 1::2] + margin, max=size - 1.0))
+    n = (hi - lo + 1.0).clamp(min=0.0).long()
+    return lo[:, 0].long(), lo[:, 1].long(), n[:, 0], n[:, 1]
+
+
+def needed_pairs(coeffs, size, margin):
+    """(pixel, face) pairs the function needs on this data: for each pixel,
+    the faces whose bbox widened by ``margin`` holds it."""
+    _, _, nx, ny = _bbox_spans(coeffs, size, margin)
+    return int((nx * ny).sum())
+
+
+def eligible_pairs(coeffs, size, window):
+    """Of ``needed_pairs(coeffs, size, window)``, those with signed distance
+    > -window (the top-K kernel's eligibility), evaluated view by view with
+    the kernels' expressions."""
+    import torch
+    from st3d_torch.kernels.raster import SOFT_ROWS, _chunk_planes
+
+    x0, y0, nx, ny = _bbox_spans(coeffs, size, window)
+    total = 0
+    for v in range(coeffs.shape[0]):
+        cnt = nx[v] * ny[v]
+        f = torch.repeat_interleave(torch.arange(cnt.numel(),
+                                                 device=cnt.device), cnt)
+        local = (torch.arange(f.numel(), device=f.device)
+                 - (torch.cumsum(cnt, 0) - cnt)[f])
+        px = (x0[v, f] + local % nx[v, f]).float()
+        py = (y0[v, f] + local // nx[v, f]).float()
+        sd = _chunk_planes(coeffs[v, :SOFT_ROWS, f], px, py, soft=True)[4]
+        total += int((sd > -window).sum())
+    return total
+
+
+def raster_bytes(coeffs, rows, aux, out_bytes_per_px, size):
+    """Bytes a raster kernel must move: the coefficient rows it reads, its
+    bounds or ranges, and its outputs."""
+    n, _, f_pad = coeffs.shape
+    return (n * rows * f_pad * 4 + aux.numel() * aux.element_size()
+            + n * size * size * out_bytes_per_px)
+
+
+def raster_check(dev):
+    import torch
+    from st3d_torch.kernels.raster import raster_hard, raster_hard_plain
+
+    fv, coeffs, bounds = sphere_faces(dev, ICO_LEVEL, SIZE)
     p2f_k, z_k = raster_hard(coeffs, bounds, SIZE, SIZE)
     p2f_p, z_p = raster_hard_plain(coeffs, bounds, SIZE, SIZE)
     torch.cuda.synchronize()
@@ -139,7 +297,7 @@ def raster_check(dev):
     zerr = float((z_k - z_p).abs().max())
     zrel = float(((z_k - z_p).abs() / z_p.abs())[hit].max())
     covered = float(hit.float().mean())
-    print(f"K1 raster_hard: {mesh.num_faces} faces, coverage {covered:.4f}, "
+    print(f"K1 raster_hard: {fv.shape[1]} faces, coverage {covered:.4f}, "
           f"pix_to_face mismatches {mismatch}, zbuf max rel err {zrel:.3g}")
     if mismatch:
         fail(f"K1 pix_to_face differs from its plain version at {mismatch} px")
@@ -150,10 +308,182 @@ def raster_check(dev):
     ms = cuda_ms(lambda: raster_hard(coeffs, bounds, SIZE, SIZE))
     plain_ms = cuda_ms(lambda: raster_hard_plain(coeffs, bounds, SIZE, SIZE),
                        reps=3, warmup=1)
-    return {"name": "raster_hard", "route": "cuda",
-            "source": "st3d_torch/csrc/raster_hard.cu",
-            "replaces": "st3d/kernels/raster_pallas.py:134",
-            "max_abs_err": zerr, "ms": ms, "plain_ms": plain_ms}
+    pairs = needed_pairs(coeffs, SIZE, 0.0)
+    print(f"K1 raster_hard: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"{pairs} pairs needed (bbox), "
+          f"{tested_pairs(bounds, SIZE, 256, 0.0)} tested")
+    return with_bound({"name": "raster_hard", "route": "cuda",
+                       "source": "st3d_torch/csrc/raster_hard.cu",
+                       "replaces": "st3d/kernels/raster_pallas.py:134",
+                       "max_abs_err": zerr, "ms": ms, "plain_ms": plain_ms},
+                      pairs * PAIR_OPS["hard"],
+                      raster_bytes(coeffs, 12, bounds, 8, SIZE), F32_FLOPS)
+
+
+def raster_soft_check(dev):
+    """K1's soft mode against its plain version (and its hard outputs
+    against K1) at the main path's shapes."""
+    import torch
+    from st3d_torch.kernels import raster as kr
+
+    _, coeffs, bounds = sphere_faces(dev, ICO_LEVEL, SIZE)
+    margin = kr.soft_cull_margin(1.0)
+    tile = kr.cull_tile(SIZE, SIZE, True)
+    p2f, z, near = kr.raster_soft(coeffs, bounds, SIZE, SIZE, margin, tile)
+    p2f_p, z_p, near_p = kr.raster_soft_plain(coeffs, bounds, SIZE, SIZE,
+                                              margin, tile)
+    p2f_h, z_h = kr.raster_hard(coeffs, bounds, SIZE, SIZE)
+    torch.cuda.synchronize()
+    bad = int((p2f != p2f_p).sum()) + int((near != near_p).sum())
+    hit = p2f_p >= 0
+    zerr = float((z - z_p).abs().max())
+    zrel = float(((z - z_p).abs() / z_p.abs())[hit].max())
+    print(f"K1 raster_soft: pix_to_face + nearest mismatches {bad}, zbuf "
+          f"max rel err {zrel:.3g}, equal to K1's hard outputs "
+          f"{torch.equal(p2f, p2f_h) and torch.equal(z, z_h)}")
+    if bad or zrel > 1e-6:
+        fail(f"K1 soft differs from its plain version: {bad} ids, zbuf "
+             f"rel {zrel}")
+    if not (torch.equal(p2f, p2f_h) and torch.equal(z, z_h)):
+        fail("K1 soft's pix_to_face/zbuf differ from K1's")
+    ms = cuda_ms(lambda: kr.raster_soft(coeffs, bounds, SIZE, SIZE, margin,
+                                        tile))
+    plain_ms = cuda_ms(lambda: kr.raster_soft_plain(
+        coeffs, bounds, SIZE, SIZE, margin, tile), reps=3, warmup=1)
+    pairs = needed_pairs(coeffs, SIZE, margin)
+    print(f"K1 raster_soft: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"{pairs} pairs needed (bbox + {margin} px), "
+          f"{tested_pairs(bounds, SIZE, tile, margin)} tested")
+    return with_bound({"name": "raster_soft", "route": "cuda",
+                       "source": "st3d_torch/csrc/raster_soft.cu",
+                       "replaces": "st3d/kernels/raster_pallas.py:202",
+                       "max_abs_err": zerr, "ms": ms, "plain_ms": plain_ms},
+                      pairs * PAIR_OPS["soft"],
+                      raster_bytes(coeffs, 19, bounds, 12, SIZE), F32_FLOPS)
+
+
+def raster_topk_check(dev):
+    """K7 against its plain version: K=4 with SoftRas's 3 px window, and
+    K+slack=5 with the window of blur_radius 1e-4 (the hard blur path)."""
+    import torch
+    from st3d_torch.kernels import raster as kr
+    from st3d_torch.render.topk import blur_window_px
+
+    _, coeffs, bounds = sphere_faces(dev, ICO_LEVEL, SIZE)
+    cases = {"softras": (4, 3.0), "blur": (5, blur_window_px(1e-4, SIZE))}
+    id_err, mismatches = 0, 0
+    for what, (k, window) in cases.items():
+        ids = kr.raster_topk(coeffs, bounds, SIZE, SIZE, k, window)
+        ids_p = kr.raster_topk_plain(coeffs, bounds, SIZE, SIZE, k, window)
+        torch.cuda.synchronize()
+        bad = int((ids != ids_p).sum())
+        id_err = max(id_err, int((ids - ids_p).abs().max()))
+        mismatches += bad
+        filled = [float((ids[..., s] >= 0).float().mean()) for s in range(k)]
+        print(f"K7 raster_topk {what} K={k} window {window:.3f}: id "
+              f"mismatches {bad}, filled share per slot "
+              + " ".join(f"{f:.3f}" for f in filled))
+        if bad:
+            fail(f"K7 {what}: {bad} ids differ from the plain version")
+    k, window = cases["softras"]
+    ms = cuda_ms(lambda: kr.raster_topk(coeffs, bounds, SIZE, SIZE, k,
+                                        window))
+    plain_ms = cuda_ms(lambda: kr.raster_topk_plain(
+        coeffs, bounds, SIZE, SIZE, k, window), reps=2, warmup=1)
+    pairs = needed_pairs(coeffs, SIZE, window)
+    eligible = eligible_pairs(coeffs, SIZE, window)
+    print(f"K7 raster_topk K={k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+          f"ms, {pairs} pairs needed (bbox + {window} px), {eligible} of "
+          f"them eligible, {tested_pairs(bounds, SIZE, 256, window + 2.0)} "
+          f"tested")
+    # max_abs_err: the largest |id - plain id| over both cases.
+    return with_bound({"name": "raster_topk", "route": "cuda",
+                       "source": "st3d_torch/csrc/raster_topk.cu",
+                       "replaces": "st3d/kernels/raster_pallas.py:693",
+                       "max_abs_err": float(id_err),
+                       "id_mismatches": mismatches, "ms": ms,
+                       "plain_ms": plain_ms},
+                      pairs * PAIR_OPS["topk_test"]
+                      + eligible * PAIR_OPS["topk_eligible"],
+                      raster_bytes(coeffs, 19, bounds, 4 * k, SIZE),
+                      F32_FLOPS)
+
+
+def raster_stream_check(dev):
+    """K6 forced at 81,920 faces x 256² against its plain version (hard and
+    soft), then at 327,680 faces x 512² x 4 against K1 (bit-equal
+    pix_to_face and zbuf, hard and soft)."""
+    import torch
+    from st3d_torch.kernels import raster as kr
+
+    size = 256
+    _, coeffs, bounds = sphere_faces(dev, 6, size)
+    plain_ms, zerr = None, 0.0
+    for soft in (False, True):
+        tile = kr.cull_tile(size, size, soft)
+        margin = kr.soft_cull_margin(1.0) if soft else 0.0
+        ranges = kr.stream_ranges(bounds, size, size, tile, margin)
+        got = kr.raster_stream(coeffs, ranges, size, size, tile, soft)
+        t0 = time.perf_counter()
+        want = kr.raster_stream_plain(coeffs, ranges, size, size, tile, soft)
+        torch.cuda.synchronize()
+        if not soft:
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+        bad = int((got[0] != want[0]).sum())
+        if soft:
+            bad += int((got[2] != want[2]).sum())
+        hit = want[0] >= 0
+        zrel = float(((got[1] - want[1]).abs() / want[1].abs())[hit].max())
+        zerr = max(zerr, float((got[1] - want[1]).abs().max()))
+        print(f"K6 raster_stream soft={soft} {coeffs.shape[2]} padded faces "
+              f"{size}²: id mismatches {bad}, zbuf max rel err {zrel:.3g}")
+        if bad or zrel > 1e-6:
+            fail(f"K6 soft={soft} differs from its plain version")
+
+    _, coeffs, bounds = sphere_faces(dev, STREAM_LEVEL, SIZE)
+    if not kr.use_stream(coeffs.shape[2]):
+        fail("the level-7 sphere does not pass the resident budget")
+    for soft in (False, True):
+        tile = kr.cull_tile(SIZE, SIZE, soft)
+        margin = kr.soft_cull_margin(1.0) if soft else 0.0
+        ranges = kr.stream_ranges(bounds, SIZE, SIZE, tile, margin)
+        got = kr.raster_stream(coeffs, ranges, SIZE, SIZE, tile, soft)
+        want = (kr.raster_soft(coeffs, bounds, SIZE, SIZE, margin, tile)
+                if soft else kr.raster_hard(coeffs, bounds, SIZE, SIZE))
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        zerr = max(zerr, float((got[1] - want[1]).abs().max()))
+        near = (f", nearest equal at "
+                f"{float((got[2] == want[2]).float().mean()):.6f}"
+                if soft else "")
+        print(f"K6 vs K1 soft={soft} at {coeffs.shape[2]} padded faces x "
+              f"{SIZE}² x {VIEWS}: pix_to_face and zbuf bit-equal {same}"
+              + near)
+        if not same:
+            fail(f"K6 soft={soft} differs from K1 at 327,680 faces")
+        if not soft:
+            hard = (tile, ranges)
+    tile, ranges = hard
+    ms = cuda_ms(lambda: kr.raster_stream(coeffs, ranges, SIZE, SIZE, tile,
+                                          False), reps=3, warmup=1)
+    k1_ms = cuda_ms(lambda: kr.raster_hard(coeffs, bounds, SIZE, SIZE),
+                    reps=3, warmup=1)
+    spans = (ranges[..., 1] - ranges[..., 0] + 1).clamp(min=0)
+    tested = int(spans.sum()) * tile * kr.FACE_CHUNK
+    pairs = needed_pairs(coeffs, SIZE, 0.0)      # K1's count: same function
+    print(f"K6 raster_stream hard at 327,680 faces: kernel {ms:.3f} ms, K1 "
+          f"on the same faces {k1_ms:.3f} ms, plain (81,920 faces, 256²) "
+          f"{plain_ms:.1f} ms, {pairs} pairs needed (bbox), {tested} tested")
+    # max_abs_err: the largest zbuf error against the plain version (81,920
+    # faces) and against K1 (327,680 faces), hard and soft.
+    rec = {"name": "raster_stream", "route": "cuda",
+           "source": "st3d_torch/csrc/raster_stream.cu",
+           "replaces": "st3d/kernels/raster_pallas.py:447",
+           "max_abs_err": zerr, "ms": ms, "plain_ms": plain_ms,
+           "plain_at": "81,920 faces, 256², 4 views (the plain version at "
+                       "327,680 faces x 512² would take minutes)"}
+    return with_bound(rec, pairs * PAIR_OPS["hard"],
+                      raster_bytes(coeffs, 12, ranges, 8, SIZE), F32_FLOPS)
 
 
 def conv_check(dev):
@@ -161,8 +491,11 @@ def conv_check(dev):
     from st3d_torch.kernels.conv import (
         _transpose_conv, conv3x3_nhwc, conv3x3_nhwc_plain)
 
+    import torch.nn.functional as F
+
     gen = torch.Generator(device=dev).manual_seed(0)
     worst_abs, ms_total, plain_total = 0.0, 0.0, 0.0
+    lib_total, bound_total, flops_total, bytes_total = 0.0, 0.0, 0, 0
     seen = {}
     for cin, cout, h in VGG_K2_CONVS:
         for dtype in (torch.bfloat16, torch.float32):
@@ -198,23 +531,43 @@ def conv_check(dev):
                     t_k = cuda_ms(lambda: conv3x3_nhwc(x, w, b, relu), 5)
                     t_p = cuda_ms(lambda: conv3x3_nhwc_plain(x, w, b, relu),
                                   3, 1)
-                    seen[(cin, cout, h, "ms")] = (t_k, t_p)
+                    # Library yardstick: cuDNN's conv + bias on the same
+                    # bf16 data, channels-last (ReLU not included).
+                    xl = x.permute(0, 3, 1, 2)
+                    wl = w.permute(3, 2, 0, 1).contiguous(
+                        memory_format=torch.channels_last)
+                    t_l = cuda_ms(lambda: F.conv2d(xl, wl, b, padding=1), 5)
+                    flops = 2 * 9 * cin * cout * h * h * VIEWS
+                    nbytes = 2 * (VIEWS * h * h * (cin + cout)
+                                  + 9 * cin * cout + cout)
+                    flops_total += flops
+                    bytes_total += nbytes
+                    seen[(cin, cout, h, "ms")] = (
+                        t_k, t_p, t_l, bound(flops, nbytes, BF16_FLOPS)[0])
                     print(f"K2 {cin:>3}->{cout:<3} {h:>3}² bf16 "
                           f"{' '.join(errs)}  kernel {t_k:.3f} ms plain "
-                          f"{t_p:.3f} ms")
+                          f"{t_p:.3f} ms F.conv2d {t_l:.3f} ms bound "
+                          f"{seen[(cin, cout, h, 'ms')][3]:.4f} ms")
                 else:
                     print(f"K2 {cin:>3}->{cout:<3} {h:>3}² f32  "
                           f"{' '.join(errs)}")
             if dtype == torch.bfloat16:
-                t_k, t_p = seen[(cin, cout, h, "ms")]
+                t_k, t_p, t_l, t_b = seen[(cin, cout, h, "ms")]
                 ms_total += t_k
                 plain_total += t_p
+                lib_total += t_l
+                bound_total += t_b
     print(f"K2 one bf16 VGG forward (12 convs): kernel {ms_total:.3f} ms, "
-          f"plain {plain_total:.3f} ms")
+          f"plain {plain_total:.3f} ms, F.conv2d {lib_total:.3f} ms "
+          f"(cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}), bound "
+          f"{bound_total:.4f} ms")
     return {"name": "conv3x3_nhwc", "route": "cuda",
             "source": "st3d_torch/csrc/conv3x3_nhwc.cu",
             "replaces": "st3d/kernels/conv_pallas.py:128",
-            "max_abs_err": worst_abs, "ms": ms_total, "plain_ms": plain_total}
+            "max_abs_err": worst_abs, "ms": ms_total, "plain_ms": plain_total,
+            "bound_ms": bound_total,
+            "bound_by": bound(flops_total, bytes_total, BF16_FLOPS)[1],
+            "library_ms": lib_total}
 
 
 def gram_check(dev):
@@ -223,6 +576,7 @@ def gram_check(dev):
 
     gen = torch.Generator(device=dev).manual_seed(1)
     worst_abs, ms_total, plain_total = 0.0, 0.0, 0.0
+    lib_total, bound_total = 0.0, 0.0
     for h, c in GRAM_SHAPES:
         for dtype, tol in ((torch.bfloat16, 1e-3), (torch.float32, 1e-5)):
             y = torch.relu(torch.randn((VIEWS, h, h, c), generator=gen,
@@ -237,14 +591,26 @@ def gram_check(dev):
             if dtype == torch.bfloat16:
                 t_k = cuda_ms(lambda: gram_nhwc(y))
                 t_p = cuda_ms(lambda: gram_nhwc_plain(y))
+                # Library yardstick: one batched bf16 matmul (its output
+                # rounded to bf16, where K3 keeps float32).
+                yf = y.reshape(VIEWS, h * h, c)
+                t_l = cuda_ms(lambda: torch.bmm(yf.transpose(1, 2), yf))
+                t_b = bound(2 * VIEWS * h * h * c * c,
+                            2 * VIEWS * h * h * c + 4 * VIEWS * c * c,
+                            BF16_FLOPS)[0]
                 ms_total += t_k
                 plain_total += t_p
-                line += f"  kernel {t_k:.3f} ms plain {t_p:.3f} ms"
+                lib_total += t_l
+                bound_total += t_b
+                line += (f"  kernel {t_k:.3f} ms plain {t_p:.3f} ms bmm "
+                         f"{t_l:.3f} ms bound {t_b:.4f} ms")
             print(line)
     return {"name": "gram_nhwc", "route": "cuda",
             "source": "st3d_torch/csrc/gram_nhwc.cu",
             "replaces": "st3d/kernels/conv_pallas.py:548",
-            "max_abs_err": worst_abs, "ms": ms_total, "plain_ms": plain_total}
+            "max_abs_err": worst_abs, "ms": ms_total, "plain_ms": plain_total,
+            "bound_ms": bound_total, "bound_by": "operations",
+            "library_ms": lib_total}
 
 
 def _max_err(got, ref, tol, what):
@@ -363,30 +729,32 @@ def stage1_check(dev):
                                    "st3d/kernels/stage1_pallas.py:539, "
                                    "st3d/kernels/conv_pallas.py:785"),
     }
-    return [{"name": n, "route": "cuda", "source": meta[n][0],
-             "replaces": meta[n][1], **res[n]} for n in KERNELS[3:]]
+    # Bounds at bf16, 4 x 512²: A conv1_1 (27 -> 64) plus the 27 x 27 patch
+    # statistics; B the same two products backwards; C and D conv1_2
+    # (64 -> 64, 9 taps) forward and input gradient.
+    px = VIEWS * SIZE * SIZE
+    work = {
+        "conv1_1_stats": (2 * px * 27 * (64 + 27),
+                          2 * px * (3 + 64) + 4 * VIEWS * (27 * 27 + 27)),
+        "conv1_1_bwd": (2 * px * 27 * (64 + 27),
+                        2 * px * (3 + 64 + 64 + 3)
+                        + 4 * VIEWS * (27 * 27 + 27)),
+        "conv3x3_relu_pool": (2 * px * 9 * 64 * 64,
+                              2 * px * 64 + 3 * (px // 4) * 64),
+        "pool_route_conv3x3_bwd": (2 * px * 9 * 64 * 64,
+                                   5 * (px // 4) * 64 + 2 * px * 64),
+    }
+    return [with_bound({"name": n, "route": "cuda", "source": meta[n][0],
+                        "replaces": meta[n][1], **res[n]}, *work[n],
+                       BF16_FLOPS) for n in KERNELS[3:]]
 
 
-def write_scene(root, size, seed):
+def write_scene(root, size, seed, level=ICO_LEVEL):
     """Synthetic scene written with the port's own writers: an ico-sphere
     with spherical UVs and a seeded texture, plus a seeded style PNG."""
-    import numpy as np
-    import torch
-    from st3d_torch.core.primitives import ico_sphere
-    from st3d_torch.core.uv import generate_uvs
-    from st3d_torch.io.image import write_png
-    from st3d_torch.io.obj import save_mesh
+    from st3d_torch.profile_step import write_sphere_scene
 
-    rng = np.random.RandomState(seed)
-    mesh = generate_uvs(ico_sphere(level=ICO_LEVEL), mode="sphere",
-                        texture_size=size)
-    tex = rng.rand(size, size, 3).astype(np.float32)
-    save_mesh(mesh.replace(texture=torch.from_numpy(tex)),
-              os.path.join(root, "scene", "mesh.obj"))
-    style = (rng.rand(size, size, 3) * 255).astype(np.uint8)
-    write_png(os.path.join(root, "style.png"), style)
-    return os.path.join(root, "scene", "mesh.obj"), os.path.join(root,
-                                                                 "style.png")
+    return write_sphere_scene(root, size, seed, level, sphere(level))
 
 
 def read_log(out):
@@ -405,11 +773,13 @@ def launch_counts():
     return (kraster.LAUNCHES, kconv.LAUNCHES, ks1.LAUNCHES)
 
 
-def drive(path, route, run):
+def drive(path, route, run, raster="raster_hard"):
     """Run ``run()`` on a VGG route with every launch count set to 0 just
-    before; fail unless exactly the route's kernels launched. Returns the
-    counts read just after."""
+    before; fail unless exactly the route's kernels launched, with
+    ``raster`` as the visibility kernel. Returns the counts read just
+    after."""
     env, want = ROUTES[route]
+    want = (want - {"raster_hard"}) | {raster}
     for counts in launch_counts():
         for k in counts:
             counts[k] = 0
@@ -465,32 +835,102 @@ def second_approach_path(tmp, obj, style, route, epochs):
     return launches
 
 
-def first_approach_path(tmp, obj, style):
+def moved(obj, out):
+    """max |final.obj verts - input verts|."""
+    from st3d_torch.io.obj import load_obj
+
+    v0 = load_obj(obj, load_textures=False).verts
+    v1 = load_obj(os.path.join(out, "final.obj"), load_textures=False).verts
+    if v0.shape != v1.shape:
+        fail(f"{out}/final.obj has {v1.shape} verts, the input {v0.shape}")
+    return float(abs(v1 - v0).max())
+
+
+def vertex_path(tmp, scenes, mode, card):
+    """A vertex-optimisation run of the second approach in one raster mode
+    (``VERTEX_RUNS``): finite falling losses, moved vertices, and the mode's
+    raster kernel once per step (plus the content and final renders, and
+    the hard-K saturation checks)."""
+    from st3d_torch.second_approach import main as second_approach
+
+    target, extra, level, kernel = VERTEX_RUNS[mode]
+    obj, style = scenes[level]
+    out = os.path.join(tmp, f"{target}_{mode}")
+    t0 = time.perf_counter()
+    launches = drive(f"{target} target {mode}", "default",
+                     lambda: second_approach([
+                         "--obj_path", obj, "--style_path", style,
+                         "--size", str(SIZE), "--n_views", str(VIEWS),
+                         "--batch_size", str(VIEWS), "--compute_dtype",
+                         "bfloat16", "--epochs", str(BOTH_EPOCHS),
+                         "--save_intermediate", "False",
+                         "--randomize_views", "False",
+                         "--optimization_target", target, "--device", "cuda",
+                         "--output_path", out] + extra), raster=kernel)
+    wall = time.perf_counter() - t0
+    losses = read_log(out)
+    what = f"{target}/{mode}"
+    if len(losses) != BOTH_EPOCHS or not all(map(math.isfinite, losses)):
+        fail(f"{what}: losses not {BOTH_EPOCHS} finite values: {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"{what}: loss did not fall: {losses[0]} -> {losses[-1]}")
+    check_outputs(out)
+    dv = moved(obj, out)
+    if not dv > 0:
+        fail(f"{what}: final.obj vertices did not move")
+    # Every step, the content render and the final render; the blur window
+    # adds a saturation check before the first step and one at the end.
+    want = BOTH_EPOCHS + (4 if mode == "blur" else 2)
+    if launches[kernel] != want:
+        fail(f"{what}: {kernel} launched {launches[kernel]} times, want "
+             f"{want}")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        steps = [json.loads(l)["step_s"] for l in f]
+    step_ms = 1e3 * statistics.median(steps[-5:])
+    print(f"{target} target {mode} ({kernel}, ico level {level}) {SIZE}² x "
+          f"{VIEWS} views bf16 on {card}: loss {losses[0]:.6g} -> "
+          f"{losses[-1]:.6g} over {BOTH_EPOCHS} epochs, max |dv| {dv:.4g}, "
+          f"median step {step_ms:.2f} ms over the last 5, run {wall:.1f}s, "
+          f"launches " + json.dumps(launches))
+    return launches
+
+
+def first_approach_path(tmp, obj, style, target="texture",
+                        steps=(ST_STEPS, MSE_STEPS)):
     from st3d_torch.first_approach import main as first_approach
 
-    out = os.path.join(tmp, "first")
+    st_steps, mse_steps = steps
+    out = os.path.join(tmp, f"first_{target}")
     t0 = time.perf_counter()
     launches = drive("first approach", "default", lambda: first_approach([
         "--obj_path", obj, "--style_path", style, "--size", str(SIZE),
         "--n_views", str(VIEWS), "--batch_size", str(VIEWS),
         "--compute_dtype", "bfloat16", "--n_style_transfer_steps",
-        str(ST_STEPS), "--n_mse_steps", str(MSE_STEPS),
+        str(st_steps), "--n_mse_steps", str(mse_steps),
+        "--optimization_target", target,
         "--randomize_views", "False", "--device", "cuda",
         "--output_path", out]))
     wall = time.perf_counter() - t0
     losses = read_log(out)
-    if len(losses) != MSE_STEPS or not all(map(math.isfinite, losses)):
-        fail(f"first approach losses not {MSE_STEPS} finite values: {losses}")
-    if not losses[-1] < losses[0]:
-        fail(f"first approach MSE loss did not fall: {losses[0]} -> "
+    if len(losses) != mse_steps or not all(map(math.isfinite, losses)):
+        fail(f"first approach losses not {mse_steps} finite values: {losses}")
+    # On the vertex targets Adam's first step moves every vertex by lr in
+    # each coordinate (its first update is lr * sign(g)), which costs more
+    # than it gains; the loss falls from there.
+    first = losses[0] if target == "texture" else losses[1]
+    if not losses[-1] < first:
+        fail(f"first approach {target} loss did not fall: {first} -> "
              f"{losses[-1]}")
     st = sorted(os.listdir(os.path.join(out, "2d_style_transfer")))
     if st != [f"view_{i}.png" for i in range(VIEWS)]:
         fail(f"2d_style_transfer holds {st}")
     check_outputs(out)
-    print(f"first approach {SIZE}² x {VIEWS} views bf16, {ST_STEPS} style-"
-          f"transfer + {MSE_STEPS} MSE steps: MSE loss {losses[0]:.6g} -> "
-          f"{losses[-1]:.6g}, run {wall:.1f}s, launches "
+    if target != "texture" and launches["raster_hard"] != mse_steps + 2:
+        fail(f"first approach {target}: K1 launched "
+             f"{launches['raster_hard']} times, want {mse_steps + 2}")
+    print(f"first approach {SIZE}² x {VIEWS} views bf16, target {target}, "
+          f"{st_steps} style-transfer + {mse_steps} MSE steps: MSE loss "
+          f"{losses[0]:.6g} -> {losses[-1]:.6g}, run {wall:.1f}s, launches "
           + json.dumps(launches))
     return launches
 
@@ -526,7 +966,7 @@ def hot_loop_a_ms(dev):
 
 def small_parity(tmp):
     """Both entry points at 64² f32 on the GPU against the same runs on the
-    CPU."""
+    CPU, and the second approach on the both target in soft mode."""
     from st3d_torch.first_approach import main as first_approach
     from st3d_torch.second_approach import main as second_approach
 
@@ -534,24 +974,27 @@ def small_parity(tmp):
     common = ["--obj_path", obj, "--style_path", style, "--size", "64",
               "--n_views", "2", "--batch_size", "2", "--compute_dtype",
               "float32", "--randomize_views", "False"]
+    second = ["--epochs", "3", "--save_intermediate", "False"]
     entries = {
-        "second": (second_approach, ["--epochs", "3", "--save_intermediate",
-                                     "False"]),
+        "second": (second_approach, second),
         "first": (first_approach, ["--n_style_transfer_steps", "5",
                                    "--n_mse_steps", "5"]),
+        "second both soft": (second_approach, second + [
+            "--optimization_target", "both", "--soft_raster", "true"]),
     }
     for entry, (fn, extra) in entries.items():
         runs = {}
         for device in ("cuda", "cpu"):
-            out = os.path.join(tmp, f"small_{entry}_{device}")
+            out = os.path.join(tmp, f"small_{entry.replace(' ', '_')}_"
+                               f"{device}")
             fn(common + extra + ["--device", device, "--output_path", out])
             runs[device] = read_log(out)
         rel = max(abs(a - b) / abs(b)
                   for a, b in zip(runs["cuda"], runs["cpu"]))
-        print(f"64² f32 {entry} approach GPU vs CPU losses: {runs['cuda']} "
+        print(f"64² f32 {entry} GPU vs CPU losses: {runs['cuda']} "
               f"vs {runs['cpu']}, max rel diff {rel:.3g}")
         if len(runs["cuda"]) != len(runs["cpu"]) or rel > 1e-3:
-            fail(f"{entry} approach: GPU and CPU losses differ by {rel}")
+            fail(f"{entry}: GPU and CPU losses differ by {rel}")
 
 
 def main():
@@ -568,20 +1011,56 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     for k in ("ST3D_NO_STAGE1_V2", "ST3D_NO_PACKED1", "ST3D_STAGE1"):
         os.environ.pop(k, None)
+    seconds = {}
+    mark = [time.perf_counter()]
+
+    def lap(phase):
+        """Wall seconds since the previous lap, kept under ``phase``."""
+        now = time.perf_counter()
+        seconds[phase] = round(now - mark[0], 2)
+        mark[0] = now
+
     card_phase()
+    card = smi()
+    lap("build")
     kernels = [raster_check(dev), conv_check(dev), gram_check(dev)]
     kernels += stage1_check(dev)
+    lap("K1-K3, A-D checks")
+    kernels += [raster_soft_check(dev), raster_stream_check(dev),
+                raster_topk_check(dev)]
+    lap("K1-soft, K6, K7 checks")
     with tempfile.TemporaryDirectory() as tmp:
-        obj, style = write_scene(tmp, SIZE, seed=0)
-        launches = second_approach_path(tmp, obj, style, "default", EPOCHS)
+        scenes = {level: write_scene(tmp, SIZE, seed=0, level=level)
+                  for level in (ICO_LEVEL, STREAM_LEVEL)}
+        obj, style = scenes[ICO_LEVEL]
+        lap("scenes")
+        texture = second_approach_path(tmp, obj, style, "default", EPOCHS)
         for route in ("pr1", "k5"):
             second_approach_path(tmp, obj, style, route, ROUTE_EPOCHS)
+        lap("texture target")
+        vertex = {}
+        for mode, (target, *_) in VERTEX_RUNS.items():
+            vertex[mode] = vertex_path(tmp, scenes, mode, card)
+            lap(f"{target} {mode}")
         first = first_approach_path(tmp, obj, style)
+        first_approach_path(tmp, obj, style, "both",
+                            (FA_BOTH_STEPS, FA_BOTH_STEPS))
         hot_loop_a_ms(dev)
+        lap("first approach")
         small_parity(tmp)
+        lap("64² parity")
+    print("phase seconds " + json.dumps(seconds))
+    # Launches on this slice's path: each raster kernel from the first
+    # vertex run of its mode (K7: SoftRas), the VGG kernels from the hard
+    # run.
+    mode_of = {}
+    for mode, (*_, kernel) in VERTEX_RUNS.items():
+        mode_of.setdefault(kernel, mode)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["launches_first_approach"] = first[k["name"]]
+        k["launches"] = vertex[mode_of.get(k["name"], "hard")][k["name"]]
+        k["launches_texture_target"] = texture.get(k["name"], 0)
+        k["launches_first_approach"] = first.get(k["name"], 0)
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

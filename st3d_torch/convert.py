@@ -7,8 +7,9 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+import torch
 
-from st3d_torch.core.mesh import Mesh, build_mesh
+from st3d_torch.core.mesh import Mesh, MeshTopology, build_mesh
 from st3d_torch.models.vgg import VGG19
 
 
@@ -21,11 +22,18 @@ def vgg19_from_numpy(kernels: Sequence, biases: Sequence,
 
 
 def mesh_from_numpy(verts, faces, verts_uvs, faces_uvs, texture,
-                    device=None) -> Mesh:
-    """A port ``Mesh`` from ``st3d`` mesh arrays."""
+                    device=None, topology=None) -> Mesh:
+    """A port ``Mesh`` from ``st3d`` mesh arrays. ``topology``, any object
+    with ``edges``, ``degree`` and ``nc_pairs`` arrays (``st3d``'s
+    ``MeshTopology``), is carried over as it is."""
     mesh = build_mesh(np.asarray(verts_uvs, np.float32),
                       np.asarray(faces_uvs, np.int64),
                       np.asarray(texture, np.float32),
                       np.asarray(verts, np.float32),
                       np.asarray(faces, np.int64))
+    if topology is not None:
+        mesh = mesh.replace(topology=MeshTopology(
+            edges=torch.tensor(np.asarray(topology.edges, np.int64)),
+            degree=torch.tensor(np.asarray(topology.degree, np.float32)),
+            nc_pairs=torch.tensor(np.asarray(topology.nc_pairs, np.int64))))
     return mesh.to(device) if device is not None else mesh

@@ -1,20 +1,25 @@
-"""The two pipelines (counterpart of ``st3d/engine/pipelines.py``), texture
-target.
+"""The two pipelines (counterpart of ``st3d/engine/pipelines.py``), for the
+texture, mesh and both optimisation targets, in every raster mode.
 
 First approach (``run_first_approach``), per view batch: render the
 content, stylise it in 2D (``style_transfer``, hot loop A), write
-``2d_style_transfer/view_k.png``, then take ``n_mse_steps`` Adam steps on
-the texture against the masked MSE to the stylised images, with the
-visibility hoisted out of the loop. ``log.txt`` holds ``Batch i, Step s,
-Loss v`` per MSE step.
+``2d_style_transfer/view_k.png``, then take ``n_mse_steps`` Adam steps
+against the masked MSE to the stylised images. ``log.txt`` holds ``Batch
+i, Step s, Loss v`` per MSE step.
 
 Second approach (``run_second_approach``), per view batch, hoisted out of
-the epoch loop: the content render, the style/content targets and the
-hard-mode visibility. Per step: shade the covered pixels from the cached
-UVs, composite the background, run VGG-19 to conv5_1 with in-model Grams,
-take ``style_content_loss``, backpropagate and let Adam update the texture.
-On a CUDA device every conv, Gram and raster pass of either approach goes
-through the hand-written kernels (st3d_torch/kernels).
+the epoch loop: the content render and the style/content targets. Per
+step: render, composite the background, run VGG-19 to conv5_1 with
+in-model Grams, take ``style_content_loss``, backpropagate and let Adam
+update the trainable leaves.
+
+The texture target hoists the visibility out of the step loop too
+(``precompute_visibility``): the geometry never moves. The mesh and both
+targets re-rasterise the view batch every step (``render_rgba``, one
+raster launch per step) and add the mesh regularizers after
+``main_loss_weight``, as the JAX package does. On a CUDA device every
+conv, Gram and raster pass goes through the hand-written kernels
+(st3d_torch/kernels).
 
 Second-approach outputs follow the reference layout: ``log.txt``
 (``Epoch e, Loss v``),
@@ -49,6 +54,7 @@ from st3d_torch.ops.losses import (
     CONTENT_LAYER,
     StyleContentTargets,
     compute_first_approach_loss,
+    mesh_regularizer_loss,
     style_content_loss,
 )
 from st3d_torch.render.rasterize import RasterizationSettings
@@ -56,7 +62,9 @@ from st3d_torch.render.renderer import (
     compact_visibility,
     precompute_visibility,
     render_meshes,
+    render_rgba,
     render_rgba_static,
+    warn_if_hard_k_saturated,
 )
 from st3d_torch.utils.assets import resolve_asset
 from st3d_torch.utils.logging import RunLogger
@@ -75,13 +83,8 @@ def resolve_device(name: str) -> torch.device:
 
 def _unsupported(cfg: PipelineConfig) -> str:
     """Why ``cfg`` is outside what the port runs yet ('' when it is not)."""
-    if cfg.optimization_target != "texture":
-        return (f"optimization_target={cfg.optimization_target!r} (ROADMAP "
-                "queue 1 item 11: mesh/both targets)")
     if cfg.checkpoint_every or cfg.resume:
         return "checkpoints and --resume (ROADMAP queue 1 item 11)"
-    if cfg.soft_raster or cfg.faces_per_pixel != 1 or cfg.blur_radius:
-        return "soft / top-K rasterization (ROADMAP queue 1 item 12)"
     if cfg.data_parallel or cfg.tile_parallel:
         return "data/tile parallelism (ROADMAP queue 1 item 14)"
     if cfg.profile or cfg.debug_nan:
@@ -91,8 +94,8 @@ def _unsupported(cfg: PipelineConfig) -> str:
 
 def load_scene(cfg: PipelineConfig) -> Mesh:
     """Mesh + texture on the CPU; ``--auto_uv`` synthesizes UVs for a
-    UV-less mesh, and ``--resize_texture`` resizes the texture to the render
-    size."""
+    UV-less mesh, ``--resize_texture`` resizes the texture to the render
+    size, and the mesh and both targets get the regularizers' topology."""
     auto = cfg.auto_uv
     mesh = load_mesh(resolve_asset(cfg.obj_path), require_uvs=(auto == "none"))
     if auto != "none" and mesh.texture.shape[0] <= 2:
@@ -102,6 +105,8 @@ def load_scene(cfg: PipelineConfig) -> Mesh:
     if cfg.resize_texture and mesh.texture.shape[0] != cfg.size:
         tex = resize_bilinear_chw(mesh.texture.permute(2, 0, 1), cfg.size)
         mesh = mesh.replace(texture=tex.permute(1, 2, 0).contiguous())
+    if cfg.optimization_target != "texture":
+        mesh = mesh.with_topology()
     return mesh
 
 
@@ -120,10 +125,19 @@ def save_render(mesh: Mesh, cameras: FoVPerspectiveCameras,
                 settings: RasterizationSettings, path: str) -> None:
     """Render every camera and write ``view_{i}.png``."""
     os.makedirs(path, exist_ok=True)
+    warn_if_hard_k_saturated(mesh, cameras, settings,
+                             context=f"save_render({path})")
     with torch.no_grad():
         imgs, _ = render_meshes(mesh, cameras, settings)
     for i in range(imgs.shape[0]):
         save_image(imgs[i], os.path.join(path, f"view_{i}.png"))
+
+
+def _settings(cfg: PipelineConfig) -> RasterizationSettings:
+    return RasterizationSettings(
+        image_size=cfg.size, blur_radius=cfg.blur_radius,
+        faces_per_pixel=cfg.faces_per_pixel, soft=cfg.soft_raster,
+        soft_sigma_px=cfg.soft_sigma_px, hard_k_slack=cfg.hard_k_slack)
 
 
 def _compute_dtype(cfg: PipelineConfig) -> torch.dtype:
@@ -153,13 +167,14 @@ def run_first_approach(cfg: PipelineConfig) -> Mesh:
     os.makedirs(st_dir, exist_ok=True)
 
     content_mesh = load_scene(cfg).to(device)
-    settings = RasterizationSettings(
-        image_size=cfg.size, blur_radius=cfg.blur_radius,
-        faces_per_pixel=cfg.faces_per_pixel, soft=cfg.soft_raster)
+    settings = _settings(cfg)
     vgg = get_vgg(cfg.vgg_weights, device=device)
     cameras = build_cameras(cfg).to(device)
+    warn_if_hard_k_saturated(content_mesh, cameras[:cfg.batch_size],
+                             settings, context="first render")
     params, optimizer = setup_optimizations(cfg.optimization_target,
                                             content_mesh, cfg.mse_lr)
+    static_vis = cfg.optimization_target == "texture"
     weights = cfg.loss_weights()
     dtype = _compute_dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
@@ -170,8 +185,9 @@ def run_first_approach(cfg: PipelineConfig) -> Mesh:
         cams_b = cameras[b0:b1]
         style_b = style[None].expand(b1 - b0, -1, -1, -1).to(device)
         with torch.no_grad():
-            vis = compact_visibility(
+            vis = (compact_visibility(
                 precompute_visibility(content_mesh, cams_b, settings))
+                if static_vis else None)
             cimgs, cmasks = render_meshes(content_mesh, cams_b, settings)
             content_b = apply_background(cimgs, cmasks,
                                          cfg.content_background, style_b, gen)
@@ -197,13 +213,14 @@ def run_first_approach(cfg: PipelineConfig) -> Mesh:
             save_image(applied[j], os.path.join(
                 st_dir, f"view_{i * cfg.batch_size + j}.png"))
 
-        # Hot loop B: the texture against the stylised views, NHWC.
+        # Hot loop B: the trainable leaves against the stylised views, NHWC.
         target = applied.permute(0, 2, 3, 1)
         losses = []
         for _ in range(cfg.n_mse_steps):
             optimizer.zero_grad(set_to_none=True)
             mesh = apply_params(content_mesh, params)
-            rgba = render_rgba_static(mesh, vis, settings)
+            rgba = (render_rgba_static(mesh, vis, settings) if static_vis
+                    else render_rgba(mesh, cams_b, settings))
             imgs = rgba[..., :3]
             masks = (rgba[..., 3:4] > 0).to(imgs.dtype)
             loss = compute_first_approach_loss(
@@ -223,7 +240,8 @@ def run_first_approach(cfg: PipelineConfig) -> Mesh:
 
 
 def run_second_approach(cfg: PipelineConfig) -> Mesh:
-    """Optimise the texture against the VGG style/content loss; returns the
+    """Optimise the trainable leaves against the VGG style/content loss
+    (plus the mesh regularizers for the mesh and both targets); returns the
     final (clamped) mesh."""
     why = _unsupported(cfg)
     if why:
@@ -234,19 +252,22 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
                 exist_ok=True)
 
     content_mesh = load_scene(cfg).to(device)
-    settings = RasterizationSettings(
-        image_size=cfg.size, blur_radius=cfg.blur_radius,
-        faces_per_pixel=cfg.faces_per_pixel, soft=cfg.soft_raster)
+    settings = _settings(cfg)
     vgg = get_vgg(cfg.vgg_weights, device=device)
     cameras = build_cameras(cfg).to(device)
+    warn_if_hard_k_saturated(content_mesh, cameras[:cfg.batch_size],
+                             settings, context="first render")
     params, optimizer = setup_optimizations(cfg.optimization_target,
                                             content_mesh, cfg.lr)
+    weights = cfg.loss_weights()
+    static_vis = cfg.optimization_target == "texture"
     dtype = _compute_dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     style = load_as_tensor(resolve_asset(cfg.style_path), size=cfg.size)
     content_noise = cfg.content_background == "noise"
 
-    # Per-batch constants, hoisted out of the epoch loop.
+    # Per-batch constants, hoisted out of the epoch loop (the visibility
+    # only for the texture target).
     batch_const = []
     with torch.no_grad():
         for _, b0, b1 in _batches(cfg.n_views, cfg.batch_size):
@@ -257,19 +278,22 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
                 cimgs, cmasks, cfg.content_background, style_b, gen)
             targets = StyleContentTargets.create(content_b, style_b, vgg,
                                                  dtype=dtype, layout="NHWC")
-            vis = compact_visibility(
+            vis = (compact_visibility(
                 precompute_visibility(content_mesh, cams_b, settings))
-            batch_const.append((style_b, cimgs, cmasks, targets, vis))
+                if static_vis else None)
+            batch_const.append((cams_b, style_b, cimgs, cmasks, targets,
+                                vis))
 
     logger = RunLogger(cfg.output_path)
     for epoch in range(cfg.epochs):
         t0 = time.perf_counter()
         total = torch.zeros((), device=device)
-        for bi, (style_b, cimgs, cmasks, targets, vis) in enumerate(
+        for bi, (cams_b, style_b, cimgs, cmasks, targets, vis) in enumerate(
                 batch_const):
             optimizer.zero_grad(set_to_none=True)
             mesh = apply_params(content_mesh, params)
-            rgba = render_rgba_static(mesh, vis, settings)
+            rgba = (render_rgba_static(mesh, vis, settings) if static_vis
+                    else render_rgba(mesh, cams_b, settings))
             cur_i = rgba[..., :3]
             cur_m = (rgba[..., 3:4] > 0).to(cur_i.dtype)
             cur = apply_background(cur_i, cur_m, cfg.current_background,
@@ -287,6 +311,10 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
                                          targets.feature_shapes)
             loss = style_content_loss(feats, tg, cfg.style_weight,
                                       cfg.content_weight, layout="NHWC")
+            if not static_vis:
+                loss = weights["main_loss_weight"] * loss + (
+                    mesh_regularizer_loss(mesh, mesh.verts,
+                                          content_mesh.verts, weights))
             loss.backward()
             optimizer.step()
             total = total + loss.detach()

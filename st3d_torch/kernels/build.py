@@ -29,12 +29,15 @@ BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "st3d_torch")
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# Per-source extra flags: the rasterizer's edge tests must not be contracted
+# Per-source extra flags: the rasterizers' edge tests must not be contracted
 # into FMAs (see raster_hard.cu).
-EXTRA_FLAGS: Dict[str, List[str]] = {"raster_hard": ["-fmad=false"]}
+RASTER_SOURCES = ("raster_hard", "raster_soft", "raster_stream", "raster_topk")
+EXTRA_FLAGS: Dict[str, List[str]] = {n: ["-fmad=false"]
+                                     for n in RASTER_SOURCES}
 
-KERNEL_SOURCES = ("raster_hard", "conv3x3_nhwc", "gram_nhwc", "conv1_1_stats",
-                  "conv1_1_bwd", "conv3x3_relu_pool", "pool_route_conv3x3_bwd")
+KERNEL_SOURCES = RASTER_SOURCES + (
+    "conv3x3_nhwc", "gram_nhwc", "conv1_1_stats", "conv1_1_bwd",
+    "conv3x3_relu_pool", "pool_route_conv3x3_bwd")
 DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -132,15 +135,16 @@ def build_all() -> Dict[str, float]:
     return {n: BUILD_SECONDS.get(n, 0.0) for n in KERNEL_SOURCES}
 
 
-def symbol(lib: str, name: str, n_ptr: int, n_int: int):
+def symbol(lib: str, name: str, n_ptr: int, n_int: int, n_float: int = 0):
     """``name`` of ``csrc/<lib>.cu`` with its C signature: ``n_ptr``
-    pointers, ``n_int`` ints, then the stream; returns the cudaError_t."""
+    pointers, ``n_int`` ints, ``n_float`` floats, then the stream; returns
+    the cudaError_t."""
     key = f"{lib}:{name}"
     fn = _SYMBOLS.get(key)
     if fn is None:
         fn = getattr(load(lib), name)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_float] * n_float + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _SYMBOLS[key] = fn
     return fn

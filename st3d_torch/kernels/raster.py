@@ -1,22 +1,40 @@
-"""Hard-mode visibility kernel K1 and the preprocessing around it.
+"""Visibility kernels K1 (hard and soft), K6 (streaming) and K7 (top-K), and
+the preprocessing around them.
 
-Counterpart of ``st3d/kernels/raster_pallas.py`` (``face_coeffs``,
-``_rasterize_pallas_impl`` and ``_raster_kernel`` in hard mode):
+Counterpart of ``st3d/kernels/raster_pallas.py``:
 
 1. ``face_coeffs`` turns each projected face into affine coefficient planes
-   (screen barycentrics pre-divided by the signed area, and 1/z); invalid
-   faces get planes that never cover a pixel.
+   (screen barycentrics pre-divided by the signed area, 1/z, the metric
+   edge scales and the screen bbox); invalid faces get planes that never
+   cover a pixel.
 2. ``preprocess`` sorts faces by their top screen row (stable, so the
    lowest mesh id keeps ties), pads to whole 128-face chunks and computes
    each chunk's [ymin, ymax] row band.
-3. ``raster_hard`` is the kernel (``csrc/raster_hard.cu``) for CUDA tensors
-   and ``raster_hard_plain`` for CPU tensors: per pixel, the covering face
-   of largest 1/z, lowest sorted id on ties, with the kernel's own chunk
-   culling so both agree bit for bit.
-4. ``rasterize_batched`` maps sorted ids back to mesh ids.
+3. The kernels, each a CUDA source for CUDA tensors and a plain PyTorch
+   version for CPU tensors, with the same per-pixel arithmetic, chunk
+   culling and selection so both agree bit for bit:
 
-Preprocessing is torch ops (it was XLA). ``LAUNCHES`` counts kernel
-launches.
+   - ``raster_hard`` (K1, ``csrc/raster_hard.cu``): per pixel, the covering
+     face of largest 1/z, lowest sorted id on ties.
+   - ``raster_soft`` (K1's soft mode, ``csrc/raster_soft.cu``): the same,
+     plus ``nearest``, the face of largest bbox-gated signed edge distance,
+     with the row-band cull widened by ``soft_cull_margin``.
+   - ``raster_stream`` (K6, ``csrc/raster_stream.cu``): K1's outputs, hard
+     or soft, with each tile walking its own [c_lo, c_hi] chunk range
+     (``stream_ranges``) and the chunks staged through a double buffer;
+     used for meshes whose coefficients pass ``RESIDENT_COEFF_BUDGET``.
+   - ``raster_topk`` (K7, ``csrc/raster_topk.cu``): per pixel, the K
+     nearest-by-raw-1/z faces with signed distance > -window, near to far.
+
+4. ``rasterize_batched``, ``rasterize_batched_soft`` and
+   ``rasterize_topk_batched`` run preprocessing and kernel for a view batch
+   and map sorted ids back to mesh ids.
+
+Soft culling is tile-dependent for pixels farther than the margin from
+every face (their nearest face is whatever survives the cull), so the soft
+kernels cull on the JAX package's 1024-pixel tiles (``cull_tile``); hard
+coverage and top-K eligibility do not depend on the tile. Preprocessing is
+torch ops (it was XLA). ``LAUNCHES`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -31,11 +49,19 @@ Z_EPS = 1e-5          # faces with any vertex at view-z below this are dropped
 AREA_EPS = 1e-10      # degenerate-triangle rejection threshold
 BIG_Z = 1e10
 
-FACE_CHUNK = 128      # faces per chunk (csrc/raster_hard.cu CHUNK)
-TILE_PIXELS = 256     # pixels per block (csrc/raster_hard.cu TILE)
+FACE_CHUNK = 128      # faces per chunk (csrc/raster_*.cu CHUNK)
+TILE_PIXELS = 256     # pixels per block (csrc/raster_*.cu TILE)
+SOFT_TILE_PIXELS = 1024   # raster_pallas.TILE_PIXELS: the soft cull tile
 N_COEFF_ROWS = 20
+HARD_ROWS, SOFT_ROWS = 12, 19   # coefficient rows each mode reads
+NEG_INIT = -3.0e38    # empty soft/top-K score
+MAX_TOPK = 16         # slots the top-K kernel is instantiated for
+# raster_pallas.RESIDENT_COEFF_BUDGET: the JAX package streams (K6) when a
+# view's (20, F) float32 coefficients pass this many bytes.
+RESIDENT_COEFF_BUDGET = 7 * 1024 * 1024
 
-LAUNCHES: Dict[str, int] = {"raster_hard": 0}
+LAUNCHES: Dict[str, int] = {"raster_hard": 0, "raster_soft": 0,
+                            "raster_stream": 0, "raster_topk": 0}
 
 
 def face_coeffs(face_verts: torch.Tensor) -> torch.Tensor:
@@ -145,70 +171,244 @@ def preprocess(face_verts: torch.Tensor
     return coeffs.contiguous(), bounds.contiguous(), order
 
 
-def raster_hard_plain(coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
-                      w: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K1: (p2f (N, H*W) int32 in sorted ids, zbuf
-    (N, H*W)). Same per-pixel arithmetic, chunk culling and selection as
-    the kernel, evaluated one chunk at a time."""
+def soft_cull_margin(soft_sigma_px: float) -> float:
+    """Rows beyond a face's bbox that still see it as a nearest-face
+    candidate: sigmoid(d / sigma) coverage decays to <0.3% past 6 sigma
+    (raster_pallas.py:237-241)."""
+    return max(8.0, 6.0 * float(soft_sigma_px))
+
+
+def cull_tile(h: int, w: int, soft: bool) -> int:
+    """Pixels per cull band: the block's 256 in hard mode; in soft mode the
+    JAX package's tile, min(1024, H*W), where it divides the frame (a
+    256-pixel block then never straddles two bands), else 256."""
+    if not soft:
+        return TILE_PIXELS
+    hw = h * w
+    t = min(SOFT_TILE_PIXELS, hw)
+    return t if hw % t == 0 else TILE_PIXELS
+
+
+def _tile_rows(h: int, w: int, tile: int, device
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """First and last row (float32) of every ``tile``-pixel band."""
+    hw = h * w
+    t0 = torch.arange(0, hw, tile, device=device)
+    last = torch.clamp(t0 + tile - 1, max=hw - 1)
+    return (t0 // w).float(), (last // w).float()
+
+
+def _band_overlap(bounds: torch.Tensor, h: int, w: int, tile: int,
+                  margin: float) -> torch.Tensor:
+    """(N, n_tiles, n_chunks): chunk c's row band meets tile t's rows
+    widened by ``margin`` (the kernels' per-chunk cull test)."""
+    row0, row1 = _tile_rows(h, w, tile, bounds.device)
+    return ((bounds[:, None, 1, :] >= (row0 - margin)[None, :, None])
+            & (bounds[:, None, 0, :] <= (row1 + margin)[None, :, None]))
+
+
+def stream_ranges(bounds: torch.Tensor, h: int, w: int, tile: int,
+                  margin: float) -> torch.Tensor:
+    """(N, n_tiles, 2) int32 [c_lo, c_hi] per tile: the first and last chunk
+    whose band meets the tile's rows (+ margin); (1, 0) when none does
+    (raster_pallas.py:605-624)."""
+    ov = _band_overlap(bounds, h, w, tile, margin)
+    n_chunks = bounds.shape[2]
+    c = torch.arange(n_chunks, dtype=torch.int32, device=bounds.device)
+    first = torch.where(ov, c, n_chunks).amin(dim=2)
+    last = torch.where(ov, c, -1).amax(dim=2)
+    hit = ov.any(dim=2)
+    c_lo = torch.where(hit, first, torch.ones_like(first))
+    c_hi = torch.where(hit, last, torch.zeros_like(last))
+    return torch.stack([c_lo, c_hi], dim=2).int().contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Plain versions
+# ---------------------------------------------------------------------------
+
+def _chunk_planes(blk: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                  soft: bool):
+    """b0, b1, b2, 1/z (and the gated signed distance when ``soft``) of a
+    chunk's faces at pixels (P, 1): the kernels' expressions, rounded at
+    every operation in the same order."""
+
+    def aff(r):
+        return px * blk[r] + py * blk[r + 1] + blk[r + 2]
+
+    b0, b1, b2, iz = aff(0), aff(3), aff(6), aff(9)
+    if not soft:
+        return b0, b1, b2, iz, None
+    sd = torch.minimum(torch.minimum(b0 * blk[12], b1 * blk[13]),
+                       b2 * blk[14])
+    bbox = torch.minimum(torch.minimum(px - blk[15], blk[16] - px),
+                         torch.minimum(py - blk[17], blk[18] - py))
+    return b0, b1, b2, iz, torch.minimum(sd, bbox)
+
+
+def _scan_plain(coeffs: torch.Tensor, active: torch.Tensor, h: int, w: int,
+                tile: int, soft: bool):
+    """Shared plain body of K1, K1-soft and K6: chunk c is tested at the pixels
+    of every tile t with ``active[v, t, c]``, in chunk order; hard
+    selection by strict '>' on 1/z over a first-index chunk maximum, soft
+    ``nearest`` the same on the signed distance from -3e38 and id 0.
+    Only the active (pixel, chunk) pairs are evaluated."""
     n, _, f_pad = coeffs.shape
-    n_chunks = f_pad // FACE_CHUNK
     hw = h * w
     dev = coeffs.device
     flat = torch.arange(hw, device=dev)
-    px = (flat % w).float()[:, None]
-    py = (flat // w).float()[:, None]
-    t0 = (flat // TILE_PIXELS) * TILE_PIXELS
-    last = torch.clamp(t0 + TILE_PIXELS - 1, max=hw - 1)
-    row0 = (t0 // w).float()
-    row1 = (last // w).float()
-    p2f = torch.full((n, hw), -1, dtype=torch.int32, device=dev)
+    pxf, pyf = (flat % w).float(), (flat // w).float()
+    lane = torch.arange(tile, device=dev)
+    rows = SOFT_ROWS if soft else HARD_ROWS
+    p2f = torch.empty((n, hw), dtype=torch.int32, device=dev)
     zbuf = torch.empty((n, hw), dtype=torch.float32, device=dev)
+    near = torch.empty((n, hw), dtype=torch.int32, device=dev)
     for v in range(n):
         best = torch.zeros(hw, dtype=torch.float32, device=dev)
         fid = torch.full((hw,), -1, dtype=torch.int64, device=dev)
-        for c in range(n_chunks):
-            ymin, ymax = bounds[v, 0, c], bounds[v, 1, c]
-            cull = (ymax >= row0) & (ymin <= row1)
-            if not bool(cull.any()):
-                continue
-            blk = coeffs[v, :12, c * FACE_CHUNK:(c + 1) * FACE_CHUNK]
-
-            def aff(r):
-                return px * blk[r] + py * blk[r + 1] + blk[r + 2]
-
-            b0, b1, b2, iz = aff(0), aff(3), aff(6), aff(9)
-            covered = ((b0 >= 0.0) & (b1 >= 0.0) & (b2 >= 0.0)
-                       & cull[:, None])
+        sbest = torch.full((hw,), NEG_INIT, dtype=torch.float32, device=dev)
+        sid = torch.zeros(hw, dtype=torch.int64, device=dev)
+        act = active[v]
+        for c in torch.nonzero(act.any(dim=0)).reshape(-1).tolist():
+            tiles = torch.nonzero(act[:, c]).reshape(-1)
+            sel = (tiles[:, None] * tile + lane).reshape(-1)
+            sel = sel[sel < hw]
+            blk = coeffs[v, :rows, c * FACE_CHUNK:(c + 1) * FACE_CHUNK]
+            b0, b1, b2, iz, sd = _chunk_planes(blk, pxf[sel, None],
+                                               pyf[sel, None], soft)
+            covered = (b0 >= 0.0) & (b1 >= 0.0) & (b2 >= 0.0)
             mz = torch.where(covered, iz, torch.full_like(iz, -1.0))
-            cmax, carg = torch.max(mz, dim=1)       # first max on ties
-            better = cmax > best
-            fid = torch.where(better, c * FACE_CHUNK + carg, fid)
-            best = torch.maximum(best, cmax)
+            cmax, carg = torch.max(mz, dim=1)
+            better = cmax > best[sel]
+            fid[sel] = torch.where(better, c * FACE_CHUNK + carg, fid[sel])
+            best[sel] = torch.maximum(best[sel], cmax)
+            if soft:
+                smax, sarg = torch.max(sd, dim=1)
+                sbetter = smax > sbest[sel]
+                sid[sel] = torch.where(sbetter, c * FACE_CHUNK + sarg,
+                                       sid[sel])
+                sbest[sel] = torch.maximum(sbest[sel], smax)
         hit = best > 0.0
         p2f[v] = torch.where(hit, fid, torch.full_like(fid, -1)).int()
         zbuf[v] = torch.where(hit, 1.0 / torch.clamp(best, min=1e-12),
                               torch.full_like(best, BIG_Z))
-    return p2f, zbuf
+        near[v] = sid.int()
+    return p2f, zbuf, near
+
+
+def raster_hard_plain(coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
+                      w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K1: (p2f (N, H*W) int32 in sorted ids, zbuf
+    (N, H*W)), the row-band cull on the kernel's 256-pixel blocks."""
+    active = _band_overlap(bounds, h, w, TILE_PIXELS, 0.0)
+    return _scan_plain(coeffs, active, h, w, TILE_PIXELS, soft=False)[:2]
+
+
+def raster_soft_plain(coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
+                      w: int, margin: float, tile: int):
+    """Plain version of K1's soft mode: (p2f, zbuf, nearest) (N, H*W), the
+    row-band cull on ``tile``-pixel bands widened by ``margin``."""
+    active = _band_overlap(bounds, h, w, tile, margin)
+    return _scan_plain(coeffs, active, h, w, tile, soft=True)
+
+
+def raster_stream_plain(coeffs: torch.Tensor, ranges: torch.Tensor, h: int,
+                        w: int, tile: int, soft: bool):
+    """Plain version of K6: every chunk of each tile's [c_lo, c_hi] range
+    is tested there. (p2f, zbuf, nearest) (N, H*W); nearest is None in
+    hard mode."""
+    c = torch.arange(coeffs.shape[2] // FACE_CHUNK, device=coeffs.device)
+    active = ((c[None, None, :] >= ranges[..., 0:1])
+              & (c[None, None, :] <= ranges[..., 1:2]))
+    p2f, zbuf, near = _scan_plain(coeffs, active, h, w, tile, soft)
+    return p2f, zbuf, (near if soft else None)
+
+
+def _insert(slot_s, slot_i, new_s, new_i):
+    """The TPU kernel's vector insertion into K sorted slots (descending):
+    walk the slots, swap wherever the carried entry is strictly greater
+    (raster_pallas.py:752-760). In place on (P, K) slot tensors."""
+    for s in range(slot_s.shape[1]):
+        take = new_s > slot_s[:, s]
+        old_s, old_i = slot_s[:, s].clone(), slot_i[:, s].clone()
+        slot_s[:, s] = torch.where(take, new_s, old_s)
+        slot_i[:, s] = torch.where(take, new_i, old_i)
+        new_s = torch.where(take, old_s, new_s)
+        new_i = torch.where(take, old_i, new_i)
+
+
+def raster_topk_plain(coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
+                      w: int, k: int, window: float) -> torch.Tensor:
+    """Plain version of K7: ids (N, H*W, K) int32 in sorted face ids, near
+    to far, -1 empty. Per chunk (culled on 256-pixel bands widened by
+    window + 2), the chunk's eligible faces are ranked by a stable
+    descending sort of their raw 1/z (the TPU kernel's repeated first-index
+    argmax) and its top K are inserted into the slots in that order."""
+    n, _, f_pad = coeffs.shape
+    hw = h * w
+    dev = coeffs.device
+    flat = torch.arange(hw, device=dev)
+    pxf, pyf = (flat % w).float(), (flat // w).float()
+    lane = torch.arange(TILE_PIXELS, device=dev)
+    active = _band_overlap(bounds, h, w, TILE_PIXELS, window + 2.0)
+    ids = torch.empty((n, hw, k), dtype=torch.int32, device=dev)
+    for v in range(n):
+        slot_s = torch.full((hw, k), NEG_INIT, device=dev)
+        slot_i = torch.full((hw, k), -1, dtype=torch.int64, device=dev)
+        act = active[v]
+        for c in torch.nonzero(act.any(dim=0)).reshape(-1).tolist():
+            tiles = torch.nonzero(act[:, c]).reshape(-1)
+            sel = (tiles[:, None] * TILE_PIXELS + lane).reshape(-1)
+            sel = sel[sel < hw]
+            blk = coeffs[v, :SOFT_ROWS, c * FACE_CHUNK:(c + 1) * FACE_CHUNK]
+            _, _, _, iz, sd = _chunk_planes(blk, pxf[sel, None],
+                                            pyf[sel, None], soft=True)
+            mz = torch.where(sd > -window, iz, torch.full_like(iz, NEG_INIT))
+            cs, ci = torch.sort(mz, dim=1, descending=True, stable=True)
+            ss, si = slot_s[sel], slot_i[sel]
+            for e in range(min(k, FACE_CHUNK)):
+                _insert(ss, si, cs[:, e], c * FACE_CHUNK + ci[:, e])
+            slot_s[sel], slot_i[sel] = ss, si
+        ids[v] = torch.where(slot_s > -1.0e38, slot_i,
+                             torch.full_like(slot_i, -1)).int()
+    return ids
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers: the plain version for CPU tensors, the kernel or an
+# error for anything else
+# ---------------------------------------------------------------------------
+
+def _check_coeffs(name: str, coeffs: torch.Tensor, aux: torch.Tensor,
+                  aux_shape: tuple, aux_dtype: torch.dtype) -> bool:
+    """Shape checks; True for CPU tensors (take the plain version). Raises
+    for operands the kernel does not take."""
+    n, rows, f_pad = coeffs.shape
+    if rows != N_COEFF_ROWS or f_pad % FACE_CHUNK:
+        raise ValueError(f"{name}: bad coeffs shape {tuple(coeffs.shape)}")
+    if tuple(aux.shape) != aux_shape:
+        raise ValueError(f"{name}: bad auxiliary shape {tuple(aux.shape)}, "
+                         f"want {aux_shape}")
+    if coeffs.device.type == "cpu" and aux.device.type == "cpu":
+        return True
+    if coeffs.device.type != "cuda" or aux.device != coeffs.device:
+        raise ValueError(f"{name}: expected CUDA tensors, got "
+                         f"{coeffs.device} and {aux.device}")
+    if coeffs.dtype != torch.float32 or aux.dtype != aux_dtype:
+        raise TypeError(f"{name}: coeffs must be float32 and the auxiliary "
+                        f"{aux_dtype}")
+    return False
 
 
 def raster_hard(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 on preprocessed faces: coeffs (N, 20, F_pad) float32, bounds
     (N, 2, n_chunks) -> (p2f (N, H*W) int32 sorted ids, zbuf (N, H*W))."""
-    n, rows, f_pad = coeffs.shape
-    if rows != N_COEFF_ROWS or f_pad % FACE_CHUNK:
-        raise ValueError(f"raster_hard: bad coeffs shape {tuple(coeffs.shape)}")
-    if bounds.shape != (n, 2, f_pad // FACE_CHUNK):
-        raise ValueError(f"raster_hard: bad bounds shape {tuple(bounds.shape)}")
-    if coeffs.device.type == "cpu":
+    n, _, f_pad = coeffs.shape
+    if _check_coeffs("raster_hard", coeffs, bounds,
+                     (n, 2, f_pad // FACE_CHUNK), torch.float32):
         return raster_hard_plain(coeffs, bounds, h, w)
-    if coeffs.device.type != "cuda" or bounds.device != coeffs.device:
-        raise ValueError(f"raster_hard: expected CUDA tensors, got "
-                         f"{coeffs.device} and {bounds.device}")
-    if coeffs.dtype != torch.float32 or bounds.dtype != torch.float32:
-        raise TypeError("raster_hard: coeffs and bounds must be float32")
-    coeffs = coeffs.contiguous()
-    bounds = bounds.contiguous()
+    coeffs, bounds = coeffs.contiguous(), bounds.contiguous()
     p2f = torch.empty((n, h * w), dtype=torch.int32, device=coeffs.device)
     zbuf = torch.empty((n, h * w), dtype=torch.float32, device=coeffs.device)
     fn = build.symbol("raster_hard", "st3d_raster_hard", 4, 5)
@@ -220,18 +420,154 @@ def raster_hard(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int
     return p2f, zbuf
 
 
+def raster_soft(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int,
+                margin: float, tile: int):
+    """K1's soft mode: (p2f, zbuf, nearest) (N, H*W) in sorted ids."""
+    n, _, f_pad = coeffs.shape
+    if _check_coeffs("raster_soft", coeffs, bounds,
+                     (n, 2, f_pad // FACE_CHUNK), torch.float32):
+        return raster_soft_plain(coeffs, bounds, h, w, margin, tile)
+    coeffs, bounds = coeffs.contiguous(), bounds.contiguous()
+    dev = coeffs.device
+    p2f = torch.empty((n, h * w), dtype=torch.int32, device=dev)
+    zbuf = torch.empty((n, h * w), dtype=torch.float32, device=dev)
+    near = torch.empty((n, h * w), dtype=torch.int32, device=dev)
+    fn = build.symbol("raster_soft", "st3d_raster_soft", 5, 6, 1)
+    err = fn(coeffs.data_ptr(), bounds.data_ptr(), p2f.data_ptr(),
+             zbuf.data_ptr(), near.data_ptr(), n, h, w, f_pad,
+             f_pad // FACE_CHUNK, tile, margin, build.stream_handle(dev))
+    build.check(err, "raster_soft")
+    LAUNCHES["raster_soft"] += 1
+    return p2f, zbuf, near
+
+
+def raster_stream(coeffs: torch.Tensor, ranges: torch.Tensor, h: int,
+                  w: int, tile: int, soft: bool):
+    """K6 on preprocessed faces and per-tile chunk ranges (N, n_tiles, 2)
+    int32 (``stream_ranges`` with the same ``tile``): (p2f, zbuf, nearest)
+    (N, H*W) in sorted ids; nearest is None in hard mode."""
+    n, _, f_pad = coeffs.shape
+    n_tiles = -(-(h * w) // tile)
+    if _check_coeffs("raster_stream", coeffs, ranges, (n, n_tiles, 2),
+                     torch.int32):
+        return raster_stream_plain(coeffs, ranges, h, w, tile, soft)
+    if tile % TILE_PIXELS and tile < h * w:
+        raise ValueError(f"raster_stream: tile {tile} must be a multiple of "
+                         f"{TILE_PIXELS} or cover the frame")
+    coeffs, ranges = coeffs.contiguous(), ranges.contiguous()
+    if coeffs.data_ptr() % 16:
+        raise ValueError("raster_stream: coeffs must be 16-byte aligned")
+    dev = coeffs.device
+    p2f = torch.empty((n, h * w), dtype=torch.int32, device=dev)
+    zbuf = torch.empty((n, h * w), dtype=torch.float32, device=dev)
+    near = torch.empty((n, h * w) if soft else (1,), dtype=torch.int32,
+                       device=dev)
+    fn = build.symbol("raster_stream", "st3d_raster_stream", 5, 7)
+    err = fn(coeffs.data_ptr(), ranges.data_ptr(), p2f.data_ptr(),
+             zbuf.data_ptr(), near.data_ptr(), n, h, w, f_pad, n_tiles, tile,
+             int(soft), build.stream_handle(dev))
+    build.check(err, "raster_stream")
+    LAUNCHES["raster_stream"] += 1
+    return p2f, zbuf, (near if soft else None)
+
+
+def raster_topk(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int,
+                k: int, window: float) -> torch.Tensor:
+    """K7 on preprocessed faces: ids (N, H*W, K) int32 in sorted ids, near
+    to far by raw 1/z among faces with signed distance > -window, -1
+    empty."""
+    n, _, f_pad = coeffs.shape
+    if not 1 <= k <= MAX_TOPK:
+        raise ValueError(f"raster_topk: K={k} outside 1..{MAX_TOPK}")
+    if _check_coeffs("raster_topk", coeffs, bounds,
+                     (n, 2, f_pad // FACE_CHUNK), torch.float32):
+        return raster_topk_plain(coeffs, bounds, h, w, k, window)
+    coeffs, bounds = coeffs.contiguous(), bounds.contiguous()
+    dev = coeffs.device
+    ids = torch.empty((n, h * w, k), dtype=torch.int32, device=dev)
+    # The cull margin is rounded to float32 from the double sum, as the
+    # JAX package's Python-side ``window_px + 2.0`` is.
+    fn = build.symbol("raster_topk", "st3d_raster_topk", 3, 6, 2)
+    err = fn(coeffs.data_ptr(), bounds.data_ptr(), ids.data_ptr(), n, h, w,
+             f_pad, f_pad // FACE_CHUNK, k, window, window + 2.0,
+             build.stream_handle(dev))
+    build.check(err, "raster_topk")
+    LAUNCHES["raster_topk"] += 1
+    return ids
+
+
+# ---------------------------------------------------------------------------
+# View-batch entry points (mesh face ids out)
+# ---------------------------------------------------------------------------
+
+def _to_mesh_ids(order: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Sorted ids (N, P) -> mesh ids, keeping -1."""
+    mapped = torch.gather(order, 1, torch.clamp(ids, min=0).long())
+    return torch.where(ids >= 0, mapped.int(), ids)
+
+
+def use_stream(n_faces: int) -> bool:
+    """The JAX package's dispatch rule (raster_pallas.py:392-395)."""
+    return n_faces * N_COEFF_ROWS * 4 > RESIDENT_COEFF_BUDGET
+
+
+def _rasterize(face_verts: torch.Tensor, w: int, h: int, soft: bool,
+               margin: float, stream: Optional[bool]):
+    n = face_verts.shape[0]
+    if stream is None:
+        stream = use_stream(face_verts.shape[1])
+    tile = cull_tile(h, w, soft)
+    with torch.no_grad():
+        coeffs, bounds, order = preprocess(face_verts.detach())
+        if stream:
+            ranges = stream_ranges(bounds, h, w, tile, margin)
+            p2f, zbuf, near = raster_stream(coeffs, ranges, h, w, tile, soft)
+        elif soft:
+            p2f, zbuf, near = raster_soft(coeffs, bounds, h, w, margin, tile)
+        else:
+            p2f, zbuf = raster_hard(coeffs, bounds, h, w)
+            near = None
+        p2f = _to_mesh_ids(order, p2f).reshape(n, h, w)
+        if near is not None:
+            near = _to_mesh_ids(order, near).reshape(n, h, w)
+    return p2f, zbuf.reshape(n, h, w), near
+
+
 def rasterize_batched(face_verts: torch.Tensor, image_size: int,
-                      image_height: Optional[int] = None
+                      image_height: Optional[int] = None,
+                      stream: Optional[bool] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hard visibility of a view batch (N, F, 3, 3) -> pix_to_face
     (N, H, W) int32 in mesh face ids (-1 = background) and zbuf (N, H, W)
-    (counterpart of ``rasterize_pallas_batched`` in hard mode)."""
-    w = image_size
+    (counterpart of ``rasterize_pallas_batched`` in hard mode). K6 runs
+    where ``use_stream`` says so; ``stream`` forces either kernel."""
     h = image_height if image_height is not None else image_size
+    p2f, zbuf, _ = _rasterize(face_verts, image_size, h, False, 0.0, stream)
+    return p2f, zbuf
+
+
+def rasterize_batched_soft(face_verts: torch.Tensor, image_size: int,
+                           soft_sigma_px: float = 1.0,
+                           image_height: Optional[int] = None,
+                           stream: Optional[bool] = None
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+    """Soft visibility: ``rasterize_batched``'s outputs plus nearest_face
+    (N, H, W) int32 mesh ids, the face of largest gated signed distance
+    (``rasterize_pallas_batched(soft=True)``)."""
+    h = image_height if image_height is not None else image_size
+    return _rasterize(face_verts, image_size, h, True,
+                      soft_cull_margin(soft_sigma_px), stream)
+
+
+def rasterize_topk_batched(face_verts: torch.Tensor, image_size: int, k: int,
+                           window_px: float) -> torch.Tensor:
+    """(N, F, 3, 3) -> (N, H, W, K) top-K mesh face ids near to far, -1
+    empty (``rasterize_pallas_topk``), one K7 launch for the batch."""
     n = face_verts.shape[0]
+    s = image_size
     with torch.no_grad():
         coeffs, bounds, order = preprocess(face_verts.detach())
-        p2f, zbuf = raster_hard(coeffs, bounds, h, w)
-        ids = torch.gather(order, 1, torch.clamp(p2f, min=0).long())
-        p2f = torch.where(p2f >= 0, ids.int(), p2f)
-    return p2f.reshape(n, h, w), zbuf.reshape(n, h, w)
+        ids = raster_topk(coeffs, bounds, s, s, k, float(window_px))
+        ids = _to_mesh_ids(order, ids.reshape(n, s * s * k))
+    return ids.reshape(n, s, s, k)

@@ -1,15 +1,19 @@
-"""Style/content perceptual loss and the first approach's masked MSE
-(counterpart of ``st3d/ops/losses.py``, texture target).
+"""Style/content perceptual loss, the first approach's masked MSE and the
+mesh regularizers (counterpart of ``st3d/ops/losses.py``).
 
 Reference quirks kept exactly: the Gram is UNNORMALISED, the per-layer
 style divisor is ``C**2 * H**2`` (height squared, not H*W), computed in
-float, and the content loss is a plain mean MSE on conv4_2.
+float, the content loss is a plain mean MSE on conv4_2, and the texture
+target ignores ``main_loss_weight``. The regularizers are the
+``pytorch3d.loss`` functions the reference calls (edge length, uniform
+Laplacian smoothing, normal consistency) over the mesh's precomputed
+topology.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -113,19 +117,108 @@ def compute_perceptual_loss(current_imgs: torch.Tensor,
                               style_weight, content_weight)
 
 
+def _require_topology(mesh: Mesh):
+    if mesh.topology is None:
+        raise ValueError(
+            "mesh has no precomputed topology; call mesh.with_topology() "
+            "once at load time before using the mesh regularizers")
+    return mesh.topology
+
+
+def mesh_edge_loss(mesh: Mesh, target_length: float = 0.0) -> torch.Tensor:
+    """Mean over unique edges of (|v0 - v1| - target)^2."""
+    topo = _require_topology(mesh)
+    v = mesh.verts[topo.edges]                      # (E, 2, 3)
+    length = torch.linalg.norm(v[:, 0] - v[:, 1], dim=-1)
+    return torch.mean((length - target_length) ** 2)
+
+
+def mesh_laplacian_smoothing(mesh: Mesh) -> torch.Tensor:
+    """Uniform Laplacian: mean over vertices with neighbours of
+    |(sum of neighbours) / degree - v|."""
+    topo = _require_topology(mesh)
+    verts = mesh.verts
+    e0, e1 = topo.edges[:, 0], topo.edges[:, 1]
+    nbr_sum = torch.zeros_like(verts).index_add(0, e0, verts[e1])
+    nbr_sum = nbr_sum.index_add(0, e1, verts[e0])
+    deg = torch.clamp(topo.degree[:, None], min=1.0)
+    norm = torch.linalg.norm(nbr_sum / deg - verts, dim=-1)
+    has = topo.degree > 0
+    norm = torch.where(has, norm, torch.zeros_like(norm))
+    return torch.sum(norm) / torch.clamp(has.sum(), min=1)
+
+
+def mesh_normal_consistency(mesh: Mesh) -> torch.Tensor:
+    """Mean over face pairs of a shared edge of 1 - cos(n0, n1), with
+    n0 = (v1-v0) x (a-v0) and n1 = -(v1-v0) x (b-v0)."""
+    topo = _require_topology(mesh)
+    pairs = topo.nc_pairs
+    if pairs.shape[0] == 0:
+        return torch.zeros((), device=mesh.verts.device)
+    v0, v1 = mesh.verts[pairs[:, 0]], mesh.verts[pairs[:, 1]]
+    a, b = mesh.verts[pairs[:, 2]], mesh.verts[pairs[:, 3]]
+    n0 = torch.cross(v1 - v0, a - v0, dim=-1)
+    n1 = -torch.cross(v1 - v0, b - v0, dim=-1)
+    den = torch.linalg.norm(n0, dim=-1) * torch.linalg.norm(n1, dim=-1)
+    cos = torch.sum(n0 * n1, dim=-1) / torch.clamp(den, min=1e-12)
+    return torch.mean(1.0 - cos)
+
+
+def mesh_regularizer_loss(mesh: Mesh, verts: torch.Tensor,
+                          target_verts: torch.Tensor,
+                          weights: Dict[str, float]) -> torch.Tensor:
+    """The regularizer block both approaches add for the mesh and both
+    targets."""
+    loss = weights["mesh_verts_weight"] * mse_loss(verts, target_verts)
+    loss = loss + weights["mesh_edge_loss_weight"] * mesh_edge_loss(mesh)
+    loss = loss + (weights["mesh_laplacian_smoothing_weight"]
+                   * mesh_laplacian_smoothing(mesh))
+    return loss + (weights["mesh_normal_consistency_weight"]
+                   * mesh_normal_consistency(mesh))
+
+
+def _with_regularizers(main: torch.Tensor, verts, target_verts, mesh: Mesh,
+                       weights: Dict[str, float],
+                       opt_type: str) -> torch.Tensor:
+    if opt_type == "texture":
+        return main          # main_loss_weight deliberately ignored
+    if opt_type in ("mesh", "both"):
+        return (weights["main_loss_weight"] * main
+                + mesh_regularizer_loss(mesh, verts, target_verts, weights))
+    raise ValueError(f"unknown opt_type {opt_type!r}")
+
+
 def compute_first_approach_loss(rendered: torch.Tensor, masks: torch.Tensor,
                                 target_rendered: torch.Tensor,
                                 verts: torch.Tensor,
                                 target_verts: torch.Tensor, mesh: Mesh,
                                 weights: Dict[str, float],
                                 opt_type: str) -> torch.Tensor:
-    """Masked MSE against the 2D-stylized targets. For the texture target
-    ``main_loss_weight`` is ignored, as in the reference; the mesh and both
-    targets add the mesh regularizers, which are not ported yet."""
-    if opt_type in ("mesh", "both"):
-        raise NotImplementedError(
-            f"opt_type={opt_type!r}: the mesh regularizers are ROADMAP queue "
-            "1 item 11")
-    if opt_type != "texture":
+    """Masked MSE against the 2D-stylized targets, plus the regularizers
+    for the mesh and both targets."""
+    if opt_type not in ("texture", "mesh", "both"):
         raise ValueError(f"unknown opt_type {opt_type!r}")
-    return mse_loss(rendered * masks, target_rendered * masks)
+    main = mse_loss(rendered * masks, target_rendered * masks)
+    return _with_regularizers(main, verts, target_verts, mesh, weights,
+                              opt_type)
+
+
+def compute_second_approach_loss(current: torch.Tensor,
+                                 content: torch.Tensor, style: torch.Tensor,
+                                 model: VGG19, style_weight: float,
+                                 content_weight: float, verts: torch.Tensor,
+                                 target_verts: torch.Tensor, mesh: Mesh,
+                                 weights: Dict[str, float], opt_type: str,
+                                 targets: Optional[StyleContentTargets] = None
+                                 ) -> torch.Tensor:
+    """Perceptual loss on NCHW images, plus the regularizers for the mesh
+    and both targets. Without ``targets`` the content and style features
+    are extracted here."""
+    if targets is None:
+        main = compute_perceptual_loss(current, content, style, model,
+                                       style_weight, content_weight)
+    else:
+        main = style_content_loss(get_features(current, model), targets,
+                                  style_weight, content_weight)
+    return _with_regularizers(main, verts, target_verts, mesh, weights,
+                              opt_type)

@@ -7,9 +7,10 @@ color elsewhere, alpha = coverage. Texture convention (PyTorch3D
 TexturesUV, as in the JAX package): uv (0, 0) is the BOTTOM-left of the
 texture image, bilinear with align_corners=True and border clamping.
 
-The texture gradient is autograd's gather backward (an index-add). The
-JAX package's quad packing, sampling plan and plan tree were TPU gather and
-scatter workarounds and have no counterpart here.
+The texture gradient is autograd's gather backward (an index-add); the
+dynamic ``shade_textured`` and the compact static form feed it covered
+pixels only. The JAX package's quad packing, sampling plan and plan tree
+were TPU gather and scatter workarounds and have no counterpart here.
 """
 
 from __future__ import annotations
@@ -21,14 +22,11 @@ import torch
 from st3d_torch.kernels.raster import AREA_EPS
 
 
-def barycentrics_of_triangles(tri: torch.Tensor) -> torch.Tensor:
-    """Perspective-correct barycentrics at pixel centers for per-pixel
-    triangles ``tri`` (..., H, W, 3, 3) -> (..., H, W, 3). Differentiable."""
-    h, w = tri.shape[-4], tri.shape[-3]
-    ys = torch.arange(h, dtype=torch.float32, device=tri.device)
-    xs = torch.arange(w, dtype=torch.float32, device=tri.device)
-    py, px = torch.meshgrid(ys, xs, indexing="ij")
-
+def barycentrics_at(tri: torch.Tensor, px: torch.Tensor,
+                    py: torch.Tensor) -> torch.Tensor:
+    """Perspective-correct barycentrics of triangles ``tri`` (..., 3, 3) at
+    pixel centers (px, py) broadcastable to ``tri.shape[:-2]`` ->
+    (..., 3). Differentiable."""
     x0, y0, z0 = tri[..., 0, 0], tri[..., 0, 1], tri[..., 0, 2]
     x1, y1, z1 = tri[..., 1, 0], tri[..., 1, 1], tri[..., 1, 2]
     x2, y2, z2 = tri[..., 2, 0], tri[..., 2, 1], tri[..., 2, 2]
@@ -46,6 +44,61 @@ def barycentrics_of_triangles(tri: torch.Tensor) -> torch.Tensor:
     denom = torch.sum(bw, dim=-1, keepdim=True)
     return bw / torch.where(torch.abs(denom) > 1e-12, denom,
                             torch.full_like(denom, 1e-12))
+
+
+def pixel_grid(h: int, w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(px, py) float32 (H, W) pixel-center coordinates."""
+    ys = torch.arange(h, dtype=torch.float32, device=device)
+    xs = torch.arange(w, dtype=torch.float32, device=device)
+    py, px = torch.meshgrid(ys, xs, indexing="ij")
+    return px, py
+
+
+def barycentrics_of_triangles(tri: torch.Tensor) -> torch.Tensor:
+    """Perspective-correct barycentrics at pixel centers for per-pixel
+    triangles ``tri`` (..., H, W, 3, 3) -> (..., H, W, 3). Differentiable."""
+    px, py = pixel_grid(tri.shape[-4], tri.shape[-3], tri.device)
+    return barycentrics_at(tri, px, py)
+
+
+def face_rows(values: torch.Tensor, view: torch.Tensor,
+              fid: torch.Tensor) -> torch.Tensor:
+    """Rows ``values[view, fid]`` of per-view face data (N, F, ...) for
+    index tensors of one shape. An ``index_select`` on the flattened rows:
+    its backward is an atomic index-add, where advanced indexing's sorts
+    the indices and walks each face's duplicates serially (46 ms a step on
+    an H100 for soft mode's far field at 512² x 4, where one face is the
+    nearest of thousands of pixels)."""
+    n, f = values.shape[0], values.shape[1]
+    flat = values.reshape((n * f,) + values.shape[2:])
+    idx = (view * f + fid).reshape(-1)
+    return flat.index_select(0, idx).reshape(fid.shape + values.shape[2:])
+
+
+def gather_faces(values: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Per-view face rows: ``values`` (N, F, ...) at ``ids`` (N, ...)
+    clamped to >= 0 -> ids.shape + values.shape[2:]."""
+    n = values.shape[0]
+    view = torch.arange(n, device=ids.device).reshape(
+        (n,) + (1,) * (ids.dim() - 1))
+    return face_rows(values, view, torch.clamp(ids, min=0).long())
+
+
+def recompute_barycentrics(face_verts: torch.Tensor,
+                           pix_to_face: torch.Tensor) -> torch.Tensor:
+    """Barycentrics (N, H, W, 3) of each pixel in its face, for face_verts
+    (N, F, 3, 3) and pix_to_face (N, H, W); arbitrary where pix_to_face < 0.
+    Differentiable in ``face_verts``, the ids acting as constants."""
+    return barycentrics_of_triangles(gather_faces(face_verts, pix_to_face))
+
+
+def interpolate_face_attributes(attrs: torch.Tensor,
+                                pix_to_face: torch.Tensor,
+                                barycentrics: torch.Tensor) -> torch.Tensor:
+    """(..., H, W, D) barycentric interpolation of per-corner attributes
+    ``attrs`` (F, 3, D) at pix_to_face (..., H, W)."""
+    a = attrs[torch.clamp(pix_to_face, min=0).long()]
+    return torch.sum(a * barycentrics[..., None], dim=-2)
 
 
 def pixel_uvs(face_verts: torch.Tensor, pix_to_face: torch.Tensor,
@@ -136,6 +189,26 @@ def shade_textured(face_verts: torch.Tensor, pix_to_face: torch.Tensor,
                    texture: torch.Tensor,
                    background_color: Tuple[float, float, float] = (
                        1.0, 1.0, 1.0)) -> torch.Tensor:
-    """Ambient-shaded RGBA (N, H, W, 4) of a view batch."""
-    uv, mask = pixel_uvs(face_verts, pix_to_face, verts_uvs, faces_uvs)
-    return shade_from_uvs(texture, uv, mask, background_color)
+    """Ambient-shaded RGBA (N, H, W, 4) of a view batch, differentiable in
+    ``face_verts`` and ``texture``.
+
+    Only the covered pixels are gathered, interpolated and sampled; their
+    colors land in a background-filled frame. The values are the dense
+    form's (``pixel_uvs`` + ``shade_from_uvs``) exactly, and neither
+    backward sees the uncovered pixels, whose face-0 rows and border texels
+    would otherwise take the gradient adds of most of the frame one at a
+    time."""
+    n, h, w = pix_to_face.shape
+    cov = torch.nonzero(pix_to_face.reshape(-1) >= 0).reshape(-1)
+    view, pix = cov // (h * w), cov % (h * w)
+    fid = pix_to_face.reshape(-1)[cov].long()
+    tri = face_rows(face_verts, view, fid)               # (P, 3, 3)
+    uvf = verts_uvs[faces_uvs][fid]                      # (P, 3, 2)
+    bary = barycentrics_at(tri, (pix % w).float(), (pix // w).float())
+    uv = torch.sum(uvf * bary[..., None], dim=-2)
+    rgb_cov = sample_texture(texture, uv)
+    bg = torch.tensor(background_color, dtype=rgb_cov.dtype,
+                      device=rgb_cov.device)
+    frame = bg.expand(n * h * w, 3).contiguous().index_put((cov,), rgb_cov)
+    mask = (pix_to_face >= 0)[..., None].to(frame.dtype)
+    return torch.cat([frame.reshape(n, h, w, 3), mask], dim=-1)

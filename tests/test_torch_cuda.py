@@ -232,3 +232,122 @@ def test_stage1_gradient_matches_plain_path(dev):
         outs.append([v.detach().cpu() for v in (p, gm, xt.grad)])
     for got, ref in zip(*outs):
         assert _rel_err(got, ref) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# Visibility: K1's soft mode, K6 (streaming) and K7 (top-K)
+# ---------------------------------------------------------------------------
+
+def _sphere_faces(dev, level, size, views=3):
+    from st3d_torch.core.cameras import build_fixed_cameras
+    from st3d_torch.core.primitives import ico_sphere
+    from st3d_torch.render.rasterize import face_verts_screen
+
+    mesh = ico_sphere(level=level).to(dev)
+    return face_verts_screen(mesh.verts, mesh.faces,
+                             build_fixed_cameras(views, seed=1).to(dev), size)
+
+
+@pytest.mark.parametrize("size", [96, 80])
+def test_raster_soft_kernel_equals_plain(dev, size):
+    fv = _sphere_faces(dev, 3, size)
+    coeffs, bounds, _ = kraster.preprocess(fv)
+    tile = kraster.cull_tile(size, size, True)
+    margin = kraster.soft_cull_margin(1.5)
+    n0 = kraster.LAUNCHES["raster_soft"]
+    got = kraster.raster_soft(coeffs, bounds, size, size, margin, tile)
+    torch.cuda.synchronize()
+    assert kraster.LAUNCHES["raster_soft"] == n0 + 1
+    want = kraster.raster_soft_plain(coeffs, bounds, size, size, margin,
+                                     tile)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+    # Hard outputs are K1's.
+    p2f, zbuf = kraster.raster_hard(coeffs, bounds, size, size)
+    assert torch.equal(got[0], p2f) and torch.equal(got[1], zbuf)
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_raster_stream_kernel_equals_plain_and_k1(dev, soft):
+    size = 96
+    fv = _sphere_faces(dev, 4, size)
+    coeffs, bounds, _ = kraster.preprocess(fv)
+    tile = kraster.cull_tile(size, size, soft)
+    margin = kraster.soft_cull_margin(1.0) if soft else 0.0
+    ranges = kraster.stream_ranges(bounds, size, size, tile, margin)
+    n0 = kraster.LAUNCHES["raster_stream"]
+    got = kraster.raster_stream(coeffs, ranges, size, size, tile, soft)
+    torch.cuda.synchronize()
+    assert kraster.LAUNCHES["raster_stream"] == n0 + 1
+    want = kraster.raster_stream_plain(coeffs, ranges, size, size, tile,
+                                       soft)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+    if soft:
+        assert torch.equal(got[2], want[2])
+    p2f, zbuf = kraster.raster_hard(coeffs, bounds, size, size)
+    assert torch.equal(got[0], p2f) and torch.equal(got[1], zbuf)
+
+
+@pytest.mark.parametrize("k,window", [(4, 3.0), (5, 0.9), (1, 2.0),
+                                      (16, 4.0)])
+def test_raster_topk_kernel_equals_plain(dev, k, window):
+    size = 80
+    fv = _sphere_faces(dev, 3, size, views=2)
+    coeffs, bounds, _ = kraster.preprocess(fv)
+    n0 = kraster.LAUNCHES["raster_topk"]
+    got = kraster.raster_topk(coeffs, bounds, size, size, k, window)
+    torch.cuda.synchronize()
+    assert kraster.LAUNCHES["raster_topk"] == n0 + 1
+    want = kraster.raster_topk_plain(coeffs, bounds, size, size, k, window)
+    assert torch.equal(got, want)
+    assert (got[..., 0] >= 0).float().mean() > 0.1
+
+
+def test_topk_kernel_keeps_lower_id_first_on_ties(dev):
+    """Duplicated faces score equally: the lower sorted id stays in
+    front, in the kernel as in its plain version."""
+    fv = _sphere_faces(dev, 2, 64, views=1)
+    fv = torch.cat([fv, fv], dim=1)              # every face twice
+    coeffs, bounds, _ = kraster.preprocess(fv)
+    got = kraster.raster_topk(coeffs, bounds, 64, 64, 4, 2.0)
+    want = kraster.raster_topk_plain(coeffs, bounds, 64, 64, 4, 2.0)
+    assert torch.equal(got, want)
+    both = (got[..., 0] >= 0) & (got[..., 1] >= 0)
+    assert both.any()
+
+
+@pytest.mark.parametrize("mode", ["hard", "soft", "softras", "blur"])
+def test_render_gradients_match_plain_path(dev, mode):
+    """Rasterize and shade on CUDA tensors (kernels) against the CPU (plain
+    versions) from the same screen vertices, float32: values and the
+    screen-vertex and texture gradients. (Projected on each device, the
+    vertices differ in the last bits, which flips the nearest face at
+    near-ties of the soft modes.)"""
+    from st3d_torch.core.cameras import build_fixed_cameras
+    from st3d_torch.core.primitives import ico_sphere
+    from st3d_torch.render.rasterize import (
+        RasterizationSettings, face_verts_screen)
+    from st3d_torch.render.renderer import rasterize_views, shade_views
+
+    kw = {"hard": {}, "soft": {"soft": True},
+          "softras": {"soft": True, "faces_per_pixel": 4, "gamma": 1e-2},
+          "blur": {"blur_radius": 1e-3, "faces_per_pixel": 2}}[mode]
+    settings = RasterizationSettings(image_size=48, **kw)
+    rng = np.random.RandomState(9)
+    w = torch.tensor(rng.randn(2, 48, 48, 4).astype(np.float32))
+    mesh = ico_sphere(level=2, texture_size=16)
+    fv0 = face_verts_screen(mesh.verts, mesh.faces,
+                            build_fixed_cameras(2, seed=0), 48)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        m = mesh.to(d)
+        fv = fv0.to(d).requires_grad_(True)
+        tex = m.texture.clone().requires_grad_(True)
+        m = m.replace(texture=tex)
+        rgba = shade_views(m, fv, rasterize_views(fv, settings), settings)
+        torch.sum(rgba * w.to(d)).backward()
+        outs.append([t.detach().cpu() for t in (rgba, fv.grad, tex.grad)])
+    for got, ref in zip(*outs):
+        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                   atol=1e-4 * float(ref.abs().max()))

@@ -252,27 +252,40 @@ def test_perceptual_loss_matches_jax(models):
 
 
 def test_first_approach_loss_matches_jax():
+    """The masked MSE (texture target, main_loss_weight ignored) and, for
+    the mesh and both targets, main_loss_weight times it plus the mesh
+    regularizers, on one ico-sphere with its topology in both packages."""
     import jax.numpy as jnp
 
+    from st3d.core.primitives import ico_sphere as jax_ico_sphere
     from st3d.ops.losses import compute_first_approach_loss as jax_loss
 
+    from st3d_torch.convert import mesh_from_numpy
     from st3d_torch.ops.losses import compute_first_approach_loss
 
     rng = np.random.RandomState(6)
     r, t = (rng.rand(2, 8, 8, 3).astype(np.float32) for _ in range(2))
     m = (rng.rand(2, 8, 8, 1) > 0.3).astype(np.float32)
     weights = PipelineConfig().loss_weights()
-    want = float(jax_loss(jnp.asarray(r), jnp.asarray(m), jnp.asarray(t),
-                          None, None, None, weights, "texture"))
-    got = float(compute_first_approach_loss(
-        torch.tensor(r), torch.tensor(m), torch.tensor(t), None, None, None,
-        weights, "texture"))
-    assert got == pytest.approx(want, rel=1e-6)
-    for target in ("mesh", "both"):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            compute_first_approach_loss(torch.tensor(r), torch.tensor(m),
-                                        torch.tensor(t), None, None, None,
-                                        weights, target)
+    weights["main_loss_weight"] = 2.5
+    jm = jax_ico_sphere(level=1).with_topology()
+    verts = np.asarray(jm.verts) + 0.05 * rng.randn(
+        *jm.verts.shape).astype(np.float32)
+    tm = mesh_from_numpy(verts, jm.faces, jm.verts_uvs, jm.faces_uvs,
+                         jm.texture, topology=jm.topology)
+    jmv = jm.replace(verts=jnp.asarray(verts))
+    for target in ("texture", "mesh", "both"):
+        want = float(jax_loss(jnp.asarray(r), jnp.asarray(m), jnp.asarray(t),
+                              jnp.asarray(verts), jm.verts, jmv, weights,
+                              target))
+        got = float(compute_first_approach_loss(
+            torch.tensor(r), torch.tensor(m), torch.tensor(t), tm.verts,
+            torch.tensor(np.asarray(jm.verts)), tm, weights, target))
+        assert got == pytest.approx(want, rel=1e-5), target
+    with pytest.raises(ValueError):
+        compute_first_approach_loss(torch.tensor(r), torch.tensor(m),
+                                    torch.tensor(t), None, None, None,
+                                    weights, "uv")
 
 
 def test_log_step_matches_jax(tmp_path):
@@ -309,9 +322,11 @@ def test_flags_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--optimization_target", "mesh"], ["--optimization_target", "both"],
+    ["--optimization_target", "mesh", "--checkpoint_every", "2"],
+    ["--optimization_target", "both", "--debug_nan", "True"],
     ["--checkpoint_every", "5"], ["--resume", "True"],
-    ["--soft_raster", "True"], ["--data_parallel", "True"],
+    ["--soft_raster", "True", "--tile_parallel", "True"],
+    ["--data_parallel", "True"],
     ["--tile_parallel", "True"], ["--profile", "True"]])
 def test_unported_options_raise(scene, flag):
     root, argv = scene

@@ -30,6 +30,9 @@ def test_port_imports_no_jax_and_no_st3d():
         "import st3d_torch.convert, st3d_torch.engine.pipelines\n"
         "import st3d_torch.first_approach, st3d_torch.kernels.stage1\n"
         "import st3d_torch.engine.style_transfer2d\n"
+        "import st3d_torch.render.soft, st3d_torch.render.topk\n"
+        "import st3d_torch.render.renderer, st3d_torch.ops.losses\n"
+        "import st3d_torch.core.mesh\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'st3d' not in sys.modules, 'st3d imported'\n"
         "print('clean')\n")
@@ -58,6 +61,19 @@ def test_cpu_tensors_take_the_plain_versions():
     want = kraster.raster_hard_plain(coeffs, bounds, 16, 16)
     for a, c in zip(got, want):
         torch.testing.assert_close(a, c, atol=0, rtol=0)
+    for a, c in zip(kraster.raster_soft(coeffs, bounds, 16, 16, 8.0, 256),
+                    kraster.raster_soft_plain(coeffs, bounds, 16, 16, 8.0,
+                                              256)):
+        torch.testing.assert_close(a, c, atol=0, rtol=0)
+    ranges = kraster.stream_ranges(bounds, 16, 16, 256, 0.0)
+    got = kraster.raster_stream(coeffs, ranges, 16, 16, 256, False)
+    want = kraster.raster_stream_plain(coeffs, ranges, 16, 16, 256, False)
+    for a, c in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, c, atol=0, rtol=0)
+    torch.testing.assert_close(
+        kraster.raster_topk(coeffs, bounds, 16, 16, 3, 2.0),
+        kraster.raster_topk_plain(coeffs, bounds, 16, 16, 3, 2.0),
+        atol=0, rtol=0)
     assert {**kconv.LAUNCHES, **kraster.LAUNCHES} == before
 
 
@@ -70,6 +86,14 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError):
         kraster.raster_hard(torch.zeros(1, 12, 128), torch.zeros(1, 2, 1),
                             4, 4)
+    coeffs = torch.zeros(1, 20, 128)
+    with pytest.raises(ValueError):
+        kraster.raster_soft(coeffs, torch.zeros(1, 2, 2), 4, 4, 8.0, 256)
+    with pytest.raises(ValueError):
+        kraster.raster_stream(coeffs, torch.zeros(1, 3, 2, dtype=torch.int32),
+                              4, 4, 256, False)
+    with pytest.raises(ValueError):
+        kraster.raster_topk(coeffs, torch.zeros(1, 2, 1), 4, 4, 17, 1.0)
 
 
 def test_cuda_without_gpu_raises(monkeypatch, tmp_path):

@@ -85,14 +85,29 @@ def test_preprocess_sorts_and_bounds(jax_fv):
 
 
 def test_rasterize_batch_is_discrete_and_hard_only(jax_fv):
+    """Visibility carries no gradient in any mode; soft mode adds
+    nearest_face; the hard-K modes (blur window, K > 1) keep the nearest
+    slot and, like the JAX package, rasterize full frames only."""
     fv = torch.tensor(jax_fv).requires_grad_(True)
     frags = rasterize_batch(fv, RasterizationSettings(image_size=SIZE))
     assert not frags.pix_to_face.requires_grad
     assert not frags.zbuf.requires_grad
-    for bad in (dict(soft=True), dict(faces_per_pixel=2),
-                dict(blur_radius=1e-4)):
-        with pytest.raises(NotImplementedError):
-            rasterize_batch(fv, RasterizationSettings(image_size=SIZE, **bad))
+    assert frags.nearest_face is None
+    for mode in (dict(soft=True), dict(faces_per_pixel=2),
+                 dict(blur_radius=1e-4)):
+        got = rasterize_batch(fv, RasterizationSettings(image_size=SIZE,
+                                                        **mode))
+        assert got.pix_to_face.shape == (2, SIZE, SIZE)
+        assert not got.pix_to_face.requires_grad
+        assert (got.nearest_face is not None) == ("soft" in mode)
+    # K = 2 and no blur: slot 0 is the hard winner.
+    k2 = rasterize_batch(fv, RasterizationSettings(image_size=SIZE,
+                                                   faces_per_pixel=2))
+    assert torch.equal(k2.pix_to_face, frags.pix_to_face)
+    with pytest.raises(NotImplementedError):
+        rasterize_batch(fv, RasterizationSettings(image_size=SIZE,
+                                                  blur_radius=1e-4),
+                        image_height=SIZE // 2)
 
 
 def test_plain_kernel_culls_like_the_kernel(jax_fv):
