@@ -31,7 +31,17 @@ Phases; any failure raises and the script exits non-zero:
    max|plain| in bf16 and <= 1e-4 * max|plain| in f32; PᵀP and s27
    relative Frobenius error <= 1e-4 (sums of 2¹⁸ terms per image, taken in
    another order); idx equal wherever the plain top two of the window
-   differ by more than the output tolerance.
+   differ by more than the output tolerance;
+   stage 1 v3 at the same shapes, bf16 and f32: E ``conv1_1_gram`` (z as
+   A's, g64 relative Frobenius error <= 1e-4) and F ``conv1_1_gram_bwd``
+   (dx as B's); K10c and K10d are C and D at the shapes above;
+   K8, C and D at conv2_2's, conv3_4's and conv4_4's shapes (4 x 256² x 128,
+   4 x 128² x 256, 4 x 64² x 512), bf16 and f32, with C's and D's
+   tolerances;
+   K9, G ``raster_2d``, at 512² x 4, ico-sphere level 4, against its plain
+   version (pix_to_face exactly equal, zbuf within rtol 1e-6), then at level
+   7 (327,680 faces) against K1: zbuf bit-equal, ids different only at
+   exact 1/z ties (both faces cover the pixel with bit-equal 1/z), counted.
    Times are CUDA-event means after warm-up (bf16). Each kernel's bound is
    the larger of the bytes it must move over 3.35 TB/s and its operations
    over the H100's peak for their type (989 TFLOP/s bf16 tensor, 67
@@ -48,7 +58,10 @@ Phases; any failure raises and the script exits non-zero:
    ``final.obj`` and ``final_render/`` written, all seven kernels launched.
    Then 5 epochs each on PR 1's route (``ST3D_NO_STAGE1_V2=1
    ST3D_NO_PACKED1=1``: K1-K3 only) and on the K5 route
-   (``ST3D_NO_STAGE1_V2=1``: C and D, not A and B).
+   (``ST3D_NO_STAGE1_V2=1``: C and D, not A and B), and 20 epochs each on
+   the v3 route (``ST3D_STAGE1=v3``: E and F, not A and B) and the
+   fused-pool route (``ST3D_FUSED_POOL=1``: the default's kernels, C and D
+   four times as often, K2 three times fewer for each C and each D).
    Then the vertex optimisation, ``--optimization_target both`` at 512², 4
    views, bf16, 10 epochs, in four raster modes: hard at ico level 4 (K1),
    ``--soft_raster true`` (K1's soft mode), ``--soft_raster true
@@ -64,13 +77,15 @@ Phases; any failure raises and the script exits non-zero:
    batch 4, bf16, 30 style-transfer and 20 MSE steps: finite losses, the MSE
    loss falling, four ``2d_style_transfer/`` views, 12 ``final_render/``
    views and ``final.obj``, all seven kernels launched; then the ms per
-   hot-loop-A step (``style_transfer`` at the same shape, after warm-up).
+   hot-loop-A step (``style_transfer`` at the same shape, after warm-up),
+   on the default route and on v3.
    Then ``--optimization_target both`` (hard, level 4, 5 + 5 steps): finite
    losses, falling after the first MSE step (whose Adam update moves every
    vertex coordinate by lr, as in the JAX package), K1 once per MSE step.
 5. Both entry points at 64² f32 on the GPU against the same runs on the CPU
-   (plain versions), and the second approach with ``--optimization_target
-   both --soft_raster true``: losses within rtol 1e-3.
+   (plain versions), the second approach with ``--optimization_target
+   both --soft_raster true``, and the second approach on the v3 and
+   fused-pool routes: losses within rtol 1e-3.
 6. The wall seconds of each phase, the card's name and power limit, one
    JSON line with the kernels' results, then the last line
    ``{"ok": true, "device": {...}}``.
@@ -127,8 +142,14 @@ VERTEX_RUNS = {
 # get the 1/z plane and its compare with the K-th slot ("eligible").
 # Insertions into the K slots are not counted.
 PAIR_OPS = {"hard": 20, "soft": 34, "topk_test": 26, "topk_eligible": 5}
+V3_KERNELS = ("conv1_1_gram", "conv1_1_gram_bwd")
+ROUTE_ENV = ("ST3D_NO_STAGE1_V2", "ST3D_NO_PACKED1", "ST3D_STAGE1",
+             "ST3D_FUSED_POOL")
 ROUTES = {
     "default": ({}, set(KERNELS)),
+    "v3": ({"ST3D_STAGE1": "v3"},
+           set(KERNELS) - {"conv1_1_stats", "conv1_1_bwd"} | set(V3_KERNELS)),
+    "fused_pool": ({"ST3D_FUSED_POOL": "1"}, set(KERNELS)),
     "pr1": ({"ST3D_NO_STAGE1_V2": "1", "ST3D_NO_PACKED1": "1"},
             {"raster_hard", "conv3x3_nhwc", "gram_nhwc"}),
     "k5": ({"ST3D_NO_STAGE1_V2": "1"},
@@ -142,6 +163,9 @@ VGG_K2_CONVS = [
     (512, 512, 64), (512, 512, 64), (512, 512, 64), (512, 512, 32),
 ]
 GRAM_SHAPES = [(256, 128), (128, 256), (64, 512), (32, 512)]   # (H, C)
+# (Cin = Cout, H) of the pre-pool convs K8 runs at 512²: conv2_2, conv3_4,
+# conv4_4.
+K8_CONVS = [(128, 256), (256, 128), (512, 64)]
 
 
 def fail(msg):
@@ -486,6 +510,84 @@ def raster_stream_check(dev):
                       raster_bytes(coeffs, 12, ranges, 8, SIZE), F32_FLOPS)
 
 
+def _tie_check(fv, p_a, p_b, z):
+    """Where the mesh ids p_a and p_b (N, S, S) differ, both faces must cover
+    the pixel with 1/z bit-equal to 1/z (the planes evaluated as the kernels
+    do); returns the number of such pixels."""
+    import torch
+    from st3d_torch.kernels.raster import face_coeffs
+
+    v, y, x = torch.nonzero(p_a != p_b, as_tuple=True)
+    planes = face_coeffs(fv)
+    for ids in (p_a[v, y, x], p_b[v, y, x]):
+        blk = planes[v, :, ids.long()]
+        px, py = x.float(), y.float()
+        b = [px * blk[:, r] + py * blk[:, r + 1] + blk[:, r + 2]
+             for r in (0, 3, 6, 9)]
+        cover = (b[0] >= 0) & (b[1] >= 0) & (b[2] >= 0)
+        if not (bool(cover.all()) and torch.equal(1.0 / b[3], z[v, y, x])):
+            fail("K9 and K1 differ at a pixel that is not an exact 1/z tie")
+    return int(v.numel())
+
+
+def raster_2d_check(dev):
+    """K9 against its plain version at 512² x 4, ico level 4, and against K1
+    at level 7 (327,680 faces): zbuf bit-equal, ids apart only at ties."""
+    import torch
+    from st3d_torch.kernels import raster as kr
+
+    fv, coeffs1, bounds1 = sphere_faces(dev, ICO_LEVEL, SIZE)
+    coeffs, bounds, _ = kr.preprocess_2d(fv, SIZE)
+    p2f, z = kr.raster_2d(coeffs, bounds, SIZE, SIZE)
+    p2f_p, z_p = kr.raster_2d_plain(coeffs, bounds, SIZE, SIZE)
+    torch.cuda.synchronize()
+    mismatch = int((p2f != p2f_p).sum())
+    hit = p2f_p >= 0
+    zerr = float((z - z_p).abs().max())
+    zrel = float(((z - z_p).abs() / z_p.abs())[hit].max())
+    print(f"K9 raster_2d level {ICO_LEVEL}: pix_to_face mismatches "
+          f"{mismatch}, zbuf max rel err {zrel:.3g}")
+    if mismatch or zrel > 1e-6:
+        fail(f"K9 differs from its plain version: {mismatch} ids, zbuf rel "
+             f"{zrel}")
+    ms = cuda_ms(lambda: kr.raster_2d(coeffs, bounds, SIZE, SIZE))
+    plain_ms = cuda_ms(lambda: kr.raster_2d_plain(coeffs, bounds, SIZE,
+                                                  SIZE), reps=3, warmup=1)
+    k1_ms = cuda_ms(lambda: kr.raster_hard(coeffs1, bounds1, SIZE, SIZE))
+    ties = {}
+    for level in (ICO_LEVEL, STREAM_LEVEL):
+        fv = sphere_faces(dev, level, SIZE)[0]
+        got = kr.rasterize_2d_batched(fv, SIZE)
+        want = kr.rasterize_batched(fv, SIZE, stream=False)
+        torch.cuda.synchronize()
+        if not torch.equal(got[1], want[1]):
+            fail(f"K9 zbuf differs from K1's at level {level}")
+        ties[level] = _tie_check(fv, got[0], want[0], got[1])
+        print(f"K9 vs K1 at {fv.shape[1]} faces x {SIZE}² x {VIEWS}: zbuf "
+              f"bit-equal, ids differ at {ties[level]} px, each an exact "
+              f"1/z tie")
+    c7, b7, _ = kr.preprocess_2d(fv, SIZE)
+    ms7 = cuda_ms(lambda: kr.raster_2d(c7, b7, SIZE, SIZE), reps=3, warmup=1)
+    k7 = kr.preprocess(fv)
+    k1_ms7 = cuda_ms(lambda: kr.raster_hard(k7[0], k7[1], SIZE, SIZE),
+                     reps=3, warmup=1)
+    pairs = needed_pairs(coeffs, SIZE, 0.0)
+    print(f"K9 raster_2d level {ICO_LEVEL}: kernel {ms:.3f} ms (K1 "
+          f"{k1_ms:.3f}), plain {plain_ms:.3f} ms, {pairs} pairs needed "
+          f"(bbox); at 327,680 faces {ms7:.3f} ms (K1 {k1_ms7:.3f})")
+    rec = {"name": "raster_2d", "route": "cuda",
+           "source": "st3d_torch/csrc/raster_2d.cu",
+           "replaces": "st3d/kernels/raster_pallas.py:885",
+           "max_abs_err": zerr, "ms": ms, "plain_ms": plain_ms,
+           "k1_ms": k1_ms, "ms_327680_faces": ms7,
+           "k1_ms_327680_faces": k1_ms7,
+           "tie_pixels_vs_k1": {str(k): v for k, v in ties.items()},
+           "path": "none: no entry point calls K9, in the JAX package or "
+                   "the port"}
+    return with_bound(rec, pairs * PAIR_OPS["hard"],
+                      raster_bytes(coeffs, 12, bounds, 8, SIZE), F32_FLOPS)
+
+
 def conv_check(dev):
     import torch
     from st3d_torch.kernels.conv import (
@@ -749,6 +851,151 @@ def stage1_check(dev):
                        BF16_FLOPS) for n in KERNELS[3:]]
 
 
+def stage1v3_check(dev):
+    """Kernels E and F at the stage-1 shapes of the main path (4 x 512² x 3
+    -> 64), each against its plain version, bf16 and f32."""
+    import torch
+    from st3d_torch.kernels import stage1v3 as ks3
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    shape = (VIEWS, SIZE, SIZE)
+    res = {n: {"max_abs_err": 0.0} for n in V3_KERNELS}
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        name = str(dtype)[6:]
+        x = torch.rand(shape + (3,), generator=gen, device=dev).to(dtype)
+        w = (torch.randn((3, 3, 3, 64), generator=gen, device=dev)
+             * (2.0 / 27) ** 0.5).to(dtype)
+        b = (0.1 * torch.randn((64,), generator=gen, device=dev)).to(dtype)
+        dz = torch.randn(shape + (64,), generator=gen, device=dev).to(dtype)
+        # dG at 3e-2 makes y_r·S about a third of dz·mask, so F's Gram fold
+        # moves dx by tens of tolerances: held below, with S of the wrong
+        # image too.
+        dg = 3e-2 * torch.randn((VIEWS, 64, 64), generator=gen, device=dev)
+        sym = dg + dg.transpose(1, 2)
+
+        z, g64 = ks3.conv1_1_gram(x, w, b)
+        z_p, g_p = ks3.conv1_1_gram_plain(x, w, b)
+        errs = {"conv1_1_gram": _max_err(z, z_p, tol, f"E z {name}")}
+        rel = float(torch.linalg.norm(g64 - g_p) / torch.linalg.norm(g_p))
+        print(f"E conv1_1_gram {name} g64 rel fro err {rel:.3g}")
+        if rel > 1e-4:
+            fail(f"E g64 {name}: rel fro err {rel} > 1e-4")
+        dx = ks3.conv1_1_gram_bwd(x, dz, w, b, sym)
+        dx_p = ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)
+        errs["conv1_1_gram_bwd"] = _max_err(dx, dx_p, tol, f"F dx {name}")
+        for what, other in (("sym = 0", torch.zeros_like(sym)),
+                            ("S of the next image", sym.roll(1, 0))):
+            moved = float((ks3.conv1_1_gram_bwd_plain(x, dz, w, b, other)
+                           .float() - dx_p.float()).abs().max())
+            if not moved > 10 * tol * errs["conv1_1_gram_bwd"][1]:
+                fail(f"F dx {name}: {what} moves the plain dx by only "
+                     f"{moved}, so the check cannot hold the Gram fold")
+        torch.cuda.synchronize()
+        calls = {
+            "conv1_1_gram": (lambda: ks3.conv1_1_gram(x, w, b),
+                             lambda: ks3.conv1_1_gram_plain(x, w, b)),
+            "conv1_1_gram_bwd": (
+                lambda: ks3.conv1_1_gram_bwd(x, dz, w, b, sym),
+                lambda: ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)),
+        }
+        for n, (err, scale) in errs.items():
+            r = res[n]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            line = f"{n} {name} max err {err:.3g}/{scale:.3g}"
+            if dtype == torch.bfloat16:
+                r["ms"] = cuda_ms(calls[n][0], 5)
+                r["plain_ms"] = cuda_ms(calls[n][1], 3, 1)
+                line += (f"  kernel {r['ms']:.3f} ms plain "
+                         f"{r['plain_ms']:.3f} ms")
+            print(line)
+    # Bounds at bf16, 4 x 512²: E conv1_1 (27 -> 64) and the 64 x 64 Gram,
+    # reading x, writing z and g64; F the recompute, y_r·S and the
+    # transpose conv (64 -> 27), reading x and dz, writing dx.
+    px = VIEWS * SIZE * SIZE
+    work = {
+        "conv1_1_gram": (2 * px * 64 * (27 + 64),
+                         2 * px * (3 + 64) + 4 * VIEWS * 64 * 64),
+        "conv1_1_gram_bwd": (2 * px * 64 * (27 + 64 + 27),
+                             2 * px * (3 + 64 + 3) + 4 * VIEWS * 64 * 64),
+    }
+    meta = {"conv1_1_gram": "st3d/kernels/stage1v3_pallas.py:256",
+            "conv1_1_gram_bwd": "st3d/kernels/stage1v3_pallas.py:366"}
+    return [with_bound({"name": n, "route": "cuda",
+                        "source": f"st3d_torch/csrc/{n}.cu",
+                        "replaces": meta[n], **res[n]}, *work[n], BF16_FLOPS)
+            for n in V3_KERNELS]
+
+
+def k8_check(dev):
+    """Kernels C and D at K8's shapes (conv2_2, conv3_4, conv4_4 at 512²),
+    each against its plain version, bf16 and f32; times summed over the
+    three convs (bf16)."""
+    import torch
+    from st3d_torch.kernels import conv as kconv
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    names = ("conv3x3_relu_pool", "pool_route_conv3x3_bwd")
+    res = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+           for n in names}
+    work = {n: [0, 0] for n in names}
+    for c, h in K8_CONVS:
+        for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+            name = f"{c}->{c} {h}² {str(dtype)[6:]}"
+            x = torch.relu(torch.randn((VIEWS, h, h, c), generator=gen,
+                                       device=dev)).to(dtype)
+            w = (torch.randn((3, 3, c, c), generator=gen, device=dev)
+                 * (2.0 / (9 * c)) ** 0.5).to(dtype)
+            b = (0.1 * torch.randn((c,), generator=gen, device=dev)).to(dtype)
+            ct = torch.randn((VIEWS, h // 2, h // 2, c), generator=gen,
+                             device=dev).to(dtype)
+            pooled, idx = kconv.conv3x3_relu_pool(x, w, b)
+            p_p, idx_p = kconv.conv3x3_relu_pool_plain(x, w, b)
+            err_c = _max_err(pooled, p_p, tol, f"K8 C pooled {name}")
+            bad, sep = _idx_mismatches(
+                idx, idx_p, kconv.conv3x3_nhwc_plain(x, w, b, True),
+                tol * err_c[1])
+            if bad:
+                fail(f"K8 C idx {name}: {bad} mismatches where separated")
+            dz = kconv.pool_route_conv3x3_bwd(ct, p_p, idx_p, w)
+            dz_p = kconv.pool_route_conv3x3_bwd_plain(ct, p_p, idx_p, w)
+            err_d = _max_err(dz, dz_p, tol, f"K8 D dz {name}")
+            torch.cuda.synchronize()
+            line = (f"K8 {name}: C pooled err {err_c[0]:.3g}/{err_c[1]:.3g}, "
+                    f"idx mismatches where separated {bad} ({sep:.3f} of "
+                    f"the cells); D dz err {err_d[0]:.3g}/{err_d[1]:.3g}")
+            for n, err in zip(names, (err_c, err_d)):
+                res[n]["max_abs_err"] = max(res[n]["max_abs_err"], err[0])
+            if dtype == torch.bfloat16:
+                t = [cuda_ms(lambda: kconv.conv3x3_relu_pool(x, w, b), 5),
+                     cuda_ms(lambda: kconv.pool_route_conv3x3_bwd(
+                         ct, p_p, idx_p, w), 5)]
+                tp = [cuda_ms(lambda: kconv.conv3x3_relu_pool_plain(x, w, b),
+                              3, 1),
+                      cuda_ms(lambda: kconv.pool_route_conv3x3_bwd_plain(
+                          ct, p_p, idx_p, w), 3, 1)]
+                px = VIEWS * h * h
+                flops = 2 * 9 * c * c * px
+                nbytes = [2 * px * c + 3 * (px // 4) * c + 2 * 9 * c * c,
+                          5 * (px // 4) * c + 2 * px * c + 2 * 9 * c * c]
+                for i, n in enumerate(names):
+                    res[n]["ms"] += t[i]
+                    res[n]["plain_ms"] += tp[i]
+                    work[n][0] += flops
+                    work[n][1] += nbytes[i]
+                line += (f"  C {t[0]:.3f} ms (plain {tp[0]:.3f}), D "
+                         f"{t[1]:.3f} ms (plain {tp[1]:.3f})")
+            print(line)
+    print(f"K8 over conv2_2, conv3_4, conv4_4 (bf16): C "
+          f"{res[names[0]]['ms']:.3f} ms, D {res[names[1]]['ms']:.3f} ms")
+    meta = {"conv3x3_relu_pool": "st3d/kernels/conv_pallas.py:505",
+            "pool_route_conv3x3_bwd": "st3d/kernels/conv_pallas.py:527"}
+    return [with_bound({"name": f"{n} (K8)", "route": "cuda",
+                        "source": f"st3d_torch/csrc/{n}.cu",
+                        "replaces": meta[n],
+                        "shapes": "conv2_2, conv3_4, conv4_4 at 512² x 4",
+                        **res[n]}, *work[n], BF16_FLOPS) for n in names]
+
+
 def write_scene(root, size, seed, level=ICO_LEVEL):
     """Synthetic scene written with the port's own writers: an ico-sphere
     with spherical UVs and a seeded texture, plus a seeded style PNG."""
@@ -769,17 +1016,18 @@ def launch_counts():
     from st3d_torch.kernels import conv as kconv
     from st3d_torch.kernels import raster as kraster
     from st3d_torch.kernels import stage1 as ks1
+    from st3d_torch.kernels import stage1v3 as ks3
 
-    return (kraster.LAUNCHES, kconv.LAUNCHES, ks1.LAUNCHES)
+    return (kraster.LAUNCHES, kconv.LAUNCHES, ks1.LAUNCHES, ks3.LAUNCHES)
 
 
 def drive(path, route, run, raster="raster_hard"):
     """Run ``run()`` on a VGG route with every launch count set to 0 just
     before; fail unless exactly the route's kernels launched, with
-    ``raster`` as the visibility kernel. Returns the counts read just
-    after."""
+    ``raster`` as the visibility kernel (None: no raster kernel). Returns
+    the counts read just after."""
     env, want = ROUTES[route]
-    want = (want - {"raster_hard"}) | {raster}
+    want = (want - {"raster_hard"}) | ({raster} if raster else set())
     for counts in launch_counts():
         for k in counts:
             counts[k] = 0
@@ -795,6 +1043,46 @@ def drive(path, route, run, raster="raster_hard"):
         fail(f"{path} on route {route}: launched {sorted(ran)}, want "
              f"{sorted(want)}")
     return launches
+
+
+def check_fused_pool_counts(default, fused):
+    """The fused-pool route against the default one over the same epochs:
+    C and D launch four times as often (conv1_2, conv2_2, conv3_4, conv4_4
+    instead of conv1_2 alone), and each C or D launch at K8's convs
+    replaces a K2 launch: three K2 launches fewer per C and per D."""
+    c, d = "conv3x3_relu_pool", "pool_route_conv3x3_bwd"
+    want_k2 = default["conv3x3_nhwc"] - 3 * (default[c] + default[d])
+    if (fused[c] != 4 * default[c] or fused[d] != 4 * default[d]
+            or fused["conv3x3_nhwc"] != want_k2):
+        fail(f"fused-pool counts C {fused[c]} D {fused[d]} K2 "
+             f"{fused['conv3x3_nhwc']}, want {4 * default[c]}, "
+             f"{4 * default[d]}, {want_k2}")
+    print(f"fused-pool route: C {default[c]} -> {fused[c]}, D {default[d]} "
+          f"-> {fused[d]}, K2 {default['conv3x3_nhwc']} -> "
+          f"{fused['conv3x3_nhwc']} launches over {EPOCHS} epochs")
+
+
+def route_entries(kernels, default, routes):
+    """Launch counts on the opt-in routes: E and F get theirs from the v3
+    run; K10c/K10d (C and D at stage 1's shapes, as measured there) and K8
+    (C and D at its own shapes) are added as entries of their own."""
+    by_name = {k["name"]: k for k in kernels}
+    for n in V3_KERNELS:
+        by_name[n]["launches"] = routes["v3"][n]
+    out = []
+    for n, k10, line in (
+            ("conv3x3_relu_pool", "K10c", "st3d/kernels/stage1v3_pallas.py:286"),
+            ("pool_route_conv3x3_bwd", "K10d",
+             "st3d/kernels/stage1v3_pallas.py:345")):
+        rec = dict(by_name[n], name=f"{n} ({k10})", replaces=line,
+                   launches=routes["v3"][n])
+        for key in ("launches_texture_target", "launches_first_approach"):
+            rec.pop(key, None)
+        out.append(rec)
+        k8 = by_name[f"{n} (K8)"]
+        k8["launches"] = routes["fused_pool"][n]
+        k8["launches_at_k8_shapes"] = routes["fused_pool"][n] - default[n]
+    return out
 
 
 def check_outputs(out):
@@ -935,10 +1223,11 @@ def first_approach_path(tmp, obj, style, target="texture",
     return launches
 
 
-def hot_loop_a_ms(dev):
-    """ms per hot-loop-A step at 512² x 4 bf16: two synchronised runs of
-    ``style_transfer`` (after a warm-up), their difference over the
-    difference in steps, so the targets' set-up cancels."""
+def hot_loop_a_ms(dev, route="default"):
+    """ms per hot-loop-A step at 512² x 4 bf16 on a VGG route: two
+    synchronised runs of ``style_transfer`` (after a warm-up), their
+    difference over the difference in steps, so the targets' set-up
+    cancels; the route's VGG kernels must launch."""
     import torch
     from st3d_torch.engine.style_transfer2d import style_transfer
     from st3d_torch.models.vgg import init_random_vgg19
@@ -956,11 +1245,13 @@ def hot_loop_a_ms(dev):
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    run(3)
-    short, long = run(5), run(25)
+    times = []
+    drive("hot loop A", route,
+          lambda: times.extend([run(3), run(5), run(25)]), raster=None)
+    short, long = times[1:]
     ms = 1e3 * (long - short) / 20
-    print(f"hot loop A {SIZE}² x {VIEWS} bf16: {ms:.2f} ms per step "
-          f"(25 steps {long:.3f}s, 5 steps {short:.3f}s)")
+    print(f"hot loop A {SIZE}² x {VIEWS} bf16, route {route}: {ms:.2f} ms "
+          f"per step (25 steps {long:.3f}s, 5 steps {short:.3f}s)")
     return ms
 
 
@@ -976,19 +1267,28 @@ def small_parity(tmp):
               "float32", "--randomize_views", "False"]
     second = ["--epochs", "3", "--save_intermediate", "False"]
     entries = {
-        "second": (second_approach, second),
+        "second": (second_approach, second, "default"),
         "first": (first_approach, ["--n_style_transfer_steps", "5",
-                                   "--n_mse_steps", "5"]),
+                                   "--n_mse_steps", "5"], "default"),
         "second both soft": (second_approach, second + [
-            "--optimization_target", "both", "--soft_raster", "true"]),
+            "--optimization_target", "both", "--soft_raster", "true"],
+            "default"),
+        "second v3": (second_approach, second, "v3"),
+        "second fused_pool": (second_approach, second, "fused_pool"),
     }
-    for entry, (fn, extra) in entries.items():
+    for entry, (fn, extra, route) in entries.items():
         runs = {}
-        for device in ("cuda", "cpu"):
-            out = os.path.join(tmp, f"small_{entry.replace(' ', '_')}_"
-                               f"{device}")
-            fn(common + extra + ["--device", device, "--output_path", out])
-            runs[device] = read_log(out)
+        os.environ.update(ROUTES[route][0])
+        try:
+            for device in ("cuda", "cpu"):
+                out = os.path.join(tmp, f"small_{entry.replace(' ', '_')}_"
+                                   f"{device}")
+                fn(common + extra + ["--device", device, "--output_path",
+                                     out])
+                runs[device] = read_log(out)
+        finally:
+            for k in ROUTES[route][0]:
+                os.environ.pop(k)
         rel = max(abs(a - b) / abs(b)
                   for a, b in zip(runs["cuda"], runs["cpu"]))
         print(f"64² f32 {entry} GPU vs CPU losses: {runs['cuda']} "
@@ -1009,7 +1309,7 @@ def main():
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    for k in ("ST3D_NO_STAGE1_V2", "ST3D_NO_PACKED1", "ST3D_STAGE1"):
+    for k in ROUTE_ENV:
         os.environ.pop(k, None)
     seconds = {}
     mark = [time.perf_counter()]
@@ -1029,6 +1329,8 @@ def main():
     kernels += [raster_soft_check(dev), raster_stream_check(dev),
                 raster_topk_check(dev)]
     lap("K1-soft, K6, K7 checks")
+    kernels += stage1v3_check(dev) + k8_check(dev) + [raster_2d_check(dev)]
+    lap("E, F, K8, K9 checks")
     with tempfile.TemporaryDirectory() as tmp:
         scenes = {level: write_scene(tmp, SIZE, seed=0, level=level)
                   for level in (ICO_LEVEL, STREAM_LEVEL)}
@@ -1037,6 +1339,9 @@ def main():
         texture = second_approach_path(tmp, obj, style, "default", EPOCHS)
         for route in ("pr1", "k5"):
             second_approach_path(tmp, obj, style, route, ROUTE_EPOCHS)
+        routes = {r: second_approach_path(tmp, obj, style, r, EPOCHS)
+                  for r in ("v3", "fused_pool")}
+        check_fused_pool_counts(texture, routes["fused_pool"])
         lap("texture target")
         vertex = {}
         for mode, (target, *_) in VERTEX_RUNS.items():
@@ -1046,6 +1351,7 @@ def main():
         first_approach_path(tmp, obj, style, "both",
                             (FA_BOTH_STEPS, FA_BOTH_STEPS))
         hot_loop_a_ms(dev)
+        hot_loop_a_ms(dev, "v3")
         lap("first approach")
         small_parity(tmp)
         lap("64² parity")
@@ -1057,9 +1363,11 @@ def main():
     for mode, (*_, kernel) in VERTEX_RUNS.items():
         mode_of.setdefault(kernel, mode)
     for k in kernels:
-        k["launches"] = vertex[mode_of.get(k["name"], "hard")][k["name"]]
+        k["launches"] = vertex[mode_of.get(k["name"], "hard")].get(
+            k["name"], 0)
         k["launches_texture_target"] = texture.get(k["name"], 0)
         k["launches_first_approach"] = first.get(k["name"], 0)
+    kernels += route_entries(kernels, texture, routes)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

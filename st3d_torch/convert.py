@@ -1,6 +1,9 @@
 """Carry weights and state across from the JAX package, given as NumPy
 arrays (``jax.random`` and ``torch`` draw different bits from one seed, so
-parity tests build a model in JAX and load it here)."""
+parity tests build a model in JAX and load it here). Every VGG route of
+the port, the opt-in stage 1 v3 (kernels E, F) and fused-pool (K8) routes
+included, runs on the weights ``vgg19_from_numpy`` carries; no route has
+packed weights of its own."""
 
 from __future__ import annotations
 

@@ -31,13 +31,15 @@ ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # Per-source extra flags: the rasterizers' edge tests must not be contracted
 # into FMAs (see raster_hard.cu).
-RASTER_SOURCES = ("raster_hard", "raster_soft", "raster_stream", "raster_topk")
+RASTER_SOURCES = ("raster_hard", "raster_soft", "raster_stream", "raster_topk",
+                  "raster_2d")
 EXTRA_FLAGS: Dict[str, List[str]] = {n: ["-fmad=false"]
                                      for n in RASTER_SOURCES}
 
 KERNEL_SOURCES = RASTER_SOURCES + (
     "conv3x3_nhwc", "gram_nhwc", "conv1_1_stats", "conv1_1_bwd",
-    "conv3x3_relu_pool", "pool_route_conv3x3_bwd")
+    "conv3x3_relu_pool", "pool_route_conv3x3_bwd", "conv1_1_gram",
+    "conv1_1_gram_bwd")
 DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -15,7 +15,8 @@ kernels:
   bias + ReLU + 2x2 max-pool with the window index, and the input gradient
   routed by that index. Together they are ``conv3x3_bias_relu_pool_packed``
   (K5), and ``kernels/stage1.py`` runs them as conv1_2 of stage 1 (K4b,
-  K4d). They take any Cin/Cout, so they also compute K8's function.
+  K4d; K10c, K10d under v3). They take any Cin/Cout, so they are also
+  ``conv3x3_bias_relu_pool`` (K8, the ``ST3D_FUSED_POOL`` route).
 
 Each wrapper takes its kernel for a CUDA tensor and its plain PyTorch
 version, defined beside it, for a CPU tensor; nothing else. The plain
@@ -404,3 +405,11 @@ def conv3x3_bias_relu_pool_packed(x: torch.Tensor, w: torch.Tensor,
     forward ``conv3x3_relu_pool``, backward ``pool_route_conv3x3_bwd``. The
     TPU's space-to-depth packing has no counterpart; the name is kept."""
     return _Conv3x3BiasReluPool.apply(x, w, b)
+
+
+# K8 (conv_pallas.py:505 ``conv3x3_bias_relu_pool``, the route
+# ``ST3D_FUSED_POOL``) computes the same function for the pre-pool convs of
+# any width, its backward (``_brp``, :527) masking by ``pooled > 0`` and
+# routing by idx before the transpose conv: kernels C and D, under the JAX
+# name.
+conv3x3_bias_relu_pool = conv3x3_bias_relu_pool_packed

@@ -1,5 +1,5 @@
-"""Visibility kernels K1 (hard and soft), K6 (streaming) and K7 (top-K), and
-the preprocessing around them.
+"""Visibility kernels K1 (hard and soft), K6 (streaming), K7 (top-K) and K9
+(2D tiles), and the preprocessing around them.
 
 Counterpart of ``st3d/kernels/raster_pallas.py``:
 
@@ -25,10 +25,16 @@ Counterpart of ``st3d/kernels/raster_pallas.py``:
      used for meshes whose coefficients pass ``RESIDENT_COEFF_BUDGET``.
    - ``raster_topk`` (K7, ``csrc/raster_topk.cu``): per pixel, the K
      nearest-by-raw-1/z faces with signed distance > -window, near to far.
+   - ``raster_2d`` (K9, ``csrc/raster_2d.cu``): K1's hard outputs on
+     16 x 16 pixel tiles over faces in Morton order (``preprocess_2d``),
+     each chunk culled in x and y; exact 1/z ties go to the lowest
+     Morton-sorted id, not K1's lowest y-sorted one.
 
-4. ``rasterize_batched``, ``rasterize_batched_soft`` and
-   ``rasterize_topk_batched`` run preprocessing and kernel for a view batch
-   and map sorted ids back to mesh ids.
+4. ``rasterize_batched``, ``rasterize_batched_soft``,
+   ``rasterize_topk_batched`` and ``rasterize_2d_batched`` run
+   preprocessing and kernel for a view batch and map sorted ids back to
+   mesh ids. No entry point calls ``rasterize_2d_batched``, as none of the
+   JAX package calls its K9.
 
 Soft culling is tile-dependent for pixels farther than the margin from
 every face (their nearest face is whatever survives the cull), so the soft
@@ -61,7 +67,9 @@ MAX_TOPK = 16         # slots the top-K kernel is instantiated for
 RESIDENT_COEFF_BUDGET = 7 * 1024 * 1024
 
 LAUNCHES: Dict[str, int] = {"raster_hard": 0, "raster_soft": 0,
-                            "raster_stream": 0, "raster_topk": 0}
+                            "raster_stream": 0, "raster_topk": 0,
+                            "raster_2d": 0}
+TILE_2D = 16          # pixels per side of K9's tile (csrc/raster_2d.cu)
 
 
 def face_coeffs(face_verts: torch.Tensor) -> torch.Tensor:
@@ -129,31 +137,37 @@ def face_coeffs(face_verts: torch.Tensor) -> torch.Tensor:
     return torch.stack(planes, dim=-2)
 
 
-def preprocess(face_verts: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(N, F, 3, 3) -> coeffs (N, 20, F_pad) in y-sorted order, chunk
-    bounds (N, 2, n_chunks) = [ymin; ymax] per chunk, and the sort order
-    (N, F) (raster_pallas.py:275-312)."""
-    n, f = face_verts.shape[0], face_verts.shape[1]
-    n_chunks = max(1, -(-f // FACE_CHUNK))
-    f_pad = n_chunks * FACE_CHUNK
-    fv = face_verts.float()
-    zs, ys = fv[..., 2], fv[..., 1]
+def _face_boxes(fv: torch.Tensor):
+    """Per face of (N, F, 3, 3) float32 screen verts: valid (z > Z_EPS at
+    every vertex, |area| > AREA_EPS) and the screen bbox ymin, ymax, xmin,
+    xmax, with (inf, -inf) for invalid faces so they sort last and bound
+    nothing."""
     x0, y0 = fv[:, :, 0, 0], fv[:, :, 0, 1]
     x1, y1 = fv[:, :, 1, 0], fv[:, :, 1, 1]
     x2, y2 = fv[:, :, 2, 0], fv[:, :, 2, 1]
     area = (x1 - x0) * (y2 - y0) - (y1 - y0) * (x2 - x0)
-    valid = torch.all(zs > Z_EPS, dim=2) & (torch.abs(area) > AREA_EPS)
+    valid = torch.all(fv[..., 2] > Z_EPS, dim=2) & (torch.abs(area)
+                                                   > AREA_EPS)
     inf = torch.full_like(area, float("inf"))
-    ymin = torch.where(valid, ys.amin(dim=2), inf)
-    ymax = torch.where(valid, ys.amax(dim=2), -inf)
-    order = torch.argsort(ymin, dim=1, stable=True)   # invalid faces last
+    ys, xs = fv[..., 1], fv[..., 0]
+    return valid, (torch.where(valid, ys.amin(dim=2), inf),
+                   torch.where(valid, ys.amax(dim=2), -inf),
+                   torch.where(valid, xs.amin(dim=2), inf),
+                   torch.where(valid, xs.amax(dim=2), -inf))
 
+
+def _sort_and_chunk(fv: torch.Tensor, key: torch.Tensor, lims):
+    """Faces sorted by ``key`` (stable), cut into FACE_CHUNK-face chunks:
+    coeffs (N, 20, F_pad), bounds (N, len(lims), n_chunks) with the min of
+    each even-indexed lim and the max of each odd one per chunk, and the
+    order (N, F). Padding columns never cover a pixel."""
+    n, f = fv.shape[0], fv.shape[1]
+    n_chunks = max(1, -(-f // FACE_CHUNK))
+    pad = n_chunks * FACE_CHUNK - f
+    order = torch.argsort(key, dim=1, stable=True)
     idx = order[:, :, None, None].expand(n, f, 3, 3)
     coeffs = face_coeffs(torch.gather(fv, 1, idx))      # (N, 20, F)
-    ymin_s = torch.gather(ymin, 1, order)
-    ymax_s = torch.gather(ymax, 1, order)
-    pad = f_pad - f
+    lims = [torch.gather(t, 1, order) for t in lims]
     if pad:
         pad_col = torch.zeros((N_COEFF_ROWS,), dtype=coeffs.dtype,
                               device=coeffs.device)
@@ -163,12 +177,54 @@ def preprocess(face_verts: torch.Tensor
         coeffs = torch.cat(
             [coeffs, pad_col[None, :, None].expand(n, N_COEFF_ROWS, pad)],
             dim=2)
-        ymin_s = torch.cat([ymin_s, inf[:, :1].expand(n, pad)], dim=1)
-        ymax_s = torch.cat([ymax_s, -inf[:, :1].expand(n, pad)], dim=1)
-    chunk_ymin = ymin_s.reshape(n, n_chunks, FACE_CHUNK).amin(dim=2)
-    chunk_ymax = ymax_s.reshape(n, n_chunks, FACE_CHUNK).amax(dim=2)
-    bounds = torch.stack([chunk_ymin, chunk_ymax], dim=1)
+        fill = torch.full((n, pad), float("inf"), device=fv.device)
+        lims = [torch.cat([t, fill if i % 2 == 0 else -fill], dim=1)
+                for i, t in enumerate(lims)]
+    chunks = [t.reshape(n, n_chunks, FACE_CHUNK) for t in lims]
+    bounds = torch.stack([c.amin(dim=2) if i % 2 == 0 else c.amax(dim=2)
+                          for i, c in enumerate(chunks)], dim=1)
     return coeffs.contiguous(), bounds.contiguous(), order
+
+
+def preprocess(face_verts: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(N, F, 3, 3) -> coeffs (N, 20, F_pad) in y-sorted order, chunk
+    bounds (N, 2, n_chunks) = [ymin; ymax] per chunk, and the sort order
+    (N, F) (raster_pallas.py:275-312)."""
+    fv = face_verts.float()
+    _, (ymin, ymax, _, _) = _face_boxes(fv)
+    return _sort_and_chunk(fv, ymin, (ymin, ymax))
+
+
+def morton_codes(cx: torch.Tensor, cy: torch.Tensor,
+                 size: float) -> torch.Tensor:
+    """Interleave the 10-bit quantised (x, y) bbox centres into int32
+    Morton codes (raster_pallas.py:869 ``_morton_codes``). Its masks spread
+    only the low 8 bits of each coordinate; they are kept (ROADMAP F9)."""
+
+    def spread(v):
+        v = v & 0x3FF
+        v = (v | (v << 8)) & 0x00F00F
+        v = (v | (v << 4)) & 0x0C30C3
+        return (v | (v << 2)) & 0x249249
+
+    qx = torch.clamp(cx / size * 1024.0, 0, 1023).to(torch.int32)
+    qy = torch.clamp(cy / size * 1024.0, 0, 1023).to(torch.int32)
+    return spread(qx) | (spread(qy) << 1)
+
+
+def preprocess_2d(face_verts: torch.Tensor, image_size: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(N, F, 3, 3) -> coeffs (N, 20, F_pad) in Morton order of the bbox
+    centres, chunk bounds (N, 4, n_chunks) = [ymin; ymax; xmin; xmax] per
+    chunk, and the sort order (N, F) (raster_pallas.py:958-999): invalid
+    faces get code 2³⁰ and sort last."""
+    fv = face_verts.float()
+    valid, (ymin, ymax, xmin, xmax) = _face_boxes(fv)
+    code = morton_codes((xmin + xmax) * 0.5, (ymin + ymax) * 0.5,
+                        float(image_size))
+    code = torch.where(valid, code, torch.full_like(code, 2 ** 30))
+    return _sort_and_chunk(fv, code, (ymin, ymax, xmin, xmax))
 
 
 def soft_cull_margin(soft_sigma_px: float) -> float:
@@ -247,18 +303,23 @@ def _chunk_planes(blk: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
 
 
 def _scan_plain(coeffs: torch.Tensor, active: torch.Tensor, h: int, w: int,
-                tile: int, soft: bool):
-    """Shared plain body of K1, K1-soft and K6: chunk c is tested at the pixels
-    of every tile t with ``active[v, t, c]``, in chunk order; hard
+                tile: int, soft: bool,
+                tile_pix: Optional[torch.Tensor] = None):
+    """Shared plain body of K1, K1-soft, K6 and K9: chunk c is tested at the
+    pixels of every tile t with ``active[v, t, c]``, in chunk order; hard
     selection by strict '>' on 1/z over a first-index chunk maximum, soft
     ``nearest`` the same on the signed distance from -3e38 and id 0.
-    Only the active (pixel, chunk) pairs are evaluated."""
+    Only the active (pixel, chunk) pairs are evaluated. A tile's pixels are
+    ``tile_pix[t]`` (flat indices, ``h*w`` past the image), by default the
+    run of ``tile`` flat pixels from ``t*tile``."""
     n, _, f_pad = coeffs.shape
     hw = h * w
     dev = coeffs.device
     flat = torch.arange(hw, device=dev)
     pxf, pyf = (flat % w).float(), (flat // w).float()
-    lane = torch.arange(tile, device=dev)
+    if tile_pix is None:
+        tile_pix = torch.arange(active.shape[1] * tile,
+                                device=dev).reshape(-1, tile)
     rows = SOFT_ROWS if soft else HARD_ROWS
     p2f = torch.empty((n, hw), dtype=torch.int32, device=dev)
     zbuf = torch.empty((n, hw), dtype=torch.float32, device=dev)
@@ -270,8 +331,7 @@ def _scan_plain(coeffs: torch.Tensor, active: torch.Tensor, h: int, w: int,
         sid = torch.zeros(hw, dtype=torch.int64, device=dev)
         act = active[v]
         for c in torch.nonzero(act.any(dim=0)).reshape(-1).tolist():
-            tiles = torch.nonzero(act[:, c]).reshape(-1)
-            sel = (tiles[:, None] * tile + lane).reshape(-1)
+            sel = tile_pix[torch.nonzero(act[:, c]).reshape(-1)].reshape(-1)
             sel = sel[sel < hw]
             blk = coeffs[v, :rows, c * FACE_CHUNK:(c + 1) * FACE_CHUNK]
             b0, b1, b2, iz, sd = _chunk_planes(blk, pxf[sel, None],
@@ -322,6 +382,43 @@ def raster_stream_plain(coeffs: torch.Tensor, ranges: torch.Tensor, h: int,
               & (c[None, None, :] <= ranges[..., 1:2]))
     p2f, zbuf, near = _scan_plain(coeffs, active, h, w, tile, soft)
     return p2f, zbuf, (near if soft else None)
+
+
+def tiles_2d(h: int, w: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9's 16 x 16 tiles, row-major: their flat pixel indices (n_tiles,
+    256), ``h*w`` past the image, and their extents (4, n_tiles) = first
+    and last row, first and last column (float32, not clipped)."""
+    t = TILE_2D
+    ty = torch.arange(-(-h // t), device=device)
+    tx = torch.arange(-(-w // t), device=device)
+    y = ty[:, None, None, None] * t + torch.arange(t, device=device)[
+        None, None, :, None]
+    x = tx[None, :, None, None] * t + torch.arange(t, device=device)[
+        None, None, None, :]
+    pix = torch.where((y < h) & (x < w), y * w + x, h * w)
+    ext = torch.stack(torch.broadcast_tensors(
+        (ty * t)[:, None], (ty * t + t - 1)[:, None],
+        (tx * t)[None, :], (tx * t + t - 1)[None, :])).float()
+    return pix.reshape(-1, t * t), ext.reshape(4, -1)
+
+
+def cull_2d(bounds: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(N, n_tiles, n_chunks): chunk c's (ymin, ymax, xmin, xmax) bounds
+    meet tile t's rows and columns (K9's per-chunk cull test)."""
+    _, ext = tiles_2d(h, w, bounds.device)
+    b = bounds[:, :, None, :]                       # (N, 4, 1, n_chunks)
+    e = ext[None, :, :, None]                       # (1, 4, n_tiles, 1)
+    return ((b[:, 1] >= e[:, 0]) & (b[:, 0] <= e[:, 1])
+            & (b[:, 3] >= e[:, 2]) & (b[:, 2] <= e[:, 3]))
+
+
+def raster_2d_plain(coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
+                    w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K9: (p2f (N, H*W) int32 in Morton-sorted ids, zbuf
+    (N, H*W)), chunk c tested on a 16 x 16 tile where ``cull_2d`` says."""
+    pix, _ = tiles_2d(h, w, coeffs.device)
+    return _scan_plain(coeffs, cull_2d(bounds, h, w), h, w,
+                       TILE_2D * TILE_2D, False, pix)[:2]
 
 
 def _insert(slot_s, slot_i, new_s, new_i):
@@ -496,6 +593,27 @@ def raster_topk(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int,
     return ids
 
 
+def raster_2d(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K9 on faces from ``preprocess_2d``: coeffs (N, 20, F_pad) float32,
+    bounds (N, 4, n_chunks) -> (p2f (N, H*W) int32 Morton-sorted ids, zbuf
+    (N, H*W))."""
+    n, _, f_pad = coeffs.shape
+    if _check_coeffs("raster_2d", coeffs, bounds,
+                     (n, 4, f_pad // FACE_CHUNK), torch.float32):
+        return raster_2d_plain(coeffs, bounds, h, w)
+    coeffs, bounds = coeffs.contiguous(), bounds.contiguous()
+    p2f = torch.empty((n, h * w), dtype=torch.int32, device=coeffs.device)
+    zbuf = torch.empty((n, h * w), dtype=torch.float32, device=coeffs.device)
+    fn = build.symbol("raster_2d", "st3d_raster_2d", 4, 5)
+    err = fn(coeffs.data_ptr(), bounds.data_ptr(), p2f.data_ptr(),
+             zbuf.data_ptr(), n, h, w, f_pad, f_pad // FACE_CHUNK,
+             build.stream_handle(coeffs.device))
+    build.check(err, "raster_2d")
+    LAUNCHES["raster_2d"] += 1
+    return p2f, zbuf
+
+
 # ---------------------------------------------------------------------------
 # View-batch entry points (mesh face ids out)
 # ---------------------------------------------------------------------------
@@ -571,3 +689,19 @@ def rasterize_topk_batched(face_verts: torch.Tensor, image_size: int, k: int,
         ids = raster_topk(coeffs, bounds, s, s, k, float(window_px))
         ids = _to_mesh_ids(order, ids.reshape(n, s * s * k))
     return ids.reshape(n, s, s, k)
+
+
+def rasterize_2d_batched(face_verts: torch.Tensor, image_size: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``rasterize_batched``'s outputs through K9 (raster_pallas.py:1043
+    ``rasterize_pallas2d_batched``): pix_to_face (N, S, S) int32 mesh ids
+    and zbuf (N, S, S). On exact 1/z ties the lowest Morton-sorted face
+    wins. The JAX function's ``face_chunk`` has no counterpart: the output
+    does not depend on it."""
+    n = face_verts.shape[0]
+    s = image_size
+    with torch.no_grad():
+        coeffs, bounds, order = preprocess_2d(face_verts.detach(), s)
+        p2f, zbuf = raster_2d(coeffs, bounds, s, s)
+        p2f = _to_mesh_ids(order, p2f).reshape(n, s, s)
+    return p2f, zbuf.reshape(n, s, s)

@@ -1,0 +1,185 @@
+"""VGG stage 1, v3 (conv1_1, ReLU and the direct Gram of conv1_1's pre-ReLU
+output; conv1_2, ReLU and pool1), counterpart of
+``st3d/kernels/stage1v3_pallas.py`` (K10a-d), the route ``ST3D_STAGE1=v3``
+of ``models.vgg.get_features``.
+
+- ``conv1_1_relu_gram(x, w, b) -> (z, g64)``: z = relu(y) in x's dtype and
+  per image the float32 Gram g64 = y_rᵀ y_r (64, 64) of y rounded to x's
+  dtype, y = conv1_1(x) + b; differentiable in x through both. Forward:
+  kernel E ``conv1_1_gram`` (``csrc/conv1_1_gram.cu``, replaces K10a).
+  Backward: kernel F ``conv1_1_gram_bwd`` (``csrc/conv1_1_gram_bwd.cu``,
+  replaces K10b).
+- ``conv1_2_relu_pool_v3``: K10c and K10d compute the function of v2's
+  conv1_2 half, so they are kernels C and D (``kernels.stage1``).
+
+The rounding points are the TPU kernels' (stage1v3_pallas.py:135-151,
+264-275, 397-403, 603-628): weights and bias in the compute dtype, float32
+accumulation; z and y_r each rounded once; the backward recomputes y in
+float32, masks by y > 0, forms d = dz·mask + y_r·(dG + dGᵀ) in float32,
+rounds d once and takes its transpose conv (64 -> 3) with float32
+accumulation. This Gram is not kernel A's closed form: in bf16 the two
+differ systematically by the rounding of y (ROADMAP "Parity hazards").
+The TPU's phase-packed z5 is a reshape of NHWC; z stays NHWC.
+
+Each wrapper runs its kernel for a CUDA tensor and its plain PyTorch version
+(defined beside it) for a CPU tensor, and nothing else; ``LAUNCHES`` counts
+kernel launches.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from st3d_torch.kernels import build
+from st3d_torch.kernels.conv import conv3x3_nhwc_plain, transpose_weights
+from st3d_torch.kernels.stage1 import K27, conv1_2_relu_pool, patches27
+
+LAUNCHES: Dict[str, int] = {"conv1_1_gram": 0, "conv1_1_gram_bwd": 0}
+
+COUT = 64
+# Pixels per block of conv1_1_gram's first pass: 128 chunks per 512² image.
+GRAM_PIX_PER_BLOCK = 2048
+
+# K10c and K10d compute exactly the function of v2's conv1_2 + ReLU + pool
+# and its routed backward: kernels C and D.
+conv1_2_relu_pool_v3 = conv1_2_relu_pool
+
+
+def _operands(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Checks x (B,H,W,3), w (3,3,3,64), b (64,); returns w flattened to
+    (27, 64) and b, both in x's dtype."""
+    if x.dim() != 4 or x.shape[3] != 3 or tuple(w.shape) != (3, 3, 3, COUT) \
+            or tuple(b.shape) != (COUT,):
+        raise ValueError(
+            f"conv1_1 v3: want x (B,H,W,3), w (3,3,3,{COUT}), b ({COUT},), "
+            f"got {tuple(x.shape)}, {tuple(w.shape)}, {tuple(b.shape)}")
+    return w.reshape(K27, COUT).to(x.dtype), b.to(x.dtype)
+
+
+def _pre_relu(x: torch.Tensor, w27: torch.Tensor, b: torch.Tensor
+              ) -> torch.Tensor:
+    """float32 y = conv1_1(x) + b from the zero-padded patches."""
+    return patches27(x) @ w27.float() + b.float()
+
+
+# ---------------------------------------------------------------------------
+# Kernel E: conv1_1 + bias + ReLU and the direct pre-ReLU Gram
+# ---------------------------------------------------------------------------
+
+def conv1_1_gram_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``conv1_1_gram``: z = relu(y) and y_r rounded once
+    to ``x.dtype`` from the float32 y; g64 in float32 from y_r."""
+    w27, b = _operands(x, w, b)
+    y = _pre_relu(x, w27, b)
+    yr = y.to(x.dtype).float().reshape(x.shape[0], -1, COUT)
+    return torch.relu(y).to(x.dtype), yr.transpose(1, 2) @ yr
+
+
+def conv1_1_gram(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel E: (z (B,H,W,64) in ``x.dtype``, g64 (B,64,64) float32) for x
+    (B,H,W,3), w HWIO (3,3,3,64), b (64,); w and b are cast to x's dtype."""
+    w27, b = _operands(x, w, b)
+    if x.device.type == "cpu":
+        return conv1_1_gram_plain(x, w, b)
+    build.check_operands("conv1_1_gram", x, w27, b)
+    bsz, h, wd, _ = x.shape
+    chunks = -(-(h * wd) // GRAM_PIX_PER_BLOCK)
+    x, w27, b = x.contiguous(), w27.contiguous(), b.contiguous()
+    dev = x.device
+    z = torch.empty((bsz, h, wd, COUT), dtype=x.dtype, device=dev)
+    partial = torch.empty((bsz, chunks, COUT, COUT), dtype=torch.float32,
+                          device=dev)
+    g64 = torch.empty((bsz, COUT, COUT), dtype=torch.float32, device=dev)
+    fn = build.symbol("conv1_1_gram",
+                      "st3d_conv1_1_gram_" + build.DTYPE_SUFFIX[x.dtype], 6, 5)
+    err = fn(x.data_ptr(), w27.data_ptr(), b.data_ptr(), z.data_ptr(),
+             partial.data_ptr(), g64.data_ptr(), bsz, h, wd, chunks,
+             GRAM_PIX_PER_BLOCK, build.stream_handle(dev))
+    build.check(err, "conv1_1_gram")
+    LAUNCHES["conv1_1_gram"] += 1
+    return z, g64
+
+
+# ---------------------------------------------------------------------------
+# Kernel F: conv1_1's input gradient with the Gram cotangent folded in
+# ---------------------------------------------------------------------------
+
+def conv1_1_gram_bwd_plain(x: torch.Tensor, dz: torch.Tensor,
+                           w: torch.Tensor, b: torch.Tensor,
+                           sym: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``conv1_1_gram_bwd``: d = dz·[y > 0] + y_r·sym in
+    float32, rounded once to ``x.dtype``, then K2's plain transpose conv
+    (float32 sum, one rounding)."""
+    w27, b = _operands(x, w, b)
+    bsz = x.shape[0]
+    y = _pre_relu(x, w27, b)
+    yr = y.to(x.dtype).float().reshape(bsz, -1, COUT)
+    d = (torch.where(y > 0, dz.float(), torch.zeros((), device=dz.device))
+         + (yr @ sym.float()).reshape(y.shape)).to(x.dtype)
+    zb = torch.zeros(3, dtype=x.dtype, device=x.device)
+    return conv3x3_nhwc_plain(d, transpose_weights(w, x.dtype), zb)
+
+
+def conv1_1_gram_bwd(x: torch.Tensor, dz: torch.Tensor, w: torch.Tensor,
+                     b: torch.Tensor, sym: torch.Tensor) -> torch.Tensor:
+    """Kernel F: dx (B,H,W,3) in ``x.dtype`` from the forward's x, w and b,
+    the cotangent dz (B,H,W,64) of z and sym = dG + dGᵀ (B,64,64) float32
+    of g64."""
+    w27, b = _operands(x, w, b)
+    bsz = x.shape[0]
+    if dz.shape != x.shape[:3] + (COUT,):
+        raise ValueError(f"conv1_1_gram_bwd: dz {tuple(dz.shape)} does not "
+                         f"match x {tuple(x.shape)}")
+    if sym.shape != (bsz, COUT, COUT):
+        raise ValueError(f"conv1_1_gram_bwd: sym {tuple(sym.shape)}, want "
+                         f"{(bsz, COUT, COUT)}")
+    if x.device.type == "cpu":
+        return conv1_1_gram_bwd_plain(x, dz, w, b, sym)
+    build.check_operands("conv1_1_gram_bwd", x, dz, w27, b)
+    if sym.device != x.device or sym.dtype != torch.float32:
+        raise ValueError(f"conv1_1_gram_bwd: sym must be float32 on "
+                         f"{x.device}, got {sym.dtype} on {sym.device}")
+    _, h, wd, _ = x.shape
+    x, dz, sym = x.contiguous(), dz.contiguous(), sym.contiguous()
+    w27, b = w27.contiguous(), b.contiguous()
+    dx = torch.empty_like(x)
+    fn = build.symbol("conv1_1_gram_bwd",
+                      "st3d_conv1_1_gram_bwd_" + build.DTYPE_SUFFIX[x.dtype],
+                      6, 3)
+    err = fn(x.data_ptr(), dz.data_ptr(), w27.data_ptr(), b.data_ptr(),
+             sym.data_ptr(), dx.data_ptr(), bsz, h, wd,
+             build.stream_handle(x.device))
+    build.check(err, "conv1_1_gram_bwd")
+    LAUNCHES["conv1_1_gram_bwd"] += 1
+    return dx
+
+
+# ---------------------------------------------------------------------------
+# The autograd function
+# ---------------------------------------------------------------------------
+
+class _Conv11Gram(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b):
+        z, g64 = conv1_1_gram(x, w, b)
+        ctx.save_for_backward(x, w, b)
+        return z, g64
+
+    @staticmethod
+    def backward(ctx, dz, dg):
+        x, w, b = ctx.saved_tensors
+        # d(yᵀy)/dy applied to dG is y·(dG + dGᵀ) (stage1v3_pallas.py:603).
+        sym = (dg + dg.transpose(-1, -2)).float()
+        return conv1_1_gram_bwd(x, dz.to(x.dtype), w, b, sym), None, None
+
+
+def conv1_1_relu_gram(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(z, g64) of conv1_1, differentiable in ``x`` through both
+    (stage1v3_pallas.py:541 ``conv1_1_packed_v3``, unpacked)."""
+    return _Conv11Gram.apply(x, w, b)

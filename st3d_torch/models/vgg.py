@@ -5,23 +5,34 @@ conv4_2 and conv5_1 (torchvision indices 0, 5, 10, 19, 21, 28); inputs are
 raw [0, 1] RGB; the stack stops after conv5_1. Weights are frozen, stored
 HWIO, and activations run NHWC, as in the JAX package.
 
-``get_features`` dispatches as the JAX package does by default on a TPU
-(st3d/models/vgg.py:404-448, 496-520):
+``get_features`` dispatches as the JAX package does on a TPU
+(st3d/models/vgg.py:404-448, 496-540), its opt-in routes included:
   * stage 1: with ``gram1``, conv1_1 wanted, and H and W multiples of 8 (the
-    shape gate of ``_pallas_conv_ok``), conv1_1, its Gram statistics,
-    conv1_2 and pool1 are ``kernels.stage1``: ``conv1_1_relu_stats``
-    (kernels A/B) and ``conv1_2_relu_pool`` (C/D); conv1_1's Gram is
-    ``gram1_closed_form`` of the statistics. ``ST3D_NO_STAGE1_V2`` switches
-    this route off; ``ST3D_STAGE1=v3`` asks for kernels not ported yet (K10)
-    and raises. The JAX gate's other half, ``stage1_supported``'s band-row
-    checks (stage1_pallas.py:889-905), sizes TPU VMEM tiles and has no
-    counterpart here;
+    shape gate of ``_pallas_conv_ok``), conv1_1, its Gram, conv1_2 and pool1
+    are one of two stage-1 routes, and conv1_2 and pool1 are skipped after:
+    - v2, the default: ``kernels.stage1``'s ``conv1_1_relu_stats`` (kernels
+      A/B) and ``conv1_2_relu_pool`` (C/D); conv1_1's Gram is
+      ``gram1_closed_form`` of the statistics;
+    - v3, with ``ST3D_STAGE1=v3``: ``kernels.stage1v3``'s
+      ``conv1_1_relu_gram`` (E/F), whose Gram is the direct Gram of the
+      rounded pre-ReLU output, and ``conv1_2_relu_pool_v3`` (C/D).
+    ``ST3D_NO_STAGE1_V2`` switches both off. v3's shape gate (H and W
+    even, W/2 >= 2, stage1v3_pallas.py:499-518) holds wherever the
+    multiple-of-8 one does. The JAX gates' band checks
+    (``stage1_supported``, ``stage1_v3_supported``) size TPU VMEM tiles and
+    have no counterpart here: where v3's fails (images 8 rows high) the JAX
+    package runs v2 and the port v3;
   * otherwise conv1_1 is an im2col matmul, and with ``gram1`` its Gram comes
     from ``gram1_closed_form`` on the patch statistics, whose PᵀP is K3;
   * a non-tap conv followed by a pool, with Cin < 128 and even H and W
     (conv1_2 when stage 1 is off), is ``conv3x3_bias_relu_pool_packed``
     (K5: kernels C/D) and takes the pool with it; ``ST3D_NO_PACKED1``
     switches this route off;
+  * with ``ST3D_FUSED_POOL`` set, the other non-tap convs followed by a pool
+    (conv2_2, conv3_4, conv4_4, and conv1_2 under ``ST3D_NO_PACKED1``), with
+    even H and W, take the same ``conv3x3_bias_relu_pool_packed`` (K8, whose
+    JAX name ``conv3x3_bias_relu_pool`` is its alias in ``kernels/conv.py``)
+    and the pool with it;
   * conv2_1, conv3_1, conv4_1 and conv5_1 with ``gram1`` are
     ``conv3x3_bias_gram`` (K2 then K3; the taps come back as Grams);
   * the other non-tap layers are ``conv3x3_bias_relu`` (K2 with ReLU);
@@ -56,6 +67,7 @@ from st3d_torch.kernels.conv import (
     gram_nhwc_diff,
 )
 from st3d_torch.kernels.stage1 import conv1_1_relu_stats, conv1_2_relu_pool
+from st3d_torch.kernels.stage1v3 import conv1_1_relu_gram, conv1_2_relu_pool_v3
 
 VGG19_CFG: Tuple = (
     64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -200,21 +212,17 @@ def gram1_closed_form(ptp: torch.Tensor, s27: torch.Tensor, w: torch.Tensor,
             + float(n_pixels) * bf[None, :, None] * bf[None, None, :])
 
 
-def _stage1_route(x: torch.Tensor, gram1: bool, wanted) -> bool:
-    """Whether conv1_1 .. pool1 take the stage-1 kernels (vgg.py:219-238 of
-    the JAX package, less its TPU tiling checks)."""
+def _stage1_route(x: torch.Tensor, gram1: bool, wanted) -> Optional[str]:
+    """The stage-1 route conv1_1 .. pool1 take: "v2", "v3" or None for
+    none (vgg.py:219-238, 417-421 of the JAX package, less its TPU tiling
+    checks)."""
     if os.environ.get("ST3D_NO_STAGE1_V2"):
-        return False
+        return None
     if not (gram1 and "conv1_1" in wanted):
-        return False
+        return None
     if x.shape[1] % 8 or x.shape[2] % 8:
-        return False
-    if os.environ.get("ST3D_STAGE1") == "v3":
-        raise NotImplementedError(
-            "ST3D_STAGE1=v3: the stage-1 v3 kernels (K10a-d, "
-            "st3d/kernels/stage1v3_pallas.py) are not ported yet (ROADMAP "
-            "queue 2)")
-    return True
+        return None
+    return "v3" if os.environ.get("ST3D_STAGE1") == "v3" else "v2"
 
 
 def _packed_pool_route(x: torch.Tensor) -> bool:
@@ -222,6 +230,13 @@ def _packed_pool_route(x: torch.Tensor) -> bool:
     package): Cin < 128 and even H and W, unless ``ST3D_NO_PACKED1``."""
     return (x.shape[3] < 128 and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0
             and not os.environ.get("ST3D_NO_PACKED1"))
+
+
+def _fused_pool_route(x: torch.Tensor) -> bool:
+    """Whether a pre-pool non-tap conv that is not K5 takes K8 (vgg.py:521-535
+    of the JAX package): ``ST3D_FUSED_POOL`` set and H and W even."""
+    return bool(os.environ.get("ST3D_FUSED_POOL")) and (
+        x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0)
 
 
 def _max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -273,7 +288,15 @@ def get_features(images: torch.Tensor, model: VGG19,
         next_is_pool = (cfg_i + 1 < len(VGG19_CFG)
                         and VGG19_CFG[cfg_i + 1] == "M")
         did_relu = False
-        if conv_i == 0 and _stage1_route(x, gram1, wanted):
+        stage1 = _stage1_route(x, gram1, wanted) if conv_i == 0 else None
+        if stage1 == "v3":
+            z, feats["conv1_1:gram"] = conv1_1_relu_gram(x, w, b)
+            x, _ = conv1_2_relu_pool_v3(z, kernels[1].to(dtype),
+                                        biases[1].to(dtype))
+            skip_convs = 1             # conv1_2 consumed here
+            skip_pool = True           # pool1 consumed here
+            did_relu = True
+        elif stage1 == "v2":
             bsz, h, wd, _ = x.shape
             z, ptp, s27 = conv1_1_relu_stats(x, w, b)
             feats["conv1_1:gram"] = gram1_closed_form(
@@ -301,7 +324,9 @@ def get_features(images: torch.Tensor, model: VGG19,
         elif gram1 and conv_i in FUSED_GRAM_CONVS and name in wanted:
             x, g = conv3x3_bias_gram(x, w, b)
             feats[name + ":gram"] = g
-        elif name is None and next_is_pool and _packed_pool_route(x):
+        elif name is None and next_is_pool and (
+                _packed_pool_route(x) or _fused_pool_route(x)):
+            # K5 and K8 compute one function, kernels C/D.
             x, _ = conv3x3_bias_relu_pool_packed(x, w, b)
             skip_pool = True
             did_relu = True

@@ -351,3 +351,126 @@ def test_render_gradients_match_plain_path(dev, mode):
     for got, ref in zip(*outs):
         torch.testing.assert_close(got, ref, rtol=1e-4,
                                    atol=1e-4 * float(ref.abs().max()))
+
+
+# ---------------------------------------------------------------------------
+# Stage 1 v3 (E conv1_1_gram, F conv1_1_gram_bwd), C and D at K8's widths,
+# and K9 (G raster_2d)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("shape", [(2, 24, 40), (1, 37, 19)])
+def test_conv1_1_gram_kernel_matches_plain(dev, dtype, tol, shape):
+    from st3d_torch.kernels import stage1v3 as ks3
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    x = torch.rand(shape + (3,), generator=g, device=dev).to(dtype)
+    w = (torch.randn((3, 3, 3, 64), generator=g, device=dev) * 0.3).to(dtype)
+    b = (torch.randn((64,), generator=g, device=dev) * 0.1).to(dtype)
+    n0 = ks3.LAUNCHES["conv1_1_gram"]
+    z, g64 = ks3.conv1_1_gram(x, w, b)
+    z_p, g_p = ks3.conv1_1_gram_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert ks3.LAUNCHES["conv1_1_gram"] == n0 + 1
+    assert z.dtype == dtype and g64.dtype == torch.float32
+    assert _rel_err(z, z_p) <= tol
+    assert torch.linalg.norm(g64 - g_p) <= 1e-4 * torch.linalg.norm(g_p)
+    assert torch.equal(ks3.conv1_1_gram(x, w, b)[1], g64)   # deterministic
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("shape", [(2, 24, 40), (1, 37, 19)])
+def test_conv1_1_gram_bwd_kernel_matches_plain(dev, dtype, tol, shape):
+    from st3d_torch.kernels import stage1v3 as ks3
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    x = torch.rand(shape + (3,), generator=g, device=dev).to(dtype)
+    w = (torch.randn((3, 3, 3, 64), generator=g, device=dev) * 0.3).to(dtype)
+    b = (torch.randn((64,), generator=g, device=dev) * 0.1).to(dtype)
+    dz = torch.randn(shape + (64,), generator=g, device=dev).to(dtype)
+    dg = torch.randn((shape[0], 64, 64), generator=g, device=dev) * 1e-2
+    sym = dg + dg.transpose(1, 2)
+    n0 = ks3.LAUNCHES["conv1_1_gram_bwd"]
+    dx = ks3.conv1_1_gram_bwd(x, dz, w, b, sym)
+    ref = ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)
+    torch.cuda.synchronize()
+    assert ks3.LAUNCHES["conv1_1_gram_bwd"] == n0 + 1
+    assert dx.dtype == dtype and _rel_err(dx, ref) <= tol
+
+
+def test_stage1v3_gradient_matches_plain_path(dev):
+    """conv1_1_relu_gram and conv1_2_relu_pool_v3 on CUDA tensors (kernels
+    E, F, C, D) against the same functions on CPU copies, float32: values
+    and the input gradient."""
+    from st3d_torch.kernels import stage1v3 as ks3
+
+    rng = np.random.RandomState(12)
+    x = rng.rand(2, 32, 24, 3).astype(np.float32)
+    w1 = (rng.randn(3, 3, 3, 64) * 0.2).astype(np.float32)
+    b1 = (rng.randn(64) * 0.1).astype(np.float32)
+    w2 = (rng.randn(3, 3, 64, 64) * 0.05).astype(np.float32)
+    b2 = (rng.randn(64) * 0.1).astype(np.float32)
+    ct = rng.randn(2, 16, 12, 64).astype(np.float32)
+    ctg = (rng.randn(2, 64, 64) * 1e-3).astype(np.float32)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        t = [torch.tensor(a, device=d) for a in (w1, b1, w2, b2)]
+        xt = torch.tensor(x, device=d, requires_grad=True)
+        z, gm = ks3.conv1_1_relu_gram(xt, t[0], t[1])
+        p, _ = ks3.conv1_2_relu_pool_v3(z, t[2], t[3])
+        torch.autograd.backward((p, gm), (torch.tensor(ct, device=d),
+                                          torch.tensor(ctg, device=d)))
+        outs.append([v.detach().cpu() for v in (p, gm, xt.grad)])
+    for got, ref in zip(*outs):
+        assert _rel_err(got, ref) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("cin,cout,h", [(128, 128, 16), (256, 256, 8),
+                                        (512, 512, 4)])
+def test_k8_kernels_match_plain(dev, dtype, tol, cin, cout, h):
+    """C and D at K8's widths (conv2_2, conv3_4, conv4_4) through
+    ``conv3x3_bias_relu_pool``: pooled, idx where separated, and dx."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    x = torch.randn((2, h, h, cin), generator=g, device=dev).to(dtype)
+    w = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
+         * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+    b = (torch.randn((cout,), generator=g, device=dev) * 0.1).to(dtype)
+    ct = torch.randn((2, h // 2, h // 2, cout), generator=g,
+                     device=dev).to(dtype)
+    n0 = dict(kconv.LAUNCHES)
+    xt = x.clone().requires_grad_(True)
+    p, idx = kconv.conv3x3_bias_relu_pool(xt, w, b)
+    (dx,) = torch.autograd.grad(p, xt, ct)
+    torch.cuda.synchronize()
+    assert kconv.LAUNCHES["conv3x3_relu_pool"] == n0["conv3x3_relu_pool"] + 1
+    assert (kconv.LAUNCHES["pool_route_conv3x3_bwd"]
+            == n0["pool_route_conv3x3_bwd"] + 1)
+    p_ref, idx_ref = kconv.conv3x3_relu_pool_plain(x, w, b)
+    assert _rel_err(p.detach(), p_ref) <= tol
+    pre = kconv.conv3x3_nhwc_plain(x, w, b, True)
+    scale = float(p_ref.float().abs().max())
+    assert _idx_mismatch_where_separated(idx, idx_ref, pre, tol * scale) == 0
+    ref = kconv.pool_route_conv3x3_bwd_plain(ct, p_ref, idx_ref, w)
+    assert _rel_err(dx, ref) <= tol
+
+
+@pytest.mark.parametrize("size", [96, 80])
+def test_raster_2d_kernel_equals_plain(dev, size):
+    fv = _sphere_faces(dev, 3, size)
+    coeffs, bounds, _ = kraster.preprocess_2d(fv, size)
+    n0 = kraster.LAUNCHES["raster_2d"]
+    p2f, zbuf = kraster.raster_2d(coeffs, bounds, size, size)
+    torch.cuda.synchronize()
+    assert kraster.LAUNCHES["raster_2d"] == n0 + 1
+    p_ref, z_ref = kraster.raster_2d_plain(coeffs, bounds, size, size)
+    assert torch.equal(p2f, p_ref)
+    torch.testing.assert_close(zbuf, z_ref, rtol=1e-6, atol=0)
+    # Mesh ids and zbuf against K1: zbuf bit-equal, ids equal but at ties.
+    got = kraster.rasterize_2d_batched(fv, size)
+    want = kraster.rasterize_batched(fv, size)
+    assert torch.equal(got[1], want[1])
+    assert float((got[0] != want[0]).float().mean()) < 1e-3

@@ -32,7 +32,8 @@ def test_port_imports_no_jax_and_no_st3d():
         "import st3d_torch.engine.style_transfer2d\n"
         "import st3d_torch.render.soft, st3d_torch.render.topk\n"
         "import st3d_torch.render.renderer, st3d_torch.ops.losses\n"
-        "import st3d_torch.core.mesh\n"
+        "import st3d_torch.core.mesh, st3d_torch.kernels.stage1v3\n"
+        "import st3d_torch.morton_order\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'st3d' not in sys.modules, 'st3d imported'\n"
         "print('clean')\n")

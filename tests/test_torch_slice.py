@@ -1,7 +1,12 @@
 """The second-approach slice end to end: the same OBJ+MTL+PNG scene, style
 PNG and VGG weights through ``st3d.engine.pipelines.run_second_approach``
 (JAX, CPU) and ``st3d_torch.second_approach.main`` (port, CPU, the kernels'
-plain versions): losses, final texture and output layout."""
+plain versions): losses, final texture and output layout; and the port on
+its opt-in VGG routes (``ST3D_STAGE1=v3``, ``ST3D_FUSED_POOL=1``) against
+the same JAX run. On the CPU the JAX package takes its XLA path whatever
+the switches say, and every route computes the same function in float32:
+losses within rtol 1e-4 first and 1e-3 after (the reassociated sums move
+Adam's steps), textures within 1e-4."""
 
 import os
 
@@ -63,12 +68,17 @@ def scene(tmp_path_factory):
     return root, argv
 
 
-def test_slice_matches_jax(scene):
+@pytest.fixture(scope="module")
+def jax_result(scene):
     root, argv = scene
-    jax_out, port_out = str(root / "jax"), str(root / "port")
+    jax_out = str(root / "jax")
     final_j = jax_run(jax_parse(argv + ["--output_path", jax_out]))
-    final_t = main(argv + ["--output_path", port_out, "--device", "cpu"])
+    return jax_out, final_j
 
+
+def _port_matches_jax(jax_result, argv, port_out):
+    jax_out, final_j = jax_result
+    final_t = main(argv + ["--output_path", port_out, "--device", "cpu"])
     lj = _read_log(os.path.join(jax_out, "log.txt"))
     lt = _read_log(os.path.join(port_out, "log.txt"))
     assert len(lj) == len(lt) == 3
@@ -79,11 +89,30 @@ def test_slice_matches_jax(scene):
     np.testing.assert_allclose(final_t.texture.numpy(),
                                np.asarray(final_j.texture), atol=1e-4)
 
+
+def test_slice_matches_jax(scene, jax_result):
+    root, argv = scene
+    jax_out, port_out = jax_result[0], str(root / "port")
+    _port_matches_jax(jax_result, argv, port_out)
     for out in (jax_out, port_out):
         for name in ("final.obj", "final.mtl", "final_texture.png",
                      "metrics.jsonl"):
             assert os.path.isfile(os.path.join(out, name)), (out, name)
         assert len(os.listdir(os.path.join(out, "final_render"))) == 12
+
+
+@pytest.mark.parametrize("route,env", [
+    ("v3", {"ST3D_STAGE1": "v3"}),
+    ("fused_pool", {"ST3D_FUSED_POOL": "1"}),
+])
+def test_slice_routes_match_jax(scene, jax_result, monkeypatch, route, env):
+    root, argv = scene
+    for k in ("ST3D_NO_STAGE1_V2", "ST3D_NO_PACKED1", "ST3D_STAGE1",
+              "ST3D_FUSED_POOL"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    _port_matches_jax(jax_result, argv, str(root / f"port_{route}"))
 
 
 def test_save_intermediate_writes_current_images(scene):

@@ -379,12 +379,3 @@ def test_dispatch_gates(models, monkeypatch, env, size, gram1, want):
                               gram1=gram1)
     assert seen == want
     assert ("conv1_1:gram" in feats) == gram1
-
-
-def test_stage1_v3_raises(models, monkeypatch):
-    _, tm = models
-    monkeypatch.delenv("ST3D_NO_STAGE1_V2", raising=False)
-    monkeypatch.setenv("ST3D_STAGE1", "v3")
-    with pytest.raises(NotImplementedError, match="K10"):
-        tvgg.get_features(torch.rand(1, 16, 16, 3), tm, layout="NHWC",
-                          input_layout="NHWC", gram1=True)
