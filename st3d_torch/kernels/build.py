@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into its own shared library
 with a plain C interface and loaded with ``ctypes``; no PyTorch header is
 compiled, so a build takes seconds. Libraries land in ``build/st3d_torch/``
-at the repository root, named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one is reused.
+at the repository root, named by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one is reused.
 
 Nothing here runs at import: the first CUDA launch of a kernel builds it,
 and ``build_all`` builds every source at once, one nvcc process each. A
@@ -14,6 +15,7 @@ missing ``nvcc`` or a failed build raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -35,16 +37,25 @@ RASTER_SOURCES = ("raster_hard", "raster_soft", "raster_stream", "raster_topk",
                   "raster_2d")
 EXTRA_FLAGS: Dict[str, List[str]] = {n: ["-fmad=false"]
                                      for n in RASTER_SOURCES}
+# The tensor-core kernels (wgmma, TMA) encode their TMA descriptors on the
+# host with cuTensorMapEncodeTiled, which lives in libcuda, so they link it
+# (nvcc finds the toolkit's stub library; the installed libcuda.so.1 is
+# loaded at run time), given after the source. ptxas reports their
+# registers, shared memory and spills (``-v``), kept in ``BUILD_LOGS``.
+WGMMA_SOURCES = ("conv3x3_wgmma", "gram_wgmma")
+EXTRA_FLAGS.update({n: ["-Xptxas", "-v"] for n in WGMMA_SOURCES})
+LINK_FLAGS: Dict[str, List[str]] = {n: ["-lcuda"] for n in WGMMA_SOURCES}
 
 KERNEL_SOURCES = RASTER_SOURCES + (
     "conv3x3_nhwc", "gram_nhwc", "conv1_1_stats", "conv1_1_bwd",
     "conv3x3_relu_pool", "pool_route_conv3x3_bwd", "conv1_1_gram",
-    "conv1_1_gram_bwd")
+    "conv1_1_gram_bwd") + WGMMA_SOURCES
 DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _SYMBOLS: Dict[str, object] = {}
 BUILD_SECONDS: Dict[str, float] = {}
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -68,7 +79,11 @@ def library_path(name: str) -> str:
     src = os.path.join(CSRC_DIR, name + ".cu")
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read())
-    digest.update(" ".join(_flags(name)).encode())
+    # Shared headers (csrc/*.cuh) count for every source.
+    for header in sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+        with open(header, "rb") as f:
+            digest.update(f.read())
+    digest.update(" ".join(_flags(name) + LINK_FLAGS.get(name, [])).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
 
 
@@ -82,7 +97,8 @@ def _start(name: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [nvcc_path()] + _flags(name) + [
-        "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
+        "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")] + LINK_FLAGS.get(
+            name, [])
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
     return proc, tmp, out, cmd, time.perf_counter()
@@ -99,6 +115,7 @@ def _finish(name: str, started) -> str:
             f"{' '.join(cmd)}\n{stdout}\n{stderr}")
     os.replace(tmp, out)
     BUILD_SECONDS[name] = time.perf_counter() - t0
+    BUILD_LOGS[name] = stdout + stderr
     return out
 
 
@@ -135,6 +152,14 @@ def build_all() -> Dict[str, float]:
     for name in KERNEL_SOURCES:
         load(name)
     return {n: BUILD_SECONDS.get(n, 0.0) for n in KERNEL_SOURCES}
+
+
+def ptxas_report(name: str) -> List[str]:
+    """ptxas's lines on registers, shared memory and spills for the kernels
+    of ``csrc/<name>.cu``, from its build in this process (empty if it was
+    built earlier or without ``-v``)."""
+    return [l.strip() for l in BUILD_LOGS.get(name, "").splitlines()
+            if "Compiling entry" in l or "registers" in l or "spill" in l]
 
 
 def symbol(lib: str, name: str, n_ptr: int, n_int: int, n_float: int = 0):

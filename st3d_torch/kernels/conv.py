@@ -1,15 +1,21 @@
 """3x3 convolution kernels for the VGG stack, with their gradients.
 
-Counterpart of ``st3d/kernels/conv_pallas.py``. Four hand-written CUDA
+Counterpart of ``st3d/kernels/conv_pallas.py``. Six hand-written CUDA
 kernels:
 
-- K2 ``conv3x3_nhwc`` (``csrc/conv3x3_nhwc.cu``): 3x3 SAME stride-1 conv +
-  bias (+ ReLU), NHWC activations, HWIO weights, float32 accumulation,
-  output in the input dtype (bf16 or f32). It also runs every backward:
-  the input gradient of a stride-1 SAME conv is the same conv of the
-  cotangent with flipped, IO-transposed weights and a zero bias.
-- K3 ``gram_nhwc`` (``csrc/gram_nhwc.cu``): per-image unnormalised Gram
-  ``yᵀy`` from y in its stored dtype, into float32.
+- K2 ``conv3x3_nhwc``: 3x3 SAME stride-1 conv + bias (+ ReLU), NHWC
+  activations, HWIO weights, float32 accumulation, output in the input
+  dtype (bf16 or f32). It also runs every backward: the input gradient of a
+  stride-1 SAME conv is the same conv of the cotangent with flipped,
+  IO-transposed weights and a zero bias. Two kernels, chosen by
+  ``conv_route`` on dtype and widths: ``csrc/conv3x3_wgmma.cu`` (bf16 on
+  the tensor cores, TMA-fed tiles of ``conv_tile``'s shape) and
+  ``csrc/conv3x3_nhwc.cu`` (the CUDA cores: float32, and widths TMA cannot
+  stride).
+- K3 ``gram_nhwc``: per-image unnormalised Gram ``yᵀy`` from y in its
+  stored dtype, into float32, split over pixel slices by ``gram_split``.
+  Two kernels, chosen by ``gram_route``: ``csrc/gram_wgmma.cu`` (bf16,
+  tensor cores) and ``csrc/gram_nhwc.cu`` (CUDA cores).
 - ``conv3x3_relu_pool`` (``csrc/conv3x3_relu_pool.cu``) and its backward
   ``pool_route_conv3x3_bwd`` (``csrc/pool_route_conv3x3_bwd.cu``): conv +
   bias + ReLU + 2x2 max-pool with the window index, and the input gradient
@@ -38,15 +44,46 @@ import torch.nn.functional as F
 
 from st3d_torch.kernels import build
 
-LAUNCHES: Dict[str, int] = {"conv3x3_nhwc": 0, "gram_nhwc": 0,
+LAUNCHES: Dict[str, int] = {"conv3x3_nhwc": 0, "conv3x3_wgmma": 0,
+                            "gram_nhwc": 0, "gram_wgmma": 0,
                             "conv3x3_relu_pool": 0,
                             "pool_route_conv3x3_bwd": 0}
 
-# Gram split-K: enough (tile, image, slice) blocks to cover the 132 SMs a
-# few times over; a slice is never shorter than 256 pixels.
-_GRAM_TARGET_BLOCKS = 4 * 132
-_GRAM_MIN_SLICE = 256
-_GRAM_TILE = 64
+SMS = 132                       # streaming multiprocessors of an H100
+CONV_TILE_PIXELS = 128          # output pixels of one tensor-core K2 tile
+# K3's split over pixel slices, per route: (Gram tile edge, upper triangle
+# only, pixels per step, shortest slice, blocks wanted). The tensor-core
+# kernel's steps are 64-pixel TMA boxes and it computes the tiles with row
+# <= column; the CUDA-core kernel computes every 64 x 64 tile.
+GRAM_PLAN = {"wgmma": (128, True, 64, 256, 2 * SMS),
+             "cuda_core": (64, False, 16, 256, 4 * SMS)}
+
+
+def conv_route(dtype: torch.dtype, cin: int, cout: int) -> str:
+    """The K2 kernel a CUDA tensor takes: "wgmma" (``csrc/conv3x3_wgmma.cu``)
+    for bf16 with Cin and Cout multiples of 8 (TMA's global strides are
+    multiples of 16 bytes), else "cuda_core" (``csrc/conv3x3_nhwc.cu``)."""
+    if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0:
+        return "wgmma"
+    return "cuda_core"
+
+
+def gram_route(dtype: torch.dtype, c: int) -> str:
+    """The K3 kernel a CUDA tensor takes: "wgmma" (``csrc/gram_wgmma.cu``)
+    for bf16 with C a multiple of 8, else "cuda_core"
+    (``csrc/gram_nhwc.cu``)."""
+    return "wgmma" if dtype == torch.bfloat16 and c % 8 == 0 else "cuda_core"
+
+
+def conv_tile(width: int) -> Tuple[int, int]:
+    """(BW, BH) of the tensor-core K2's output tile: a BW x BH box of one
+    image, BW * BH = 128 pixels, BW the smallest power of two that covers
+    the width, at most 128. The tile's rows past the image are loaded as
+    zeros and not stored."""
+    bw = 1
+    while bw < min(width, CONV_TILE_PIXELS):
+        bw *= 2
+    return bw, CONV_TILE_PIXELS // bw
 
 
 # ---------------------------------------------------------------------------
@@ -93,6 +130,8 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_nhwc_plain(x, w, b, relu)
     build.check_operands("conv3x3_nhwc", x, w, b)
+    if conv_route(x.dtype, cin, cout) == "wgmma":
+        return _conv3x3_wgmma(x, w, b, relu)
     bsz, h, wd, _ = x.shape
     x = x.contiguous()
     wf = w.reshape(9 * cin, cout).contiguous()
@@ -104,6 +143,32 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
              bsz, h, wd, cin, cout, int(relu), build.stream_handle(x.device))
     build.check(err, "conv3x3_nhwc")
     LAUNCHES["conv3x3_nhwc"] += 1
+    return y
+
+
+def _tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address, as a TMA descriptor
+    wants (a view into a larger buffer may start anywhere)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _conv3x3_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   relu: bool) -> torch.Tensor:
+    """K2 on the tensor cores: bf16 x (B,H,W,Cin), w HWIO laid out
+    (Cout, 3, 3, Cin) so that K is innermost, tiles of ``conv_tile``."""
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[3]
+    x = _tma_ready(x)
+    wk = w.permute(3, 0, 1, 2).contiguous()
+    b = b.contiguous()
+    y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
+    fn = build.symbol("conv3x3_wgmma", "st3d_conv3x3_wgmma_bf16", 4, 7)
+    err = fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h,
+             wd, cin, cout, conv_tile(wd)[0], int(relu),
+             build.stream_handle(x.device))
+    build.check(err, "conv3x3_wgmma")
+    LAUNCHES["conv3x3_wgmma"] += 1
     return y
 
 
@@ -200,13 +265,24 @@ def gram_nhwc_plain(y: torch.Tensor) -> torch.Tensor:
     return torch.matmul(flat.transpose(1, 2), flat)
 
 
-def gram_split(bsz: int, pixels: int, c: int) -> Tuple[int, int]:
-    """(slices, slice_len) of K3's two-pass split over pixels."""
-    tiles = (-(-c // _GRAM_TILE)) ** 2
-    want = -(-_GRAM_TARGET_BLOCKS // (bsz * tiles))
-    slices = max(1, min(want, pixels // _GRAM_MIN_SLICE, 65535 // bsz))
+def gram_tiles(c: int, route: str = "wgmma") -> int:
+    """Gram tiles one (image, slice) of K3 computes on ``route``."""
+    edge, triangle = GRAM_PLAN[route][:2]
+    t = -(-c // edge)
+    return t * (t + 1) // 2 if triangle else t * t
+
+
+def gram_split(bsz: int, pixels: int, c: int,
+               route: str = "wgmma") -> Tuple[int, int]:
+    """(slices, slice_len) of K3's two-pass split over pixels on ``route``:
+    about the route's wanted blocks (tile, image, slice), slices whole
+    steps and never shorter than its shortest slice (one slice for fewer
+    pixels); the last slice may be shorter."""
+    _, _, step, min_slice, target = GRAM_PLAN[route]
+    want = -(-target // (bsz * gram_tiles(c, route)))
+    slices = max(1, min(want, pixels // min_slice, 65535 // bsz))
     slice_len = -(-pixels // slices)
-    slice_len = -(-slice_len // 16) * 16
+    slice_len = -(-slice_len // step) * step
     return -(-pixels // slice_len), slice_len
 
 
@@ -219,17 +295,18 @@ def gram_nhwc(y: torch.Tensor) -> torch.Tensor:
     build.check_operands("gram_nhwc", y)
     bsz, c = y.shape[0], y.shape[-1]
     pixels = y.numel() // (bsz * c)
-    y = y.contiguous()
-    slices, slice_len = gram_split(bsz, pixels, c)
+    route = gram_route(y.dtype, c)
+    y = _tma_ready(y)
+    slices, slice_len = gram_split(bsz, pixels, c, route)
     partial = torch.empty((bsz, slices, c, c), dtype=torch.float32,
                           device=y.device)
     g = torch.empty((bsz, c, c), dtype=torch.float32, device=y.device)
-    fn = build.symbol("gram_nhwc",
-                      "st3d_gram_nhwc_" + build.DTYPE_SUFFIX[y.dtype], 3, 5)
+    lib = "gram_wgmma" if route == "wgmma" else "gram_nhwc"
+    fn = build.symbol(lib, f"st3d_{lib}_" + build.DTYPE_SUFFIX[y.dtype], 3, 5)
     err = fn(y.data_ptr(), partial.data_ptr(), g.data_ptr(), bsz, pixels, c,
              slices, slice_len, build.stream_handle(y.device))
-    build.check(err, "gram_nhwc")
-    LAUNCHES["gram_nhwc"] += 1
+    build.check(err, lib)
+    LAUNCHES[lib] += 1
     return g
 
 

@@ -1,7 +1,10 @@
 """st3d_torch conv and Gram functions (kernels K2/K3 through their plain
 versions on the CPU) against the JAX package's Pallas kernels in interpret
 mode: values and input gradients, float32, at (2,16,16,8->16) and
-(1,8,8,32->64)."""
+(1,8,8,32->64), and at the edges of the tensor-core K2's tile plan
+(``kernels.conv.conv_tile``): W = 4 (a 4 x 32 box), a 10 x 12 image whose H
+is not a multiple of the box height (16 x 8), and Cin = 64 on an image
+lower than its box (the dx side then has Cout = 64)."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +18,8 @@ from st3d.ops.losses import gram_matrix_nhwc as jax_gram_nhwc
 from st3d_torch.kernels import conv as kconv
 from st3d_torch.ops.losses import gram_matrix_nhwc
 
-SHAPES = [((2, 16, 16, 8), 16), ((1, 8, 8, 32), 64)]
+SHAPES = [((2, 16, 16, 8), 16), ((1, 8, 8, 32), 64), ((1, 4, 4, 16), 32),
+          ((2, 10, 12, 8), 16), ((1, 6, 8, 64), 24)]
 
 
 def _inputs(shape, cout, seed=0):

@@ -1,0 +1,78 @@
+"""Which K2 and K3 kernel a CUDA tensor takes, and the tensor-core kernels'
+tile plans, as the pure functions of ``st3d_torch.kernels.conv`` (no GPU):
+``conv_route`` and ``gram_route`` (bf16 with channel counts that are
+multiples of 8 take the tensor cores; anything else the CUDA cores),
+``conv_tile`` (the 128-pixel output box per image width) and
+``gram_split`` (slices that cover the pixels exactly, in whole steps, with
+enough blocks for the card)."""
+
+import pytest
+import torch
+
+from st3d_torch.kernels import conv as kconv
+
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("dtype,cin,cout,route", [
+    (BF16, 64, 64, "wgmma"), (BF16, 512, 512, "wgmma"),
+    (BF16, 128, 64, "wgmma"), (BF16, 8, 16, "wgmma"), (BF16, 40, 24, "wgmma"),
+    (BF16, 3, 64, "cuda_core"), (BF16, 64, 27, "cuda_core"),
+    (BF16, 12, 64, "cuda_core"), (F32, 64, 64, "cuda_core"),
+    (F32, 512, 512, "cuda_core"), (torch.float16, 64, 64, "cuda_core")])
+def test_conv_route(dtype, cin, cout, route):
+    assert kconv.conv_route(dtype, cin, cout) == route
+
+
+@pytest.mark.parametrize("dtype,c,route", [
+    (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 512, "wgmma"),
+    (BF16, 136, "wgmma"), (BF16, 27, "cuda_core"), (BF16, 4, "cuda_core"),
+    (F32, 128, "cuda_core"), (F32, 27, "cuda_core")])
+def test_gram_route(dtype, c, route):
+    assert kconv.gram_route(dtype, c) == route
+
+
+@pytest.mark.parametrize("width,box", [
+    (1, (1, 128)), (3, (4, 32)), (4, (4, 32)), (8, (8, 16)), (12, (16, 8)),
+    (20, (32, 4)), (32, (32, 4)), (64, (64, 2)), (100, (128, 1)),
+    (128, (128, 1)), (512, (128, 1))])
+def test_conv_tile(width, box):
+    bw, bh = kconv.conv_tile(width)
+    assert (bw, bh) == box
+    assert bw * bh == kconv.CONV_TILE_PIXELS and bw & (bw - 1) == 0
+    # The box covers the width, or is as wide as a tile can be.
+    assert bw >= width or bw == kconv.CONV_TILE_PIXELS
+    assert bw < 2 * width
+
+
+# (batch, pixels, C): the style Grams at 512² (conv2_1 .. conv5_1), the 64²
+# ones, pixel counts off the 64-pixel box, conv1_1's 27-wide patch Gram.
+SPLITS = [(4, 256 * 256, 128), (4, 128 * 128, 256), (4, 64 * 64, 512),
+          (4, 32 * 32, 512), (4, 512 * 512, 64), (2, 32 * 32, 128),
+          (2, 4 * 4, 512), (3, 37 * 29, 64), (3, 4113, 512), (1, 7, 3),
+          (4, 512 * 512, 27)]
+
+
+@pytest.mark.parametrize("route", ["wgmma", "cuda_core"])
+@pytest.mark.parametrize("bsz,pixels,c", SPLITS)
+def test_gram_split_covers_pixels(route, bsz, pixels, c):
+    edge, triangle, step, min_slice, _ = kconv.GRAM_PLAN[route]
+    slices, slice_len = kconv.gram_split(bsz, pixels, c, route)
+    assert slice_len % step == 0 and bsz * slices <= 65535
+    assert (slices - 1) * slice_len < pixels <= slices * slice_len
+    assert slices == 1 or slice_len >= min_slice
+    # Blocks: one per SM at least, where the shortest slice allows it.
+    t = -(-c // edge)
+    assert kconv.gram_tiles(c, route) == (t * (t + 1) // 2 if triangle
+                                          else t * t)
+    blocks = bsz * slices * kconv.gram_tiles(c, route)
+    most = bsz * max(1, pixels // min_slice) * kconv.gram_tiles(c, route)
+    assert blocks >= min(kconv.SMS, most)
+
+
+@pytest.mark.parametrize("h,c", [(256, 128), (128, 256), (64, 512),
+                                 (32, 512)])
+def test_gram_split_fills_the_card_at_the_style_taps(h, c):
+    """At 512² x 4 views every style Gram runs at least one block per SM."""
+    slices, _ = kconv.gram_split(4, h * h, c)
+    assert 4 * slices * kconv.gram_tiles(c) >= kconv.SMS

@@ -52,9 +52,14 @@ def test_conv_kernel_matches_plain(dev, dtype, tol, cin, cout, relu):
     w = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
          * 0.2).to(dtype)
     b = torch.randn((cout,), generator=g, device=dev).to(dtype)
+    key = {"wgmma": "conv3x3_wgmma", "cuda_core": "conv3x3_nhwc"}[
+        kconv.conv_route(dtype, cin, cout)]
+    n0 = dict(kconv.LAUNCHES)
     y = kconv.conv3x3_nhwc(x, w, b, relu)
     ref = kconv.conv3x3_nhwc_plain(x, w, b, relu)
     torch.cuda.synchronize()
+    assert {k: v - n0[k] for k, v in kconv.LAUNCHES.items() if v != n0[k]} \
+        == {key: 1}
     assert y.dtype == dtype
     err = (y.float() - ref.float()).abs().max()
     assert err <= tol * ref.float().abs().max()
@@ -66,11 +71,71 @@ def test_conv_kernel_matches_plain(dev, dtype, tol, cin, cout, relu):
 def test_gram_kernel_matches_plain(dev, dtype, tol, pixels, c):
     g = torch.Generator(device=dev).manual_seed(1)
     y = torch.randn((3, pixels, c), generator=g, device=dev).to(dtype)
+    key = {"wgmma": "gram_wgmma", "cuda_core": "gram_nhwc"}[
+        kconv.gram_route(dtype, c)]
+    n0 = dict(kconv.LAUNCHES)
     got = kconv.gram_nhwc(y)
     ref = kconv.gram_nhwc_plain(y)
     torch.cuda.synchronize()
+    assert {k: v - n0[k] for k, v in kconv.LAUNCHES.items() if v != n0[k]} \
+        == {key: 1}
     assert torch.linalg.norm(got - ref) <= tol * torch.linalg.norm(ref)
     assert torch.equal(got, kconv.gram_nhwc(y))      # deterministic
+
+
+# The tensor-core K2 at every tile shape of ``conv_tile``: W 4, 8, 20, 32,
+# 64 and 128 (boxes 4 x 32 .. 128 x 1), H not a multiple of the box height
+# and H below it (the box runs past the image), Cin below and past one
+# 64-channel slab, and Cout = 64 (BN = 64) on the forward or the dx side.
+WGMMA_CONVS = [((2, 6, 4), 16, 64), ((1, 20, 8), 64, 64),
+               ((2, 24, 20), 40, 24), ((2, 9, 32), 128, 64),
+               ((1, 5, 64), 64, 128), ((1, 3, 128), 256, 128)]
+
+
+@pytest.mark.parametrize("shape,cin,cout", WGMMA_CONVS)
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv_wgmma_matches_plain(dev, shape, cin, cout, relu):
+    """Forward and input gradient through ``conv3x3_nhwc`` in bf16, both on
+    the tensor-core kernel, against the plain versions: max-abs error <=
+    1e-2 * max|plain| (bf16 output rounding; the sums differ in order)."""
+    g = torch.Generator(device=dev).manual_seed(14)
+    x = torch.randn(shape + (cin,), generator=g, device=dev).bfloat16()
+    w = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
+         * (2.0 / (9 * cin)) ** 0.5).bfloat16()
+    b = (torch.randn((cout,), generator=g, device=dev) * 0.1).bfloat16()
+    ct = torch.randn(shape + (cout,), generator=g, device=dev).bfloat16()
+    n0 = dict(kconv.LAUNCHES)
+    y = kconv.conv3x3_nhwc(x, w, b, relu)
+    dx = kconv._transpose_conv(ct, w)
+    torch.cuda.synchronize()
+    assert {k: v - n0[k] for k, v in kconv.LAUNCHES.items() if v != n0[k]} \
+        == {"conv3x3_wgmma": 2}
+    zb = torch.zeros(cin, dtype=torch.bfloat16, device=dev)
+    refs = (kconv.conv3x3_nhwc_plain(x, w, b, relu),
+            kconv.conv3x3_nhwc_plain(
+                ct, kconv.transpose_weights(w, torch.bfloat16), zb))
+    for got, ref in zip((y, dx), refs):
+        assert got.shape == ref.shape and got.dtype == torch.bfloat16
+        assert _rel_err(got, ref) <= 1e-2
+
+
+@pytest.mark.parametrize("pixels,c", [(37 * 29, 64), (1000, 128),
+                                      (4096 + 17, 512), (300, 136)])
+def test_gram_wgmma_matches_plain(dev, pixels, c):
+    """The tensor-core K3 in bf16 (pixel counts off the 64-pixel box, C
+    below, at and between 128-channel tiles) against its plain version:
+    relative Frobenius error <= 1e-3, bit-identical on a second call."""
+    g = torch.Generator(device=dev).manual_seed(15)
+    y = torch.randn((3, pixels, c), generator=g, device=dev).bfloat16()
+    n0 = dict(kconv.LAUNCHES)
+    got = kconv.gram_nhwc(y)
+    again = kconv.gram_nhwc(y)
+    torch.cuda.synchronize()
+    assert {k: v - n0[k] for k, v in kconv.LAUNCHES.items() if v != n0[k]} \
+        == {"gram_wgmma": 2}
+    ref = kconv.gram_nhwc_plain(y)
+    assert torch.linalg.norm(got - ref) <= 1e-3 * torch.linalg.norm(ref)
+    assert torch.equal(got, again)                    # deterministic
 
 
 def test_conv_gram_gradient_matches_plain_path(dev):
