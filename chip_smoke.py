@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (``st3d_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase below
+    python3 chip_smoke.py --steps    # only the step times of phases 3-4
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -22,16 +23,21 @@ Phases; any failure raises and the script exits non-zero:
    soft: pix_to_face and zbuf bit-equal);
    K2 at every VGG conv shape at batch 4, forward and input gradient, in
    bf16 on the tensor-core kernel ``conv3x3_wgmma`` (max-abs error <= 1e-2
-   * max|plain|) and in f32 on the CUDA-core ``conv3x3_nhwc`` (<= 1e-4 *
-   max|plain|), and conv1_1's 3 -> 64 in bf16, an odd width, on
-   ``conv3x3_nhwc``; each call must launch the kernel its route names;
+   * max|plain|) and in f32 on the 3xTF32 tensor-core kernel
+   ``conv3x3_tf32x3`` (<= 1e-4 * max|plain|), and conv1_1's 3 -> 64 in
+   bf16, an odd width, on ``conv3x3_nhwc``; each call must launch the
+   kernel its route names;
    K3 at the four style-Gram shapes, in bf16 on ``gram_wgmma`` (relative
    Frobenius error <= 1e-3) and in f32 on ``gram_nhwc`` (<= 1e-5), and
    conv1_1's 27-wide PᵀP in bf16 on ``gram_nhwc``; each Gram bit-identical
    on a second call;
    stage 1 at 512² x 4 (conv1_1 3->64, conv1_2 64->64), bf16 and f32:
    A ``conv1_1_stats``, B ``conv1_1_bwd``, C ``conv3x3_relu_pool``, D
-   ``pool_route_conv3x3_bwd``: z, dx, pooled and dz max-abs error <= 1e-2 *
+   (``pool_route_wgmma`` on the tensor cores in bf16,
+   ``pool_route_conv3x3_bwd`` on the CUDA cores in f32; the bf16 one timed
+   beside the CUDA-core D on the same inputs and K2's dx at the same
+   shape):
+   z, dx, pooled and dz max-abs error <= 1e-2 *
    max|plain| in bf16 and <= 1e-4 * max|plain| in f32; PᵀP and s27
    relative Frobenius error <= 1e-4 (sums of 2¹⁸ terms per image, taken in
    another order); idx equal wherever the plain top two of the window
@@ -41,7 +47,7 @@ Phases; any failure raises and the script exits non-zero:
    (dx as B's); K10c and K10d are C and D at the shapes above;
    K8, C and D at conv2_2's, conv3_4's and conv4_4's shapes (4 x 256² x 128,
    4 x 128² x 256, 4 x 64² x 512), bf16 and f32, with C's and D's
-   tolerances;
+   tolerances and D's comparisons;
    K9, G ``raster_2d``, at 512² x 4, ico-sphere level 4, against its plain
    version (pix_to_face exactly equal, zbuf within rtol 1e-6), then at level
    7 (327,680 faces) against K1: zbuf bit-equal, ids different only at
@@ -55,8 +61,10 @@ Phases; any failure raises and the script exits non-zero:
    holds it; for K7's 1/z plane only the eligible ones), not on the pairs
    the kernel's chunk cull leaves. The library time is one PyTorch call
    computing the same function where there is one (``F.conv2d``,
-   ``torch.bmm``); K2 and K3 print each shape's TFLOP/s, and their
-   CUDA-core kernels are timed in f32 (their route), against f32 calls.
+   ``torch.bmm``); K2 and K3 print each shape's TFLOP/s. The f32 K2 is
+   timed against ``F.conv2d`` in f32 with TF32 off (and, for information,
+   on); its bound counts its three TF32 products at 495 TFLOP/s. K3's and
+   D's CUDA-core kernels are timed in f32 (their route).
 3. The second approach (``st3d_torch.second_approach.main``) at 512², 4
    views, batch 4, bf16, 20 epochs on a seeded synthetic scene, on the
    default VGG route: every loss finite, the last below the first,
@@ -70,7 +78,11 @@ Phases; any failure raises and the script exits non-zero:
    the v3 route (``ST3D_STAGE1=v3``: E and F, not A and B) and the
    fused-pool route (``ST3D_FUSED_POOL=1``: the default's kernels, C and D
    four times as often, ``conv3x3_wgmma`` three times fewer for each C and
-   each D).
+   each D). No bf16 route launches the CUDA-core
+   ``pool_route_conv3x3_bwd``.
+   Then the texture step in float32, the CLIs' default dtype, 10 epochs on
+   the default route: K2 only on ``conv3x3_tf32x3`` (no ``conv3x3_nhwc``),
+   K3 and D on the CUDA cores; its median step.
    Then the vertex optimisation, ``--optimization_target both`` at 512², 4
    views, bf16, 10 epochs, in four raster modes: hard at ico level 4 (K1),
    ``--soft_raster true`` (K1's soft mode), ``--soft_raster true
@@ -95,8 +107,8 @@ Phases; any failure raises and the script exits non-zero:
    (plain versions), the second approach with ``--optimization_target
    both --soft_raster true``, and the second approach on the v3 and
    fused-pool routes: losses within rtol 1e-3; and the second approach at
-   64² in bf16 on the default route (the tensor-core K2 and K3): losses
-   within rtol 1e-2.
+   64² in bf16 on the default route (the tensor-core K2, K3 and D): losses
+   within rtol 1e-2. Each GPU run must take K2 and D on its dtype's route.
 6. The wall seconds of each phase, the card's name and power limit, one
    JSON line with the kernels' results (ptxas's registers and spills of
    the tensor-core kernels are printed after the build), then the last line
@@ -126,15 +138,22 @@ ICO_LEVEL = 4
 STREAM_LEVEL = 7                 # 327,680 faces: past the resident budget
 BOTH_EPOCHS = 10
 FA_BOTH_STEPS = 5
+F32_EPOCHS = 10                  # the f32 texture step (the CLI default)
 HBM_BYTES_S = 3.35e12            # H100 SXM
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 # The VGG routes: the switches each sets, and the kernels it must launch.
-# In bf16 every K2 and K3 launch takes the tensor-core kernels; the
-# CUDA-core ones (float32, odd widths) run only conv1_1's 27-wide PᵀP Gram,
-# once a step, on the two routes with stage 1 off.
+# In bf16 every K2 and K3 launch takes the tensor-core kernels, and every D
+# launch the tensor-core D; the CUDA-core ones (float32, odd widths) run
+# only conv1_1's 27-wide PᵀP Gram, once a step, on the two routes with
+# stage 1 off.
 KERNELS = ("raster_hard", "conv3x3_wgmma", "gram_wgmma", "conv1_1_stats",
-           "conv1_1_bwd", "conv3x3_relu_pool", "pool_route_conv3x3_bwd")
+           "conv1_1_bwd", "conv3x3_relu_pool", "pool_route_wgmma")
+# The default route in float32: K2 on 3xTF32 (no conv3x3_nhwc: every width
+# it meets is a multiple of 4), K3 and D on the CUDA cores.
+F32_KERNELS = {"raster_hard", "conv3x3_tf32x3", "gram_nhwc", "conv1_1_stats",
+               "conv1_1_bwd", "conv3x3_relu_pool", "pool_route_conv3x3_bwd"}
 RASTER_KERNELS = ("raster_hard", "raster_soft", "raster_stream",
                   "raster_topk")
 # The vertex-optimisation runs: target, extra flags, ico level, the raster
@@ -169,7 +188,7 @@ ROUTES = {
             {"raster_hard", "conv3x3_wgmma", "gram_wgmma", "gram_nhwc"}),
     "k5": ({"ST3D_NO_STAGE1_V2": "1"},
            {"raster_hard", "conv3x3_wgmma", "gram_wgmma", "gram_nhwc",
-            "conv3x3_relu_pool", "pool_route_conv3x3_bwd"}),
+            "conv3x3_relu_pool", "pool_route_wgmma"}),
 }
 STAGE1_OFF = ("pr1", "k5")     # conv1_1's PᵀP: one gram_nhwc launch a step
 # (Cin, Cout, H) of the convs K2 runs at 512² (conv1_2 .. conv5_1).
@@ -658,20 +677,23 @@ def _conv_fwd_dx(x, w, b, ct, relu, tol, key, what):
 def conv_check(dev):
     """K2 at every VGG conv of the main path (batch 4, 512² input), forward
     and input gradient: in bf16 on the tensor-core kernel, in float32 on the
-    CUDA-core one, plus conv1_1's 3 -> 64 in bf16 (an odd width: CUDA
-    cores). Times (CUDA events) of the 12-conv forward: bf16 against
-    cuDNN's bf16 ``F.conv2d`` for the tensor-core kernel, float32 (TF32 off)
-    for the CUDA-core kernel."""
+    3xTF32 tensor-core kernel, plus conv1_1's 3 -> 64 in bf16 (an odd
+    width: CUDA cores). Times (CUDA events) of the 12-conv forward: bf16
+    against cuDNN's bf16 ``F.conv2d``, float32 against ``F.conv2d`` in
+    float32 with TF32 off (the library time) and, for information, on. The
+    3xTF32 bound counts its three products at the TF32 rate."""
     import torch
     import torch.nn.functional as F
     from st3d_torch.kernels.conv import _transpose_conv, conv3x3_nhwc
     from st3d_torch.kernels.conv import conv3x3_nhwc_plain
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    keys = {torch.bfloat16: "conv3x3_wgmma", torch.float32: "conv3x3_nhwc"}
-    rates = {torch.bfloat16: BF16_FLOPS, torch.float32: F32_FLOPS}
-    tot = {k: {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0,
-               "bound": 0.0, "flops": 0, "bytes": 0} for k in keys.values()}
+    keys = {torch.bfloat16: "conv3x3_wgmma", torch.float32: "conv3x3_tf32x3"}
+    # (passes over the products, rate) of each route's bound.
+    rates = {torch.bfloat16: (1, BF16_FLOPS), torch.float32: (3, TF32_FLOPS)}
+    tot = {k: {"err": 0.0, "ms": 0.0, "dx": 0.0, "plain": 0.0, "lib": 0.0,
+               "lib_tf32": 0.0, "bound": 0.0, "flops": 0, "bytes": 0}
+           for k in keys.values()}
     for cin, cout, h in VGG_K2_CONVS:
         for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
             key, t = keys[dtype], tot[keys[dtype]]
@@ -684,45 +706,73 @@ def conv_check(dev):
             t_d = cuda_ms(lambda: _transpose_conv(ct, w), 5)
             t_p = cuda_ms(lambda: conv3x3_nhwc_plain(x, w, b, relu), 3, 1)
             # Library yardstick: cuDNN's conv + bias on the same data,
-            # channels-last (ReLU not included).
+            # channels-last (ReLU not included); float32 with TF32 off, and
+            # on for information.
             xl = x.permute(0, 3, 1, 2)
             wl = w.permute(3, 2, 0, 1).contiguous(
                 memory_format=torch.channels_last)
             t_l = cuda_ms(lambda: F.conv2d(xl, wl, b, padding=1), 5)
+            t_l32 = 0.0
+            if dtype == torch.float32:
+                torch.backends.cudnn.allow_tf32 = True
+                t_l32 = cuda_ms(lambda: F.conv2d(xl, wl, b, padding=1), 5)
+                torch.backends.cudnn.allow_tf32 = False
             flops = 2 * 9 * cin * cout * h * h * VIEWS
             nbytes = x.element_size() * (VIEWS * h * h * (cin + cout)
                                          + 9 * cin * cout + cout)
-            t_b = bound(flops, nbytes, rates[dtype])[0]
-            for k, v in (("ms", t_k), ("plain", t_p), ("lib", t_l),
-                         ("bound", t_b), ("flops", flops),
-                         ("bytes", nbytes)):
+            passes, rate = rates[dtype]
+            t_b = bound(passes * flops, nbytes, rate)[0]
+            for k, v in (("ms", t_k), ("dx", t_d), ("plain", t_p),
+                         ("lib", t_l), ("lib_tf32", t_l32), ("bound", t_b),
+                         ("flops", flops), ("bytes", nbytes)):
                 t[k] += v
             print(f"K2 {key} {what} {text}  kernel {t_k:.3f} ms "
                   f"({flops / t_k / 1e9:.1f} TFLOP/s), dx {t_d:.3f} ms, "
-                  f"plain {t_p:.3f} ms, F.conv2d {t_l:.3f} ms, bound "
-                  f"{t_b:.4f} ms")
+                  f"plain {t_p:.3f} ms, F.conv2d {t_l:.3f} ms"
+                  + (f" (TF32 on {t_l32:.3f})" if t_l32 else "")
+                  + f", bound {t_b:.4f} ms")
     # An odd width (conv1_1, 3 -> 64) in bf16 takes the CUDA cores.
     x, w, b, ct = _conv_operands(gen, dev, 3, 64, SIZE, torch.bfloat16)
     err, text = _conv_fwd_dx(x, w, b, ct, False, 1e-2, "conv3x3_nhwc",
                              "3->64 512² bf16")
-    tot["conv3x3_nhwc"]["err"] = max(tot["conv3x3_nhwc"]["err"], err)
-    print(f"K2 conv3x3_nhwc   3->64  512² bf16 {text}")
-    recs = []
+    t_k = cuda_ms(lambda: conv3x3_nhwc(x, w, b), 5)
+    t_p = cuda_ms(lambda: conv3x3_nhwc_plain(x, w, b), 3, 1)
+    xl = x.permute(0, 3, 1, 2)
+    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    t_l = cuda_ms(lambda: F.conv2d(xl, wl, b, padding=1), 5)
+    px = VIEWS * SIZE * SIZE
+    print(f"K2 conv3x3_nhwc   3->64  512² bf16 {text}  kernel {t_k:.3f} ms, "
+          f"plain {t_p:.3f} ms, F.conv2d {t_l:.3f} ms")
+    recs = [with_bound({
+        "name": "conv3x3_nhwc", "route": "cuda",
+        "source": "st3d_torch/csrc/conv3x3_nhwc.cu",
+        "replaces": "st3d/kernels/conv_pallas.py:128", "dtype": "bfloat16",
+        "shape": "3->64 at 512² x 4 (the widths conv_route keeps off the "
+                 "tensor cores)", "max_abs_err": err, "ms": t_k,
+        "plain_ms": t_p}, 2 * 9 * 3 * 64 * px,
+        2 * (px * (3 + 64) + 9 * 3 * 64 + 64), F32_FLOPS, t_l)]
     for dtype, key in keys.items():
         t = tot[key]
-        print(f"K2 {key} one {str(dtype)[6:]} VGG forward (12 convs): "
-              f"kernel {t['ms']:.3f} ms ({t['flops'] / t['ms'] / 1e9:.1f} "
-              f"TFLOP/s), plain {t['plain']:.3f} ms, F.conv2d {t['lib']:.3f}"
-              f" ms ({t['ms'] / t['lib']:.2f}x), bound {t['bound']:.4f} ms")
-        recs.append({
-            "name": key, "route": "cuda",
-            "source": f"st3d_torch/csrc/{key}.cu",
-            "replaces": "st3d/kernels/conv_pallas.py:128",
-            "dtype": str(dtype)[6:], "max_abs_err": t["err"], "ms": t["ms"],
-            "plain_ms": t["plain"], "bound_ms": t["bound"],
-            "bound_by": bound(t["flops"], t["bytes"], rates[dtype])[1],
-            "library_ms": t["lib"]})
-    print(f"(cudnn.allow_tf32={torch.backends.cudnn.allow_tf32})")
+        name = str(dtype)[6:]
+        lib32 = (f", TF32 on {t['lib_tf32']:.3f} ms"
+                 if dtype == torch.float32 else "")
+        print(f"K2 {key} one {name} VGG forward (12 convs): kernel "
+              f"{t['ms']:.3f} ms ({t['flops'] / t['ms'] / 1e9:.1f} TFLOP/s), "
+              f"dx {t['dx']:.3f} ms, plain {t['plain']:.3f} ms, F.conv2d "
+              f"{t['lib']:.3f} ms ({t['ms'] / t['lib']:.2f}x){lib32}, bound "
+              f"{t['bound']:.4f} ms")
+        passes, rate = rates[dtype]
+        rec = {"name": key, "route": "cuda",
+               "source": f"st3d_torch/csrc/{key}.cu",
+               "replaces": "st3d/kernels/conv_pallas.py:128",
+               "dtype": name, "max_abs_err": t["err"], "ms": t["ms"],
+               "dx_ms": t["dx"], "plain_ms": t["plain"],
+               "bound_ms": t["bound"],
+               "bound_by": bound(passes * t["flops"], t["bytes"], rate)[1],
+               "library_ms": t["lib"]}
+        if dtype == torch.float32:
+            rec["library_ms_tf32_on"] = t["lib_tf32"]
+        recs.append(rec)
     return recs
 
 
@@ -818,18 +868,41 @@ def _idx_mismatches(idx, idx_ref, pre_pool, tol):
             float(separated.float().mean()))
 
 
+D_KEYS = {"bfloat16": "pool_route_wgmma", "float32": "pool_route_conv3x3_bwd"}
+
+
+def d_versus(ct, pooled, idx, w, d_ms, what):
+    """Prints the tensor-core D's time beside the CUDA-core D on the same
+    bf16 inputs and K2's dx (the transpose conv alone, on the routed
+    cotangent at full resolution) at the same shape; returns them."""
+    import torch
+    from st3d_torch.kernels import conv as kconv
+
+    old = cuda_ms(lambda: kconv.pool_route_cuda_core(ct, pooled, idx, w), 5)
+    routed = kconv.route_pool_cotangent(ct, pooled, idx)
+    dx = cuda_ms(lambda: kconv._transpose_conv(routed, w), 5)
+    torch.cuda.synchronize()
+    print(f"D {what} bf16: pool_route_wgmma {d_ms:.3f} ms, the CUDA-core "
+          f"pool_route_conv3x3_bwd on the same inputs {old:.3f} ms, K2's dx "
+          f"at the same shape {dx:.3f} ms")
+    return old, dx
+
+
 def stage1_check(dev):
     """Kernels A-D at the stage-1 shapes of the main path (4 x 512² x 3 ->
-    64 -> 64, pool to 256²), each against its plain version."""
+    64 -> 64, pool to 256²), each against its plain version; D on its bf16
+    route (the tensor cores) and its float32 route (the CUDA cores)."""
     import torch
     from st3d_torch.kernels import conv as kconv
     from st3d_torch.kernels import stage1 as ks1
 
     gen = torch.Generator(device=dev).manual_seed(2)
     shape = (VIEWS, SIZE, SIZE)
-    res = {n: {"max_abs_err": 0.0} for n in KERNELS[3:]}
+    names = KERNELS[3:] + ("pool_route_conv3x3_bwd",)
+    res = {n: {"max_abs_err": 0.0} for n in names}
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
         name = str(dtype)[6:]
+        d_key = D_KEYS[name]
         x = torch.rand(shape + (3,), generator=gen, device=dev).to(dtype)
         w1 = (torch.randn((3, 3, 3, 64), generator=gen, device=dev)
               * (2.0 / 27) ** 0.5).to(dtype)
@@ -870,11 +943,14 @@ def stage1_check(dev):
               f"{int((idx != idx_p).sum())}")
         if bad:
             fail(f"C idx {name}: {bad} mismatches where separated")
-        # D: dz from the plain forward's pooled and idx.
+        # D: dz from the plain forward's pooled and idx, on its route.
+        before = dict(kconv.LAUNCHES)
         dz2 = kconv.pool_route_conv3x3_bwd(ct, pooled_p, idx_p, w2)
+        torch.cuda.synchronize()
+        if _launched(before) != {d_key: 1}:
+            fail(f"D {name}: launched {_launched(before)}, want {d_key}")
         dz2_p = kconv.pool_route_conv3x3_bwd_plain(ct, pooled_p, idx_p, w2)
-        errs["pool_route_conv3x3_bwd"] = _max_err(dz2, dz2_p, tol,
-                                                  f"D dz {name}")
+        errs[d_key] = _max_err(dz2, dz2_p, tol, f"D dz {name}")
         torch.cuda.synchronize()
 
         calls = {
@@ -886,7 +962,7 @@ def stage1_check(dev):
             "conv3x3_relu_pool": (
                 lambda: kconv.conv3x3_relu_pool(z_p, w2, b2),
                 lambda: kconv.conv3x3_relu_pool_plain(z_p, w2, b2)),
-            "pool_route_conv3x3_bwd": (
+            d_key: (
                 lambda: kconv.pool_route_conv3x3_bwd(ct, pooled_p, idx_p, w2),
                 lambda: kconv.pool_route_conv3x3_bwd_plain(ct, pooled_p,
                                                            idx_p, w2)),
@@ -895,12 +971,19 @@ def stage1_check(dev):
             r = res[n]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             line = f"{n} {name} max err {err:.3g}/{scale:.3g}"
-            if dtype == torch.bfloat16:
+            # Timed on their main-path dtype: A-C and the tensor-core D in
+            # bf16, the CUDA-core D in float32 (its route).
+            if dtype == torch.bfloat16 or n == d_key:
                 r["ms"] = cuda_ms(calls[n][0], 5)
                 r["plain_ms"] = cuda_ms(calls[n][1], 3, 1)
                 line += (f"  kernel {r['ms']:.3f} ms plain "
                          f"{r['plain_ms']:.3f} ms")
             print(line)
+        if dtype == torch.bfloat16:
+            old, dx = d_versus(ct, pooled_p, idx_p, w2, res[d_key]["ms"],
+                               "conv1_2 4 x 512² x 64 -> 64")
+            res[d_key]["cuda_core_ms"] = old
+            res[d_key]["k2_dx_ms"] = dx
     meta = {
         "conv1_1_stats": ("st3d_torch/csrc/conv1_1_stats.cu",
                           "st3d/kernels/stage1_pallas.py:446"),
@@ -909,13 +992,17 @@ def stage1_check(dev):
         "conv3x3_relu_pool": ("st3d_torch/csrc/conv3x3_relu_pool.cu",
                               "st3d/kernels/stage1_pallas.py:485, "
                               "st3d/kernels/conv_pallas.py:760"),
+        "pool_route_wgmma": ("st3d_torch/csrc/pool_route_wgmma.cu",
+                             "st3d/kernels/stage1_pallas.py:539, "
+                             "st3d/kernels/conv_pallas.py:785"),
         "pool_route_conv3x3_bwd": ("st3d_torch/csrc/pool_route_conv3x3_bwd.cu",
                                    "st3d/kernels/stage1_pallas.py:539, "
                                    "st3d/kernels/conv_pallas.py:785"),
     }
     # Bounds at bf16, 4 x 512²: A conv1_1 (27 -> 64) plus the 27 x 27 patch
     # statistics; B the same two products backwards; C and D conv1_2
-    # (64 -> 64, 9 taps) forward and input gradient.
+    # (64 -> 64, 9 taps) forward and input gradient; the CUDA-core D in
+    # float32 (its route): twice the bytes, the fp32 rate.
     px = VIEWS * SIZE * SIZE
     work = {
         "conv1_1_stats": (2 * px * 27 * (64 + 27),
@@ -925,12 +1012,17 @@ def stage1_check(dev):
                         + 4 * VIEWS * (27 * 27 + 27)),
         "conv3x3_relu_pool": (2 * px * 9 * 64 * 64,
                               2 * px * 64 + 3 * (px // 4) * 64),
-        "pool_route_conv3x3_bwd": (2 * px * 9 * 64 * 64,
-                                   5 * (px // 4) * 64 + 2 * px * 64),
+        "pool_route_wgmma": (2 * px * 9 * 64 * 64,
+                             5 * (px // 4) * 64 + 2 * px * 64),
     }
+    work["pool_route_conv3x3_bwd"] = (2 * px * 9 * 64 * 64,
+                                      9 * (px // 4) * 64 + 4 * px * 64)
     return [with_bound({"name": n, "route": "cuda", "source": meta[n][0],
-                        "replaces": meta[n][1], **res[n]}, *work[n],
-                       BF16_FLOPS) for n in KERNELS[3:]]
+                        "replaces": meta[n][1],
+                        "dtype": ("float32" if n == "pool_route_conv3x3_bwd"
+                                  else "bfloat16"), **res[n]}, *work[n],
+                       F32_FLOPS if n == "pool_route_conv3x3_bwd"
+                       else BF16_FLOPS) for n in names]
 
 
 def stage1v3_check(dev):
@@ -1010,19 +1102,23 @@ def stage1v3_check(dev):
 
 def k8_check(dev):
     """Kernels C and D at K8's shapes (conv2_2, conv3_4, conv4_4 at 512²),
-    each against its plain version, bf16 and f32; times summed over the
-    three convs (bf16)."""
+    each against its plain version, bf16 and f32 (D on the tensor cores in
+    bf16, the CUDA cores in f32); times summed over the three convs, C and
+    the tensor-core D in bf16, the CUDA-core D in f32."""
     import torch
     from st3d_torch.kernels import conv as kconv
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    names = ("conv3x3_relu_pool", "pool_route_conv3x3_bwd")
+    names = ("conv3x3_relu_pool",) + tuple(D_KEYS.values())
     res = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
            for n in names}
+    res["pool_route_wgmma"].update(cuda_core_ms=0.0, k2_dx_ms=0.0)
     work = {n: [0, 0] for n in names}
     for c, h in K8_CONVS:
         for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
-            name = f"{c}->{c} {h}² {str(dtype)[6:]}"
+            dname = str(dtype)[6:]
+            d_key = D_KEYS[dname]
+            name = f"{c}->{c} {h}² {dname}"
             x = torch.relu(torch.randn((VIEWS, h, h, c), generator=gen,
                                        device=dev)).to(dtype)
             w = (torch.randn((3, 3, c, c), generator=gen, device=dev)
@@ -1038,44 +1134,67 @@ def k8_check(dev):
                 tol * err_c[1])
             if bad:
                 fail(f"K8 C idx {name}: {bad} mismatches where separated")
+            before = dict(kconv.LAUNCHES)
             dz = kconv.pool_route_conv3x3_bwd(ct, p_p, idx_p, w)
+            torch.cuda.synchronize()
+            if _launched(before) != {d_key: 1}:
+                fail(f"K8 D {name}: launched {_launched(before)}, want "
+                     f"{d_key}")
             dz_p = kconv.pool_route_conv3x3_bwd_plain(ct, p_p, idx_p, w)
             err_d = _max_err(dz, dz_p, tol, f"K8 D dz {name}")
             torch.cuda.synchronize()
             line = (f"K8 {name}: C pooled err {err_c[0]:.3g}/{err_c[1]:.3g}, "
                     f"idx mismatches where separated {bad} ({sep:.3f} of "
-                    f"the cells); D dz err {err_d[0]:.3g}/{err_d[1]:.3g}")
-            for n, err in zip(names, (err_c, err_d)):
+                    f"the cells); D {d_key} dz err "
+                    f"{err_d[0]:.3g}/{err_d[1]:.3g}")
+            for n, err in (("conv3x3_relu_pool", err_c), (d_key, err_d)):
                 res[n]["max_abs_err"] = max(res[n]["max_abs_err"], err[0])
+            px = VIEWS * h * h
+            flops = 2 * 9 * c * c * px
+            e = x.element_size()
+            t_d = cuda_ms(lambda: kconv.pool_route_conv3x3_bwd(
+                ct, p_p, idx_p, w), 5)
+            tp_d = cuda_ms(lambda: kconv.pool_route_conv3x3_bwd_plain(
+                ct, p_p, idx_p, w), 3, 1)
+            res[d_key]["ms"] += t_d
+            res[d_key]["plain_ms"] += tp_d
+            work[d_key][0] += flops
+            work[d_key][1] += ((2 * e + 1) * (px // 4) * c + e * px * c
+                               + e * 9 * c * c)
+            line += f"  D {t_d:.3f} ms (plain {tp_d:.3f})"
             if dtype == torch.bfloat16:
-                t = [cuda_ms(lambda: kconv.conv3x3_relu_pool(x, w, b), 5),
-                     cuda_ms(lambda: kconv.pool_route_conv3x3_bwd(
-                         ct, p_p, idx_p, w), 5)]
-                tp = [cuda_ms(lambda: kconv.conv3x3_relu_pool_plain(x, w, b),
-                              3, 1),
-                      cuda_ms(lambda: kconv.pool_route_conv3x3_bwd_plain(
-                          ct, p_p, idx_p, w), 3, 1)]
-                px = VIEWS * h * h
-                flops = 2 * 9 * c * c * px
-                nbytes = [2 * px * c + 3 * (px // 4) * c + 2 * 9 * c * c,
-                          5 * (px // 4) * c + 2 * px * c + 2 * 9 * c * c]
-                for i, n in enumerate(names):
-                    res[n]["ms"] += t[i]
-                    res[n]["plain_ms"] += tp[i]
-                    work[n][0] += flops
-                    work[n][1] += nbytes[i]
-                line += (f"  C {t[0]:.3f} ms (plain {tp[0]:.3f}), D "
-                         f"{t[1]:.3f} ms (plain {tp[1]:.3f})")
+                t_c = cuda_ms(lambda: kconv.conv3x3_relu_pool(x, w, b), 5)
+                tp_c = cuda_ms(lambda: kconv.conv3x3_relu_pool_plain(x, w, b),
+                               3, 1)
+                res["conv3x3_relu_pool"]["ms"] += t_c
+                res["conv3x3_relu_pool"]["plain_ms"] += tp_c
+                work["conv3x3_relu_pool"][0] += flops
+                work["conv3x3_relu_pool"][1] += (
+                    2 * px * c + 3 * (px // 4) * c + 2 * 9 * c * c)
+                line += f", C {t_c:.3f} ms (plain {tp_c:.3f})"
             print(line)
-    print(f"K8 over conv2_2, conv3_4, conv4_4 (bf16): C "
-          f"{res[names[0]]['ms']:.3f} ms, D {res[names[1]]['ms']:.3f} ms")
+            if dtype == torch.bfloat16:
+                old, dx = d_versus(ct, p_p, idx_p, w, t_d, f"K8 {name}")
+                res[d_key]["cuda_core_ms"] += old
+                res[d_key]["k2_dx_ms"] += dx
+    r = res["pool_route_wgmma"]
+    print(f"K8 over conv2_2, conv3_4, conv4_4: C (bf16) "
+          f"{res['conv3x3_relu_pool']['ms']:.3f} ms, D pool_route_wgmma "
+          f"(bf16) {r['ms']:.3f} ms (CUDA-core D {r['cuda_core_ms']:.3f} "
+          f"ms, K2's dx {r['k2_dx_ms']:.3f} ms), D pool_route_conv3x3_bwd "
+          f"(f32) {res['pool_route_conv3x3_bwd']['ms']:.3f} ms")
+    rates = {"conv3x3_relu_pool": BF16_FLOPS, "pool_route_wgmma": BF16_FLOPS,
+             "pool_route_conv3x3_bwd": F32_FLOPS}
     meta = {"conv3x3_relu_pool": "st3d/kernels/conv_pallas.py:505",
+            "pool_route_wgmma": "st3d/kernels/conv_pallas.py:527",
             "pool_route_conv3x3_bwd": "st3d/kernels/conv_pallas.py:527"}
     return [with_bound({"name": f"{n} (K8)", "route": "cuda",
                         "source": f"st3d_torch/csrc/{n}.cu",
                         "replaces": meta[n],
+                        "dtype": ("float32" if n == "pool_route_conv3x3_bwd"
+                                  else "bfloat16"),
                         "shapes": "conv2_2, conv3_4, conv4_4 at 512² x 4",
-                        **res[n]}, *work[n], BF16_FLOPS) for n in names]
+                        **res[n]}, *work[n], rates[n]) for n in names]
 
 
 def write_scene(root, size, seed, level=ICO_LEVEL):
@@ -1103,13 +1222,14 @@ def launch_counts():
     return (kraster.LAUNCHES, kconv.LAUNCHES, ks1.LAUNCHES, ks3.LAUNCHES)
 
 
-def drive(path, route, run, raster="raster_hard"):
+def drive(path, route, run, raster="raster_hard", want=None):
     """Run ``run()`` on a VGG route with every launch count set to 0 just
-    before; fail unless exactly the route's kernels launched, with
-    ``raster`` as the visibility kernel (None: no raster kernel). Returns
-    the counts read just after."""
-    env, want = ROUTES[route]
-    want = (want - {"raster_hard"}) | ({raster} if raster else set())
+    before; fail unless exactly the route's kernels (``want`` if given)
+    launched, with ``raster`` as the visibility kernel (None: no raster
+    kernel). Returns the counts read just after."""
+    env, route_want = ROUTES[route]
+    want = ((want or route_want) - {"raster_hard"}) | (
+        {raster} if raster else set())
     for counts in launch_counts():
         for k in counts:
             counts[k] = 0
@@ -1132,7 +1252,7 @@ def check_fused_pool_counts(default, fused):
     C and D launch four times as often (conv1_2, conv2_2, conv3_4, conv4_4
     instead of conv1_2 alone), and each C or D launch at K8's convs
     replaces a K2 launch: three K2 launches fewer per C and per D."""
-    c, d, k2 = "conv3x3_relu_pool", "pool_route_conv3x3_bwd", "conv3x3_wgmma"
+    c, d, k2 = "conv3x3_relu_pool", "pool_route_wgmma", "conv3x3_wgmma"
     want_k2 = default[k2] - 3 * (default[c] + default[d])
     if (fused[c] != 4 * default[c] or fused[d] != 4 * default[d]
             or fused[k2] != want_k2):
@@ -1153,7 +1273,7 @@ def route_entries(kernels, default, routes):
     out = []
     for n, k10, line in (
             ("conv3x3_relu_pool", "K10c", "st3d/kernels/stage1v3_pallas.py:286"),
-            ("pool_route_conv3x3_bwd", "K10d",
+            ("pool_route_wgmma", "K10d",
              "st3d/kernels/stage1v3_pallas.py:345")):
         rec = dict(by_name[n], name=f"{n} ({k10})", replaces=line,
                    launches=routes["v3"][n])
@@ -1174,17 +1294,31 @@ def check_outputs(out):
         fail(f"{out}: final_render holds {n_views} views, want 12")
 
 
-def second_approach_path(tmp, obj, style, route, epochs):
+def second_approach_argv(obj, style, epochs, dtype, out):
+    return ["--obj_path", obj, "--style_path", style, "--size", str(SIZE),
+            "--n_views", str(VIEWS), "--batch_size", str(VIEWS),
+            "--compute_dtype", dtype, "--epochs", str(epochs),
+            "--save_intermediate", "False", "--randomize_views", "False",
+            "--device", "cuda", "--output_path", out]
+
+
+def median_step_ms(out, last):
+    """Median ``step_s`` of the last ``last`` epochs after the first, in ms;
+    also how many epochs that was."""
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        steps = [json.loads(l)["step_s"] for l in f]
+    tail = steps[1:][-last:]
+    return 1e3 * statistics.median(tail), len(tail)
+
+
+def second_approach_path(tmp, obj, style, route, epochs, dtype="bfloat16",
+                         want=None):
     from st3d_torch.second_approach import main as second_approach
 
-    out = os.path.join(tmp, f"second_{route}")
+    out = os.path.join(tmp, f"second_{route}_{dtype}")
     t0 = time.perf_counter()
-    launches = drive("second approach", route, lambda: second_approach([
-        "--obj_path", obj, "--style_path", style, "--size", str(SIZE),
-        "--n_views", str(VIEWS), "--batch_size", str(VIEWS),
-        "--compute_dtype", "bfloat16", "--epochs", str(epochs),
-        "--save_intermediate", "False", "--randomize_views", "False",
-        "--device", "cuda", "--output_path", out]))
+    launches = drive("second approach", route, lambda: second_approach(
+        second_approach_argv(obj, style, epochs, dtype, out)), want=want)
     wall = time.perf_counter() - t0
     if route in STAGE1_OFF and launches["gram_nhwc"] != epochs:
         fail(f"route {route}: gram_nhwc (conv1_1's PᵀP) launched "
@@ -1196,15 +1330,50 @@ def second_approach_path(tmp, obj, style, route, epochs):
         fail(f"second approach loss did not fall: {losses[0]} -> "
              f"{losses[-1]}")
     check_outputs(out)
-    with open(os.path.join(out, "metrics.jsonl")) as f:
-        steps = [json.loads(l)["step_s"] for l in f]
-    last = steps[1:][-10:]
-    step_ms = 1e3 * statistics.median(last)
-    print(f"second approach {SIZE}² x {VIEWS} views bf16, route {route}: "
+    step_ms, n = median_step_ms(out, 10)
+    print(f"second approach {SIZE}² x {VIEWS} views {dtype}, route {route}: "
           f"loss {losses[0]:.6g} -> {losses[-1]:.6g} over {epochs} epochs, "
-          f"median step {step_ms:.2f} ms over the last {len(last)}, run "
+          f"median step {step_ms:.2f} ms over the last {n}, run "
           f"{wall:.1f}s, launches " + json.dumps(launches))
     return launches
+
+
+def f32_texture_path(tmp, obj, style):
+    """The texture step in float32, the CLI's default dtype, on the default
+    route: K2 (forward and dx) on 3xTF32 and never on ``conv3x3_nhwc``, K3
+    and D on the CUDA cores."""
+    return second_approach_path(tmp, obj, style, "default", F32_EPOCHS,
+                                "float32", want=F32_KERNELS)
+
+
+def steps_only(dev):
+    """``--steps``: only the default route's texture step at 512² x 4 in
+    bf16 and in float32 (the median step over the last epochs and the
+    launches) and hot loop A, with no launch-set check, so that the same
+    script times them on an earlier tree of the port in the same call.
+    Each texture run is made twice in the process and the second one
+    counts: the bf16 step of a fresh process's first run read 17-21 ms
+    where the full smoke, later in its process, read 13.0 ms (H100)."""
+    from st3d_torch.second_approach import main as second_approach
+
+    with tempfile.TemporaryDirectory() as tmp:
+        obj, style = write_scene(tmp, SIZE, seed=0)
+        for dtype, epochs in (("bfloat16", EPOCHS), ("float32", F32_EPOCHS)):
+            out = os.path.join(tmp, f"second_{dtype}")
+            for counts in launch_counts():
+                for k in counts:
+                    counts[k] = 0
+            for _ in range(2):
+                second_approach(second_approach_argv(obj, style, epochs,
+                                                     dtype, out))
+            step_ms, n = median_step_ms(out, 10)
+            launches = {k: v for counts in launch_counts()
+                        for k, v in counts.items() if v}
+            print(f"second approach {SIZE}² x {VIEWS} views {dtype}, route "
+                  f"default: median step {step_ms:.2f} ms over the last {n} "
+                  f"of {epochs} epochs (second run), launches "
+                  + json.dumps(launches))
+    hot_loop_a_ms(dev, check=False)
 
 
 def moved(obj, out):
@@ -1307,11 +1476,12 @@ def first_approach_path(tmp, obj, style, target="texture",
     return launches
 
 
-def hot_loop_a_ms(dev, route="default"):
+def hot_loop_a_ms(dev, route="default", check=True):
     """ms per hot-loop-A step at 512² x 4 bf16 on a VGG route: two
     synchronised runs of ``style_transfer`` (after a warm-up), their
     difference over the difference in steps, so the targets' set-up
-    cancels; the route's VGG kernels must launch."""
+    cancels; the route's VGG kernels must launch (unless ``check`` is
+    False)."""
     import torch
     from st3d_torch.engine.style_transfer2d import style_transfer
     from st3d_torch.models.vgg import init_random_vgg19
@@ -1330,8 +1500,11 @@ def hot_loop_a_ms(dev, route="default"):
         return time.perf_counter() - t0
 
     times = []
-    drive("hot loop A", route,
-          lambda: times.extend([run(3), run(5), run(25)]), raster=None)
+    if check:
+        drive("hot loop A", route,
+              lambda: times.extend([run(3), run(5), run(25)]), raster=None)
+    else:
+        times.extend([run(3), run(5), run(25)])
     short, long = times[1:]
     ms = 1e3 * (long - short) / 20
     print(f"hot loop A {SIZE}² x {VIEWS} bf16, route {route}: {ms:.2f} ms "
@@ -1341,10 +1514,11 @@ def hot_loop_a_ms(dev, route="default"):
 
 def small_parity(tmp):
     """Both entry points at 64² on the GPU against the same runs on the CPU
-    (plain versions): in f32 (CUDA-core K2 and K3), losses within rtol
-    1e-3, the second approach also on the both target in soft mode and on
-    the v3 and fused-pool routes; and the second approach in bf16 on the
-    default route (tensor-core K2 and K3 down to conv5_1's 4 x 4 images),
+    (plain versions): in f32 (K2 on 3xTF32, K3 and D on the CUDA cores),
+    losses within rtol 1e-3, the second approach also on the both target in
+    soft mode and on the v3 and fused-pool routes; and the second approach
+    in bf16 on the default route (tensor-core K2, K3 and D, K2 down to
+    conv5_1's 4 x 4 images),
     losses within rtol 1e-2: bf16 rounds every activation, and the kernels
     sum in another order than the CPU, so the first loss moves by ~1e-3 and
     three Adam steps carry it."""
@@ -1381,12 +1555,16 @@ def small_parity(tmp):
                                      device, "--output_path", out])
                 runs[device] = read_log(out)
                 if device == "cuda":
-                    k2 = {k for k in ("conv3x3_wgmma", "conv3x3_nhwc")
-                          if launch_counts()[1][k] > before[k]}
+                    ran = {k for k, n in launch_counts()[1].items()
+                           if n > before[k]}
+                    k2 = ran & {"conv3x3_wgmma", "conv3x3_tf32x3",
+                                "conv3x3_nhwc"}
+                    d = ran & set(D_KEYS.values())
                     want = {"bfloat16": "conv3x3_wgmma",
-                            "float32": "conv3x3_nhwc"}[dtype]
-                    if k2 != {want}:
-                        fail(f"64² {entry}: K2 ran on {k2}, want {want}")
+                            "float32": "conv3x3_tf32x3"}[dtype]
+                    if k2 != {want} or d != {D_KEYS[dtype]}:
+                        fail(f"64² {entry}: K2 ran on {k2}, D on {d}, want "
+                             f"{want} and {D_KEYS[dtype]}")
         finally:
             for k in ROUTES[route][0]:
                 os.environ.pop(k)
@@ -1399,9 +1577,13 @@ def small_parity(tmp):
             fail(f"{entry}: GPU and CPU losses differ by {rel}")
 
 
-def main():
+def main(argv=None):
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--steps"]):
+        print("usage: chip_smoke.py [--steps]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -1413,6 +1595,10 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     for k in ROUTE_ENV:
         os.environ.pop(k, None)
+    if argv:
+        print(smi())
+        steps_only(dev)
+        return 0
     seconds = {}
     mark = [time.perf_counter()]
 
@@ -1445,6 +1631,8 @@ def main():
                   for r in ("v3", "fused_pool")}
         check_fused_pool_counts(texture, routes["fused_pool"])
         lap("texture target")
+        f32 = f32_texture_path(tmp, obj, style)
+        lap("f32 texture target")
         vertex = {}
         for mode, (target, *_) in VERTEX_RUNS.items():
             vertex[mode] = vertex_path(tmp, scenes, mode, card)
@@ -1460,11 +1648,14 @@ def main():
     print("phase seconds " + json.dumps(seconds))
     # Launches on this slice's path: each raster kernel from the first
     # vertex run of its mode (K7: SoftRas), the VGG kernels from the hard
-    # run.
+    # run, the float32 route's kernels from the f32 texture run.
     mode_of = {}
     for mode, (*_, kernel) in VERTEX_RUNS.items():
         mode_of.setdefault(kernel, mode)
     for k in kernels:
+        if k.get("dtype") == "float32":
+            k["launches"] = f32.get(k["name"], 0)
+            continue
         k["launches"] = vertex[mode_of.get(k["name"], "hard")].get(
             k["name"], 0)
         k["launches_texture_target"] = texture.get(k["name"], 0)

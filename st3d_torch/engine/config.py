@@ -11,6 +11,10 @@ import argparse
 import dataclasses
 from typing import Dict, Optional
 
+# The JAX package's rasterizer backends (st3d/render/rasterize.py::
+# resolve_backend). The port accepts each and runs its one rasterizer.
+RASTER_BACKENDS = ("auto", "pallas", "xla", "bruteforce")
+
 
 def _str2bool(v) -> bool:
     if isinstance(v, bool):
@@ -118,7 +122,7 @@ def _add_shared(p: argparse.ArgumentParser) -> None:
     p.add_argument("--mesh_verts_weight", default=1.0, type=float)
     p.add_argument("--seed", default=0, type=int)
     p.add_argument("--raster_backend", default="auto", type=str,
-                   choices=["auto", "pallas", "xla", "bruteforce"],
+                   choices=list(RASTER_BACKENDS),
                    help="accepted for flag parity; the port has one "
                    "rasterizer (kernel K1, its plain version on the CPU)")
     p.add_argument("--soft_raster", default=False, type=_str2bool)

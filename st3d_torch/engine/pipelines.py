@@ -44,7 +44,7 @@ from st3d_torch.core.cameras import (
 )
 from st3d_torch.core.mesh import Mesh, finalize_mesh
 from st3d_torch.engine.background import apply_background
-from st3d_torch.engine.config import PipelineConfig
+from st3d_torch.engine.config import RASTER_BACKENDS, PipelineConfig
 from st3d_torch.engine.optim import apply_params, setup_optimizations
 from st3d_torch.engine.style_transfer2d import style_transfer
 from st3d_torch.io.image import load_as_tensor, resize_bilinear_chw, save_image
@@ -79,6 +79,18 @@ def resolve_device(name: str) -> torch.device:
             f"device {name!r} requested but no CUDA GPU is available; pass "
             "--device cpu to run the kernels' plain versions")
     return dev
+
+
+def _check_config(cfg: PipelineConfig) -> None:
+    """Raise before any work on a config the port cannot run: ValueError
+    for an unknown ``raster_backend`` (every known one takes the port's one
+    rasterizer, as st3d/render/rasterize.py::resolve_backend accepts them),
+    NotImplementedError for the parts not ported yet."""
+    if cfg.raster_backend not in RASTER_BACKENDS:
+        raise ValueError(f"unknown rasterizer backend {cfg.raster_backend!r}")
+    why = _unsupported(cfg)
+    if why:
+        raise NotImplementedError(f"st3d_torch does not run {why}")
 
 
 def _unsupported(cfg: PipelineConfig) -> str:
@@ -159,9 +171,7 @@ def run_first_approach(cfg: PipelineConfig) -> Mesh:
     """Stylise each view batch in 2D, then fit the texture to the stylised
     views by masked MSE through the renderer; returns the final (clamped)
     mesh."""
-    why = _unsupported(cfg)
-    if why:
-        raise NotImplementedError(f"st3d_torch does not run {why}")
+    _check_config(cfg)
     device = resolve_device(cfg.device)
     st_dir = os.path.join(cfg.output_path, "2d_style_transfer")
     os.makedirs(st_dir, exist_ok=True)
@@ -243,9 +253,7 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
     """Optimise the trainable leaves against the VGG style/content loss
     (plus the mesh regularizers for the mesh and both targets); returns the
     final (clamped) mesh."""
-    why = _unsupported(cfg)
-    if why:
-        raise NotImplementedError(f"st3d_torch does not run {why}")
+    _check_config(cfg)
     device = resolve_device(cfg.device)
     os.makedirs(cfg.output_path, exist_ok=True)
     os.makedirs(os.path.join(cfg.output_path, "current_images"),

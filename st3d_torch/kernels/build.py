@@ -42,7 +42,8 @@ EXTRA_FLAGS: Dict[str, List[str]] = {n: ["-fmad=false"]
 # (nvcc finds the toolkit's stub library; the installed libcuda.so.1 is
 # loaded at run time), given after the source. ptxas reports their
 # registers, shared memory and spills (``-v``), kept in ``BUILD_LOGS``.
-WGMMA_SOURCES = ("conv3x3_wgmma", "gram_wgmma")
+WGMMA_SOURCES = ("conv3x3_wgmma", "conv3x3_tf32x3", "gram_wgmma",
+                 "pool_route_wgmma")
 EXTRA_FLAGS.update({n: ["-Xptxas", "-v"] for n in WGMMA_SOURCES})
 LINK_FLAGS: Dict[str, List[str]] = {n: ["-lcuda"] for n in WGMMA_SOURCES}
 

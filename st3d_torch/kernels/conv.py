@@ -7,19 +7,24 @@ kernels:
   activations, HWIO weights, float32 accumulation, output in the input
   dtype (bf16 or f32). It also runs every backward: the input gradient of a
   stride-1 SAME conv is the same conv of the cotangent with flipped,
-  IO-transposed weights and a zero bias. Two kernels, chosen by
+  IO-transposed weights and a zero bias. Three kernels, chosen by
   ``conv_route`` on dtype and widths: ``csrc/conv3x3_wgmma.cu`` (bf16 on
-  the tensor cores, TMA-fed tiles of ``conv_tile``'s shape) and
-  ``csrc/conv3x3_nhwc.cu`` (the CUDA cores: float32, and widths TMA cannot
-  stride).
+  the tensor cores, TMA-fed tiles of ``conv_tile``'s shape),
+  ``csrc/conv3x3_tf32x3.cu`` (float32 on the tensor cores by the 3xTF32
+  split of ``split_tf32``, the same tiles) and ``csrc/conv3x3_nhwc.cu``
+  (the CUDA cores: widths TMA cannot stride).
 - K3 ``gram_nhwc``: per-image unnormalised Gram ``yᵀy`` from y in its
   stored dtype, into float32, split over pixel slices by ``gram_split``.
   Two kernels, chosen by ``gram_route``: ``csrc/gram_wgmma.cu`` (bf16,
   tensor cores) and ``csrc/gram_nhwc.cu`` (CUDA cores).
 - ``conv3x3_relu_pool`` (``csrc/conv3x3_relu_pool.cu``) and its backward
-  ``pool_route_conv3x3_bwd`` (``csrc/pool_route_conv3x3_bwd.cu``): conv +
-  bias + ReLU + 2x2 max-pool with the window index, and the input gradient
-  routed by that index. Together they are ``conv3x3_bias_relu_pool_packed``
+  ``pool_route_conv3x3_bwd``: conv + bias + ReLU + 2x2 max-pool with the
+  window index, and the input gradient routed by that index. The backward
+  has two kernels, chosen by ``pool_route``: ``csrc/pool_route_wgmma.cu``
+  (bf16 on the tensor cores, K2's mainloop with the routed A tile built in
+  shared memory from the TMA-loaded ``pool_footprint``) and
+  ``csrc/pool_route_conv3x3_bwd.cu`` (the CUDA cores: float32 and other
+  widths). Together they are ``conv3x3_bias_relu_pool_packed``
   (K5), and ``kernels/stage1.py`` runs them as conv1_2 of stage 1 (K4b,
   K4d; K10c, K10d under v3). They take any Cin/Cout, so they are also
   ``conv3x3_bias_relu_pool`` (K8, the ``ST3D_FUSED_POOL`` route).
@@ -45,9 +50,11 @@ import torch.nn.functional as F
 from st3d_torch.kernels import build
 
 LAUNCHES: Dict[str, int] = {"conv3x3_nhwc": 0, "conv3x3_wgmma": 0,
+                            "conv3x3_tf32x3": 0,
                             "gram_nhwc": 0, "gram_wgmma": 0,
                             "conv3x3_relu_pool": 0,
-                            "pool_route_conv3x3_bwd": 0}
+                            "pool_route_conv3x3_bwd": 0,
+                            "pool_route_wgmma": 0}
 
 SMS = 132                       # streaming multiprocessors of an H100
 CONV_TILE_PIXELS = 128          # output pixels of one tensor-core K2 tile
@@ -61,9 +68,25 @@ GRAM_PLAN = {"wgmma": (128, True, 64, 256, 2 * SMS),
 
 def conv_route(dtype: torch.dtype, cin: int, cout: int) -> str:
     """The K2 kernel a CUDA tensor takes: "wgmma" (``csrc/conv3x3_wgmma.cu``)
-    for bf16 with Cin and Cout multiples of 8 (TMA's global strides are
-    multiples of 16 bytes), else "cuda_core" (``csrc/conv3x3_nhwc.cu``)."""
+    for bf16 with Cin and Cout multiples of 8, "tf32x3"
+    (``csrc/conv3x3_tf32x3.cu``) for float32 with Cin and Cout multiples of
+    4 (TMA's global strides are multiples of 16 bytes), else "cuda_core"
+    (``csrc/conv3x3_nhwc.cu``)."""
     if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0:
+        return "wgmma"
+    if dtype == torch.float32 and cin % 4 == 0 and cout % 4 == 0:
+        return "tf32x3"
+    return "cuda_core"
+
+
+def pool_route(dtype: torch.dtype, c: int, cin: int) -> str:
+    """The kernel ``pool_route_conv3x3_bwd`` takes for a CUDA tensor with C
+    pooled channels and Cin input channels: "wgmma"
+    (``csrc/pool_route_wgmma.cu``) for bf16 with C a multiple of 16 (the
+    uint8 index rows are C bytes apart, and TMA strides are multiples of 16
+    bytes) and Cin a multiple of 8, else "cuda_core"
+    (``csrc/pool_route_conv3x3_bwd.cu``)."""
+    if dtype == torch.bfloat16 and c % 16 == 0 and cin % 8 == 0:
         return "wgmma"
     return "cuda_core"
 
@@ -84,6 +107,16 @@ def conv_tile(width: int) -> Tuple[int, int]:
     while bw < min(width, CONV_TILE_PIXELS):
         bw *= 2
     return bw, CONV_TILE_PIXELS // bw
+
+
+def pool_footprint(width: int) -> Tuple[int, int]:
+    """(PW, PH) of the pooled box the tensor-core ``pool_route_conv3x3_bwd``
+    loads per tile of a ``width``-wide full-resolution image: the pooled
+    pixels under the ``conv_tile`` box plus its one-pixel full-resolution
+    halo. The box starts at pooled ((x0 - 1) >> 1, (y0 - 1) >> 1); x0 is
+    even, and so is y0 unless the box is one row high."""
+    bw, bh = conv_tile(width)
+    return bw // 2 + 2, (2 if bh == 1 else bh // 2 + 2)
 
 
 # ---------------------------------------------------------------------------
@@ -130,8 +163,11 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     if x.device.type == "cpu":
         return conv3x3_nhwc_plain(x, w, b, relu)
     build.check_operands("conv3x3_nhwc", x, w, b)
-    if conv_route(x.dtype, cin, cout) == "wgmma":
+    route = conv_route(x.dtype, cin, cout)
+    if route == "wgmma":
         return _conv3x3_wgmma(x, w, b, relu)
+    if route == "tf32x3":
+        return _conv3x3_tf32x3(x, w, b, relu)
     bsz, h, wd, _ = x.shape
     x = x.contiguous()
     wf = w.reshape(9 * cin, cout).contiguous()
@@ -169,6 +205,34 @@ def _conv3x3_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
              build.stream_handle(x.device))
     build.check(err, "conv3x3_wgmma")
     LAUNCHES["conv3x3_wgmma"] += 1
+    return y
+
+
+def split_tf32(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``t`` as ``(hi, lo)``: hi is t with its low 13 mantissa bits
+    cleared (a TF32 value), lo = t - hi, exact in float32, with t's sign
+    where it is zero, so hi + lo == t bit for bit (-0.0 included)."""
+    hi = (t.contiguous().view(torch.int32) & -8192).view(torch.float32)
+    return hi, torch.copysign(t - hi, t)
+
+
+def _conv3x3_tf32x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    relu: bool) -> torch.Tensor:
+    """K2 in float32 on the tensor cores by the 3xTF32 split: x
+    (B,H,W,Cin), w HWIO laid out (Cout, 3, 3, Cin) and split by
+    ``split_tf32``, tiles of ``conv_tile``."""
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[3]
+    x = _tma_ready(x)
+    w_hi, w_lo = split_tf32(w.permute(3, 0, 1, 2).contiguous())
+    b = b.contiguous()
+    y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
+    fn = build.symbol("conv3x3_tf32x3", "st3d_conv3x3_tf32x3_f32", 5, 7)
+    err = fn(x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(), b.data_ptr(),
+             y.data_ptr(), bsz, h, wd, cin, cout, conv_tile(wd)[0], int(relu),
+             build.stream_handle(x.device))
+    build.check(err, "conv3x3_tf32x3")
+    LAUNCHES["conv3x3_tf32x3"] += 1
     return y
 
 
@@ -444,6 +508,39 @@ def pool_route_conv3x3_bwd(ct: torch.Tensor, pooled: torch.Tensor,
     if idx.device != ct.device:
         raise ValueError(f"pool_route_conv3x3_bwd: idx on {idx.device}, "
                          f"ct on {ct.device}")
+    if pool_route(ct.dtype, c, cin) == "wgmma":
+        return _pool_route_wgmma(ct, pooled, idx, w)
+    return pool_route_cuda_core(ct, pooled, idx, w)
+
+
+def _pool_route_wgmma(ct: torch.Tensor, pooled: torch.Tensor,
+                      idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """D on the tensor cores (bf16): ct, pooled, idx (B,H/2,W/2,C), the
+    flipped, IO-transposed weights laid out (Cin, 3, 3, C), tiles of
+    ``conv_tile`` over the full-resolution dz."""
+    bsz, hp, wp, c = ct.shape
+    cin = w.shape[2]
+    ct, pooled, idx = _tma_ready(ct), _tma_ready(pooled), _tma_ready(idx)
+    wk = transpose_weights(w, ct.dtype).permute(3, 0, 1, 2).contiguous()
+    dz = torch.empty((bsz, 2 * hp, 2 * wp, cin), dtype=ct.dtype,
+                     device=ct.device)
+    bw = conv_tile(2 * wp)[0]
+    pw, ph = pool_footprint(2 * wp)
+    fn = build.symbol("pool_route_wgmma", "st3d_pool_route_wgmma_bf16", 5, 8)
+    err = fn(ct.data_ptr(), pooled.data_ptr(), idx.data_ptr(), wk.data_ptr(),
+             dz.data_ptr(), bsz, 2 * hp, 2 * wp, c, cin, bw, pw, ph,
+             build.stream_handle(ct.device))
+    build.check(err, "pool_route_wgmma")
+    LAUNCHES["pool_route_wgmma"] += 1
+    return dz
+
+
+def pool_route_cuda_core(ct: torch.Tensor, pooled: torch.Tensor,
+                         idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """D on the CUDA cores (``csrc/pool_route_conv3x3_bwd.cu``), the route
+    of float32 and of widths ``pool_route`` keeps off the tensor cores;
+    CUDA tensors only."""
+    cin, c = _route_shapes(ct, pooled, idx, w)
     bsz, hp, wp, _ = ct.shape
     ct, pooled, idx = ct.contiguous(), pooled.contiguous(), idx.contiguous()
     wt = transpose_weights(w, ct.dtype).reshape(9 * c, cin).contiguous()

@@ -1,16 +1,17 @@
 """Where the time of a second-approach step goes, on one NVIDIA GPU.
 
     python -m st3d_torch.profile_step [--size 512] [--views 4] [--steps 5]
-        [--modes texture,hard,soft,softras,stream] [--out DIR]
+        [--modes texture,texture_f32,hard,soft,softras,stream] [--out DIR]
 
 Writes the synthetic scene ``chip_smoke.py`` drives (an ico-sphere with
 spherical UVs, a seeded texture and a seeded style image; level 4, and
 level 7 with 327,680 faces for the streaming mode), then runs
 ``run_second_approach`` once per mode at the given size, ``views`` views in
-one batch, bf16: the texture target (visibility hoisted) and the both
-target re-rasterised every step in hard mode (K1), soft mode (K1's soft
-mode), SoftRas with 4 faces per pixel (K7) and hard mode on the level-7
-sphere (K6). After 3 warm-up steps, ``steps`` steps run under
+one batch, bf16: the texture target (visibility hoisted; also in
+float32, the CLIs' default dtype, as ``texture_f32``) and the both target
+re-rasterised every step in hard mode (K1), soft mode (K1's soft mode),
+SoftRas with 4 faces per pixel (K7) and hard mode on the level-7 sphere
+(K6). After 3 warm-up steps, ``steps`` steps run under
 ``torch.profiler`` (CUPTI). For each mode it prints the median step time
 (host clock between synchronised step ends), the device time per step
 summed over kernels, the idle share (1 - device / step time), the device
@@ -33,9 +34,12 @@ import numpy as np
 import torch
 from torch.optim.optimizer import register_optimizer_step_post_hook
 
-# Mode -> (extra second-approach flags, ico-sphere level).
+# Mode -> (extra second-approach flags, ico-sphere level); the flags
+# override the bf16 default of ``profile_mode``.
 MODES: Dict[str, Tuple[List[str], int]] = {
     "texture": (["--optimization_target", "texture"], 4),
+    "texture_f32": (["--optimization_target", "texture", "--compute_dtype",
+                     "float32"], 4),
     "hard": (["--optimization_target", "both"], 4),
     "soft": (["--optimization_target", "both", "--soft_raster", "true"], 4),
     "softras": (["--optimization_target", "both", "--soft_raster", "true",
@@ -140,6 +144,7 @@ def profile_mode(mode: str, obj: str, style: str, size: int, views: int,
     step_ms = 1e3 * statistics.median(walls)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:12]
     return {"mode": mode, "size": size, "views": views, "steps": steps,
+            "dtype": cfg.compute_dtype,
             "step_ms": step_ms, "device_ms": device_ms,
             "idle_share": 1.0 - device_ms / step_ms,
             "groups": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
@@ -172,7 +177,8 @@ def main(argv=None) -> int:
             r = profile_mode(mode, *scenes[level], args.size, args.views,
                              args.steps, out)
             results.append(r)
-            print(f"{mode}: {card}, {args.size}² x {args.views} bf16, step "
+            print(f"{mode}: {card}, {args.size}² x {args.views} "
+                  f"{r['dtype']}, step "
                   f"{r['step_ms']:.2f} ms (median of {args.steps}), device "
                   f"{r['device_ms']:.2f} ms, idle {r['idle_share']:.3f}")
             for g, ms in r["groups"].items():

@@ -1,10 +1,13 @@
-"""Which K2 and K3 kernel a CUDA tensor takes, and the tensor-core kernels'
-tile plans, as the pure functions of ``st3d_torch.kernels.conv`` (no GPU):
-``conv_route`` and ``gram_route`` (bf16 with channel counts that are
-multiples of 8 take the tensor cores; anything else the CUDA cores),
-``conv_tile`` (the 128-pixel output box per image width) and
-``gram_split`` (slices that cover the pixels exactly, in whole steps, with
-enough blocks for the card)."""
+"""Which K2, K3 and D kernel a CUDA tensor takes, and the tensor-core
+kernels' tile plans, as the pure functions of ``st3d_torch.kernels.conv``
+(no GPU): ``conv_route`` (bf16 with channel counts that are multiples of 8
+and float32 with multiples of 4 take the tensor cores, the latter by
+3xTF32; anything else the CUDA cores), ``gram_route`` (bf16, multiples of
+8), ``pool_route`` (bf16 with C a multiple of 16 and Cin of 8),
+``conv_tile`` (the 128-pixel output box per image width),
+``pool_footprint`` (the pooled box D loads per tile) and ``gram_split``
+(slices that cover the pixels exactly, in whole steps, with enough blocks
+for the card)."""
 
 import pytest
 import torch
@@ -18,10 +21,43 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 64, 64, "wgmma"), (BF16, 512, 512, "wgmma"),
     (BF16, 128, 64, "wgmma"), (BF16, 8, 16, "wgmma"), (BF16, 40, 24, "wgmma"),
     (BF16, 3, 64, "cuda_core"), (BF16, 64, 27, "cuda_core"),
-    (BF16, 12, 64, "cuda_core"), (F32, 64, 64, "cuda_core"),
-    (F32, 512, 512, "cuda_core"), (torch.float16, 64, 64, "cuda_core")])
+    (BF16, 12, 64, "cuda_core"), (F32, 64, 64, "tf32x3"),
+    (F32, 512, 512, "tf32x3"), (torch.float16, 64, 64, "cuda_core"),
+    (F32, 4, 8, "tf32x3"), (F32, 40, 24, "tf32x3"), (F32, 3, 64, "cuda_core"),
+    (F32, 64, 27, "cuda_core"), (F32, 64, 3, "cuda_core"),
+    (F32, 6, 64, "cuda_core")])
 def test_conv_route(dtype, cin, cout, route):
     assert kconv.conv_route(dtype, cin, cout) == route
+
+
+# (dtype, C pooled channels, Cin input channels of the conv, route).
+@pytest.mark.parametrize("dtype,c,cin,route", [
+    (BF16, 64, 64, "wgmma"), (BF16, 128, 128, "wgmma"),
+    (BF16, 512, 512, "wgmma"), (BF16, 16, 8, "wgmma"), (BF16, 48, 24, "wgmma"),
+    (BF16, 40, 24, "cuda_core"), (BF16, 8, 64, "cuda_core"),
+    (BF16, 64, 3, "cuda_core"), (BF16, 64, 12, "cuda_core"),
+    (F32, 64, 64, "cuda_core"), (F32, 512, 512, "cuda_core"),
+    (torch.float16, 64, 64, "cuda_core")])
+def test_pool_route(dtype, c, cin, route):
+    assert kconv.pool_route(dtype, c, cin) == route
+
+
+@pytest.mark.parametrize("width", [8, 10, 16, 20, 24, 32, 40, 64, 100, 128,
+                                   256, 500, 512])
+def test_pool_footprint_covers_every_tap(width):
+    """Every full-resolution pixel a tile's taps read (the box plus its
+    one-pixel halo) falls in the pooled box at ((x0 - 1) >> 1, (y0 - 1) >> 1)
+    of ``pool_footprint``'s size, for every tile of a width x width image,
+    and the box fits the kernel's 132-pixel buffer."""
+    bw, bh = kconv.conv_tile(width)
+    pw, ph = kconv.pool_footprint(width)
+    assert pw * ph <= 132
+    for x0 in range(0, width, bw):
+        for y0 in range(0, width, bh):
+            px0, py0 = (x0 - 1) >> 1, (y0 - 1) >> 1
+            cols = {(x >> 1) - px0 for x in range(x0 - 1, x0 + bw + 1)}
+            rows = {(y >> 1) - py0 for y in range(y0 - 1, y0 + bh + 1)}
+            assert cols == set(range(pw)) and rows == set(range(ph))
 
 
 @pytest.mark.parametrize("dtype,c,route", [

@@ -42,6 +42,16 @@ def test_raster_kernel_equals_plain(dev):
     torch.testing.assert_close(zbuf, z_ref, rtol=1e-6, atol=0)
 
 
+CONV_KEYS = {"wgmma": "conv3x3_wgmma", "tf32x3": "conv3x3_tf32x3",
+             "cuda_core": "conv3x3_nhwc"}
+POOL_KEYS = {"wgmma": "pool_route_wgmma",
+             "cuda_core": "pool_route_conv3x3_bwd"}
+
+
+def _launched(n0):
+    return {k: v - n0[k] for k, v in kconv.LAUNCHES.items() if v != n0[k]}
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("cin,cout,relu", [(16, 64, False), (64, 32, True),
@@ -52,8 +62,7 @@ def test_conv_kernel_matches_plain(dev, dtype, tol, cin, cout, relu):
     w = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
          * 0.2).to(dtype)
     b = torch.randn((cout,), generator=g, device=dev).to(dtype)
-    key = {"wgmma": "conv3x3_wgmma", "cuda_core": "conv3x3_nhwc"}[
-        kconv.conv_route(dtype, cin, cout)]
+    key = CONV_KEYS[kconv.conv_route(dtype, cin, cout)]
     n0 = dict(kconv.LAUNCHES)
     y = kconv.conv3x3_nhwc(x, w, b, relu)
     ref = kconv.conv3x3_nhwc_plain(x, w, b, relu)
@@ -117,6 +126,47 @@ def test_conv_wgmma_matches_plain(dev, shape, cin, cout, relu):
     for got, ref in zip((y, dx), refs):
         assert got.shape == ref.shape and got.dtype == torch.bfloat16
         assert _rel_err(got, ref) <= 1e-2
+
+
+# The same tile shapes in float32, plus W = 1 and 2 (boxes 1 x 128 and
+# 2 x 64) and Cin = 4, the narrowest the 3xTF32 route takes.
+TF32X3_CONVS = WGMMA_CONVS + [((1, 7, 1), 4, 8), ((2, 5, 2), 8, 4)]
+
+
+def _conv_f64(x, w, b, relu):
+    y = torch.nn.functional.conv2d(
+        x.double().permute(0, 3, 1, 2), w.double().permute(3, 2, 0, 1),
+        b.double(), padding=1).permute(0, 2, 3, 1)
+    return torch.relu(y) if relu else y
+
+
+@pytest.mark.parametrize("shape,cin,cout", TF32X3_CONVS)
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv_tf32x3_matches_plain(dev, shape, cin, cout, relu):
+    """Forward and input gradient through ``conv3x3_nhwc`` in float32, both
+    on the 3xTF32 kernel: max-abs error <= 1e-4 * max|plain| against the
+    plain versions (the f32 tolerance of ``chip_smoke.py``) and <= 1e-5 *
+    max against a float64 conv (the split leaves ~4e-7, one TF32 product
+    ~3e-4: tests/test_torch_tf32x3.py; the kernel's per-iteration partial
+    sums keep the tensor core's truncating adds off the running sum)."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(shape + (cin,), generator=g, device=dev)
+    w = torch.randn((3, 3, cin, cout), generator=g, device=dev) * (
+        2.0 / (9 * cin)) ** 0.5
+    b = torch.randn((cout,), generator=g, device=dev) * 0.1
+    ct = torch.randn(shape + (cout,), generator=g, device=dev)
+    n0 = dict(kconv.LAUNCHES)
+    y = kconv.conv3x3_nhwc(x, w, b, relu)
+    dx = kconv._transpose_conv(ct, w)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {"conv3x3_tf32x3": 2}
+    wt = kconv.transpose_weights(w, torch.float32)
+    zb = torch.zeros(cin, device=dev)
+    for got, args in ((y, (x, w, b, relu)), (dx, (ct, wt, zb, False))):
+        assert got.shape == args[0].shape[:3] + (args[1].shape[3],)
+        assert got.dtype == torch.float32
+        assert _rel_err(got, kconv.conv3x3_nhwc_plain(*args)) <= 1e-4
+        assert _rel_err(got, _conv_f64(*args)) <= 1e-5
 
 
 @pytest.mark.parametrize("pixels,c", [(37 * 29, 64), (1000, 128),
@@ -261,21 +311,67 @@ def test_pool_route_bwd_kernel_matches_plain(dev, dtype, tol, shape, cout):
     b = (torch.randn((cout,), generator=g, device=dev) * 0.1).to(dtype)
     p, idx = kconv.conv3x3_relu_pool_plain(x, w, b)
     ct = torch.randn(p.shape, generator=g, device=dev).to(dtype)
-    n0 = kconv.LAUNCHES["pool_route_conv3x3_bwd"]
+    key = POOL_KEYS[kconv.pool_route(dtype, cout, shape[3])]
+    n0 = dict(kconv.LAUNCHES)
     dz = kconv.pool_route_conv3x3_bwd(ct, p, idx, w)
     ref = kconv.pool_route_conv3x3_bwd_plain(ct, p, idx, w)
     torch.cuda.synchronize()
-    assert kconv.LAUNCHES["pool_route_conv3x3_bwd"] == n0 + 1
+    assert _launched(n0) == {key: 1}
     assert dz.shape == x.shape and dz.dtype == dtype
     assert _rel_err(dz, ref) <= tol
 
 
-def test_stage1_gradient_matches_plain_path(dev):
+# (full-resolution (B, H, W), C, Cin) of the tensor-core D: conv1_2 at 512²,
+# K8's three convs (conv2_2, conv3_4, conv4_4 at 512²), ragged widths (W =
+# 20 and 10: boxes past the image; W = 2: a 2 x 64 box; C and Cin below one
+# slab and one BN tile).
+POOL_WGMMA = [((1, 512, 512), 64, 64), ((1, 256, 256), 128, 128),
+              ((1, 128, 128), 256, 256), ((1, 64, 64), 512, 512),
+              ((2, 20, 36), 48, 24), ((1, 6, 10), 16, 8), ((1, 4, 2), 16, 8),
+              ((2, 34, 140), 80, 136)]
+
+
+@pytest.mark.parametrize("shape,c,cin", POOL_WGMMA)
+def test_pool_route_wgmma_matches_plain(dev, shape, c, cin):
+    """The tensor-core D in bf16 against its plain version (<= 1e-2 *
+    max|plain|) on a pre-pool activation quantised to halves, so that many
+    windows are tied (idx names the first maximum) and many are all zero
+    (pooled = 0 passes nothing back)."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    pre = torch.relu(torch.round(2 * torch.randn(shape + (c,), generator=g,
+                                                 device=dev)) / 2)
+    pooled, idx = kconv.pool4_first_max(pre)
+    pooled = pooled.bfloat16()
+    assert bool((pooled == 0).any())
+    w = (torch.randn((3, 3, cin, c), generator=g, device=dev)
+         * (2.0 / (9 * cin)) ** 0.5).bfloat16()
+    ct = torch.randn(pooled.shape, generator=g, device=dev).bfloat16()
+    assert kconv.pool_route(torch.bfloat16, c, cin) == "wgmma"
+    n0 = dict(kconv.LAUNCHES)
+    dz = kconv.pool_route_conv3x3_bwd(ct, pooled, idx, w)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {"pool_route_wgmma": 1}
+    ref = kconv.pool_route_conv3x3_bwd_plain(ct, pooled, idx, w)
+    assert dz.shape == shape + (cin,) and dz.dtype == torch.bfloat16
+    assert _rel_err(dz, ref) <= 1e-2
+    # The same call again gives the same bits (no atomics).
+    assert torch.equal(dz, kconv.pool_route_conv3x3_bwd(ct, pooled, idx, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stage1_gradient_matches_plain_path(dev, dtype):
     """conv1_1_relu_stats -> Gram and conv1_2_relu_pool on CUDA tensors
-    (kernels A-D) against the same functions on CPU copies (plain
-    versions), float32: values and the input gradient."""
+    (kernels A-D; D on the CUDA cores in float32, on the tensor cores in
+    bf16) against the plain versions: in float32 the same functions on CPU
+    copies, values and the input gradient within 1e-4; in bf16 the input
+    gradient against the plain chain (D's and B's plain versions) fed the
+    kernels' own forward outputs, within 1e-2 (the bf16 pool's index may
+    differ from a CPU run's at near-ties)."""
     from st3d_torch.kernels import stage1 as ks1
     from st3d_torch.models.vgg import gram1_closed_form
+
+    if dtype == torch.bfloat16:
+        return _stage1_gradient_bf16(dev)
 
     rng = np.random.RandomState(8)
     x = rng.rand(2, 32, 24, 3).astype(np.float32)
@@ -297,6 +393,44 @@ def test_stage1_gradient_matches_plain_path(dev):
         outs.append([v.detach().cpu() for v in (p, gm, xt.grad)])
     for got, ref in zip(*outs):
         assert _rel_err(got, ref) <= 1e-4
+
+
+def _stage1_gradient_bf16(dev):
+    from st3d_torch.kernels import stage1 as ks1
+    from st3d_torch.models.vgg import gram1_closed_form
+
+    rng = np.random.RandomState(8)
+    bf = torch.bfloat16
+    x = torch.tensor(rng.rand(2, 32, 24, 3).astype(np.float32),
+                     device=dev).to(bf)
+    w1, b1, w2, b2 = (torch.tensor(a, device=dev).to(bf) for a in (
+        (rng.randn(3, 3, 3, 64) * 0.2).astype(np.float32),
+        (rng.randn(64) * 0.1).astype(np.float32),
+        (rng.randn(3, 3, 64, 64) * 0.05).astype(np.float32),
+        (rng.randn(64) * 0.1).astype(np.float32)))
+    ct = torch.tensor(rng.randn(2, 16, 12, 64).astype(np.float32),
+                      device=dev).to(bf)
+    ctg = torch.tensor((rng.randn(2, 64, 64) * 1e-3).astype(np.float32),
+                       device=dev)
+    n0 = dict(kconv.LAUNCHES)
+    xt = x.clone().requires_grad_(True)
+    z, ptp, s27 = ks1.conv1_1_relu_stats(xt, w1, b1)
+    gm = gram1_closed_form(ptp, s27, w1, b1, 32 * 24)
+    p, idx = ks1.conv1_2_relu_pool(z, w2, b2)
+    torch.autograd.backward((p, gm), (ct, ctg))
+    torch.cuda.synchronize()
+    assert _launched(n0) == {"conv3x3_relu_pool": 1, "pool_route_wgmma": 1}
+    # The plain chain on the kernels' own forward outputs.
+    ptp_r = ptp.detach().requires_grad_(True)
+    s27_r = s27.detach().requires_grad_(True)
+    dptp, ds27 = torch.autograd.grad(
+        gram1_closed_form(ptp_r, s27_r, w1, b1, 32 * 24), (ptp_r, s27_r),
+        ctg)
+    dz = kconv.pool_route_conv3x3_bwd_plain(ct, p.detach(), idx, w2)
+    ref = ks1.conv1_1_bwd_plain(x, dz, z.detach(), w1,
+                                (dptp + dptp.transpose(-1, -2)).float(),
+                                ds27.float())
+    assert xt.grad.dtype == bf and _rel_err(xt.grad, ref) <= 1e-2
 
 
 # ---------------------------------------------------------------------------
@@ -511,9 +645,8 @@ def test_k8_kernels_match_plain(dev, dtype, tol, cin, cout, h):
     p, idx = kconv.conv3x3_bias_relu_pool(xt, w, b)
     (dx,) = torch.autograd.grad(p, xt, ct)
     torch.cuda.synchronize()
-    assert kconv.LAUNCHES["conv3x3_relu_pool"] == n0["conv3x3_relu_pool"] + 1
-    assert (kconv.LAUNCHES["pool_route_conv3x3_bwd"]
-            == n0["pool_route_conv3x3_bwd"] + 1)
+    assert _launched(n0) == {"conv3x3_relu_pool": 1,
+                             POOL_KEYS[kconv.pool_route(dtype, cout, cin)]: 1}
     p_ref, idx_ref = kconv.conv3x3_relu_pool_plain(x, w, b)
     assert _rel_err(p.detach(), p_ref) <= tol
     pre = kconv.conv3x3_nhwc_plain(x, w, b, True)
