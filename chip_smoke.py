@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port (``st3d_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --steps    # only the step times of phases 3-4
+    python3 chip_smoke.py --steps    # only step times (see ``steps_only``)
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -32,11 +32,15 @@ Phases; any failure raises and the script exits non-zero:
    conv1_1's 27-wide PᵀP in bf16 on ``gram_nhwc``; each Gram bit-identical
    on a second call;
    stage 1 at 512² x 4 (conv1_1 3->64, conv1_2 64->64), bf16 and f32:
-   A ``conv1_1_stats``, B ``conv1_1_bwd``, C ``conv3x3_relu_pool``, D
-   (``pool_route_wgmma`` on the tensor cores in bf16,
-   ``pool_route_conv3x3_bwd`` on the CUDA cores in f32; the bf16 one timed
-   beside the CUDA-core D on the same inputs and K2's dx at the same
-   shape):
+   A ``conv1_1_stats``, B ``conv1_1_bwd``, C (``conv3x3_relu_pool_wgmma``,
+   K2's mainloop with a pool epilogue, in bf16; ``conv3x3_relu_pool`` on
+   the CUDA cores in f32), D (``pool_route_wgmma`` on the tensor cores in
+   bf16, ``pool_route_tf32x3`` by 3xTF32 in f32; the CUDA-core
+   ``pool_route_conv3x3_bwd`` held against the plain version in f32 too);
+   each call on its route's kernel; the tensor-core C and D timed beside
+   the CUDA-core kernel on the same inputs and K2's forward or dx at the
+   same shape, C also beside the three-call composition
+   ``F.max_pool2d(F.relu(F.conv2d(...)), 2, return_indices=True)``:
    z, dx, pooled and dz max-abs error <= 1e-2 *
    max|plain| in bf16 and <= 1e-4 * max|plain| in f32; PᵀP and s27
    relative Frobenius error <= 1e-4 (sums of 2¹⁸ terms per image, taken in
@@ -47,7 +51,7 @@ Phases; any failure raises and the script exits non-zero:
    (dx as B's); K10c and K10d are C and D at the shapes above;
    K8, C and D at conv2_2's, conv3_4's and conv4_4's shapes (4 x 256² x 128,
    4 x 128² x 256, 4 x 64² x 512), bf16 and f32, with C's and D's
-   tolerances and D's comparisons;
+   tolerances, routes and comparisons;
    K9, G ``raster_2d``, at 512² x 4, ico-sphere level 4, against its plain
    version (pix_to_face exactly equal, zbuf within rtol 1e-6), then at level
    7 (327,680 faces) against K1: zbuf bit-equal, ids different only at
@@ -63,14 +67,16 @@ Phases; any failure raises and the script exits non-zero:
    computing the same function where there is one (``F.conv2d``,
    ``torch.bmm``); K2 and K3 print each shape's TFLOP/s. The f32 K2 is
    timed against ``F.conv2d`` in f32 with TF32 off (and, for information,
-   on); its bound counts its three TF32 products at 495 TFLOP/s. K3's and
-   D's CUDA-core kernels are timed in f32 (their route).
+   on); its bound, and the f32 D's, count three TF32 products at 495
+   TFLOP/s. K3's and C's CUDA-core kernels are timed in f32 (their route),
+   as is the CUDA-core D.
 3. The second approach (``st3d_torch.second_approach.main``) at 512², 4
    views, batch 4, bf16, 20 epochs on a seeded synthetic scene, on the
    default VGG route: every loss finite, the last below the first,
    ``final.obj`` and ``final_render/`` written, all seven kernels launched
-   (K2 and K3 only on the tensor cores: no ``conv3x3_nhwc`` or
-   ``gram_nhwc`` launch on any bf16 route but the one below).
+   (K2, K3, C and D only on the tensor cores: no ``conv3x3_nhwc``,
+   ``conv3x3_relu_pool`` or ``pool_route_conv3x3_bwd`` launch on any bf16
+   route, no ``gram_nhwc`` on any but the two below).
    Then 5 epochs each on PR 1's route (``ST3D_NO_STAGE1_V2=1
    ST3D_NO_PACKED1=1``: K1-K3 only) and on the K5 route
    (``ST3D_NO_STAGE1_V2=1``: C and D, not A and B), where conv1_1's
@@ -78,11 +84,11 @@ Phases; any failure raises and the script exits non-zero:
    the v3 route (``ST3D_STAGE1=v3``: E and F, not A and B) and the
    fused-pool route (``ST3D_FUSED_POOL=1``: the default's kernels, C and D
    four times as often, ``conv3x3_wgmma`` three times fewer for each C and
-   each D). No bf16 route launches the CUDA-core
-   ``pool_route_conv3x3_bwd``.
+   each D).
    Then the texture step in float32, the CLIs' default dtype, 10 epochs on
    the default route: K2 only on ``conv3x3_tf32x3`` (no ``conv3x3_nhwc``),
-   K3 and D on the CUDA cores; its median step.
+   D only on ``pool_route_tf32x3`` (no ``pool_route_conv3x3_bwd``), K3 and
+   C on the CUDA cores; its median step.
    Then the vertex optimisation, ``--optimization_target both`` at 512², 4
    views, bf16, 10 epochs, in four raster modes: hard at ico level 4 (K1),
    ``--soft_raster true`` (K1's soft mode), ``--soft_raster true
@@ -108,7 +114,8 @@ Phases; any failure raises and the script exits non-zero:
    both --soft_raster true``, and the second approach on the v3 and
    fused-pool routes: losses within rtol 1e-3; and the second approach at
    64² in bf16 on the default route (the tensor-core K2, K3 and D): losses
-   within rtol 1e-2. Each GPU run must take K2 and D on its dtype's route.
+   within rtol 1e-2. Each GPU run must take K2, C and D on its dtype's
+   route.
 6. The wall seconds of each phase, the card's name and power limit, one
    JSON line with the kernels' results (ptxas's registers and spills of
    the tensor-core kernels are printed after the build), then the last line
@@ -149,11 +156,12 @@ F32_FLOPS = 67e12
 # only conv1_1's 27-wide PᵀP Gram, once a step, on the two routes with
 # stage 1 off.
 KERNELS = ("raster_hard", "conv3x3_wgmma", "gram_wgmma", "conv1_1_stats",
-           "conv1_1_bwd", "conv3x3_relu_pool", "pool_route_wgmma")
-# The default route in float32: K2 on 3xTF32 (no conv3x3_nhwc: every width
-# it meets is a multiple of 4), K3 and D on the CUDA cores.
+           "conv1_1_bwd", "conv3x3_relu_pool_wgmma", "pool_route_wgmma")
+# The default route in float32: K2 and D on 3xTF32 (no conv3x3_nhwc or
+# pool_route_conv3x3_bwd: every width they meet fits the tensor cores), K3
+# and C on the CUDA cores.
 F32_KERNELS = {"raster_hard", "conv3x3_tf32x3", "gram_nhwc", "conv1_1_stats",
-               "conv1_1_bwd", "conv3x3_relu_pool", "pool_route_conv3x3_bwd"}
+               "conv1_1_bwd", "conv3x3_relu_pool", "pool_route_tf32x3"}
 RASTER_KERNELS = ("raster_hard", "raster_soft", "raster_stream",
                   "raster_topk")
 # The vertex-optimisation runs: target, extra flags, ico level, the raster
@@ -188,7 +196,7 @@ ROUTES = {
             {"raster_hard", "conv3x3_wgmma", "gram_wgmma", "gram_nhwc"}),
     "k5": ({"ST3D_NO_STAGE1_V2": "1"},
            {"raster_hard", "conv3x3_wgmma", "gram_wgmma", "gram_nhwc",
-            "conv3x3_relu_pool", "pool_route_wgmma"}),
+            "conv3x3_relu_pool_wgmma", "pool_route_wgmma"}),
 }
 STAGE1_OFF = ("pr1", "k5")     # conv1_1's PᵀP: one gram_nhwc launch a step
 # (Cin, Cout, H) of the convs K2 runs at 512² (conv1_2 .. conv5_1).
@@ -868,13 +876,38 @@ def _idx_mismatches(idx, idx_ref, pre_pool, tol):
             float(separated.float().mean()))
 
 
-D_KEYS = {"bfloat16": "pool_route_wgmma", "float32": "pool_route_conv3x3_bwd"}
+C_KEYS = {"bfloat16": "conv3x3_relu_pool_wgmma", "float32": "conv3x3_relu_pool"}
+D_KEYS = {"bfloat16": "pool_route_wgmma", "float32": "pool_route_tf32x3"}
 
 
-def d_versus(ct, pooled, idx, w, d_ms, what):
+def c_versus(x, w, b, c_ms, what):
+    """Prints the tensor-core C's time beside, on the same bf16 inputs, the
+    CUDA-core C it replaces, K2's forward (conv + bias + ReLU, no pool) and
+    a three-call composition of torch ops (``F.max_pool2d(F.relu(
+    F.conv2d(...)), 2, return_indices=True)``: not one library call of the
+    same function, its index counts in the whole plane); returns them."""
+    import torch
+    import torch.nn.functional as F
+    from st3d_torch.kernels import conv as kconv
+
+    old = cuda_ms(lambda: kconv.conv3x3_relu_pool_cuda_core(x, w, b), 5)
+    k2 = cuda_ms(lambda: kconv.conv3x3_nhwc(x, w, b, True), 5)
+    xl = x.permute(0, 3, 1, 2)
+    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    comp = cuda_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xl, wl, b, padding=1)),
+                                        2, return_indices=True), 5)
+    torch.cuda.synchronize()
+    print(f"C {what}: conv3x3_relu_pool_wgmma {c_ms:.3f} ms, the CUDA-core "
+          f"conv3x3_relu_pool on the same inputs {old:.3f} ms, K2's forward "
+          f"at the same shape {k2:.3f} ms, the composition max_pool2d(relu("
+          f"conv2d)) {comp:.3f} ms")
+    return {"cuda_core_ms": old, "k2_fwd_ms": k2, "composition_ms": comp}
+
+
+def d_versus(ct, pooled, idx, w, d_ms, key, what):
     """Prints the tensor-core D's time beside the CUDA-core D on the same
-    bf16 inputs and K2's dx (the transpose conv alone, on the routed
-    cotangent at full resolution) at the same shape; returns them."""
+    inputs and K2's dx (the transpose conv alone, on the routed cotangent
+    at full resolution) at the same shape; returns them."""
     import torch
     from st3d_torch.kernels import conv as kconv
 
@@ -882,27 +915,35 @@ def d_versus(ct, pooled, idx, w, d_ms, what):
     routed = kconv.route_pool_cotangent(ct, pooled, idx)
     dx = cuda_ms(lambda: kconv._transpose_conv(routed, w), 5)
     torch.cuda.synchronize()
-    print(f"D {what} bf16: pool_route_wgmma {d_ms:.3f} ms, the CUDA-core "
+    print(f"D {what}: {key} {d_ms:.3f} ms, the CUDA-core "
           f"pool_route_conv3x3_bwd on the same inputs {old:.3f} ms, K2's dx "
           f"at the same shape {dx:.3f} ms")
-    return old, dx
+    return {"cuda_core_ms": old, "k2_dx_ms": dx}
+
+
+def _add(rec, extra):
+    for k, v in extra.items():
+        rec[k] = rec.get(k, 0.0) + v
 
 
 def stage1_check(dev):
     """Kernels A-D at the stage-1 shapes of the main path (4 x 512² x 3 ->
-    64 -> 64, pool to 256²), each against its plain version; D on its bf16
-    route (the tensor cores) and its float32 route (the CUDA cores)."""
+    64 -> 64, pool to 256²), each against its plain version; C and D on
+    their bf16 routes (the tensor cores) and their float32 routes (C on the
+    CUDA cores, D on 3xTF32), and the CUDA-core D in float32 on the same
+    inputs as the 3xTF32 one."""
     import torch
     from st3d_torch.kernels import conv as kconv
     from st3d_torch.kernels import stage1 as ks1
 
     gen = torch.Generator(device=dev).manual_seed(2)
     shape = (VIEWS, SIZE, SIZE)
-    names = KERNELS[3:] + ("pool_route_conv3x3_bwd",)
+    names = KERNELS[3:] + (C_KEYS["float32"], D_KEYS["float32"],
+                           "pool_route_conv3x3_bwd")
     res = {n: {"max_abs_err": 0.0} for n in names}
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
         name = str(dtype)[6:]
-        d_key = D_KEYS[name]
+        c_key, d_key = C_KEYS[name], D_KEYS[name]
         x = torch.rand(shape + (3,), generator=gen, device=dev).to(dtype)
         w1 = (torch.randn((3, 3, 3, 64), generator=gen, device=dev)
               * (2.0 / 27) ** 0.5).to(dtype)
@@ -930,16 +971,19 @@ def stage1_check(dev):
         dx = ks1.conv1_1_bwd(x, dz, z_p, w1, sym, ds)
         dx_p = ks1.conv1_1_bwd_plain(x, dz, z_p, w1, sym, ds)
         errs["conv1_1_bwd"] = _max_err(dx, dx_p, tol, f"B dx {name}")
-        # C: pooled and idx from the plain forward's z.
+        # C: pooled and idx from the plain forward's z, on its route.
+        before = dict(kconv.LAUNCHES)
         pooled, idx = kconv.conv3x3_relu_pool(z_p, w2, b2)
+        torch.cuda.synchronize()
+        if _launched(before) != {c_key: 1}:
+            fail(f"C {name}: launched {_launched(before)}, want {c_key}")
         pooled_p, idx_p = kconv.conv3x3_relu_pool_plain(z_p, w2, b2)
-        errs["conv3x3_relu_pool"] = _max_err(pooled, pooled_p, tol,
-                                             f"C pooled {name}")
+        errs[c_key] = _max_err(pooled, pooled_p, tol, f"C pooled {name}")
         bad, sep = _idx_mismatches(
             idx, idx_p, kconv.conv3x3_nhwc_plain(z_p, w2, b2, True),
-            tol * errs["conv3x3_relu_pool"][1])
-        print(f"C conv3x3_relu_pool {name} idx mismatches {bad} where "
-              f"separated ({sep:.3f} of the cells), elsewhere "
+            tol * errs[c_key][1])
+        print(f"C {c_key} {name} idx mismatches {bad} where separated "
+              f"({sep:.3f} of the cells), elsewhere "
               f"{int((idx != idx_p).sum())}")
         if bad:
             fail(f"C idx {name}: {bad} mismatches where separated")
@@ -951,6 +995,11 @@ def stage1_check(dev):
             fail(f"D {name}: launched {_launched(before)}, want {d_key}")
         dz2_p = kconv.pool_route_conv3x3_bwd_plain(ct, pooled_p, idx_p, w2)
         errs[d_key] = _max_err(dz2, dz2_p, tol, f"D dz {name}")
+        if dtype == torch.float32:
+            # The CUDA-core D, which float32 took before the 3xTF32 one.
+            dz_cc = kconv.pool_route_cuda_core(ct, pooled_p, idx_p, w2)
+            errs["pool_route_conv3x3_bwd"] = _max_err(
+                dz_cc, dz2_p, tol, f"D pool_route_conv3x3_bwd dz {name}")
         torch.cuda.synchronize()
 
         calls = {
@@ -959,7 +1008,7 @@ def stage1_check(dev):
             "conv1_1_bwd": (
                 lambda: ks1.conv1_1_bwd(x, dz, z_p, w1, sym, ds),
                 lambda: ks1.conv1_1_bwd_plain(x, dz, z_p, w1, sym, ds)),
-            "conv3x3_relu_pool": (
+            c_key: (
                 lambda: kconv.conv3x3_relu_pool(z_p, w2, b2),
                 lambda: kconv.conv3x3_relu_pool_plain(z_p, w2, b2)),
             d_key: (
@@ -971,58 +1020,75 @@ def stage1_check(dev):
             r = res[n]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             line = f"{n} {name} max err {err:.3g}/{scale:.3g}"
-            # Timed on their main-path dtype: A-C and the tensor-core D in
-            # bf16, the CUDA-core D in float32 (its route).
-            if dtype == torch.bfloat16 or n == d_key:
+            # Timed on their main-path dtype: A and B in bf16, C and D on
+            # each dtype's route (the CUDA-core D below, beside 3xTF32's).
+            if n in calls and (dtype == torch.bfloat16 or n in (c_key, d_key)):
                 r["ms"] = cuda_ms(calls[n][0], 5)
                 r["plain_ms"] = cuda_ms(calls[n][1], 3, 1)
                 line += (f"  kernel {r['ms']:.3f} ms plain "
                          f"{r['plain_ms']:.3f} ms")
             print(line)
+        what = f"conv1_2 4 x 512² x 64 -> 64 {name}"
+        res[d_key].update(d_versus(ct, pooled_p, idx_p, w2, res[d_key]["ms"],
+                                   d_key, what))
         if dtype == torch.bfloat16:
-            old, dx = d_versus(ct, pooled_p, idx_p, w2, res[d_key]["ms"],
-                               "conv1_2 4 x 512² x 64 -> 64")
-            res[d_key]["cuda_core_ms"] = old
-            res[d_key]["k2_dx_ms"] = dx
+            res[c_key].update(c_versus(z_p, w2, b2, res[c_key]["ms"], what))
+        else:
+            cc = res["pool_route_conv3x3_bwd"]
+            cc["ms"] = res[d_key]["cuda_core_ms"]
+            cc["plain_ms"] = res[d_key]["plain_ms"]
     meta = {
         "conv1_1_stats": ("st3d_torch/csrc/conv1_1_stats.cu",
                           "st3d/kernels/stage1_pallas.py:446"),
         "conv1_1_bwd": ("st3d_torch/csrc/conv1_1_bwd.cu",
                         "st3d/kernels/stage1_pallas.py:583"),
+        "conv3x3_relu_pool_wgmma": ("st3d_torch/csrc/conv3x3_wgmma.cu",
+                                    "st3d/kernels/stage1_pallas.py:485, "
+                                    "st3d/kernels/conv_pallas.py:760"),
         "conv3x3_relu_pool": ("st3d_torch/csrc/conv3x3_relu_pool.cu",
                               "st3d/kernels/stage1_pallas.py:485, "
                               "st3d/kernels/conv_pallas.py:760"),
         "pool_route_wgmma": ("st3d_torch/csrc/pool_route_wgmma.cu",
                              "st3d/kernels/stage1_pallas.py:539, "
                              "st3d/kernels/conv_pallas.py:785"),
+        "pool_route_tf32x3": ("st3d_torch/csrc/pool_route_tf32x3.cu",
+                              "st3d/kernels/stage1_pallas.py:539, "
+                              "st3d/kernels/conv_pallas.py:785"),
         "pool_route_conv3x3_bwd": ("st3d_torch/csrc/pool_route_conv3x3_bwd.cu",
                                    "st3d/kernels/stage1_pallas.py:539, "
                                    "st3d/kernels/conv_pallas.py:785"),
     }
-    # Bounds at bf16, 4 x 512²: A conv1_1 (27 -> 64) plus the 27 x 27 patch
+    # Bounds at 4 x 512²: A conv1_1 (27 -> 64) plus the 27 x 27 patch
     # statistics; B the same two products backwards; C and D conv1_2
-    # (64 -> 64, 9 taps) forward and input gradient; the CUDA-core D in
-    # float32 (its route): twice the bytes, the fp32 rate.
+    # (64 -> 64, 9 taps) forward and input gradient. bf16 at the bf16
+    # tensor rate; the float32 routes at their own: C on the fp32 cores,
+    # D's three TF32 products at the TF32 rate, the CUDA-core D at the fp32
+    # rate; float32 moves twice the bytes.
     px = VIEWS * SIZE * SIZE
+    conv12 = 2 * px * 9 * 64 * 64
     work = {
         "conv1_1_stats": (2 * px * 27 * (64 + 27),
-                          2 * px * (3 + 64) + 4 * VIEWS * (27 * 27 + 27)),
+                          2 * px * (3 + 64) + 4 * VIEWS * (27 * 27 + 27),
+                          BF16_FLOPS),
         "conv1_1_bwd": (2 * px * 27 * (64 + 27),
                         2 * px * (3 + 64 + 64 + 3)
-                        + 4 * VIEWS * (27 * 27 + 27)),
-        "conv3x3_relu_pool": (2 * px * 9 * 64 * 64,
-                              2 * px * 64 + 3 * (px // 4) * 64),
-        "pool_route_wgmma": (2 * px * 9 * 64 * 64,
-                             5 * (px // 4) * 64 + 2 * px * 64),
+                        + 4 * VIEWS * (27 * 27 + 27), BF16_FLOPS),
+        "conv3x3_relu_pool_wgmma": (conv12, 2 * px * 64 + 3 * (px // 4) * 64,
+                                    BF16_FLOPS),
+        "pool_route_wgmma": (conv12, 5 * (px // 4) * 64 + 2 * px * 64,
+                             BF16_FLOPS),
+        "conv3x3_relu_pool": (conv12, 4 * px * 64 + 5 * (px // 4) * 64,
+                              F32_FLOPS),
+        "pool_route_tf32x3": (3 * conv12, 9 * (px // 4) * 64 + 4 * px * 64,
+                              TF32_FLOPS),
+        "pool_route_conv3x3_bwd": (conv12, 9 * (px // 4) * 64 + 4 * px * 64,
+                                   F32_FLOPS),
     }
-    work["pool_route_conv3x3_bwd"] = (2 * px * 9 * 64 * 64,
-                                      9 * (px // 4) * 64 + 4 * px * 64)
+    f32 = (C_KEYS["float32"], D_KEYS["float32"], "pool_route_conv3x3_bwd")
     return [with_bound({"name": n, "route": "cuda", "source": meta[n][0],
                         "replaces": meta[n][1],
-                        "dtype": ("float32" if n == "pool_route_conv3x3_bwd"
-                                  else "bfloat16"), **res[n]}, *work[n],
-                       F32_FLOPS if n == "pool_route_conv3x3_bwd"
-                       else BF16_FLOPS) for n in names]
+                        "dtype": "float32" if n in f32 else "bfloat16",
+                        **res[n]}, *work[n]) for n in names]
 
 
 def stage1v3_check(dev):
@@ -1102,22 +1168,23 @@ def stage1v3_check(dev):
 
 def k8_check(dev):
     """Kernels C and D at K8's shapes (conv2_2, conv3_4, conv4_4 at 512²),
-    each against its plain version, bf16 and f32 (D on the tensor cores in
-    bf16, the CUDA cores in f32); times summed over the three convs, C and
-    the tensor-core D in bf16, the CUDA-core D in f32."""
+    each against its plain version, bf16 and f32 (C on the tensor cores in
+    bf16, the CUDA cores in f32; D on the tensor cores in both, by 3xTF32
+    in f32); times summed over the three convs: C and D in bf16, D in f32,
+    each beside the CUDA-core kernel on the same inputs and K2 at the same
+    shape."""
     import torch
     from st3d_torch.kernels import conv as kconv
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    names = ("conv3x3_relu_pool",) + tuple(D_KEYS.values())
+    names = (C_KEYS["bfloat16"],) + tuple(D_KEYS.values())
     res = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
            for n in names}
-    res["pool_route_wgmma"].update(cuda_core_ms=0.0, k2_dx_ms=0.0)
     work = {n: [0, 0] for n in names}
     for c, h in K8_CONVS:
         for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
             dname = str(dtype)[6:]
-            d_key = D_KEYS[dname]
+            c_key, d_key = C_KEYS[dname], D_KEYS[dname]
             name = f"{c}->{c} {h}² {dname}"
             x = torch.relu(torch.randn((VIEWS, h, h, c), generator=gen,
                                        device=dev)).to(dtype)
@@ -1126,7 +1193,12 @@ def k8_check(dev):
             b = (0.1 * torch.randn((c,), generator=gen, device=dev)).to(dtype)
             ct = torch.randn((VIEWS, h // 2, h // 2, c), generator=gen,
                              device=dev).to(dtype)
+            before = dict(kconv.LAUNCHES)
             pooled, idx = kconv.conv3x3_relu_pool(x, w, b)
+            torch.cuda.synchronize()
+            if _launched(before) != {c_key: 1}:
+                fail(f"K8 C {name}: launched {_launched(before)}, want "
+                     f"{c_key}")
             p_p, idx_p = kconv.conv3x3_relu_pool_plain(x, w, b)
             err_c = _max_err(pooled, p_p, tol, f"K8 C pooled {name}")
             bad, sep = _idx_mismatches(
@@ -1143,12 +1215,13 @@ def k8_check(dev):
             dz_p = kconv.pool_route_conv3x3_bwd_plain(ct, p_p, idx_p, w)
             err_d = _max_err(dz, dz_p, tol, f"K8 D dz {name}")
             torch.cuda.synchronize()
-            line = (f"K8 {name}: C pooled err {err_c[0]:.3g}/{err_c[1]:.3g}, "
-                    f"idx mismatches where separated {bad} ({sep:.3f} of "
-                    f"the cells); D {d_key} dz err "
-                    f"{err_d[0]:.3g}/{err_d[1]:.3g}")
-            for n, err in (("conv3x3_relu_pool", err_c), (d_key, err_d)):
-                res[n]["max_abs_err"] = max(res[n]["max_abs_err"], err[0])
+            line = (f"K8 {name}: C {c_key} pooled err "
+                    f"{err_c[0]:.3g}/{err_c[1]:.3g}, idx mismatches where "
+                    f"separated {bad} ({sep:.3f} of the cells); D {d_key} dz "
+                    f"err {err_d[0]:.3g}/{err_d[1]:.3g}")
+            for n, err in ((c_key, err_c), (d_key, err_d)):
+                if n in res:
+                    res[n]["max_abs_err"] = max(res[n]["max_abs_err"], err[0])
             px = VIEWS * h * h
             flops = 2 * 9 * c * c * px
             e = x.element_size()
@@ -1158,7 +1231,7 @@ def k8_check(dev):
                 ct, p_p, idx_p, w), 3, 1)
             res[d_key]["ms"] += t_d
             res[d_key]["plain_ms"] += tp_d
-            work[d_key][0] += flops
+            work[d_key][0] += flops * (3 if dtype == torch.float32 else 1)
             work[d_key][1] += ((2 * e + 1) * (px // 4) * c + e * px * c
                                + e * 9 * c * c)
             line += f"  D {t_d:.3f} ms (plain {tp_d:.3f})"
@@ -1166,32 +1239,35 @@ def k8_check(dev):
                 t_c = cuda_ms(lambda: kconv.conv3x3_relu_pool(x, w, b), 5)
                 tp_c = cuda_ms(lambda: kconv.conv3x3_relu_pool_plain(x, w, b),
                                3, 1)
-                res["conv3x3_relu_pool"]["ms"] += t_c
-                res["conv3x3_relu_pool"]["plain_ms"] += tp_c
-                work["conv3x3_relu_pool"][0] += flops
-                work["conv3x3_relu_pool"][1] += (
+                res[c_key]["ms"] += t_c
+                res[c_key]["plain_ms"] += tp_c
+                work[c_key][0] += flops
+                work[c_key][1] += (
                     2 * px * c + 3 * (px // 4) * c + 2 * 9 * c * c)
                 line += f", C {t_c:.3f} ms (plain {tp_c:.3f})"
             print(line)
             if dtype == torch.bfloat16:
-                old, dx = d_versus(ct, p_p, idx_p, w, t_d, f"K8 {name}")
-                res[d_key]["cuda_core_ms"] += old
-                res[d_key]["k2_dx_ms"] += dx
-    r = res["pool_route_wgmma"]
-    print(f"K8 over conv2_2, conv3_4, conv4_4: C (bf16) "
-          f"{res['conv3x3_relu_pool']['ms']:.3f} ms, D pool_route_wgmma "
-          f"(bf16) {r['ms']:.3f} ms (CUDA-core D {r['cuda_core_ms']:.3f} "
-          f"ms, K2's dx {r['k2_dx_ms']:.3f} ms), D pool_route_conv3x3_bwd "
-          f"(f32) {res['pool_route_conv3x3_bwd']['ms']:.3f} ms")
-    rates = {"conv3x3_relu_pool": BF16_FLOPS, "pool_route_wgmma": BF16_FLOPS,
-             "pool_route_conv3x3_bwd": F32_FLOPS}
-    meta = {"conv3x3_relu_pool": "st3d/kernels/conv_pallas.py:505",
-            "pool_route_wgmma": "st3d/kernels/conv_pallas.py:527",
-            "pool_route_conv3x3_bwd": "st3d/kernels/conv_pallas.py:527"}
+                _add(res[c_key], c_versus(x, w, b, t_c, f"K8 {name}"))
+            _add(res[d_key], d_versus(ct, p_p, idx_p, w, t_d, d_key,
+                                      f"K8 {name}"))
+    c, d, d32 = (res[n] for n in names)
+    print(f"K8 over conv2_2, conv3_4, conv4_4: C {names[0]} (bf16) "
+          f"{c['ms']:.3f} ms (CUDA-core C {c['cuda_core_ms']:.3f} ms, K2's "
+          f"forward {c['k2_fwd_ms']:.3f} ms, composition "
+          f"{c['composition_ms']:.3f} ms); D {names[1]} (bf16) "
+          f"{d['ms']:.3f} ms (CUDA-core D {d['cuda_core_ms']:.3f} ms, K2's "
+          f"dx {d['k2_dx_ms']:.3f} ms); D {names[2]} (f32) {d32['ms']:.3f} "
+          f"ms (CUDA-core D {d32['cuda_core_ms']:.3f} ms, K2's dx "
+          f"{d32['k2_dx_ms']:.3f} ms)")
+    rates = {names[0]: BF16_FLOPS, names[1]: BF16_FLOPS,
+             names[2]: TF32_FLOPS}
+    meta = {names[0]: ("conv3x3_wgmma", "st3d/kernels/conv_pallas.py:505"),
+            names[1]: (names[1], "st3d/kernels/conv_pallas.py:527"),
+            names[2]: (names[2], "st3d/kernels/conv_pallas.py:527")}
     return [with_bound({"name": f"{n} (K8)", "route": "cuda",
-                        "source": f"st3d_torch/csrc/{n}.cu",
-                        "replaces": meta[n],
-                        "dtype": ("float32" if n == "pool_route_conv3x3_bwd"
+                        "source": f"st3d_torch/csrc/{meta[n][0]}.cu",
+                        "replaces": meta[n][1],
+                        "dtype": ("float32" if n == names[2]
                                   else "bfloat16"),
                         "shapes": "conv2_2, conv3_4, conv4_4 at 512² x 4",
                         **res[n]}, *work[n], rates[n]) for n in names]
@@ -1252,7 +1328,7 @@ def check_fused_pool_counts(default, fused):
     C and D launch four times as often (conv1_2, conv2_2, conv3_4, conv4_4
     instead of conv1_2 alone), and each C or D launch at K8's convs
     replaces a K2 launch: three K2 launches fewer per C and per D."""
-    c, d, k2 = "conv3x3_relu_pool", "pool_route_wgmma", "conv3x3_wgmma"
+    c, d, k2 = C_KEYS["bfloat16"], D_KEYS["bfloat16"], "conv3x3_wgmma"
     want_k2 = default[k2] - 3 * (default[c] + default[d])
     if (fused[c] != 4 * default[c] or fused[d] != 4 * default[d]
             or fused[k2] != want_k2):
@@ -1272,7 +1348,8 @@ def route_entries(kernels, default, routes):
         by_name[n]["launches"] = routes["v3"][n]
     out = []
     for n, k10, line in (
-            ("conv3x3_relu_pool", "K10c", "st3d/kernels/stage1v3_pallas.py:286"),
+            (C_KEYS["bfloat16"], "K10c",
+             "st3d/kernels/stage1v3_pallas.py:286"),
             ("pool_route_wgmma", "K10d",
              "st3d/kernels/stage1v3_pallas.py:345")):
         rec = dict(by_name[n], name=f"{n} ({k10})", replaces=line,
@@ -1340,38 +1417,45 @@ def second_approach_path(tmp, obj, style, route, epochs, dtype="bfloat16",
 
 def f32_texture_path(tmp, obj, style):
     """The texture step in float32, the CLI's default dtype, on the default
-    route: K2 (forward and dx) on 3xTF32 and never on ``conv3x3_nhwc``, K3
-    and D on the CUDA cores."""
+    route: K2 (forward and dx) and D on 3xTF32, never ``conv3x3_nhwc`` or
+    ``pool_route_conv3x3_bwd``; K3 and C on the CUDA cores."""
     return second_approach_path(tmp, obj, style, "default", F32_EPOCHS,
                                 "float32", want=F32_KERNELS)
 
 
 def steps_only(dev):
-    """``--steps``: only the default route's texture step at 512² x 4 in
-    bf16 and in float32 (the median step over the last epochs and the
-    launches) and hot loop A, with no launch-set check, so that the same
-    script times them on an earlier tree of the port in the same call.
-    Each texture run is made twice in the process and the second one
-    counts: the bf16 step of a fresh process's first run read 17-21 ms
+    """``--steps``: only the default route's step times at 512² x 4, with
+    no launch-set check, so that the same script times them on an earlier
+    tree of the port in the same call: the texture step in bf16 and in
+    float32, the both target in bf16 hard (K1) and soft (K1-soft) (the
+    median step over the last epochs, and the launches), and hot loop A.
+    Each second-approach run is made twice in the process and the second
+    one counts: the bf16 step of a fresh process's first run read 17-21 ms
     where the full smoke, later in its process, read 13.0 ms (H100)."""
     from st3d_torch.second_approach import main as second_approach
 
+    runs = [("texture", "bfloat16", EPOCHS, 10, []),
+            ("texture", "float32", F32_EPOCHS, 10, [])]
+    for mode in ("hard", "soft"):
+        target, extra, _, _ = VERTEX_RUNS[mode]
+        runs.append((f"{target} {mode}", "bfloat16", BOTH_EPOCHS, 5,
+                     ["--optimization_target", target] + extra))
     with tempfile.TemporaryDirectory() as tmp:
         obj, style = write_scene(tmp, SIZE, seed=0)
-        for dtype, epochs in (("bfloat16", EPOCHS), ("float32", F32_EPOCHS)):
-            out = os.path.join(tmp, f"second_{dtype}")
+        for what, dtype, epochs, last, extra in runs:
+            out = os.path.join(tmp, f"second_{what.replace(' ', '_')}_{dtype}")
             for counts in launch_counts():
                 for k in counts:
                     counts[k] = 0
             for _ in range(2):
                 second_approach(second_approach_argv(obj, style, epochs,
-                                                     dtype, out))
-            step_ms, n = median_step_ms(out, 10)
+                                                     dtype, out) + extra)
+            step_ms, n = median_step_ms(out, last)
             launches = {k: v for counts in launch_counts()
                         for k, v in counts.items() if v}
             print(f"second approach {SIZE}² x {VIEWS} views {dtype}, route "
-                  f"default: median step {step_ms:.2f} ms over the last {n} "
-                  f"of {epochs} epochs (second run), launches "
+                  f"default, {what}: median step {step_ms:.2f} ms over the "
+                  f"last {n} of {epochs} epochs (second run), launches "
                   + json.dumps(launches))
     hot_loop_a_ms(dev, check=False)
 
@@ -1514,10 +1598,11 @@ def hot_loop_a_ms(dev, route="default", check=True):
 
 def small_parity(tmp):
     """Both entry points at 64² on the GPU against the same runs on the CPU
-    (plain versions): in f32 (K2 on 3xTF32, K3 and D on the CUDA cores),
+    (plain versions): in f32 (K2 and D on 3xTF32, K3 and C on the CUDA
+    cores),
     losses within rtol 1e-3, the second approach also on the both target in
     soft mode and on the v3 and fused-pool routes; and the second approach
-    in bf16 on the default route (tensor-core K2, K3 and D, K2 down to
+    in bf16 on the default route (tensor-core K2, K3, C and D, K2 down to
     conv5_1's 4 x 4 images),
     losses within rtol 1e-2: bf16 rounds every activation, and the kernels
     sum in another order than the CPU, so the first loss moves by ~1e-3 and
@@ -1559,12 +1644,16 @@ def small_parity(tmp):
                            if n > before[k]}
                     k2 = ran & {"conv3x3_wgmma", "conv3x3_tf32x3",
                                 "conv3x3_nhwc"}
-                    d = ran & set(D_KEYS.values())
+                    c = ran & set(C_KEYS.values())
+                    d = ran & (set(D_KEYS.values())
+                               | {"pool_route_conv3x3_bwd"})
                     want = {"bfloat16": "conv3x3_wgmma",
                             "float32": "conv3x3_tf32x3"}[dtype]
-                    if k2 != {want} or d != {D_KEYS[dtype]}:
-                        fail(f"64² {entry}: K2 ran on {k2}, D on {d}, want "
-                             f"{want} and {D_KEYS[dtype]}")
+                    if (k2 != {want} or c != {C_KEYS[dtype]}
+                            or d != {D_KEYS[dtype]}):
+                        fail(f"64² {entry}: K2 ran on {k2}, C on {c}, D on "
+                             f"{d}, want {want}, {C_KEYS[dtype]} and "
+                             f"{D_KEYS[dtype]}")
         finally:
             for k in ROUTES[route][0]:
                 os.environ.pop(k)

@@ -260,20 +260,6 @@ int launch(const CUtensorMap& xmap, const CUtensorMap& whimap,
   return (int)cudaGetLastError();
 }
 
-CUresult encode_weights(CUtensorMap* map, const void* w, int Cin, int Cout,
-                        int bn) {
-  const cuuint64_t e = 4;                        // bytes per f32
-  const cuuint32_t ones[3] = {1, 1, 1};
-  const cuuint64_t dim[3] = {(cuuint64_t)Cin, 9, (cuuint64_t)Cout};
-  const cuuint64_t stride[2] = {Cin * e, 9 * Cin * e};
-  const cuuint32_t box[3] = {BK, 1, (cuuint32_t)bn};
-  return cuTensorMapEncodeTiled(
-      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(w), dim,
-      stride, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 }  // namespace
 
 // x (B, H, W, Cin) f32; w_hi, w_lo (Cout, 3, 3, Cin) f32, the exact split of
@@ -307,9 +293,11 @@ extern "C" int st3d_conv3x3_tf32x3_f32(const void* x, const void* w_hi,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   if (r != CUDA_SUCCESS) return ENCODE_ERROR + (int)r;
   const int bn = Cout <= 64 ? 64 : 128;
-  r = encode_weights(&whimap, w_hi, Cin, Cout, bn);
+  r = encode_weights(&whimap, w_hi, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, e, Cin,
+                     Cout, BK, bn);
   if (r != CUDA_SUCCESS) return ENCODE_ERROR + (int)r;
-  r = encode_weights(&wlomap, w_lo, Cin, Cout, bn);
+  r = encode_weights(&wlomap, w_lo, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, e, Cin,
+                     Cout, BK, bn);
   if (r != CUDA_SUCCESS) return ENCODE_ERROR + (int)r;
   cudaStream_t st = (cudaStream_t)stream;
   return bn == 64 ? launch<64>(xmap, whimap, wlomap, b, y, B, H, W, Cin, Cout,

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (conv3x3_wgmma.cu, conv3x3_tf32x3.cu, gram_wgmma.cu, pool_route_wgmma.cu),
-// from raw PTX: mbarriers, TMA tile loads, named barriers, the proxy fence,
-// wgmma shared-memory descriptors and the wgmma instructions.
+// (conv3x3_wgmma.cu, conv3x3_tf32x3.cu, gram_wgmma.cu, pool_route_wgmma.cu,
+// pool_route_tf32x3.cu), from raw PTX: mbarriers, TMA tile loads, named
+// barriers, the proxy fence, wgmma shared-memory descriptors and the wgmma
+// instructions; and, on the host, the tensor maps the convolutions share.
 // kernels/build.py folds every csrc/*.cuh into each library's hash, so an
 // edit here rebuilds the kernels that include it.
 
@@ -217,6 +218,41 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t a,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// Host: the tensor map of conv weights laid out (N, 9, K), K innermost (e
+// bytes an element), with the box (bk, 1, bn) and the 128-byte swizzle:
+// per tap, a [bn x bk] K-major wgmma B tile.
+inline CUresult encode_weights(CUtensorMap* map, const void* w,
+                               CUtensorMapDataType dt, cuuint64_t e, int K,
+                               int N, int bk, int bn) {
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const cuuint64_t dim[3] = {(cuuint64_t)K, 9, (cuuint64_t)N};
+  const cuuint64_t stride[2] = {K * e, 9 * K * e};
+  const cuuint32_t box[3] = {(cuuint32_t)bk, 1, (cuuint32_t)bn};
+  return cuTensorMapEncodeTiled(
+      map, dt, 3, const_cast<void*>(w), dim, stride, box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// Host: the tensor map of a 2x2 pool's (C, W/2, H/2, B) tensor t (e bytes
+// an element) with the box (bc, pw, ph, 1), unswizzled: the pooled
+// footprint of a full-resolution tile (the routed backward kernels).
+inline CUresult encode_pooled(CUtensorMap* map, const void* t,
+                              CUtensorMapDataType dt, cuuint64_t e, int B,
+                              int Hp, int Wp, int C, int bc, int pw, int ph) {
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  const cuuint64_t dim[4] = {(cuuint64_t)C, (cuuint64_t)Wp, (cuuint64_t)Hp,
+                             (cuuint64_t)B};
+  const cuuint64_t stride[3] = {C * e, (cuuint64_t)Wp * C * e,
+                                (cuuint64_t)Hp * Wp * C * e};
+  const cuuint32_t box[4] = {(cuuint32_t)bc, (cuuint32_t)pw, (cuuint32_t)ph,
+                             1};
+  return cuTensorMapEncodeTiled(
+      map, dt, 4, const_cast<void*>(t), dim, stride, box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace hopper

@@ -295,23 +295,6 @@ int launch(const CUtensorMap* maps, void* dz, int B, int H, int W, int C,
   return (int)cudaGetLastError();
 }
 
-// The (C, W/2, H/2, B) pooled tensor ``t`` (bytes per element ``e``) with
-// the box (64, pw, ph, 1), unswizzled.
-CUresult encode_pooled(CUtensorMap* map, const void* t, CUtensorMapDataType dt,
-                       cuuint64_t e, int B, int Hp, int Wp, int C, int pw,
-                       int ph) {
-  const cuuint32_t ones[4] = {1, 1, 1, 1};
-  const cuuint64_t dim[4] = {(cuuint64_t)C, (cuuint64_t)Wp, (cuuint64_t)Hp,
-                             (cuuint64_t)B};
-  const cuuint64_t stride[3] = {C * e, (cuuint64_t)Wp * C * e,
-                                (cuuint64_t)Hp * Wp * C * e};
-  const cuuint32_t box[4] = {BK, (cuuint32_t)pw, (cuuint32_t)ph, 1};
-  return cuTensorMapEncodeTiled(
-      map, dt, 4, const_cast<void*>(t), dim, stride, box, ones,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 }  // namespace
 
 // ct, pooled (B, H/2, W/2, C) bf16, idx (B, H/2, W/2, C) uint8, wk (Cout, 3,
@@ -334,25 +317,17 @@ extern "C" int st3d_pool_route_wgmma_bf16(const void* ct, const void* pooled,
   CUtensorMap maps[4];
   const int Hp = H / 2, Wp = W / 2;
   CUresult r = encode_pooled(&maps[0], ct, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                             2, B, Hp, Wp, C, pw, ph);
+                             2, B, Hp, Wp, C, BK, pw, ph);
   if (r != CUDA_SUCCESS) return ENCODE_ERROR + (int)r;
   r = encode_pooled(&maps[1], pooled, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, B,
-                    Hp, Wp, C, pw, ph);
+                    Hp, Wp, C, BK, pw, ph);
   if (r != CUDA_SUCCESS) return ENCODE_ERROR + (int)r;
   r = encode_pooled(&maps[2], idx, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, B, Hp,
-                    Wp, C, pw, ph);
+                    Wp, C, BK, pw, ph);
   if (r != CUDA_SUCCESS) return ENCODE_ERROR + (int)r;
   const int bn = Cout <= 64 ? 64 : 128;
-  const cuuint64_t e = 2;
-  const cuuint32_t ones[3] = {1, 1, 1};
-  const cuuint64_t wdim[3] = {(cuuint64_t)C, 9, (cuuint64_t)Cout};
-  const cuuint64_t wstride[2] = {C * e, 9 * C * e};
-  const cuuint32_t wbox[3] = {BK, 1, (cuuint32_t)bn};
-  r = cuTensorMapEncodeTiled(
-      &maps[3], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(wk),
-      wdim, wstride, wbox, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  r = encode_weights(&maps[3], wk, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, C,
+                     Cout, BK, bn);
   if (r != CUDA_SUCCESS) return ENCODE_ERROR + (int)r;
   cudaStream_t st = (cudaStream_t)stream;
   return bn == 64 ? launch<64>(maps, dz, B, H, W, C, Cout, bw_log2, pw, ph, st)

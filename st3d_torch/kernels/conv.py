@@ -1,6 +1,6 @@
 """3x3 convolution kernels for the VGG stack, with their gradients.
 
-Counterpart of ``st3d/kernels/conv_pallas.py``. Six hand-written CUDA
+Counterpart of ``st3d/kernels/conv_pallas.py``. Its hand-written CUDA
 kernels:
 
 - K2 ``conv3x3_nhwc``: 3x3 SAME stride-1 conv + bias (+ ReLU), NHWC
@@ -17,14 +17,19 @@ kernels:
   stored dtype, into float32, split over pixel slices by ``gram_split``.
   Two kernels, chosen by ``gram_route``: ``csrc/gram_wgmma.cu`` (bf16,
   tensor cores) and ``csrc/gram_nhwc.cu`` (CUDA cores).
-- ``conv3x3_relu_pool`` (``csrc/conv3x3_relu_pool.cu``) and its backward
-  ``pool_route_conv3x3_bwd``: conv + bias + ReLU + 2x2 max-pool with the
-  window index, and the input gradient routed by that index. The backward
-  has two kernels, chosen by ``pool_route``: ``csrc/pool_route_wgmma.cu``
-  (bf16 on the tensor cores, K2's mainloop with the routed A tile built in
-  shared memory from the TMA-loaded ``pool_footprint``) and
-  ``csrc/pool_route_conv3x3_bwd.cu`` (the CUDA cores: float32 and other
-  widths). Together they are ``conv3x3_bias_relu_pool_packed``
+- ``conv3x3_relu_pool`` and its backward ``pool_route_conv3x3_bwd``:
+  conv + bias + ReLU + 2x2 max-pool with the window index, and the input
+  gradient routed by that index. The forward has two kernels, chosen by
+  ``relu_pool_route``: ``csrc/conv3x3_wgmma.cu``'s pool epilogue (bf16,
+  K2's mainloop on tiles of ``pool_tile``'s shape, the 2x2 pool in shared
+  memory) and ``csrc/conv3x3_relu_pool.cu`` (the CUDA cores: float32 and
+  other widths). The backward has three, chosen by ``pool_route``:
+  ``csrc/pool_route_wgmma.cu`` (bf16 on the tensor cores, K2's mainloop
+  with the routed A tile built in shared memory from the TMA-loaded
+  ``pool_footprint``), ``csrc/pool_route_tf32x3.cu`` (float32 the same
+  way, on the 3xTF32 mainloop) and ``csrc/pool_route_conv3x3_bwd.cu`` (the
+  CUDA cores: other widths). Together they are
+  ``conv3x3_bias_relu_pool_packed``
   (K5), and ``kernels/stage1.py`` runs them as conv1_2 of stage 1 (K4b,
   K4d; K10c, K10d under v3). They take any Cin/Cout, so they are also
   ``conv3x3_bias_relu_pool`` (K8, the ``ST3D_FUSED_POOL`` route).
@@ -53,11 +58,14 @@ LAUNCHES: Dict[str, int] = {"conv3x3_nhwc": 0, "conv3x3_wgmma": 0,
                             "conv3x3_tf32x3": 0,
                             "gram_nhwc": 0, "gram_wgmma": 0,
                             "conv3x3_relu_pool": 0,
+                            "conv3x3_relu_pool_wgmma": 0,
                             "pool_route_conv3x3_bwd": 0,
-                            "pool_route_wgmma": 0}
+                            "pool_route_wgmma": 0,
+                            "pool_route_tf32x3": 0}
 
 SMS = 132                       # streaming multiprocessors of an H100
 CONV_TILE_PIXELS = 128          # output pixels of one tensor-core K2 tile
+POOL_TILE_WIDTH = 64            # widest tile that holds whole 2x2 windows
 # K3's split over pixel slices, per route: (Gram tile edge, upper triangle
 # only, pixels per step, shortest slice, blocks wanted). The tensor-core
 # kernel's steps are 64-pixel TMA boxes and it computes the tiles with row
@@ -79,15 +87,29 @@ def conv_route(dtype: torch.dtype, cin: int, cout: int) -> str:
     return "cuda_core"
 
 
+def relu_pool_route(dtype: torch.dtype, cin: int, cout: int) -> str:
+    """The kernel ``conv3x3_relu_pool`` takes for a CUDA tensor: "wgmma"
+    (``csrc/conv3x3_wgmma.cu`` with its pool epilogue) for bf16 with Cin
+    and Cout multiples of 8, else "cuda_core"
+    (``csrc/conv3x3_relu_pool.cu``)."""
+    if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0:
+        return "wgmma"
+    return "cuda_core"
+
+
 def pool_route(dtype: torch.dtype, c: int, cin: int) -> str:
     """The kernel ``pool_route_conv3x3_bwd`` takes for a CUDA tensor with C
     pooled channels and Cin input channels: "wgmma"
     (``csrc/pool_route_wgmma.cu``) for bf16 with C a multiple of 16 (the
     uint8 index rows are C bytes apart, and TMA strides are multiples of 16
-    bytes) and Cin a multiple of 8, else "cuda_core"
-    (``csrc/pool_route_conv3x3_bwd.cu``)."""
+    bytes) and Cin a multiple of 8; "tf32x3" (``csrc/pool_route_tf32x3.cu``)
+    for float32 with C a multiple of 16 and Cin a multiple of 4 (the f32
+    weight and dz rows, as ``conv_route``'s float32 rule); else
+    "cuda_core" (``csrc/pool_route_conv3x3_bwd.cu``)."""
     if dtype == torch.bfloat16 and c % 16 == 0 and cin % 8 == 0:
         return "wgmma"
+    if dtype == torch.float32 and c % 16 == 0 and cin % 4 == 0:
+        return "tf32x3"
     return "cuda_core"
 
 
@@ -106,6 +128,15 @@ def conv_tile(width: int) -> Tuple[int, int]:
     bw = 1
     while bw < min(width, CONV_TILE_PIXELS):
         bw *= 2
+    return bw, CONV_TILE_PIXELS // bw
+
+
+def pool_tile(width: int) -> Tuple[int, int]:
+    """(BW, BH) of the tensor-core ``conv3x3_relu_pool``'s output tile:
+    ``conv_tile``'s box with BW capped at 64, so that BH >= 2 and both
+    sides are even and the tile holds whole 2x2 windows (tile origins are
+    even, and so are H and W)."""
+    bw = min(conv_tile(width)[0], POOL_TILE_WIDTH)
     return bw, CONV_TILE_PIXELS // bw
 
 
@@ -436,16 +467,57 @@ def conv3x3_relu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     even, w HWIO: pooled (B,H/2,W/2,Cout) in ``x.dtype`` and idx uint8 in
     {0..3} (``pool4_first_max``'s rule, on output-dtype values)."""
     cin, cout = _conv_shapes(x, w, b)
-    hp, wp = _pool_dims(x)
+    _pool_dims(x)
     if x.device.type == "cpu":
         return conv3x3_relu_pool_plain(x, w, b)
     build.check_operands("conv3x3_relu_pool", x, w, b)
+    if relu_pool_route(x.dtype, cin, cout) == "wgmma":
+        return _conv3x3_relu_pool_wgmma(x, w, b)
+    return conv3x3_relu_pool_cuda_core(x, w, b)
+
+
+def _pool_outputs(x: torch.Tensor, cout: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    bsz, h, wd, _ = x.shape
+    shape = (bsz, h // 2, wd // 2, cout)
+    return (torch.empty(shape, dtype=x.dtype, device=x.device),
+            torch.empty(shape, dtype=torch.uint8, device=x.device))
+
+
+def _conv3x3_relu_pool_wgmma(x: torch.Tensor, w: torch.Tensor,
+                             b: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """C on the tensor cores (bf16): K2's mainloop with the pool epilogue,
+    w HWIO laid out (Cout, 3, 3, Cin), tiles of ``pool_tile``."""
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[3]
+    x = _tma_ready(x)
+    wk = w.permute(3, 0, 1, 2).contiguous()
+    b = b.contiguous()
+    pooled, idx = _pool_outputs(x, cout)
+    fn = build.symbol("conv3x3_wgmma", "st3d_conv3x3_relu_pool_wgmma_bf16",
+                      5, 6)
+    err = fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(), pooled.data_ptr(),
+             idx.data_ptr(), bsz, h, wd, cin, cout, pool_tile(wd)[0],
+             build.stream_handle(x.device))
+    build.check(err, "conv3x3_relu_pool_wgmma")
+    LAUNCHES["conv3x3_relu_pool_wgmma"] += 1
+    return pooled, idx
+
+
+def conv3x3_relu_pool_cuda_core(x: torch.Tensor, w: torch.Tensor,
+                                b: torch.Tensor
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """C on the CUDA cores (``csrc/conv3x3_relu_pool.cu``), the route of
+    float32 and of widths ``relu_pool_route`` keeps off the tensor cores;
+    CUDA tensors only."""
+    cin, cout = _conv_shapes(x, w, b)
+    _pool_dims(x)
     bsz, h, wd, _ = x.shape
     x = x.contiguous()
     wf = w.reshape(9 * cin, cout).contiguous()
     b = b.contiguous()
-    pooled = torch.empty((bsz, hp, wp, cout), dtype=x.dtype, device=x.device)
-    idx = torch.empty((bsz, hp, wp, cout), dtype=torch.uint8, device=x.device)
+    pooled, idx = _pool_outputs(x, cout)
     fn = build.symbol("conv3x3_relu_pool", "st3d_conv3x3_relu_pool_"
                       + build.DTYPE_SUFFIX[x.dtype], 5, 5)
     err = fn(x.data_ptr(), wf.data_ptr(), b.data_ptr(), pooled.data_ptr(),
@@ -508,8 +580,11 @@ def pool_route_conv3x3_bwd(ct: torch.Tensor, pooled: torch.Tensor,
     if idx.device != ct.device:
         raise ValueError(f"pool_route_conv3x3_bwd: idx on {idx.device}, "
                          f"ct on {ct.device}")
-    if pool_route(ct.dtype, c, cin) == "wgmma":
+    route = pool_route(ct.dtype, c, cin)
+    if route == "wgmma":
         return _pool_route_wgmma(ct, pooled, idx, w)
+    if route == "tf32x3":
+        return _pool_route_tf32x3(ct, pooled, idx, w)
     return pool_route_cuda_core(ct, pooled, idx, w)
 
 
@@ -535,11 +610,35 @@ def _pool_route_wgmma(ct: torch.Tensor, pooled: torch.Tensor,
     return dz
 
 
+def _pool_route_tf32x3(ct: torch.Tensor, pooled: torch.Tensor,
+                       idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """D in float32 on the tensor cores by the 3xTF32 split: ct, pooled,
+    idx (B,H/2,W/2,C), the flipped, IO-transposed weights laid out (Cin, 3,
+    3, C) and split by ``split_tf32``, tiles of ``conv_tile`` over the
+    full-resolution dz."""
+    bsz, hp, wp, c = ct.shape
+    cin = w.shape[2]
+    ct, pooled, idx = _tma_ready(ct), _tma_ready(pooled), _tma_ready(idx)
+    w_hi, w_lo = split_tf32(
+        transpose_weights(w, ct.dtype).permute(3, 0, 1, 2).contiguous())
+    dz = torch.empty((bsz, 2 * hp, 2 * wp, cin), dtype=ct.dtype,
+                     device=ct.device)
+    bw = conv_tile(2 * wp)[0]
+    pw, ph = pool_footprint(2 * wp)
+    fn = build.symbol("pool_route_tf32x3", "st3d_pool_route_tf32x3_f32", 6, 8)
+    err = fn(ct.data_ptr(), pooled.data_ptr(), idx.data_ptr(),
+             w_hi.data_ptr(), w_lo.data_ptr(), dz.data_ptr(), bsz, 2 * hp,
+             2 * wp, c, cin, bw, pw, ph, build.stream_handle(ct.device))
+    build.check(err, "pool_route_tf32x3")
+    LAUNCHES["pool_route_tf32x3"] += 1
+    return dz
+
+
 def pool_route_cuda_core(ct: torch.Tensor, pooled: torch.Tensor,
                          idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """D on the CUDA cores (``csrc/pool_route_conv3x3_bwd.cu``), the route
-    of float32 and of widths ``pool_route`` keeps off the tensor cores;
-    CUDA tensors only."""
+    of the widths ``pool_route`` keeps off the tensor cores; CUDA tensors
+    only."""
     cin, c = _route_shapes(ct, pooled, idx, w)
     bsz, hp, wp, _ = ct.shape
     ct, pooled, idx = ct.contiguous(), pooled.contiguous(), idx.contiguous()

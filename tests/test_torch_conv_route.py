@@ -3,8 +3,10 @@ kernels' tile plans, as the pure functions of ``st3d_torch.kernels.conv``
 (no GPU): ``conv_route`` (bf16 with channel counts that are multiples of 8
 and float32 with multiples of 4 take the tensor cores, the latter by
 3xTF32; anything else the CUDA cores), ``gram_route`` (bf16, multiples of
-8), ``pool_route`` (bf16 with C a multiple of 16 and Cin of 8),
-``conv_tile`` (the 128-pixel output box per image width),
+8), ``relu_pool_route`` (bf16, multiples of 8), ``pool_route`` (bf16
+with C a multiple of 16 and Cin of 8; float32 with C a multiple of 16 and
+Cin of 4, by 3xTF32), ``conv_tile`` (the 128-pixel output box per image
+width), ``pool_tile`` (the same box holding whole 2x2 windows),
 ``pool_footprint`` (the pooled box D loads per tile) and ``gram_split``
 (slices that cover the pixels exactly, in whole steps, with enough blocks
 for the card)."""
@@ -36,10 +38,50 @@ def test_conv_route(dtype, cin, cout, route):
     (BF16, 512, 512, "wgmma"), (BF16, 16, 8, "wgmma"), (BF16, 48, 24, "wgmma"),
     (BF16, 40, 24, "cuda_core"), (BF16, 8, 64, "cuda_core"),
     (BF16, 64, 3, "cuda_core"), (BF16, 64, 12, "cuda_core"),
-    (F32, 64, 64, "cuda_core"), (F32, 512, 512, "cuda_core"),
-    (torch.float16, 64, 64, "cuda_core")])
+    (F32, 64, 64, "tf32x3"), (F32, 512, 512, "tf32x3"),
+    (torch.float16, 64, 64, "cuda_core"), (F32, 128, 128, "tf32x3"),
+    (F32, 16, 4, "tf32x3"), (F32, 48, 24, "tf32x3"), (F32, 8, 64, "cuda_core"),
+    (F32, 40, 24, "cuda_core"), (F32, 64, 6, "cuda_core"),
+    (F32, 64, 3, "cuda_core")])
 def test_pool_route(dtype, c, cin, route):
     assert kconv.pool_route(dtype, c, cin) == route
+
+
+# (dtype, Cin, Cout, route) of the forward C.
+@pytest.mark.parametrize("dtype,cin,cout,route", [
+    (BF16, 64, 64, "wgmma"), (BF16, 128, 128, "wgmma"),
+    (BF16, 512, 512, "wgmma"), (BF16, 24, 40, "wgmma"),
+    (BF16, 3, 64, "cuda_core"), (BF16, 64, 12, "cuda_core"),
+    (F32, 64, 64, "cuda_core"), (F32, 512, 512, "cuda_core"),
+    (torch.float16, 64, 64, "cuda_core")])
+def test_relu_pool_route(dtype, cin, cout, route):
+    assert kconv.relu_pool_route(dtype, cin, cout) == route
+
+
+def test_pool_tile_holds_whole_windows():
+    """At every even width from 2 to 1024: a 128-pixel box with both sides
+    even, BW a power of two covering the width up to 64, and boxes at even
+    origins that tile the image (each pixel in exactly one box, each 2x2
+    window inside one box)."""
+    for width in range(2, 1025, 2):
+        bw, bh = kconv.pool_tile(width)
+        assert bw * bh == kconv.CONV_TILE_PIXELS
+        assert bw % 2 == 0 and bh % 2 == 0 and bw & (bw - 1) == 0
+        assert bw == min(kconv.conv_tile(width)[0], kconv.POOL_TILE_WIDTH)
+        assert bw >= width or bw == kconv.POOL_TILE_WIDTH
+        # Box origins along x; the same holds along y with bh.
+        for side, n in ((bw, width), (bh, width)):
+            starts = range(0, n, side)
+            covered = [x for x0 in starts for x in range(x0, min(x0 + side, n))]
+            assert covered == list(range(n))
+            assert all(x0 % 2 == 0 for x0 in starts)
+
+
+@pytest.mark.parametrize("width,box", [(2, (2, 64)), (4, (4, 32)),
+                                       (20, (32, 4)), (64, (64, 2)),
+                                       (128, (64, 2)), (512, (64, 2))])
+def test_pool_tile(width, box):
+    assert kconv.pool_tile(width) == box
 
 
 @pytest.mark.parametrize("width", [8, 10, 16, 20, 24, 32, 40, 64, 100, 128,

@@ -44,8 +44,10 @@ def test_raster_kernel_equals_plain(dev):
 
 CONV_KEYS = {"wgmma": "conv3x3_wgmma", "tf32x3": "conv3x3_tf32x3",
              "cuda_core": "conv3x3_nhwc"}
-POOL_KEYS = {"wgmma": "pool_route_wgmma",
+POOL_KEYS = {"wgmma": "pool_route_wgmma", "tf32x3": "pool_route_tf32x3",
              "cuda_core": "pool_route_conv3x3_bwd"}
+RELU_POOL_KEYS = {"wgmma": "conv3x3_relu_pool_wgmma",
+                  "cuda_core": "conv3x3_relu_pool"}
 
 
 def _launched(n0):
@@ -287,11 +289,12 @@ def test_conv3x3_relu_pool_kernel_matches_plain(dev, dtype, tol, shape, cout):
     w = (torch.randn((3, 3, shape[3], cout), generator=g, device=dev)
          * (2.0 / (9 * shape[3])) ** 0.5).to(dtype)
     b = (torch.randn((cout,), generator=g, device=dev) * 0.1).to(dtype)
-    n0 = kconv.LAUNCHES["conv3x3_relu_pool"]
+    key = RELU_POOL_KEYS[kconv.relu_pool_route(dtype, shape[3], cout)]
+    n0 = dict(kconv.LAUNCHES)
     p, idx = kconv.conv3x3_relu_pool(x, w, b)
     p_ref, idx_ref = kconv.conv3x3_relu_pool_plain(x, w, b)
     torch.cuda.synchronize()
-    assert kconv.LAUNCHES["conv3x3_relu_pool"] == n0 + 1
+    assert _launched(n0) == {key: 1}
     assert p.dtype == dtype and idx.dtype == torch.uint8
     assert _rel_err(p, p_ref) <= tol
     pre = kconv.conv3x3_nhwc_plain(x, w, b, True)
@@ -358,6 +361,100 @@ def test_pool_route_wgmma_matches_plain(dev, shape, c, cin):
     assert torch.equal(dz, kconv.pool_route_conv3x3_bwd(ct, pooled, idx, w))
 
 
+# (B, H, W), Cin, Cout of the tensor-core C: conv1_2 at 512², K8's three
+# convs, then every ``pool_tile`` box (W = 2, 4, 8, 16, 32 and 64 wide) with
+# boxes past the image (H = 130 at 2 x 64, W = 100 at 64 x 2), Cin past
+# one 64-channel slab (72) and Cout past one BN = 128 tile (136).
+POOL_FWD_WGMMA = [((1, 512, 512), 64, 64), ((1, 256, 256), 128, 128),
+                  ((1, 128, 128), 256, 256), ((1, 64, 64), 512, 512),
+                  ((2, 130, 2), 8, 16), ((1, 6, 4), 16, 64),
+                  ((2, 10, 8), 24, 40), ((1, 12, 16), 64, 136),
+                  ((1, 8, 32), 72, 64), ((1, 20, 100), 16, 8)]
+
+
+@pytest.mark.parametrize("shape,cin,cout", POOL_FWD_WGMMA)
+def test_conv3x3_relu_pool_wgmma_matches_plain(dev, shape, cin, cout):
+    """The tensor-core C in bf16 against its plain version: pooled within
+    1e-2 * max|plain|, idx equal wherever the plain top two of the window
+    differ by more than that."""
+    g = torch.Generator(device=dev).manual_seed(18)
+    x = torch.randn(shape + (cin,), generator=g, device=dev).bfloat16()
+    w = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
+         * (2.0 / (9 * cin)) ** 0.5).bfloat16()
+    b = (torch.randn((cout,), generator=g, device=dev) * 0.1).bfloat16()
+    assert kconv.relu_pool_route(torch.bfloat16, cin, cout) == "wgmma"
+    n0 = dict(kconv.LAUNCHES)
+    p, idx = kconv.conv3x3_relu_pool(x, w, b)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {"conv3x3_relu_pool_wgmma": 1}
+    p_ref, idx_ref = kconv.conv3x3_relu_pool_plain(x, w, b)
+    assert p.shape == p_ref.shape and p.dtype == torch.bfloat16
+    assert idx.dtype == torch.uint8
+    assert _rel_err(p, p_ref) <= 1e-2
+    pre = kconv.conv3x3_nhwc_plain(x, w, b, True)
+    scale = float(p_ref.float().abs().max())
+    assert _idx_mismatch_where_separated(idx, idx_ref, pre, 1e-2 * scale) == 0
+
+
+@pytest.mark.parametrize("shape,cin,cout", [((2, 16, 64), 16, 64),
+                                            ((1, 8, 130), 8, 24),
+                                            ((1, 34, 20), 16, 136)])
+def test_conv3x3_relu_pool_wgmma_ties_and_zero_windows(dev, shape, cin,
+                                                       cout):
+    """Integer operands (x, w in {-1, 0, 1}, b in {-2..2}) make every sum
+    exact in float32 and in bf16, so exact ties and all-zero windows are
+    common: pooled and idx equal the plain version's bit for bit (idx is
+    the first maximum in scan order)."""
+    g = torch.Generator(device=dev).manual_seed(19)
+    x = torch.randint(-1, 2, shape + (cin,), generator=g,
+                      device=dev).bfloat16()
+    w = torch.randint(-1, 2, (3, 3, cin, cout), generator=g,
+                      device=dev).bfloat16()
+    b = torch.randint(-2, 3, (cout,), generator=g, device=dev).bfloat16()
+    p, idx = kconv.conv3x3_relu_pool(x, w, b)
+    p_ref, idx_ref = kconv.conv3x3_relu_pool_plain(x, w, b)
+    torch.cuda.synchronize()
+    pre = kconv.conv3x3_nhwc_plain(x, w, b, True).float()
+    bsz, h, wd, c = pre.shape
+    win = pre.reshape(bsz, h // 2, 2, wd // 2, 2, c).permute(
+        0, 1, 3, 5, 2, 4).reshape(bsz, h // 2, wd // 2, c, 4)
+    top2 = win.sort(dim=-1).values[..., -2:]
+    assert bool((top2[..., 1] == top2[..., 0]).any())   # ties
+    assert bool((p_ref == 0).any())                     # all-zero windows
+    assert torch.equal(p, p_ref) and torch.equal(idx, idx_ref)
+
+
+@pytest.mark.parametrize("shape,c,cin", POOL_WGMMA)
+def test_pool_route_tf32x3_matches_plain(dev, shape, c, cin):
+    """The 3xTF32 D in float32 on a pre-pool activation quantised to
+    halves (tied and all-zero windows): within 1e-4 * max|plain| of its
+    plain version and 1e-5 * max of a float64 transpose conv of the routed
+    cotangent (tests/test_torch_tf32x3.py: the emulated sums land within
+    1e-6)."""
+    g = torch.Generator(device=dev).manual_seed(20)
+    pre = torch.relu(torch.round(2 * torch.randn(shape + (c,), generator=g,
+                                                 device=dev)) / 2)
+    pooled, idx = kconv.pool4_first_max(pre)
+    assert bool((pooled == 0).any())
+    w = torch.randn((3, 3, cin, c), generator=g, device=dev) * (
+        2.0 / (9 * cin)) ** 0.5
+    ct = torch.randn(pooled.shape, generator=g, device=dev)
+    assert kconv.pool_route(torch.float32, c, cin) == "tf32x3"
+    n0 = dict(kconv.LAUNCHES)
+    dz = kconv.pool_route_conv3x3_bwd(ct, pooled, idx, w)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {"pool_route_tf32x3": 1}
+    assert dz.shape == shape + (cin,) and dz.dtype == torch.float32
+    assert _rel_err(dz, kconv.pool_route_conv3x3_bwd_plain(
+        ct, pooled, idx, w)) <= 1e-4
+    routed = kconv.route_pool_cotangent(ct, pooled, idx)
+    ref = _conv_f64(routed, kconv.transpose_weights(w, torch.float32),
+                    torch.zeros(cin, device=dev), False)
+    assert _rel_err(dz, ref) <= 1e-5
+    # The same call again gives the same bits (no atomics).
+    assert torch.equal(dz, kconv.pool_route_conv3x3_bwd(ct, pooled, idx, w))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_stage1_gradient_matches_plain_path(dev, dtype):
     """conv1_1_relu_stats -> Gram and conv1_2_relu_pool on CUDA tensors
@@ -382,6 +479,7 @@ def test_stage1_gradient_matches_plain_path(dev, dtype):
     ct = rng.randn(2, 16, 12, 64).astype(np.float32)
     ctg = (rng.randn(2, 64, 64) * 1e-3).astype(np.float32)
     outs = []
+    n0 = dict(kconv.LAUNCHES)
     for d in (dev, torch.device("cpu")):
         t = [torch.tensor(a, device=d) for a in (w1, b1, w2, b2)]
         xt = torch.tensor(x, device=d, requires_grad=True)
@@ -391,6 +489,7 @@ def test_stage1_gradient_matches_plain_path(dev, dtype):
         torch.autograd.backward((p, gm), (torch.tensor(ct, device=d),
                                           torch.tensor(ctg, device=d)))
         outs.append([v.detach().cpu() for v in (p, gm, xt.grad)])
+    assert _launched(n0) == {"conv3x3_relu_pool": 1, "pool_route_tf32x3": 1}
     for got, ref in zip(*outs):
         assert _rel_err(got, ref) <= 1e-4
 
@@ -419,7 +518,8 @@ def _stage1_gradient_bf16(dev):
     p, idx = ks1.conv1_2_relu_pool(z, w2, b2)
     torch.autograd.backward((p, gm), (ct, ctg))
     torch.cuda.synchronize()
-    assert _launched(n0) == {"conv3x3_relu_pool": 1, "pool_route_wgmma": 1}
+    assert _launched(n0) == {"conv3x3_relu_pool_wgmma": 1,
+                             "pool_route_wgmma": 1}
     # The plain chain on the kernels' own forward outputs.
     ptp_r = ptp.detach().requires_grad_(True)
     s27_r = s27.detach().requires_grad_(True)
@@ -614,6 +714,7 @@ def test_stage1v3_gradient_matches_plain_path(dev):
     ct = rng.randn(2, 16, 12, 64).astype(np.float32)
     ctg = (rng.randn(2, 64, 64) * 1e-3).astype(np.float32)
     outs = []
+    n0 = dict(kconv.LAUNCHES)
     for d in (dev, torch.device("cpu")):
         t = [torch.tensor(a, device=d) for a in (w1, b1, w2, b2)]
         xt = torch.tensor(x, device=d, requires_grad=True)
@@ -645,8 +746,9 @@ def test_k8_kernels_match_plain(dev, dtype, tol, cin, cout, h):
     p, idx = kconv.conv3x3_bias_relu_pool(xt, w, b)
     (dx,) = torch.autograd.grad(p, xt, ct)
     torch.cuda.synchronize()
-    assert _launched(n0) == {"conv3x3_relu_pool": 1,
-                             POOL_KEYS[kconv.pool_route(dtype, cout, cin)]: 1}
+    assert _launched(n0) == {
+        RELU_POOL_KEYS[kconv.relu_pool_route(dtype, cin, cout)]: 1,
+        POOL_KEYS[kconv.pool_route(dtype, cout, cin)]: 1}
     p_ref, idx_ref = kconv.conv3x3_relu_pool_plain(x, w, b)
     assert _rel_err(p.detach(), p_ref) <= tol
     pre = kconv.conv3x3_nhwc_plain(x, w, b, True)

@@ -1,7 +1,7 @@
-"""The arithmetic of K2's float32 route on the tensor cores
-(``csrc/conv3x3_tf32x3.cu``), on the CPU: the exact split of
-``kernels.conv.split_tf32`` and a plain-torch emulation of the kernel's
-three TF32 products. A TF32 value is a float32 with its low 13 mantissa
+"""The arithmetic of K2's and D's float32 routes on the tensor cores
+(``csrc/conv3x3_tf32x3.cu``, ``csrc/pool_route_tf32x3.cu``), on the CPU:
+the exact split of ``kernels.conv.split_tf32`` and plain-torch emulations
+of the kernels' three TF32 products. A TF32 value is a float32 with its low 13 mantissa
 bits clear; the product of two is exact in float32, so a float32 matmul of
 TF32 operands gives the tensor core's products with float32 sums.
 
@@ -12,7 +12,14 @@ land within 1e-6 of the largest output of a float64 conv at 16² x 64 ->
 mode, at its most favourable) misses 1e-6 by two orders of magnitude. The
 emulation also matches the JAX package's K2 (Pallas, interpret mode),
 forward and input gradient, within the float32 tolerance of 1e-5 that
-``tests/test_torch_conv.py`` holds the plain version to."""
+``tests/test_torch_conv.py`` holds the plain version to.
+
+D's emulation follows its kernel step by step: the routed cotangent
+(masked by pooled > 0, placed by idx), split, and each k-iteration (one
+32-channel slab of one tap) summed into a fresh partial that is added to
+the running sum. It lands within 1e-6 of the largest output of a float64
+transpose conv at 16² x 64 -> 64, and matches the JAX package's K5
+backward (Pallas, interpret mode)."""
 
 import jax
 import jax.numpy as jnp
@@ -130,3 +137,82 @@ def test_emulation_matches_pallas_interpret(shape, cout):
     dx_e = emulate_3xtf32(ct, wt, torch.zeros(shape[3]))
     np.testing.assert_allclose(dx_e.numpy(), np.asarray(dx_j), atol=1e-4,
                                rtol=1e-4)
+
+
+SLAB = 32                        # f32 channels per k-iteration of D's kernel
+
+
+def emulate_pool_route_tf32x3(ct, pooled, idx, w):
+    """D's float32 sum: route(ct * [pooled > 0], idx), split, and for each
+    (slab, tap) the three TF32 products into a fresh partial, added to the
+    running sum."""
+    routed = kconv.route_pool_cotangent(ct, pooled, idx)
+    rh, rl = kconv.split_tf32(routed)
+    pad = (0, 0, 1, 1, 1, 1)
+    rh, rl = F.pad(rh, pad), F.pad(_trunc(rl), pad)
+    wh, wl = kconv.split_tf32(kconv.transpose_weights(w, torch.float32))
+    wl = _trunc(wl)
+    bsz, h, wd, c = routed.shape
+    acc = torch.zeros((bsz, h, wd, w.shape[2]))
+    for c0 in range(0, c, SLAB):
+        ks = slice(c0, c0 + SLAB)
+        for dy in range(3):
+            for dx in range(3):
+                a_h = rh[:, dy:dy + h, dx:dx + wd, ks]
+                a_l = rl[:, dy:dy + h, dx:dx + wd, ks]
+                part = (a_l @ wh[dy, dx, ks] + a_h @ wl[dy, dx, ks]
+                        + a_h @ wh[dy, dx, ks])
+                acc = acc + part
+    return acc
+
+
+def _pool_operands(seed, shape=(2, 16, 16, 64), cin=64):
+    """ct, pooled, idx of a (B, H, W, C) pre-pool ReLU activation, and the
+    forward weights (3, 3, Cin, C)."""
+    rng = np.random.RandomState(seed)
+    pre = torch.relu(torch.tensor(rng.randn(*shape).astype(np.float32)))
+    pooled, idx = kconv.pool4_first_max(pre)
+    ct = torch.tensor(rng.randn(*pooled.shape).astype(np.float32))
+    w = torch.tensor((rng.randn(3, 3, cin, shape[3])
+                      * (2.0 / (9 * cin)) ** 0.5).astype(np.float32))
+    return ct, pooled, idx, w
+
+
+@pytest.mark.parametrize("seed", [2, 3])
+def test_pool_route_three_products_meet_1e6_of_float64(seed):
+    ct, pooled, idx, w = _pool_operands(seed)
+    routed = kconv.route_pool_cotangent(ct, pooled, idx)
+    wt = kconv.transpose_weights(w, torch.float32)
+    ref = conv_f64(routed, wt, torch.zeros(w.shape[2]))
+    scale = float(ref.abs().max())
+    got = emulate_pool_route_tf32x3(ct, pooled, idx, w)
+    assert float((got.double() - ref).abs().max()) <= 1e-6 * scale
+    # The plain version, float32 sums over the whole K at once, is as close.
+    plain = kconv.pool_route_conv3x3_bwd_plain(ct, pooled, idx, w)
+    assert float((plain.double() - ref).abs().max()) <= 1e-6 * scale
+
+
+@pytest.mark.parametrize("shape,cin", [((1, 16, 16, 64), 64),
+                                       ((2, 8, 12, 48), 16)])
+def test_pool_route_emulation_matches_pallas_interpret(shape, cin):
+    """D's sums on the JAX package's forward outputs against its K5
+    backward (``conv3x3_bias_relu_pool_packed``'s VJP in interpret mode),
+    within the float32 tolerance of tests/test_torch_stage1.py; C = 48
+    leaves the second slab half empty, as the kernel's zero fill does."""
+    rng = np.random.RandomState(6)
+    x = rng.randn(*shape[:3], cin).astype(np.float32)
+    w = (rng.randn(3, 3, cin, shape[3]) * 0.1).astype(np.float32)
+    b = rng.randn(shape[3]).astype(np.float32)
+    ct = rng.randn(shape[0], shape[1] // 2, shape[2] // 2,
+                   shape[3]).astype(np.float32)
+    (p_j, i_j), vjp = jax.vjp(
+        lambda xx: cp.conv3x3_bias_relu_pool_packed(
+            xx, jnp.asarray(w), jnp.asarray(b), True), jnp.asarray(x))
+    (dx_j,) = vjp((jnp.asarray(ct), jnp.zeros_like(i_j)))
+    dx_e = emulate_pool_route_tf32x3(
+        torch.tensor(ct), torch.tensor(np.asarray(p_j)),
+        torch.tensor(np.asarray(i_j)).to(torch.uint8), torch.tensor(w))
+    dx_j = np.asarray(dx_j)
+    assert float(np.abs(dx_j).max()) > 0
+    np.testing.assert_allclose(dx_e.numpy(), dx_j, rtol=1e-4,
+                               atol=1e-4 * np.abs(dx_j).max())
