@@ -28,18 +28,21 @@ Phases; any failure raises and the script exits non-zero:
    bf16, an odd width, on ``conv3x3_nhwc``; each call must launch the
    kernel its route names;
    K3 at the four style-Gram shapes, in bf16 on ``gram_wgmma`` (relative
-   Frobenius error <= 1e-3) and in f32 on ``gram_nhwc`` (<= 1e-5), and
-   conv1_1's 27-wide PᵀP in bf16 on ``gram_nhwc``; each Gram bit-identical
-   on a second call;
+   Frobenius error <= 1e-3) and in f32 on the 3xTF32 ``gram_tf32x3``
+   (<= 1e-5; the CUDA-core ``gram_nhwc`` held and timed on the same f32
+   inputs), and conv1_1's 27-wide PᵀP in bf16 on ``gram_nhwc``; each Gram
+   bit-identical on a second call;
    stage 1 at 512² x 4 (conv1_1 3->64, conv1_2 64->64), bf16 and f32:
    A ``conv1_1_stats``, B ``conv1_1_bwd``, C (``conv3x3_relu_pool_wgmma``,
-   K2's mainloop with a pool epilogue, in bf16; ``conv3x3_relu_pool`` on
-   the CUDA cores in f32), D (``pool_route_wgmma`` on the tensor cores in
-   bf16, ``pool_route_tf32x3`` by 3xTF32 in f32; the CUDA-core
-   ``pool_route_conv3x3_bwd`` held against the plain version in f32 too);
-   each call on its route's kernel; the tensor-core C and D timed beside
-   the CUDA-core kernel on the same inputs and K2's forward or dx at the
-   same shape, C also beside the three-call composition
+   K2's mainloop with a pool epilogue, in bf16;
+   ``conv3x3_relu_pool_tf32x3``, the 3xTF32 mainloop with the pool
+   epilogue, in f32; the CUDA-core ``conv3x3_relu_pool`` held against the
+   plain version on the f32 inputs too), D (``pool_route_wgmma`` on the
+   tensor cores in bf16, ``pool_route_tf32x3`` by 3xTF32 in f32; the
+   CUDA-core ``pool_route_conv3x3_bwd`` held against the plain version in
+   f32 too); each call on its route's kernel; the tensor-core C and D
+   timed beside the CUDA-core kernel on the same inputs and K2's forward
+   or dx at the same shape, C also beside the three-call composition
    ``F.max_pool2d(F.relu(F.conv2d(...)), 2, return_indices=True)``:
    z, dx, pooled and dz max-abs error <= 1e-2 *
    max|plain| in bf16 and <= 1e-4 * max|plain| in f32; PᵀP and s27
@@ -51,7 +54,7 @@ Phases; any failure raises and the script exits non-zero:
    (dx as B's); K10c and K10d are C and D at the shapes above;
    K8, C and D at conv2_2's, conv3_4's and conv4_4's shapes (4 x 256² x 128,
    4 x 128² x 256, 4 x 64² x 512), bf16 and f32, with C's and D's
-   tolerances, routes and comparisons;
+   tolerances, routes and comparisons, each timed in both dtypes;
    K9, G ``raster_2d``, at 512² x 4, ico-sphere level 4, against its plain
    version (pix_to_face exactly equal, zbuf within rtol 1e-6), then at level
    7 (327,680 faces) against K1: zbuf bit-equal, ids different only at
@@ -67,9 +70,10 @@ Phases; any failure raises and the script exits non-zero:
    computing the same function where there is one (``F.conv2d``,
    ``torch.bmm``); K2 and K3 print each shape's TFLOP/s. The f32 K2 is
    timed against ``F.conv2d`` in f32 with TF32 off (and, for information,
-   on); its bound, and the f32 D's, count three TF32 products at 495
-   TFLOP/s. K3's and C's CUDA-core kernels are timed in f32 (their route),
-   as is the CUDA-core D.
+   on), the f32 K3 against ``torch.bmm`` in f32 with TF32 off; the bounds
+   of the f32 K2, K3, C and D count three TF32 products at 495 TFLOP/s.
+   The CUDA-core K3, C and D are timed in f32 on the 3xTF32 kernels'
+   inputs (the route f32 took before), at the fp32 rate.
 3. The second approach (``st3d_torch.second_approach.main``) at 512², 4
    views, batch 4, bf16, 20 epochs on a seeded synthetic scene, on the
    default VGG route: every loss finite, the last below the first,
@@ -86,9 +90,11 @@ Phases; any failure raises and the script exits non-zero:
    four times as often, ``conv3x3_wgmma`` three times fewer for each C and
    each D).
    Then the texture step in float32, the CLIs' default dtype, 10 epochs on
-   the default route: K2 only on ``conv3x3_tf32x3`` (no ``conv3x3_nhwc``),
-   D only on ``pool_route_tf32x3`` (no ``pool_route_conv3x3_bwd``), K3 and
-   C on the CUDA cores; its median step.
+   the default route: K2, K3, C and D only on their 3xTF32 kernels
+   (``conv3x3_tf32x3``, ``gram_tf32x3`` four times a step,
+   ``conv3x3_relu_pool_tf32x3`` once a step, ``pool_route_tf32x3``; no
+   launch of ``conv3x3_nhwc``, ``gram_nhwc``, ``conv3x3_relu_pool`` or
+   ``pool_route_conv3x3_bwd``); its median step.
    Then the vertex optimisation, ``--optimization_target both`` at 512², 4
    views, bf16, 10 epochs, in four raster modes: hard at ico level 4 (K1),
    ``--soft_raster true`` (K1's soft mode), ``--soft_raster true
@@ -115,7 +121,8 @@ Phases; any failure raises and the script exits non-zero:
    fused-pool routes: losses within rtol 1e-3; and the second approach at
    64² in bf16 on the default route (the tensor-core K2, K3 and D): losses
    within rtol 1e-2. Each GPU run must take K2, C and D on its dtype's
-   route.
+   route, and the f32 fused-pool run C and D four times as often as the
+   f32 default run.
 6. The wall seconds of each phase, the card's name and power limit, one
    JSON line with the kernels' results (ptxas's registers and spills of
    the tensor-core kernels are printed after the build), then the last line
@@ -157,11 +164,12 @@ F32_FLOPS = 67e12
 # stage 1 off.
 KERNELS = ("raster_hard", "conv3x3_wgmma", "gram_wgmma", "conv1_1_stats",
            "conv1_1_bwd", "conv3x3_relu_pool_wgmma", "pool_route_wgmma")
-# The default route in float32: K2 and D on 3xTF32 (no conv3x3_nhwc or
-# pool_route_conv3x3_bwd: every width they meet fits the tensor cores), K3
-# and C on the CUDA cores.
-F32_KERNELS = {"raster_hard", "conv3x3_tf32x3", "gram_nhwc", "conv1_1_stats",
-               "conv1_1_bwd", "conv3x3_relu_pool", "pool_route_tf32x3"}
+# The default route in float32: K2, K3, C and D on 3xTF32 (no
+# conv3x3_nhwc, gram_nhwc, conv3x3_relu_pool or pool_route_conv3x3_bwd:
+# every width they meet fits the tensor cores).
+F32_KERNELS = {"raster_hard", "conv3x3_tf32x3", "gram_tf32x3",
+               "conv1_1_stats", "conv1_1_bwd", "conv3x3_relu_pool_tf32x3",
+               "pool_route_tf32x3"}
 RASTER_KERNELS = ("raster_hard", "raster_soft", "raster_stream",
                   "raster_topk")
 # The vertex-optimisation runs: target, extra flags, ico level, the raster
@@ -230,6 +238,16 @@ def bound(flops, nbytes, rate):
     t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / rate
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def plain_in_float32():
+    """The plain versions' float32 matmuls and convolutions in full float32
+    (PyTorch's default takes TF32 in cuDNN), as every float32 tolerance
+    here assumes."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def with_bound(rec, flops, nbytes, rate, library_ms=None):
@@ -786,72 +804,101 @@ def conv_check(dev):
 
 def gram_check(dev):
     """K3 at the four style-Gram shapes of the main path: bf16 on the
-    tensor-core kernel (bit-identical on a second call), float32 on the
-    CUDA-core one, plus conv1_1's 27-wide PᵀP in bf16 (CUDA cores). Times
-    of the four Grams: bf16 against ``torch.bmm`` in bf16 (its output
-    rounded to bf16, where K3 keeps float32), float32 against ``torch.bmm``
-    in float32."""
+    tensor-core kernel, float32 on the 3xTF32 one (each bit-identical on a
+    second call), the CUDA-core kernel held and timed on the same float32
+    inputs, plus conv1_1's 27-wide PᵀP in bf16 (CUDA cores). Times of the
+    four Grams: bf16 against ``torch.bmm`` in bf16 (its output rounded to
+    bf16, where K3 keeps float32), float32 against ``torch.bmm`` in float32
+    with TF32 off."""
     import torch
-    from st3d_torch.kernels.conv import LAUNCHES, gram_nhwc, gram_nhwc_plain
+    from st3d_torch.kernels.conv import (LAUNCHES, gram_cuda_core, gram_nhwc,
+                                         gram_nhwc_plain)
 
+    plain_in_float32()
     gen = torch.Generator(device=dev).manual_seed(1)
-    keys = {torch.bfloat16: "gram_wgmma", torch.float32: "gram_nhwc"}
-    rates = {torch.bfloat16: BF16_FLOPS, torch.float32: F32_FLOPS}
+    keys = {torch.bfloat16: "gram_wgmma", torch.float32: "gram_tf32x3"}
+    # (passes over the products, rate) of each kernel's bound.
+    rates = {"gram_wgmma": (1, BF16_FLOPS), "gram_tf32x3": (3, TF32_FLOPS),
+             "gram_nhwc": (1, F32_FLOPS)}
     tot = {k: {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0,
-               "bound": 0.0} for k in keys.values()}
+               "bound": 0.0} for k in rates}
     shapes = [(h * h, c, dtype) for h, c in GRAM_SHAPES
               for dtype in keys] + [(SIZE * SIZE, 27, torch.bfloat16)]
+
+    def held(key, fn, y, g_p, tol):
+        """fn(y) twice: one launch of ``key`` each, bit-identical, within
+        ``tol`` relative Frobenius of ``g_p``; returns (Gram, text)."""
+        before = dict(LAUNCHES)
+        g_k = fn(y)
+        again = fn(y)
+        torch.cuda.synchronize()
+        if _launched(before) != {key: 2}:
+            fail(f"K3 {key} {tuple(y.shape)}: launched {_launched(before)}, "
+                 f"want {{{key}: 2}}")
+        if not torch.equal(g_k, again):
+            fail(f"K3 {key} {tuple(y.shape)}: differs between calls")
+        rel = float(torch.linalg.norm(g_k - g_p) / torch.linalg.norm(g_p))
+        text = (f"K3 {key} {tuple(y.shape)} {str(y.dtype)[6:]} rel fro err "
+                f"{rel:.3g}, bit-identical on a second call")
+        if rel > tol:
+            fail(f"{text}: > {tol}")
+        tot[key]["err"] = max(tot[key]["err"], float((g_k - g_p).abs().max()))
+        return text
+
+    t27 = None
     for pixels, c, dtype in shapes:
         tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
         key = "gram_nhwc" if c == 27 else keys[dtype]
         y = torch.relu(torch.randn((VIEWS, pixels, c), generator=gen,
                                    device=dev)).to(dtype)
-        before = dict(LAUNCHES)
-        g_k = gram_nhwc(y)
-        again = gram_nhwc(y)
-        torch.cuda.synchronize()
-        if _launched(before) != {key: 2}:
-            fail(f"K3 {c} {dtype}: launched {_launched(before)}, want "
-                 f"{{{key}: 2}}")
-        if not torch.equal(g_k, again):
-            fail(f"K3 {key} ({VIEWS},{pixels},{c}): differs between calls")
         g_p = gram_nhwc_plain(y)
-        rel = float(torch.linalg.norm(g_k - g_p) / torch.linalg.norm(g_p))
-        t = tot[key]
-        t["err"] = max(t["err"], float((g_k - g_p).abs().max()))
-        line = (f"K3 {key} ({VIEWS},{pixels},{c}) {str(dtype)[6:]} rel fro "
-                f"err {rel:.3g}, bit-identical on a second call")
-        if rel > tol:
-            fail(f"{line}: > {tol}")
-        if c != 27:
-            t_k = cuda_ms(lambda: gram_nhwc(y))
-            t_p = cuda_ms(lambda: gram_nhwc_plain(y))
-            yf = y.reshape(VIEWS, pixels, c)
-            t_l = cuda_ms(lambda: torch.bmm(yf.transpose(1, 2), yf))
-            flops = 2 * VIEWS * pixels * c * c
-            t_b = bound(flops, y.element_size() * VIEWS * pixels * c
-                        + 4 * VIEWS * c * c, rates[dtype])[0]
-            for k, v in (("ms", t_k), ("plain", t_p), ("lib", t_l),
-                         ("bound", t_b)):
-                t[k] += v
-            line += (f"  kernel {t_k:.3f} ms ({flops / t_k / 1e9:.1f} "
-                     f"TFLOP/s) plain {t_p:.3f} ms bmm {t_l:.3f} ms bound "
-                     f"{t_b:.4f} ms")
+        line = held(key, gram_nhwc, y, g_p, tol)
+        if c == 27:
+            t27 = cuda_ms(lambda: gram_nhwc(y))
+            print(f"{line}  kernel {t27:.3f} ms")
+            continue
+        flops = 2 * VIEWS * pixels * c * c
+        nbytes = y.element_size() * VIEWS * pixels * c + 4 * VIEWS * c * c
+        t_p = cuda_ms(lambda: gram_nhwc_plain(y))
+        t_l = cuda_ms(lambda: torch.bmm(y.transpose(1, 2), y))
+        timed = [(key, gram_nhwc)]
+        if dtype == torch.float32:
+            # The CUDA-core kernel float32 took before, on the same inputs.
+            print(line)
+            line = held("gram_nhwc", gram_cuda_core, y, g_p, tol)
+            timed.append(("gram_nhwc", gram_cuda_core))
         print(line)
+        for k, fn in timed:
+            t_k = cuda_ms(lambda: fn(y))
+            passes, rate = rates[k]
+            t_b = bound(passes * flops, nbytes, rate)[0]
+            for f, v in (("ms", t_k), ("plain", t_p), ("lib", t_l),
+                         ("bound", t_b)):
+                tot[k][f] += v
+            print(f"K3 {k} ({VIEWS},{pixels},{c}) {str(dtype)[6:]}  kernel "
+                  f"{t_k:.3f} ms ({flops / t_k / 1e9:.1f} TFLOP/s) plain "
+                  f"{t_p:.3f} ms bmm {t_l:.3f} ms bound {t_b:.4f} ms")
     recs = []
-    for dtype, key in keys.items():
+    for key, dtype in (("gram_wgmma", "bfloat16"), ("gram_tf32x3", "float32"),
+                       ("gram_nhwc", "float32")):
         t = tot[key]
-        print(f"K3 {key} the four {str(dtype)[6:]} style Grams: kernel "
+        print(f"K3 {key} the four {dtype} style Grams: kernel "
               f"{t['ms']:.3f} ms, plain {t['plain']:.3f} ms, bmm "
               f"{t['lib']:.3f} ms ({t['ms'] / t['lib']:.2f}x), bound "
               f"{t['bound']:.4f} ms")
-        recs.append({
-            "name": key, "route": "cuda",
-            "source": f"st3d_torch/csrc/{key}.cu",
-            "replaces": "st3d/kernels/conv_pallas.py:548",
-            "dtype": str(dtype)[6:], "max_abs_err": t["err"], "ms": t["ms"],
-            "plain_ms": t["plain"], "bound_ms": t["bound"],
-            "bound_by": "operations", "library_ms": t["lib"]})
+        rec = {"name": key, "route": "cuda",
+               "source": f"st3d_torch/csrc/{key}.cu",
+               "replaces": "st3d/kernels/conv_pallas.py:548",
+               "dtype": dtype, "max_abs_err": t["err"], "ms": t["ms"],
+               "plain_ms": t["plain"], "bound_ms": t["bound"],
+               "bound_by": "operations", "library_ms": t["lib"]}
+        if key == "gram_tf32x3":
+            rec["cuda_core_ms"] = tot["gram_nhwc"]["ms"]
+        if key == "gram_nhwc":
+            rec["shapes"] = ("the four f32 style Grams (the widths "
+                             "gram_route now sends to gram_tf32x3)")
+            rec["ms_27_wide_bf16"] = t27
+        recs.append(rec)
     return recs
 
 
@@ -876,12 +923,13 @@ def _idx_mismatches(idx, idx_ref, pre_pool, tol):
             float(separated.float().mean()))
 
 
-C_KEYS = {"bfloat16": "conv3x3_relu_pool_wgmma", "float32": "conv3x3_relu_pool"}
+C_KEYS = {"bfloat16": "conv3x3_relu_pool_wgmma",
+          "float32": "conv3x3_relu_pool_tf32x3"}
 D_KEYS = {"bfloat16": "pool_route_wgmma", "float32": "pool_route_tf32x3"}
 
 
-def c_versus(x, w, b, c_ms, what):
-    """Prints the tensor-core C's time beside, on the same bf16 inputs, the
+def c_versus(x, w, b, c_ms, key, what):
+    """Prints the tensor-core C's time beside, on the same inputs, the
     CUDA-core C it replaces, K2's forward (conv + bias + ReLU, no pool) and
     a three-call composition of torch ops (``F.max_pool2d(F.relu(
     F.conv2d(...)), 2, return_indices=True)``: not one library call of the
@@ -897,7 +945,7 @@ def c_versus(x, w, b, c_ms, what):
     comp = cuda_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xl, wl, b, padding=1)),
                                         2, return_indices=True), 5)
     torch.cuda.synchronize()
-    print(f"C {what}: conv3x3_relu_pool_wgmma {c_ms:.3f} ms, the CUDA-core "
+    print(f"C {what}: {key} {c_ms:.3f} ms, the CUDA-core "
           f"conv3x3_relu_pool on the same inputs {old:.3f} ms, K2's forward "
           f"at the same shape {k2:.3f} ms, the composition max_pool2d(relu("
           f"conv2d)) {comp:.3f} ms")
@@ -929,17 +977,18 @@ def _add(rec, extra):
 def stage1_check(dev):
     """Kernels A-D at the stage-1 shapes of the main path (4 x 512² x 3 ->
     64 -> 64, pool to 256²), each against its plain version; C and D on
-    their bf16 routes (the tensor cores) and their float32 routes (C on the
-    CUDA cores, D on 3xTF32), and the CUDA-core D in float32 on the same
-    inputs as the 3xTF32 one."""
+    their bf16 routes (the tensor cores) and their float32 routes (3xTF32),
+    and the CUDA-core C and D in float32 on the same inputs as the 3xTF32
+    ones."""
     import torch
     from st3d_torch.kernels import conv as kconv
     from st3d_torch.kernels import stage1 as ks1
 
+    plain_in_float32()
     gen = torch.Generator(device=dev).manual_seed(2)
     shape = (VIEWS, SIZE, SIZE)
     names = KERNELS[3:] + (C_KEYS["float32"], D_KEYS["float32"],
-                           "pool_route_conv3x3_bwd")
+                           "conv3x3_relu_pool", "pool_route_conv3x3_bwd")
     res = {n: {"max_abs_err": 0.0} for n in names}
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
         name = str(dtype)[6:]
@@ -996,7 +1045,17 @@ def stage1_check(dev):
         dz2_p = kconv.pool_route_conv3x3_bwd_plain(ct, pooled_p, idx_p, w2)
         errs[d_key] = _max_err(dz2, dz2_p, tol, f"D dz {name}")
         if dtype == torch.float32:
-            # The CUDA-core D, which float32 took before the 3xTF32 one.
+            # The CUDA-core C and D, which float32 took before the 3xTF32
+            # ones.
+            p_cc, idx_cc = kconv.conv3x3_relu_pool_cuda_core(z_p, w2, b2)
+            errs["conv3x3_relu_pool"] = _max_err(
+                p_cc, pooled_p, tol, f"C conv3x3_relu_pool pooled {name}")
+            bad, _ = _idx_mismatches(
+                idx_cc, idx_p, kconv.conv3x3_nhwc_plain(z_p, w2, b2, True),
+                tol * errs["conv3x3_relu_pool"][1])
+            if bad:
+                fail(f"C conv3x3_relu_pool idx {name}: {bad} mismatches "
+                     f"where separated")
             dz_cc = kconv.pool_route_cuda_core(ct, pooled_p, idx_p, w2)
             errs["pool_route_conv3x3_bwd"] = _max_err(
                 dz_cc, dz2_p, tol, f"D pool_route_conv3x3_bwd dz {name}")
@@ -1031,12 +1090,13 @@ def stage1_check(dev):
         what = f"conv1_2 4 x 512² x 64 -> 64 {name}"
         res[d_key].update(d_versus(ct, pooled_p, idx_p, w2, res[d_key]["ms"],
                                    d_key, what))
-        if dtype == torch.bfloat16:
-            res[c_key].update(c_versus(z_p, w2, b2, res[c_key]["ms"], what))
-        else:
-            cc = res["pool_route_conv3x3_bwd"]
-            cc["ms"] = res[d_key]["cuda_core_ms"]
-            cc["plain_ms"] = res[d_key]["plain_ms"]
+        res[c_key].update(c_versus(z_p, w2, b2, res[c_key]["ms"], c_key,
+                                   what))
+        if dtype == torch.float32:
+            for cc_key, key in (("conv3x3_relu_pool", c_key),
+                                ("pool_route_conv3x3_bwd", d_key)):
+                res[cc_key]["ms"] = res[key]["cuda_core_ms"]
+                res[cc_key]["plain_ms"] = res[key]["plain_ms"]
     meta = {
         "conv1_1_stats": ("st3d_torch/csrc/conv1_1_stats.cu",
                           "st3d/kernels/stage1_pallas.py:446"),
@@ -1045,6 +1105,9 @@ def stage1_check(dev):
         "conv3x3_relu_pool_wgmma": ("st3d_torch/csrc/conv3x3_wgmma.cu",
                                     "st3d/kernels/stage1_pallas.py:485, "
                                     "st3d/kernels/conv_pallas.py:760"),
+        "conv3x3_relu_pool_tf32x3": ("st3d_torch/csrc/conv3x3_tf32x3.cu",
+                                     "st3d/kernels/stage1_pallas.py:485, "
+                                     "st3d/kernels/conv_pallas.py:760"),
         "conv3x3_relu_pool": ("st3d_torch/csrc/conv3x3_relu_pool.cu",
                               "st3d/kernels/stage1_pallas.py:485, "
                               "st3d/kernels/conv_pallas.py:760"),
@@ -1061,9 +1124,9 @@ def stage1_check(dev):
     # Bounds at 4 x 512²: A conv1_1 (27 -> 64) plus the 27 x 27 patch
     # statistics; B the same two products backwards; C and D conv1_2
     # (64 -> 64, 9 taps) forward and input gradient. bf16 at the bf16
-    # tensor rate; the float32 routes at their own: C on the fp32 cores,
-    # D's three TF32 products at the TF32 rate, the CUDA-core D at the fp32
-    # rate; float32 moves twice the bytes.
+    # tensor rate; the float32 routes at their own: C's and D's three TF32
+    # products at the TF32 rate, the CUDA-core C and D at the fp32 rate;
+    # float32 moves twice the bytes.
     px = VIEWS * SIZE * SIZE
     conv12 = 2 * px * 9 * 64 * 64
     work = {
@@ -1077,6 +1140,9 @@ def stage1_check(dev):
                                     BF16_FLOPS),
         "pool_route_wgmma": (conv12, 5 * (px // 4) * 64 + 2 * px * 64,
                              BF16_FLOPS),
+        "conv3x3_relu_pool_tf32x3": (3 * conv12,
+                                     4 * px * 64 + 5 * (px // 4) * 64,
+                                     TF32_FLOPS),
         "conv3x3_relu_pool": (conv12, 4 * px * 64 + 5 * (px // 4) * 64,
                               F32_FLOPS),
         "pool_route_tf32x3": (3 * conv12, 9 * (px // 4) * 64 + 4 * px * 64,
@@ -1084,7 +1150,8 @@ def stage1_check(dev):
         "pool_route_conv3x3_bwd": (conv12, 9 * (px // 4) * 64 + 4 * px * 64,
                                    F32_FLOPS),
     }
-    f32 = (C_KEYS["float32"], D_KEYS["float32"], "pool_route_conv3x3_bwd")
+    f32 = (C_KEYS["float32"], D_KEYS["float32"], "conv3x3_relu_pool",
+           "pool_route_conv3x3_bwd")
     return [with_bound({"name": n, "route": "cuda", "source": meta[n][0],
                         "replaces": meta[n][1],
                         "dtype": "float32" if n in f32 else "bfloat16",
@@ -1168,16 +1235,15 @@ def stage1v3_check(dev):
 
 def k8_check(dev):
     """Kernels C and D at K8's shapes (conv2_2, conv3_4, conv4_4 at 512²),
-    each against its plain version, bf16 and f32 (C on the tensor cores in
-    bf16, the CUDA cores in f32; D on the tensor cores in both, by 3xTF32
-    in f32); times summed over the three convs: C and D in bf16, D in f32,
-    each beside the CUDA-core kernel on the same inputs and K2 at the same
-    shape."""
+    each against its plain version, bf16 and f32 (both on the tensor cores,
+    by 3xTF32 in f32); times summed over the three convs, each beside the
+    CUDA-core kernel on the same inputs and K2 at the same shape."""
     import torch
     from st3d_torch.kernels import conv as kconv
 
+    plain_in_float32()
     gen = torch.Generator(device=dev).manual_seed(5)
-    names = (C_KEYS["bfloat16"],) + tuple(D_KEYS.values())
+    names = tuple(C_KEYS.values()) + tuple(D_KEYS.values())
     res = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
            for n in names}
     work = {n: [0, 0] for n in names}
@@ -1235,42 +1301,41 @@ def k8_check(dev):
             work[d_key][1] += ((2 * e + 1) * (px // 4) * c + e * px * c
                                + e * 9 * c * c)
             line += f"  D {t_d:.3f} ms (plain {tp_d:.3f})"
-            if dtype == torch.bfloat16:
-                t_c = cuda_ms(lambda: kconv.conv3x3_relu_pool(x, w, b), 5)
-                tp_c = cuda_ms(lambda: kconv.conv3x3_relu_pool_plain(x, w, b),
-                               3, 1)
-                res[c_key]["ms"] += t_c
-                res[c_key]["plain_ms"] += tp_c
-                work[c_key][0] += flops
-                work[c_key][1] += (
-                    2 * px * c + 3 * (px // 4) * c + 2 * 9 * c * c)
-                line += f", C {t_c:.3f} ms (plain {tp_c:.3f})"
+            t_c = cuda_ms(lambda: kconv.conv3x3_relu_pool(x, w, b), 5)
+            tp_c = cuda_ms(lambda: kconv.conv3x3_relu_pool_plain(x, w, b),
+                           3, 1)
+            res[c_key]["ms"] += t_c
+            res[c_key]["plain_ms"] += tp_c
+            work[c_key][0] += flops * (3 if dtype == torch.float32 else 1)
+            work[c_key][1] += (e * px * c + (e + 1) * (px // 4) * c
+                               + e * 9 * c * c)
+            line += f", C {t_c:.3f} ms (plain {tp_c:.3f})"
             print(line)
-            if dtype == torch.bfloat16:
-                _add(res[c_key], c_versus(x, w, b, t_c, f"K8 {name}"))
+            _add(res[c_key], c_versus(x, w, b, t_c, c_key, f"K8 {name}"))
             _add(res[d_key], d_versus(ct, p_p, idx_p, w, t_d, d_key,
                                       f"K8 {name}"))
-    c, d, d32 = (res[n] for n in names)
-    print(f"K8 over conv2_2, conv3_4, conv4_4: C {names[0]} (bf16) "
-          f"{c['ms']:.3f} ms (CUDA-core C {c['cuda_core_ms']:.3f} ms, K2's "
-          f"forward {c['k2_fwd_ms']:.3f} ms, composition "
-          f"{c['composition_ms']:.3f} ms); D {names[1]} (bf16) "
-          f"{d['ms']:.3f} ms (CUDA-core D {d['cuda_core_ms']:.3f} ms, K2's "
-          f"dx {d['k2_dx_ms']:.3f} ms); D {names[2]} (f32) {d32['ms']:.3f} "
-          f"ms (CUDA-core D {d32['cuda_core_ms']:.3f} ms, K2's dx "
-          f"{d32['k2_dx_ms']:.3f} ms)")
-    rates = {names[0]: BF16_FLOPS, names[1]: BF16_FLOPS,
-             names[2]: TF32_FLOPS}
-    meta = {names[0]: ("conv3x3_wgmma", "st3d/kernels/conv_pallas.py:505"),
-            names[1]: (names[1], "st3d/kernels/conv_pallas.py:527"),
-            names[2]: (names[2], "st3d/kernels/conv_pallas.py:527")}
+    for n in names:
+        r = res[n]
+        other = ("K2's forward", r["k2_fwd_ms"]) if "k2_fwd_ms" in r else (
+            "K2's dx", r["k2_dx_ms"])
+        print(f"K8 over conv2_2, conv3_4, conv4_4: {n} {r['ms']:.3f} ms "
+              f"(CUDA-core kernel {r['cuda_core_ms']:.3f} ms, {other[0]} "
+              f"{other[1]:.3f} ms"
+              + (f", composition {r['composition_ms']:.3f} ms"
+                 if "composition_ms" in r else "") + ")")
+    f32 = (C_KEYS["float32"], D_KEYS["float32"])
+    source = {C_KEYS["bfloat16"]: "conv3x3_wgmma",
+              C_KEYS["float32"]: "conv3x3_tf32x3"}
+    replaces = {n: "st3d/kernels/conv_pallas.py:" + (
+        "505" if n in C_KEYS.values() else "527") for n in names}
     return [with_bound({"name": f"{n} (K8)", "route": "cuda",
-                        "source": f"st3d_torch/csrc/{meta[n][0]}.cu",
-                        "replaces": meta[n][1],
-                        "dtype": ("float32" if n == names[2]
-                                  else "bfloat16"),
+                        "source": f"st3d_torch/csrc/{source.get(n, n)}.cu",
+                        "replaces": replaces[n],
+                        "dtype": "float32" if n in f32 else "bfloat16",
                         "shapes": "conv2_2, conv3_4, conv4_4 at 512² x 4",
-                        **res[n]}, *work[n], rates[n]) for n in names]
+                        **res[n]}, *work[n],
+                       TF32_FLOPS if n in f32 else BF16_FLOPS)
+            for n in names]
 
 
 def write_scene(root, size, seed, level=ICO_LEVEL):
@@ -1417,10 +1482,21 @@ def second_approach_path(tmp, obj, style, route, epochs, dtype="bfloat16",
 
 def f32_texture_path(tmp, obj, style):
     """The texture step in float32, the CLI's default dtype, on the default
-    route: K2 (forward and dx) and D on 3xTF32, never ``conv3x3_nhwc`` or
-    ``pool_route_conv3x3_bwd``; K3 and C on the CUDA cores."""
-    return second_approach_path(tmp, obj, style, "default", F32_EPOCHS,
-                                "float32", want=F32_KERNELS)
+    route: K2 (forward and dx), K3, C and D on 3xTF32, never
+    ``conv3x3_nhwc``, ``gram_nhwc``, ``conv3x3_relu_pool`` or
+    ``pool_route_conv3x3_bwd`` (``drive`` fails on any launch outside
+    ``F32_KERNELS``); C once and K3 four times a step. The targets' set-up
+    adds two C launches (VGG on the content and the style images) and five
+    Grams (the style image's five taps, conv1_1's 64-wide one included)."""
+    launches = second_approach_path(tmp, obj, style, "default", F32_EPOCHS,
+                                    "float32", want=F32_KERNELS)
+    want = {C_KEYS["float32"]: F32_EPOCHS + 2,
+            "gram_tf32x3": 4 * F32_EPOCHS + 5}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"f32 texture: launched {got}, want {want} ({F32_EPOCHS} "
+             f"steps)")
+    return launches
 
 
 def steps_only(dev):
@@ -1598,8 +1674,7 @@ def hot_loop_a_ms(dev, route="default", check=True):
 
 def small_parity(tmp):
     """Both entry points at 64² on the GPU against the same runs on the CPU
-    (plain versions): in f32 (K2 and D on 3xTF32, K3 and C on the CUDA
-    cores),
+    (plain versions): in f32 (K2, K3, C and D on 3xTF32),
     losses within rtol 1e-3, the second approach also on the both target in
     soft mode and on the v3 and fused-pool routes; and the second approach
     in bf16 on the default route (tensor-core K2, K3, C and D, K2 down to
@@ -1628,6 +1703,7 @@ def small_parity(tmp):
                               "float32"),
         "second bf16": (second_approach, second, "default", "bfloat16"),
     }
+    c_and_d = {}
     for entry, (fn, extra, route, dtype) in entries.items():
         runs = {}
         os.environ.update(ROUTES[route][0])
@@ -1654,6 +1730,8 @@ def small_parity(tmp):
                         fail(f"64² {entry}: K2 ran on {k2}, C on {c}, D on "
                              f"{d}, want {want}, {C_KEYS[dtype]} and "
                              f"{D_KEYS[dtype]}")
+                    c_and_d[entry] = [launch_counts()[1][k] - before[k]
+                                      for k in (C_KEYS[dtype], D_KEYS[dtype])]
         finally:
             for k in ROUTES[route][0]:
                 os.environ.pop(k)
@@ -1664,6 +1742,14 @@ def small_parity(tmp):
               f"vs {runs['cpu']}, max rel diff {rel:.3g} (tolerance {tol})")
         if len(runs["cuda"]) != len(runs["cpu"]) or rel > tol:
             fail(f"{entry}: GPU and CPU losses differ by {rel}")
+    # In float32 too the fused-pool route takes C and D at conv2_2, conv3_4
+    # and conv4_4 as well as conv1_2.
+    base, fused = c_and_d["second"], c_and_d["second fused_pool"]
+    print(f"64² float32 fused-pool route: C, D launches {fused}, default "
+          f"route {base}")
+    if fused != [4 * n for n in base]:
+        fail(f"64² f32 fused-pool: C, D launched {fused}, want four times "
+             f"the default route's {base}")
 
 
 def main(argv=None):

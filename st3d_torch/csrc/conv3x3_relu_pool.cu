@@ -7,7 +7,11 @@
 //
 // Replaces the TPU kernels st3d/kernels/stage1_pallas.py::_conv1_2_kernel
 // (entry conv1_2_packed_pool, K4b) and conv_pallas.py::_conv2x2_fwd_kernel
-// (entry conv3x3_bias_relu_pool_packed, K5). Both compute this function;
+// (entry conv3x3_bias_relu_pool_packed, K5) for the widths
+// kernels/conv.py::relu_pool_route keeps off the tensor cores (bf16 with Cin
+// or Cout not a multiple of 8, float32 not a multiple of 4; the tensor-core
+// routes are csrc/conv3x3_wgmma.cu's and csrc/conv3x3_tf32x3.cu's pool
+// epilogues). Both TPU kernels compute this function;
 // their space-to-depth packings exist to fill the TPU's 128-wide matrix unit
 // at Cin = 64 and have no counterpart here. The tie rule is
 // conv_pallas.py::_pool4_first_max: strict > between pairs, so the first
@@ -24,8 +28,7 @@
 // What bounds it on an H100: compute, as for K2. At conv1_2's widths
 // (64 -> 64, 512^2 x 4 views) the conv is 77 GFLOP on the CUDA cores in
 // fp32 (67 TFLOP/s peak); the pool saves the 134 MB bf16 activation write
-// and its re-read by a separate pool. Tensor-core (wgmma) tiles are later
-// work.
+// and its re-read by a separate pool.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -1,12 +1,20 @@
 // 3x3 SAME stride-1 convolution + bias (+ ReLU) in float32 on Hopper's
 // tensor cores, by the 3xTF32 split: f32 NHWC activations, weights laid out
 // (Cout, 9, Cin) and split into hi and lo parts by the wrapper, f32
-// accumulation and output.
+// accumulation and output. The same mainloop with a second epilogue is C in
+// float32, conv + bias + ReLU + 2x2 max-pool with the window index (below).
 //
 // Replaces the TPU kernels st3d/kernels/conv_pallas.py::_conv_kernel,
 // _conv_kernel_nopad and _conv_kernel_halo1 (entry _conv3x3_same_impl) for
 // float32 with Cin and Cout multiples of 4; csrc/conv3x3_nhwc.cu (CUDA
-// cores) keeps the other widths (kernels/conv.py::conv_route).
+// cores) keeps the other widths (kernels/conv.py::conv_route). With the
+// pool epilogue it replaces, for float32 with Cin and Cout multiples of 4
+// (kernels/conv.py::relu_pool_route), the TPU kernels
+// st3d/kernels/stage1_pallas.py::_conv1_2_kernel (entry conv1_2_packed_pool,
+// K4b; K10c's _c12_fwd_kernel is the same body),
+// conv_pallas.py::_conv2x2_fwd_kernel (entry conv3x3_bias_relu_pool_packed,
+// K5) and conv_pallas.py's conv3x3_bias_relu_pool with pool=True (K8);
+// csrc/conv3x3_relu_pool.cu (CUDA cores) keeps the other widths.
 //
 // Numerics. One TF32 product keeps about 11 bits of each factor, too few
 // for the f32 tolerance (1e-4 of the largest output). Each factor is split
@@ -38,15 +46,32 @@
 //     a 128-thread named barrier, then runs three wgmma m64nBNk8 per k8
 //     step (+32 bytes along the swizzled row, as bf16's k16) into the
 //     partial, waits for them, frees the stage and folds the partial in;
-//   - epilogue: accumulators + bias, optional ReLU, f32 stores from
+//   - epilogue (STORE): accumulators + bias, optional ReLU, f32 stores from
 //     registers; pixels of the box outside the image are not stored.
+//   - epilogue (POOL), csrc/conv3x3_wgmma.cu's pool in float32: the tile
+//     holds whole 2x2 windows (kernels/conv.py::pool_tile: BW <= 64, both
+//     sides even, origins and H, W even). The two rows of a window lie in
+//     the two warpgroups, so bias and ReLU are applied in registers (f32,
+//     no rounding step) and the 128 x BN f32 tile is staged in the drained
+//     ring, rows padded by 32 bytes so that each half-warp's 8-byte stores
+//     hit 32 banks (36 KB at BN = 64, 68 KB at BN = 128, of a 192 KB ring);
+//     after a 256-thread named barrier each thread pools whole windows, 4
+//     channels at a time, by conv_pallas.py::_pool4_first_max's strict
+//     comparisons in scan order (w01 = c1 > c0, w23 = c3 > c2, idx = m23 >
+//     m01 ? 2 + w23 : w01), so an all-zero window gives idx 0, and stores
+//     pooled (16 bytes) and idx (4 bytes) along the channels. Only pooled
+//     and idx reach device memory: 5/16 of the bytes the STORE epilogue
+//     writes.
 //
 // What bounds it on an H100: operations. The three products are 3 * 2 *
 // 9 * Cin * Cout flops per pixel on the TF32 tensor cores (495 TFLOP/s),
-// against 4 * (Cin + Cout) bytes. A stage moves 48 KB by TMA for 12 wgmma
-// of a warpgroup, twice bf16 K2's bytes per product, mostly from L2; the
-// split costs each consumer thread four 16-byte shared loads and eight
-// stores per stage. Persistent scheduling and a deeper ring are later work.
+// against 4 * (Cin + Cout) bytes (C: 4 * Cin + 5/4 * Cout). A stage moves
+// 48 KB by TMA for 12 wgmma of a warpgroup, twice bf16 K2's bytes per
+// product, mostly from L2; the split costs each consumer thread four
+// 16-byte shared loads and eight stores per stage. Registers: at BN = 128
+// the 64 accumulators and 64 partials of a thread live through the
+// mainloop; the pool epilogue adds none that outlive it (the partials are
+// dead by then). Persistent scheduling and a deeper ring are later work.
 //
 // The input gradient is this kernel on the cotangent with spatially
 // flipped, IO-transposed weights and a zero bias (conv_pallas.py:468-475).
@@ -68,6 +93,8 @@ constexpr int THREADS = CONSUMERS * 128 + 32;    // + one producer warp
 constexpr int A_BYTES = BM * BK * 4;             // 16 KB
 constexpr uint32_t HI_MASK = 0xffffe000u;        // sign, exponent, 10 bits
 
+enum Epilogue { STORE = 0, POOL = 1 };
+
 template <int BN>
 struct Tile {
   static constexpr int STAGES = BN == 128 ? 3 : 4;
@@ -80,16 +107,89 @@ struct Tile {
   static constexpr int SMEM = STAGES * STAGE_BYTES + 1024;
 };
 
-// One 128 x BN output tile. Threads 0-255: the two consumer warpgroups;
-// threads 256-287: the producer warp.
+// C's epilogue: relu(acc + bias) in f32, staged in the drained ring,
+// pooled 2x2 by whole windows. pooled and idx are (B, H/2, W/2, Cout); the
+// tile's rows are (r >> bw_log2, r & (bw - 1)) from (y0, x0).
 template <int BN>
+__device__ __forceinline__ void pool_epilogue(
+    const float (&acc)[BN / 2], uint8_t* stage, const float* __restrict__ bias,
+    float* __restrict__ pooled, uint8_t* __restrict__ idx, int b, int x0,
+    int y0, int n0, int H, int W, int Cout, int bw_log2) {
+  constexpr int ROW = 4 * BN + 32;               // bytes per staged row
+  constexpr int CHUNKS = BN / 4;                 // 4-channel runs per pixel
+  static_assert(BM * ROW <= Tile<BN>::STAGES * Tile<BN>::STAGE_BYTES,
+                "the staged tile fits in the ring");
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  // Both warpgroups' last wgmma have read the ring (barriers 1 and 2 are
+  // the warpgroups' own, in the mainloop).
+  named_barrier(3, CONSUMERS * 128);
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int nl = 8 * j + 2 * (lane & 3);
+    if (n0 + nl >= Cout) continue;
+    const float b0 = bias[n0 + nl];
+    const float b1 = bias[n0 + nl + 1];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = wg * 64 + 16 * warp + 8 * h + (lane >> 2);
+      *reinterpret_cast<float2*>(stage + r * ROW + 4 * nl) =
+          make_float2(fmaxf(acc[4 * j + 2 * h] + b0, 0.f),
+                      fmaxf(acc[4 * j + 2 * h + 1] + b1, 0.f));
+    }
+  }
+  named_barrier(3, CONSUMERS * 128);
+  // 32 windows of 2 x 2 per tile, BW/2 to a row of windows.
+  const int bw = 1 << bw_log2;
+  const int Hp = H >> 1, Wp = W >> 1;
+  for (int item = threadIdx.x; item < 32 * CHUNKS; item += CONSUMERS * 128) {
+    const int chunk = item % CHUNKS;
+    const int win = item / CHUNKS;
+    const int px = win & ((bw >> 1) - 1), py = win >> (bw_log2 - 1);
+    const int n = n0 + 4 * chunk;
+    const int yy = y0 + 2 * py, xx = x0 + 2 * px;
+    if (n >= Cout || yy >= H || xx >= W) continue;
+    // Window positions (0,0), (0,1), (1,0), (1,1): rows r, r+1, r+bw,
+    // r+bw+1 of the tile.
+    const uint8_t* s = stage + ((2 * py << bw_log2) + 2 * px) * ROW + 16 * chunk;
+    const float4 q0 = *reinterpret_cast<const float4*>(s);
+    const float4 q1 = *reinterpret_cast<const float4*>(s + ROW);
+    const float4 q2 = *reinterpret_cast<const float4*>(s + bw * ROW);
+    const float4 q3 = *reinterpret_cast<const float4*>(s + (bw + 1) * ROW);
+    const float a0[4] = {q0.x, q0.y, q0.z, q0.w};
+    const float a1[4] = {q1.x, q1.y, q1.z, q1.w};
+    const float a2[4] = {q2.x, q2.y, q2.z, q2.w};
+    const float a3[4] = {q3.x, q3.y, q3.z, q3.w};
+    float out[4];
+    uint32_t id = 0u;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const bool w01 = a1[k] > a0[k], w23 = a3[k] > a2[k];
+      const float m01 = w01 ? a1[k] : a0[k], m23 = w23 ? a3[k] : a2[k];
+      const bool wm = m23 > m01;
+      out[k] = wm ? m23 : m01;
+      id |= (uint32_t)(wm ? 2 + (int)w23 : (int)w01) << (8 * k);
+    }
+    const long long p = ((long long)b * Hp + (yy >> 1)) * Wp + (xx >> 1);
+    *reinterpret_cast<float4*>(pooled + p * Cout + n) =
+        make_float4(out[0], out[1], out[2], out[3]);
+    *reinterpret_cast<uint32_t*>(idx + p * Cout + n) = id;
+  }
+}
+
+// One 128 x BN output tile. Threads 0-255: the two consumer warpgroups;
+// threads 256-287: the producer warp. EPI = POOL: y is pooled, idx the
+// window index, relu is implied.
+template <int BN, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 conv3x3_tf32x3_kernel(__grid_constant__ const CUtensorMap xmap,
                       __grid_constant__ const CUtensorMap whimap,
                       __grid_constant__ const CUtensorMap wlomap,
                       const float* __restrict__ bias, float* __restrict__ y,
-                      int H, int W, int Cin, int Cout, int bw_log2,
-                      int tiles_x, int tiles_y, int relu) {
+                      uint8_t* __restrict__ idx, int H, int W, int Cin,
+                      int Cout, int bw_log2, int tiles_x, int tiles_y,
+                      int relu) {
   constexpr int STAGES = Tile<BN>::STAGES;
   constexpr int ACC = BN / 2;                    // f32 accumulators a thread
   __shared__ __align__(8) uint64_t bars[2 * STAGES];   // full, then empty
@@ -215,6 +315,11 @@ conv3x3_tf32x3_kernel(__grid_constant__ const CUtensorMap xmap,
     }
   }
 
+  if constexpr (EPI == POOL) {
+    pool_epilogue<BN>(acc, ring_ptr, bias, y, idx, b, x0, y0, n0, H, W, Cout,
+                      bw_log2);
+    return;
+  }
   // Epilogue. Accumulator v of thread (warp w, lane l) of the warpgroup:
   // row 16w + 8*((v >> 1) & 1) + l/4, column 8*(v >> 2) + 2*(l & 3) + (v & 1).
   const int warp = (threadIdx.x >> 5) & 3;
@@ -242,42 +347,31 @@ conv3x3_tf32x3_kernel(__grid_constant__ const CUtensorMap xmap,
   }
 }
 
-template <int BN>
+template <int BN, int EPI>
 int launch(const CUtensorMap& xmap, const CUtensorMap& whimap,
-           const CUtensorMap& wlomap, const void* b, void* y, int B, int H,
-           int W, int Cin, int Cout, int bw_log2, int relu,
+           const CUtensorMap& wlomap, const void* b, void* y, void* idx, int B,
+           int H, int W, int Cin, int Cout, int bw_log2, int relu,
            cudaStream_t stream) {
   int err = (int)cudaFuncSetAttribute(
-      conv3x3_tf32x3_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Tile<BN>::SMEM);
+      conv3x3_tf32x3_kernel<BN, EPI>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<BN>::SMEM);
   if (err) return err;
   const int bw = 1 << bw_log2, bh = BM >> bw_log2;
   const int tiles_x = (W + bw - 1) / bw, tiles_y = (H + bh - 1) / bh;
   dim3 grid((unsigned)(B * tiles_x * tiles_y), (unsigned)((Cout + BN - 1) / BN));
-  conv3x3_tf32x3_kernel<BN><<<grid, THREADS, Tile<BN>::SMEM, stream>>>(
-      xmap, whimap, wlomap, (const float*)b, (float*)y, H, W, Cin, Cout,
-      bw_log2, tiles_x, tiles_y, relu);
+  conv3x3_tf32x3_kernel<BN, EPI><<<grid, THREADS, Tile<BN>::SMEM, stream>>>(
+      xmap, whimap, wlomap, (const float*)b, (float*)y, (uint8_t*)idx, H, W,
+      Cin, Cout, bw_log2, tiles_x, tiles_y, relu);
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// x (B, H, W, Cin) f32; w_hi, w_lo (Cout, 3, 3, Cin) f32, the exact split of
-// the HWIO weights permuted so that K is innermost (w_hi with its low 13
-// mantissa bits clear); b (Cout,) f32; y (B, H, W, Cout) f32. Cin and Cout
-// multiples of 4, x and the weights 16-byte aligned; bw the tile's width in
-// pixels (a power of two, at most 128; the tile is bw x 128/bw pixels).
-// Returns a cudaError_t, or ENCODE_ERROR + the CUresult of a tensor-map
-// encoding.
-extern "C" int st3d_conv3x3_tf32x3_f32(const void* x, const void* w_hi,
-                                       const void* w_lo, const void* b,
-                                       void* y, int B, int H, int W, int Cin,
-                                       int Cout, int bw, int relu,
-                                       void* stream) {
-  int bw_log2 = 0;
-  while ((1 << bw_log2) < bw) ++bw_log2;
-  if ((1 << bw_log2) != bw || bw > BM || Cin % 4 || Cout % 4)
-    return (int)cudaErrorInvalidValue;
+// Encodes the tensor maps of x and of the two weight parts and launches
+// with BN = 64 for Cout <= 64, else 128.
+template <int EPI>
+int encode_and_launch(const void* x, const void* w_hi, const void* w_lo,
+                      const void* b, void* y, void* idx, int B, int H, int W,
+                      int Cin, int Cout, int bw_log2, int relu, void* stream) {
+  const int bw = 1 << bw_log2;
   const cuuint64_t e = 4;                        // bytes per f32
   const cuuint32_t ones[4] = {1, 1, 1, 1};
   CUtensorMap xmap, whimap, wlomap;
@@ -300,8 +394,53 @@ extern "C" int st3d_conv3x3_tf32x3_f32(const void* x, const void* w_hi,
                      Cout, BK, bn);
   if (r != CUDA_SUCCESS) return ENCODE_ERROR + (int)r;
   cudaStream_t st = (cudaStream_t)stream;
-  return bn == 64 ? launch<64>(xmap, whimap, wlomap, b, y, B, H, W, Cin, Cout,
-                               bw_log2, relu, st)
-                  : launch<128>(xmap, whimap, wlomap, b, y, B, H, W, Cin,
-                                Cout, bw_log2, relu, st);
+  return bn == 64 ? launch<64, EPI>(xmap, whimap, wlomap, b, y, idx, B, H, W,
+                                    Cin, Cout, bw_log2, relu, st)
+                  : launch<128, EPI>(xmap, whimap, wlomap, b, y, idx, B, H, W,
+                                     Cin, Cout, bw_log2, relu, st);
+}
+
+int log2_exact(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return (1 << l) == v ? l : -1;
+}
+
+}  // namespace
+
+// x (B, H, W, Cin) f32; w_hi, w_lo (Cout, 3, 3, Cin) f32, the exact split of
+// the HWIO weights permuted so that K is innermost (w_hi with its low 13
+// mantissa bits clear); b (Cout,) f32; y (B, H, W, Cout) f32. Cin and Cout
+// multiples of 4, x and the weights 16-byte aligned; bw the tile's width in
+// pixels (a power of two, at most 128; the tile is bw x 128/bw pixels).
+// Returns a cudaError_t, or ENCODE_ERROR + the CUresult of a tensor-map
+// encoding.
+extern "C" int st3d_conv3x3_tf32x3_f32(const void* x, const void* w_hi,
+                                       const void* w_lo, const void* b,
+                                       void* y, int B, int H, int W, int Cin,
+                                       int Cout, int bw, int relu,
+                                       void* stream) {
+  const int bw_log2 = log2_exact(bw);
+  if (bw_log2 < 0 || bw > BM || Cin % 4 || Cout % 4)
+    return (int)cudaErrorInvalidValue;
+  return encode_and_launch<STORE>(x, w_hi, w_lo, b, y, nullptr, B, H, W, Cin,
+                                  Cout, bw_log2, relu, stream);
+}
+
+// C in float32: maxpool2x2(relu(conv3x3_same(x, w) + b)) with the window
+// index. x, w_hi, w_lo and b as above; pooled (B, H/2, W/2, Cout) f32 and idx
+// (B, H/2, W/2, Cout) uint8; H and W even; bw the tile's width (a power of
+// two, 2 to 64: kernels/conv.py::pool_tile). Returns as above.
+extern "C" int st3d_conv3x3_relu_pool_tf32x3_f32(const void* x,
+                                                 const void* w_hi,
+                                                 const void* w_lo,
+                                                 const void* b, void* pooled,
+                                                 void* idx, int B, int H,
+                                                 int W, int Cin, int Cout,
+                                                 int bw, void* stream) {
+  const int bw_log2 = log2_exact(bw);
+  if (bw_log2 < 1 || bw > 64 || H % 2 || W % 2 || Cin % 4 || Cout % 4)
+    return (int)cudaErrorInvalidValue;
+  return encode_and_launch<POOL>(x, w_hi, w_lo, b, pooled, idx, B, H, W, Cin,
+                                 Cout, bw_log2, 1, stream);
 }

@@ -1,6 +1,8 @@
 // Per-image unnormalised Gram matrix G[b] = y[b]^T y[b] of an NHWC
 // activation y (B, P = H*W, C), read in its stored dtype (bf16 or f32) and
-// accumulated in float32.
+// accumulated in float32, on the CUDA cores: the widths
+// kernels/conv.py::gram_route keeps off the tensor cores (csrc/gram_wgmma.cu,
+// csrc/gram_tf32x3.cu), such as conv1_1's 27-wide patch Gram.
 //
 // Replaces the Gram half of st3d/kernels/conv_pallas.py::_conv_gram_kernel
 // and _conv_gram_kernel_halo (entry _conv_gram_impl), where each VMEM row

@@ -4,8 +4,9 @@
 //
 // Replaces the Gram half of st3d/kernels/conv_pallas.py::_conv_gram_kernel
 // and _conv_gram_kernel_halo (entry _conv_gram_impl) for bf16 with C a
-// multiple of 8; csrc/gram_nhwc.cu (CUDA cores) keeps float32 and the other
-// widths, such as conv1_1's 27-wide patch Gram (kernels/conv.py::gram_route).
+// multiple of 8; csrc/gram_tf32x3.cu takes float32 and csrc/gram_nhwc.cu
+// (CUDA cores) the other widths, such as conv1_1's 27-wide patch Gram
+// (kernels/conv.py::gram_route).
 //
 // The GEMM: M = N = C, K = the pixels. y is described to TMA as the 3-D
 // tensor (C, P, B), innermost first; the box (64 channels, 64 pixels, 1)
@@ -157,25 +158,6 @@ gram_wgmma_partial_kernel(__grid_constant__ const CUtensorMap ymap,
   }
 }
 
-// Pass 2: one thread per (b, i, j) of an upper tile adds the slices in
-// order and writes G[b][i][j] and, off the diagonal tiles, G[b][j][i].
-__global__ void gram_wgmma_reduce_kernel(const float* __restrict__ partial,
-                                         float* __restrict__ g, int B, int C,
-                                         int S) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long cc = (long long)C * C;
-  if (idx >= (long long)B * cc) return;
-  const long long b = idx / cc;
-  const int i = (int)((idx % cc) / C);
-  const int j = (int)(idx % C);
-  if (i / TILE > j / TILE) return;
-  const float* src = partial + b * S * cc + (long long)i * C + j;
-  float sum = 0.f;
-  for (int s = 0; s < S; ++s) sum += src[s * cc];
-  g[b * cc + (long long)i * C + j] = sum;
-  if (i / TILE < j / TILE) g[b * cc + (long long)j * C + i] = sum;
-}
-
 }  // namespace
 
 // y (B, P, C) bf16, 16-byte aligned, C a multiple of 8; partial (B, S, C, C)
@@ -209,8 +191,5 @@ extern "C" int st3d_gram_wgmma_bf16(const void* y, void* partial, void* g,
       ymap, (float*)partial, P, C, S, slice_len, tiles);
   err = (int)cudaGetLastError();
   if (err) return err;
-  const long long n = (long long)B * C * C;
-  gram_wgmma_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-      (const float*)partial, (float*)g, B, C, S);
-  return (int)cudaGetLastError();
+  return gram_reduce_upper<TILE>(partial, g, B, C, S, st);
 }

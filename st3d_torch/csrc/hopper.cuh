@@ -1,14 +1,16 @@
 // Hopper building blocks shared by the tensor-core kernels
-// (conv3x3_wgmma.cu, conv3x3_tf32x3.cu, gram_wgmma.cu, pool_route_wgmma.cu,
-// pool_route_tf32x3.cu), from raw PTX: mbarriers, TMA tile loads, named
+// (conv3x3_wgmma.cu, conv3x3_tf32x3.cu, gram_wgmma.cu, gram_tf32x3.cu,
+// pool_route_wgmma.cu, pool_route_tf32x3.cu), from raw PTX: mbarriers, TMA tile loads, named
 // barriers, the proxy fence, wgmma shared-memory descriptors and the wgmma
-// instructions; and, on the host, the tensor maps the convolutions share.
+// instructions; the Grams' second pass; and, on the host, the tensor maps
+// the convolutions share.
 // kernels/build.py folds every csrc/*.cuh into each library's hash, so an
 // edit here rebuilds the kernels that include it.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -218,6 +220,41 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t a,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// Pass 2 of the tensor-core Grams (gram_wgmma.cu, gram_tf32x3.cu), whose
+// pass 1 writes the upper TILE x TILE tiles of each slice's partial Gram:
+// one thread per (b, i, j) of an upper tile adds the S slices in order and
+// writes G[b][i][j] and, off the diagonal tiles, G[b][j][i]. No atomics, so
+// the Gram is the same on every run.
+template <int TILE>
+__global__ void gram_reduce_upper_kernel(const float* __restrict__ partial,
+                                         float* __restrict__ g, int B, int C,
+                                         int S) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long cc = (long long)C * C;
+  if (idx >= (long long)B * cc) return;
+  const long long b = idx / cc;
+  const int i = (int)((idx % cc) / C);
+  const int j = (int)(idx % C);
+  if (i / TILE > j / TILE) return;
+  const float* src = partial + b * S * cc + (long long)i * C + j;
+  float sum = 0.f;
+  for (int s = 0; s < S; ++s) sum += src[s * cc];
+  g[b * cc + (long long)i * C + j] = sum;
+  if (i / TILE < j / TILE) g[b * cc + (long long)j * C + i] = sum;
+}
+
+// Host: launches gram_reduce_upper_kernel on ``stream``; returns the
+// launch's cudaError_t.
+template <int TILE>
+inline int gram_reduce_upper(const void* partial, void* g, int B, int C,
+                             int S, cudaStream_t stream) {
+  const long long n = (long long)B * C * C;
+  gram_reduce_upper_kernel<TILE><<<(unsigned)((n + 255) / 256), 256, 0,
+                                   stream>>>((const float*)partial,
+                                             (float*)g, B, C, S);
+  return (int)cudaGetLastError();
 }
 
 // Host: the tensor map of conv weights laid out (N, 9, K), K innermost (e

@@ -15,15 +15,18 @@ kernels:
   (the CUDA cores: widths TMA cannot stride).
 - K3 ``gram_nhwc``: per-image unnormalised Gram ``yᵀy`` from y in its
   stored dtype, into float32, split over pixel slices by ``gram_split``.
-  Two kernels, chosen by ``gram_route``: ``csrc/gram_wgmma.cu`` (bf16,
-  tensor cores) and ``csrc/gram_nhwc.cu`` (CUDA cores).
+  Three kernels, chosen by ``gram_route``: ``csrc/gram_wgmma.cu`` (bf16,
+  tensor cores), ``csrc/gram_tf32x3.cu`` (float32 on the tensor cores by
+  the 3xTF32 split, the K-major operand tiles built in shared memory) and
+  ``csrc/gram_nhwc.cu`` (CUDA cores: other widths).
 - ``conv3x3_relu_pool`` and its backward ``pool_route_conv3x3_bwd``:
   conv + bias + ReLU + 2x2 max-pool with the window index, and the input
-  gradient routed by that index. The forward has two kernels, chosen by
+  gradient routed by that index. The forward has three kernels, chosen by
   ``relu_pool_route``: ``csrc/conv3x3_wgmma.cu``'s pool epilogue (bf16,
   K2's mainloop on tiles of ``pool_tile``'s shape, the 2x2 pool in shared
-  memory) and ``csrc/conv3x3_relu_pool.cu`` (the CUDA cores: float32 and
-  other widths). The backward has three, chosen by ``pool_route``:
+  memory), ``csrc/conv3x3_tf32x3.cu``'s pool epilogue (float32, the 3xTF32
+  mainloop on the same tiles) and ``csrc/conv3x3_relu_pool.cu`` (the CUDA
+  cores: other widths). The backward has three, chosen by ``pool_route``:
   ``csrc/pool_route_wgmma.cu`` (bf16 on the tensor cores, K2's mainloop
   with the routed A tile built in shared memory from the TMA-loaded
   ``pool_footprint``), ``csrc/pool_route_tf32x3.cu`` (float32 the same
@@ -57,8 +60,10 @@ from st3d_torch.kernels import build
 LAUNCHES: Dict[str, int] = {"conv3x3_nhwc": 0, "conv3x3_wgmma": 0,
                             "conv3x3_tf32x3": 0,
                             "gram_nhwc": 0, "gram_wgmma": 0,
+                            "gram_tf32x3": 0,
                             "conv3x3_relu_pool": 0,
                             "conv3x3_relu_pool_wgmma": 0,
+                            "conv3x3_relu_pool_tf32x3": 0,
                             "pool_route_conv3x3_bwd": 0,
                             "pool_route_wgmma": 0,
                             "pool_route_tf32x3": 0}
@@ -68,9 +73,11 @@ CONV_TILE_PIXELS = 128          # output pixels of one tensor-core K2 tile
 POOL_TILE_WIDTH = 64            # widest tile that holds whole 2x2 windows
 # K3's split over pixel slices, per route: (Gram tile edge, upper triangle
 # only, pixels per step, shortest slice, blocks wanted). The tensor-core
-# kernel's steps are 64-pixel TMA boxes and it computes the tiles with row
-# <= column; the CUDA-core kernel computes every 64 x 64 tile.
+# kernels' steps are TMA boxes (64 pixels in bf16, 32 in float32) and they
+# compute the tiles with row <= column; the CUDA-core kernel computes every
+# 64 x 64 tile.
 GRAM_PLAN = {"wgmma": (128, True, 64, 256, 2 * SMS),
+             "tf32x3": (128, True, 32, 256, 2 * SMS),
              "cuda_core": (64, False, 16, 256, 4 * SMS)}
 
 
@@ -90,11 +97,11 @@ def conv_route(dtype: torch.dtype, cin: int, cout: int) -> str:
 def relu_pool_route(dtype: torch.dtype, cin: int, cout: int) -> str:
     """The kernel ``conv3x3_relu_pool`` takes for a CUDA tensor: "wgmma"
     (``csrc/conv3x3_wgmma.cu`` with its pool epilogue) for bf16 with Cin
-    and Cout multiples of 8, else "cuda_core"
+    and Cout multiples of 8, "tf32x3" (``csrc/conv3x3_tf32x3.cu`` with its
+    pool epilogue) for float32 with Cin and Cout multiples of 4
+    (``conv_route``'s rules), else "cuda_core"
     (``csrc/conv3x3_relu_pool.cu``)."""
-    if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0:
-        return "wgmma"
-    return "cuda_core"
+    return conv_route(dtype, cin, cout)
 
 
 def pool_route(dtype: torch.dtype, c: int, cin: int) -> str:
@@ -115,9 +122,15 @@ def pool_route(dtype: torch.dtype, c: int, cin: int) -> str:
 
 def gram_route(dtype: torch.dtype, c: int) -> str:
     """The K3 kernel a CUDA tensor takes: "wgmma" (``csrc/gram_wgmma.cu``)
-    for bf16 with C a multiple of 8, else "cuda_core"
-    (``csrc/gram_nhwc.cu``)."""
-    return "wgmma" if dtype == torch.bfloat16 and c % 8 == 0 else "cuda_core"
+    for bf16 with C a multiple of 8, "tf32x3" (``csrc/gram_tf32x3.cu``) for
+    float32 with C a multiple of 4 (the pixel rows of y are C * 4 bytes
+    apart, and TMA strides are multiples of 16 bytes), else "cuda_core"
+    (``csrc/gram_nhwc.cu``: conv1_1's 27-wide patch Gram)."""
+    if dtype == torch.bfloat16 and c % 8 == 0:
+        return "wgmma"
+    if dtype == torch.float32 and c % 4 == 0:
+        return "tf32x3"
+    return "cuda_core"
 
 
 def conv_tile(width: int) -> Tuple[int, int]:
@@ -381,6 +394,10 @@ def gram_split(bsz: int, pixels: int, c: int,
     return -(-pixels // slice_len), slice_len
 
 
+GRAM_LIBS = {"wgmma": "gram_wgmma", "tf32x3": "gram_tf32x3",
+             "cuda_core": "gram_nhwc"}
+
+
 def gram_nhwc(y: torch.Tensor) -> torch.Tensor:
     """K3: (B, ..., C) activation -> (B, C, C) float32 Grams over all
     non-batch, non-channel positions. Not differentiable by itself: see
@@ -388,15 +405,25 @@ def gram_nhwc(y: torch.Tensor) -> torch.Tensor:
     if y.device.type == "cpu":
         return gram_nhwc_plain(y)
     build.check_operands("gram_nhwc", y)
+    return _gram(y, gram_route(y.dtype, y.shape[-1]))
+
+
+def gram_cuda_core(y: torch.Tensor) -> torch.Tensor:
+    """K3 on the CUDA cores (``csrc/gram_nhwc.cu``), the route of the widths
+    ``gram_route`` keeps off the tensor cores; CUDA tensors only."""
+    build.check_operands("gram_nhwc", y)
+    return _gram(y, "cuda_core")
+
+
+def _gram(y: torch.Tensor, route: str) -> torch.Tensor:
     bsz, c = y.shape[0], y.shape[-1]
     pixels = y.numel() // (bsz * c)
-    route = gram_route(y.dtype, c)
     y = _tma_ready(y)
     slices, slice_len = gram_split(bsz, pixels, c, route)
     partial = torch.empty((bsz, slices, c, c), dtype=torch.float32,
                           device=y.device)
     g = torch.empty((bsz, c, c), dtype=torch.float32, device=y.device)
-    lib = "gram_wgmma" if route == "wgmma" else "gram_nhwc"
+    lib = GRAM_LIBS[route]
     fn = build.symbol(lib, f"st3d_{lib}_" + build.DTYPE_SUFFIX[y.dtype], 3, 5)
     err = fn(y.data_ptr(), partial.data_ptr(), g.data_ptr(), bsz, pixels, c,
              slices, slice_len, build.stream_handle(y.device))
@@ -471,8 +498,11 @@ def conv3x3_relu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     if x.device.type == "cpu":
         return conv3x3_relu_pool_plain(x, w, b)
     build.check_operands("conv3x3_relu_pool", x, w, b)
-    if relu_pool_route(x.dtype, cin, cout) == "wgmma":
+    route = relu_pool_route(x.dtype, cin, cout)
+    if route == "wgmma":
         return _conv3x3_relu_pool_wgmma(x, w, b)
+    if route == "tf32x3":
+        return _conv3x3_relu_pool_tf32x3(x, w, b)
     return conv3x3_relu_pool_cuda_core(x, w, b)
 
 
@@ -505,12 +535,34 @@ def _conv3x3_relu_pool_wgmma(x: torch.Tensor, w: torch.Tensor,
     return pooled, idx
 
 
+def _conv3x3_relu_pool_tf32x3(x: torch.Tensor, w: torch.Tensor,
+                              b: torch.Tensor
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """C in float32 on the tensor cores: the 3xTF32 mainloop with the pool
+    epilogue, w HWIO laid out (Cout, 3, 3, Cin) and split by
+    ``split_tf32``, tiles of ``pool_tile``."""
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[3]
+    x = _tma_ready(x)
+    w_hi, w_lo = split_tf32(w.permute(3, 0, 1, 2).contiguous())
+    b = b.contiguous()
+    pooled, idx = _pool_outputs(x, cout)
+    fn = build.symbol("conv3x3_tf32x3", "st3d_conv3x3_relu_pool_tf32x3_f32",
+                      6, 6)
+    err = fn(x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(), b.data_ptr(),
+             pooled.data_ptr(), idx.data_ptr(), bsz, h, wd, cin, cout,
+             pool_tile(wd)[0], build.stream_handle(x.device))
+    build.check(err, "conv3x3_relu_pool_tf32x3")
+    LAUNCHES["conv3x3_relu_pool_tf32x3"] += 1
+    return pooled, idx
+
+
 def conv3x3_relu_pool_cuda_core(x: torch.Tensor, w: torch.Tensor,
                                 b: torch.Tensor
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """C on the CUDA cores (``csrc/conv3x3_relu_pool.cu``), the route of
-    float32 and of widths ``relu_pool_route`` keeps off the tensor cores;
-    CUDA tensors only."""
+    the widths ``relu_pool_route`` keeps off the tensor cores; CUDA tensors
+    only."""
     cin, cout = _conv_shapes(x, w, b)
     _pool_dims(x)
     bsz, h, wd, _ = x.shape

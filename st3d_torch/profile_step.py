@@ -50,8 +50,7 @@ WARMUP_STEPS = 3
 # Kernel groups, first match wins (lower-cased kernel names).
 GROUPS = (
     ("raster kernels", ("raster_",)),
-    ("VGG kernels", ("conv3x3", "gram_nhwc", "gram_wgmma", "conv1_1",
-                     "pool_route")),
+    ("VGG kernels", ("conv3x3", "gram_", "conv1_1", "pool_route")),
     ("index/gather/scatter", ("index", "scatter", "gather", "put_")),
     ("sort", ("sort", "radix")),
     ("reductions", ("reduce",)),

@@ -3,7 +3,8 @@ kernels' tile plans, as the pure functions of ``st3d_torch.kernels.conv``
 (no GPU): ``conv_route`` (bf16 with channel counts that are multiples of 8
 and float32 with multiples of 4 take the tensor cores, the latter by
 3xTF32; anything else the CUDA cores), ``gram_route`` (bf16, multiples of
-8), ``relu_pool_route`` (bf16, multiples of 8), ``pool_route`` (bf16
+8; float32, multiples of 4, by 3xTF32), ``relu_pool_route`` (``conv_route``'s
+rules), ``pool_route`` (bf16
 with C a multiple of 16 and Cin of 8; float32 with C a multiple of 16 and
 Cin of 4, by 3xTF32), ``conv_tile`` (the 128-pixel output box per image
 width), ``pool_tile`` (the same box holding whole 2x2 windows),
@@ -52,8 +53,11 @@ def test_pool_route(dtype, c, cin, route):
     (BF16, 64, 64, "wgmma"), (BF16, 128, 128, "wgmma"),
     (BF16, 512, 512, "wgmma"), (BF16, 24, 40, "wgmma"),
     (BF16, 3, 64, "cuda_core"), (BF16, 64, 12, "cuda_core"),
-    (F32, 64, 64, "cuda_core"), (F32, 512, 512, "cuda_core"),
-    (torch.float16, 64, 64, "cuda_core")])
+    (F32, 64, 64, "tf32x3"), (F32, 512, 512, "tf32x3"),
+    (torch.float16, 64, 64, "cuda_core"), (F32, 128, 128, "tf32x3"),
+    (F32, 24, 40, "tf32x3"), (F32, 4, 8, "tf32x3"), (F32, 3, 64, "cuda_core"),
+    (F32, 64, 6, "cuda_core"), (F32, 6, 64, "cuda_core"),
+    (F32, 64, 27, "cuda_core")])
 def test_relu_pool_route(dtype, cin, cout, route):
     assert kconv.relu_pool_route(dtype, cin, cout) == route
 
@@ -105,7 +109,10 @@ def test_pool_footprint_covers_every_tap(width):
 @pytest.mark.parametrize("dtype,c,route", [
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 512, "wgmma"),
     (BF16, 136, "wgmma"), (BF16, 27, "cuda_core"), (BF16, 4, "cuda_core"),
-    (F32, 128, "cuda_core"), (F32, 27, "cuda_core")])
+    (F32, 128, "tf32x3"), (F32, 27, "cuda_core"), (F32, 64, "tf32x3"),
+    (F32, 512, "tf32x3"), (F32, 4, "tf32x3"), (F32, 136, "tf32x3"),
+    (F32, 6, "cuda_core"), (F32, 30, "cuda_core"),
+    (torch.float16, 128, "cuda_core")])
 def test_gram_route(dtype, c, route):
     assert kconv.gram_route(dtype, c) == route
 
@@ -131,7 +138,7 @@ SPLITS = [(4, 256 * 256, 128), (4, 128 * 128, 256), (4, 64 * 64, 512),
           (4, 512 * 512, 27)]
 
 
-@pytest.mark.parametrize("route", ["wgmma", "cuda_core"])
+@pytest.mark.parametrize("route", ["wgmma", "cuda_core", "tf32x3"])
 @pytest.mark.parametrize("bsz,pixels,c", SPLITS)
 def test_gram_split_covers_pixels(route, bsz, pixels, c):
     edge, triangle, step, min_slice, _ = kconv.GRAM_PLAN[route]
@@ -154,3 +161,13 @@ def test_gram_split_fills_the_card_at_the_style_taps(h, c):
     """At 512² x 4 views every style Gram runs at least one block per SM."""
     slices, _ = kconv.gram_split(4, h * h, c)
     assert 4 * slices * kconv.gram_tiles(c) >= kconv.SMS
+
+
+@pytest.mark.parametrize("h,c", [(256, 128), (128, 256), (64, 512),
+                                 (32, 512)])
+def test_gram_split_fills_the_card_at_the_style_taps_tf32x3(h, c):
+    """The float32 route at 512² x 4 views: at least one block per SM at
+    every style Gram, slices of whole 32-pixel boxes."""
+    slices, slice_len = kconv.gram_split(4, h * h, c, "tf32x3")
+    assert slice_len % 32 == 0
+    assert 4 * slices * kconv.gram_tiles(c, "tf32x3") >= kconv.SMS

@@ -47,7 +47,10 @@ CONV_KEYS = {"wgmma": "conv3x3_wgmma", "tf32x3": "conv3x3_tf32x3",
 POOL_KEYS = {"wgmma": "pool_route_wgmma", "tf32x3": "pool_route_tf32x3",
              "cuda_core": "pool_route_conv3x3_bwd"}
 RELU_POOL_KEYS = {"wgmma": "conv3x3_relu_pool_wgmma",
+                  "tf32x3": "conv3x3_relu_pool_tf32x3",
                   "cuda_core": "conv3x3_relu_pool"}
+GRAM_KEYS = {"wgmma": "gram_wgmma", "tf32x3": "gram_tf32x3",
+             "cuda_core": "gram_nhwc"}
 
 
 def _launched(n0):
@@ -82,8 +85,7 @@ def test_conv_kernel_matches_plain(dev, dtype, tol, cin, cout, relu):
 def test_gram_kernel_matches_plain(dev, dtype, tol, pixels, c):
     g = torch.Generator(device=dev).manual_seed(1)
     y = torch.randn((3, pixels, c), generator=g, device=dev).to(dtype)
-    key = {"wgmma": "gram_wgmma", "cuda_core": "gram_nhwc"}[
-        kconv.gram_route(dtype, c)]
+    key = GRAM_KEYS[kconv.gram_route(dtype, c)]
     n0 = dict(kconv.LAUNCHES)
     got = kconv.gram_nhwc(y)
     ref = kconv.gram_nhwc_plain(y)
@@ -424,6 +426,99 @@ def test_conv3x3_relu_pool_wgmma_ties_and_zero_windows(dev, shape, cin,
     assert torch.equal(p, p_ref) and torch.equal(idx, idx_ref)
 
 
+# The same boxes in float32, plus Cin and Cout multiples of 4 but not of 8,
+# the narrowest the 3xTF32 route takes.
+POOL_FWD_TF32X3 = POOL_FWD_WGMMA + [((1, 6, 4), 4, 12), ((2, 10, 8), 12, 36)]
+
+
+@pytest.mark.parametrize("shape,cin,cout", POOL_FWD_TF32X3)
+def test_conv3x3_relu_pool_tf32x3_matches_plain(dev, shape, cin, cout):
+    """The 3xTF32 C in float32 against its plain version: pooled within
+    1e-4 * max|plain| (the f32 tolerance of ``chip_smoke.py``) and 1e-5 *
+    max of a float64 conv + ReLU + pool (tests/test_torch_tf32x3.py: the
+    emulated sums land within 1e-6), idx equal wherever the plain top two
+    of the window differ by more than 1e-4 * max."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(shape + (cin,), generator=g, device=dev)
+    w = torch.randn((3, 3, cin, cout), generator=g, device=dev) * (
+        2.0 / (9 * cin)) ** 0.5
+    b = torch.randn((cout,), generator=g, device=dev) * 0.1
+    assert kconv.relu_pool_route(torch.float32, cin, cout) == "tf32x3"
+    n0 = dict(kconv.LAUNCHES)
+    p, idx = kconv.conv3x3_relu_pool(x, w, b)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {"conv3x3_relu_pool_tf32x3": 1}
+    p_ref, idx_ref = kconv.conv3x3_relu_pool_plain(x, w, b)
+    assert p.shape == p_ref.shape and p.dtype == torch.float32
+    assert idx.dtype == torch.uint8
+    assert _rel_err(p, p_ref) <= 1e-4
+    pre64 = _conv_f64(x, w, b, True)
+    bsz, h, wd, c = pre64.shape
+    p64 = pre64.reshape(bsz, h // 2, 2, wd // 2, 2, c).amax(dim=(2, 4))
+    assert _rel_err(p, p64) <= 1e-5
+    pre = kconv.conv3x3_nhwc_plain(x, w, b, True)
+    scale = float(p_ref.abs().max())
+    assert _idx_mismatch_where_separated(idx, idx_ref, pre, 1e-4 * scale) == 0
+
+
+@pytest.mark.parametrize("shape,cin,cout", [((2, 16, 64), 16, 64),
+                                            ((1, 8, 130), 8, 24),
+                                            ((1, 34, 20), 16, 136),
+                                            ((1, 6, 10), 4, 12)])
+def test_conv3x3_relu_pool_tf32x3_ties_and_zero_windows(dev, shape, cin,
+                                                        cout):
+    """Integer operands (x, w in {-1, 0, 1}, b in {-2..2}) split exactly
+    and sum exactly in float32, so exact ties and all-zero windows are
+    common: pooled and idx equal the plain version's bit for bit (idx is
+    the first maximum in scan order, 0 for an all-zero window)."""
+    g = torch.Generator(device=dev).manual_seed(22)
+    x = torch.randint(-1, 2, shape + (cin,), generator=g, device=dev).float()
+    w = torch.randint(-1, 2, (3, 3, cin, cout), generator=g,
+                      device=dev).float()
+    b = torch.randint(-2, 3, (cout,), generator=g, device=dev).float()
+    n0 = dict(kconv.LAUNCHES)
+    p, idx = kconv.conv3x3_relu_pool(x, w, b)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {"conv3x3_relu_pool_tf32x3": 1}
+    p_ref, idx_ref = kconv.conv3x3_relu_pool_plain(x, w, b)
+    pre = kconv.conv3x3_nhwc_plain(x, w, b, True)
+    bsz, h, wd, c = pre.shape
+    win = pre.reshape(bsz, h // 2, 2, wd // 2, 2, c).permute(
+        0, 1, 3, 5, 2, 4).reshape(bsz, h // 2, wd // 2, c, 4)
+    top2 = win.sort(dim=-1).values[..., -2:]
+    assert bool((top2[..., 1] == top2[..., 0]).any())   # ties
+    assert bool((p_ref == 0).any())                     # all-zero windows
+    assert torch.equal(p, p_ref) and torch.equal(idx, idx_ref)
+
+
+@pytest.mark.parametrize("pixels,c", [(37 * 29, 64), (1000, 128),
+                                      (4096 + 17, 512), (300, 136),
+                                      (16, 512), (64 * 64, 4)])
+def test_gram_tf32x3_matches_plain(dev, pixels, c):
+    """The 3xTF32 K3 in float32 (pixel counts off the 32-pixel box, one box
+    past P, C below, at and between 128-channel tiles, C = 4) against its
+    plain version: relative Frobenius error <= 1e-5, and <= 5e-6 of a
+    float64 Gram (the emulation lands within 1e-6,
+    tests/test_torch_tf32x3.py; each box's partial adds 12 wgmma in the
+    tensor core's own f32 sum, which may truncate: 12 * 2^-23 = 1.4e-6 at
+    worst); bit-identical on a second call."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    y = torch.relu(torch.randn((3, pixels, c), generator=g, device=dev))
+    assert kconv.gram_route(torch.float32, c) == "tf32x3"
+    n0 = dict(kconv.LAUNCHES)
+    got = kconv.gram_nhwc(y)
+    again = kconv.gram_nhwc(y)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {"gram_tf32x3": 2}
+    ref = kconv.gram_nhwc_plain(y)
+    assert torch.linalg.norm(got - ref) <= 1e-5 * torch.linalg.norm(ref)
+    yd = y.double()
+    ref64 = yd.transpose(1, 2) @ yd
+    assert torch.linalg.norm(got.double() - ref64) <= 5e-6 * torch.linalg.norm(
+        ref64)
+    assert torch.equal(got, again)                    # deterministic
+
+
 @pytest.mark.parametrize("shape,c,cin", POOL_WGMMA)
 def test_pool_route_tf32x3_matches_plain(dev, shape, c, cin):
     """The 3xTF32 D in float32 on a pre-pool activation quantised to
@@ -458,8 +553,8 @@ def test_pool_route_tf32x3_matches_plain(dev, shape, c, cin):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_stage1_gradient_matches_plain_path(dev, dtype):
     """conv1_1_relu_stats -> Gram and conv1_2_relu_pool on CUDA tensors
-    (kernels A-D; D on the CUDA cores in float32, on the tensor cores in
-    bf16) against the plain versions: in float32 the same functions on CPU
+    (kernels A-D; C and D on the tensor cores in both dtypes, by 3xTF32 in
+    float32) against the plain versions: in float32 the same functions on CPU
     copies, values and the input gradient within 1e-4; in bf16 the input
     gradient against the plain chain (D's and B's plain versions) fed the
     kernels' own forward outputs, within 1e-2 (the bf16 pool's index may
@@ -489,7 +584,8 @@ def test_stage1_gradient_matches_plain_path(dev, dtype):
         torch.autograd.backward((p, gm), (torch.tensor(ct, device=d),
                                           torch.tensor(ctg, device=d)))
         outs.append([v.detach().cpu() for v in (p, gm, xt.grad)])
-    assert _launched(n0) == {"conv3x3_relu_pool": 1, "pool_route_tf32x3": 1}
+    assert _launched(n0) == {"conv3x3_relu_pool_tf32x3": 1,
+                             "pool_route_tf32x3": 1}
     for got, ref in zip(*outs):
         assert _rel_err(got, ref) <= 1e-4
 
