@@ -33,7 +33,13 @@ Phases; any failure raises and the script exits non-zero:
    inputs), and conv1_1's 27-wide PᵀP in bf16 on ``gram_nhwc``; each Gram
    bit-identical on a second call;
    stage 1 at 512² x 4 (conv1_1 3->64, conv1_2 64->64), bf16 and f32:
-   A ``conv1_1_stats``, B ``conv1_1_bwd``, C (``conv3x3_relu_pool_wgmma``,
+   A (``conv1_1_stats_wgmma`` on the tensor cores in bf16, its statistics
+   bit-identical on a second call; ``conv1_1_stats`` on the CUDA cores in
+   f32, and held and timed on the bf16 inputs too, beside ``F.conv2d``
+   bf16 3 -> 64, the nearest library call to its z half), B
+   (``conv1_1_bwd_wgmma`` in bf16, ``conv1_1_bwd`` in f32 and on the bf16
+   inputs), each timed in both dtypes by CUDA events and by the kernels'
+   time under ``torch.profiler``, C (``conv3x3_relu_pool_wgmma``,
    K2's mainloop with a pool epilogue, in bf16;
    ``conv3x3_relu_pool_tf32x3``, the 3xTF32 mainloop with the pool
    epilogue, in f32; the CUDA-core ``conv3x3_relu_pool`` held against the
@@ -78,9 +84,10 @@ Phases; any failure raises and the script exits non-zero:
    views, batch 4, bf16, 20 epochs on a seeded synthetic scene, on the
    default VGG route: every loss finite, the last below the first,
    ``final.obj`` and ``final_render/`` written, all seven kernels launched
-   (K2, K3, C and D only on the tensor cores: no ``conv3x3_nhwc``,
-   ``conv3x3_relu_pool`` or ``pool_route_conv3x3_bwd`` launch on any bf16
-   route, no ``gram_nhwc`` on any but the two below).
+   (K2, K3, A, B, C and D only on the tensor cores: no ``conv3x3_nhwc``,
+   ``conv1_1_stats``, ``conv1_1_bwd``, ``conv3x3_relu_pool`` or
+   ``pool_route_conv3x3_bwd`` launch on any bf16 route, no ``gram_nhwc``
+   on any but the two below).
    Then 5 epochs each on PR 1's route (``ST3D_NO_STAGE1_V2=1
    ST3D_NO_PACKED1=1``: K1-K3 only) and on the K5 route
    (``ST3D_NO_STAGE1_V2=1``: C and D, not A and B), where conv1_1's
@@ -92,9 +99,11 @@ Phases; any failure raises and the script exits non-zero:
    Then the texture step in float32, the CLIs' default dtype, 10 epochs on
    the default route: K2, K3, C and D only on their 3xTF32 kernels
    (``conv3x3_tf32x3``, ``gram_tf32x3`` four times a step,
-   ``conv3x3_relu_pool_tf32x3`` once a step, ``pool_route_tf32x3``; no
-   launch of ``conv3x3_nhwc``, ``gram_nhwc``, ``conv3x3_relu_pool`` or
-   ``pool_route_conv3x3_bwd``); its median step.
+   ``conv3x3_relu_pool_tf32x3`` once a step, ``pool_route_tf32x3``; A
+   and B on the CUDA cores; no launch of ``conv3x3_nhwc``, ``gram_nhwc``,
+   ``conv3x3_relu_pool`` or ``pool_route_conv3x3_bwd``); its median step.
+   B once a step in the bf16 default and fused-pool runs and the f32 run,
+   A once a step plus the same set-up launches in each.
    Then the vertex optimisation, ``--optimization_target both`` at 512², 4
    views, bf16, 10 epochs, in four raster modes: hard at ico level 4 (K1),
    ``--soft_raster true`` (K1's soft mode), ``--soft_raster true
@@ -119,10 +128,10 @@ Phases; any failure raises and the script exits non-zero:
    (plain versions), the second approach with ``--optimization_target
    both --soft_raster true``, and the second approach on the v3 and
    fused-pool routes: losses within rtol 1e-3; and the second approach at
-   64² in bf16 on the default route (the tensor-core K2, K3 and D): losses
-   within rtol 1e-2. Each GPU run must take K2, C and D on its dtype's
-   route, and the f32 fused-pool run C and D four times as often as the
-   f32 default run.
+   64² in bf16 on the default route (the tensor-core K2, K3, A, B, C and
+   D): losses within rtol 1e-2. Each GPU run must take K2, C and D on its
+   dtype's route, and A and B on theirs (none on v3), and the f32
+   fused-pool run C and D four times as often as the f32 default run.
 6. The wall seconds of each phase, the card's name and power limit, one
    JSON line with the kernels' results (ptxas's registers and spills of
    the tensor-core kernels are printed after the build), then the last line
@@ -158,15 +167,15 @@ BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 # The VGG routes: the switches each sets, and the kernels it must launch.
-# In bf16 every K2 and K3 launch takes the tensor-core kernels, and every D
-# launch the tensor-core D; the CUDA-core ones (float32, odd widths) run
-# only conv1_1's 27-wide PᵀP Gram, once a step, on the two routes with
-# stage 1 off.
-KERNELS = ("raster_hard", "conv3x3_wgmma", "gram_wgmma", "conv1_1_stats",
-           "conv1_1_bwd", "conv3x3_relu_pool_wgmma", "pool_route_wgmma")
+# In bf16 every K2, K3, A, B, C and D launch takes the tensor-core kernels;
+# the CUDA-core ones (float32, odd widths) run only conv1_1's 27-wide PᵀP
+# Gram, once a step, on the two routes with stage 1 off.
+KERNELS = ("raster_hard", "conv3x3_wgmma", "gram_wgmma",
+           "conv1_1_stats_wgmma", "conv1_1_bwd_wgmma",
+           "conv3x3_relu_pool_wgmma", "pool_route_wgmma")
 # The default route in float32: K2, K3, C and D on 3xTF32 (no
 # conv3x3_nhwc, gram_nhwc, conv3x3_relu_pool or pool_route_conv3x3_bwd:
-# every width they meet fits the tensor cores).
+# every width they meet fits the tensor cores), A and B on the CUDA cores.
 F32_KERNELS = {"raster_hard", "conv3x3_tf32x3", "gram_tf32x3",
                "conv1_1_stats", "conv1_1_bwd", "conv3x3_relu_pool_tf32x3",
                "pool_route_tf32x3"}
@@ -198,7 +207,8 @@ ROUTE_ENV = ("ST3D_NO_STAGE1_V2", "ST3D_NO_PACKED1", "ST3D_STAGE1",
 ROUTES = {
     "default": ({}, set(KERNELS)),
     "v3": ({"ST3D_STAGE1": "v3"},
-           set(KERNELS) - {"conv1_1_stats", "conv1_1_bwd"} | set(V3_KERNELS)),
+           set(KERNELS) - {"conv1_1_stats_wgmma", "conv1_1_bwd_wgmma"}
+           | set(V3_KERNELS)),
     "fused_pool": ({"ST3D_FUSED_POOL": "1"}, set(KERNELS)),
     "pr1": ({"ST3D_NO_STAGE1_V2": "1", "ST3D_NO_PACKED1": "1"},
             {"raster_hard", "conv3x3_wgmma", "gram_wgmma", "gram_nhwc"}),
@@ -974,12 +984,114 @@ def _add(rec, extra):
         rec[k] = rec.get(k, 0.0) + v
 
 
+A_KEYS = {"bfloat16": "conv1_1_stats_wgmma", "float32": "conv1_1_stats"}
+B_KEYS = {"bfloat16": "conv1_1_bwd_wgmma", "float32": "conv1_1_bwd"}
+
+
+def _s1_launched(before):
+    """A/B launch counts that moved since ``before``."""
+    from st3d_torch.kernels.stage1 import LAUNCHES
+
+    return {k: n - before[k] for k, n in LAUNCHES.items() if n != before[k]}
+
+
+def profiled_ms(fn, reps=10):
+    """Device time of one call of ``fn``: the time of its CUDA kernels
+    under ``torch.profiler`` over ``reps`` calls after a warm-up, so the
+    host's issue is left out. Returns (ms, {kernel: ms per call})."""
+    import torch
+    from st3d_torch.profile_step import kernel_ms
+
+    fn()
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = kernel_ms(prof.events(), reps)
+    if not per:
+        fail("torch.profiler saw no device time")
+    return sum(per.values()), per
+
+
+def _stats_err(ptp, s27, ptp_p, s27_p, what, x):
+    """PᵀP and s27 against the plain version: relative Frobenius <= 1e-4
+    (sums of 2¹⁸ terms per image, taken in another order); also printed
+    against a float64 sum of the same patches, which shows whether the
+    kernel or the plain float32 sum is the further off."""
+    import torch
+    from st3d_torch.kernels.stage1 import patches27
+
+    flat = patches27(x).double().reshape(x.shape[0], -1, 27)
+    exact = {"PtP": flat.transpose(1, 2) @ flat, "s27": flat.sum(dim=1)}
+    worst = 0.0
+    for part, got, ref in (("PtP", ptp, ptp_p), ("s27", s27, s27_p)):
+        rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
+        e64 = exact[part]
+        rel64 = float(torch.linalg.norm(got.double() - e64)
+                      / torch.linalg.norm(e64))
+        plain64 = float(torch.linalg.norm(ref.double() - e64)
+                        / torch.linalg.norm(e64))
+        print(f"{what} {part} rel fro err {rel:.3g} (against float64: "
+              f"kernel {rel64:.3g}, plain {plain64:.3g})")
+        if rel > 1e-4:
+            fail(f"{what} {part}: rel fro err {rel} > 1e-4")
+        worst = max(worst, rel)
+    return worst
+
+
+def ab_versus(x, w1, b1, dz, sym, ds, plain, dx_ref, tol, res):
+    """The CUDA-core A and B, which bf16 took before the tensor-core ones,
+    on the same bf16 inputs: held against the plain versions and timed
+    (events and profiler) beside the tensor-core kernels; and F.conv2d bf16
+    3 -> 64 + bias, the nearest library call to A's z half (no statistics,
+    no ReLU)."""
+    import torch
+    import torch.nn.functional as F
+    from st3d_torch.kernels import stage1 as ks1
+
+    a, b = A_KEYS["bfloat16"], B_KEYS["bfloat16"]
+    z_p, ptp_p, s27_p = plain
+    before = dict(ks1.LAUNCHES)
+    zc, ptpc, s27c = ks1.conv1_1_stats_cuda_core(x, w1, b1)
+    dxc = ks1.conv1_1_bwd_cuda_core(x, dz, z_p, w1, sym, ds)
+    torch.cuda.synchronize()
+    if _s1_launched(before) != {"conv1_1_stats": 1, "conv1_1_bwd": 1}:
+        fail(f"CUDA-core A, B: launched {_s1_launched(before)}")
+    res[a]["cuda_core_max_abs_err"] = _max_err(
+        zc, z_p, tol, "A conv1_1_stats z bfloat16")[0]
+    _stats_err(ptpc, s27c, ptp_p, s27_p, "A conv1_1_stats bfloat16", x)
+    res[b]["cuda_core_max_abs_err"] = _max_err(
+        dxc, dx_ref, tol, "B conv1_1_bwd dx bfloat16")[0]
+    calls = {a: lambda: ks1.conv1_1_stats_cuda_core(x, w1, b1),
+             b: lambda: ks1.conv1_1_bwd_cuda_core(x, dz, z_p, w1, sym, ds)}
+    for key, fn in calls.items():
+        res[key]["cuda_core_ms"] = cuda_ms(fn, 5)
+        res[key]["cuda_core_device_ms"] = profiled_ms(fn)[0]
+    xl = x.permute(0, 3, 1, 2)
+    wl = w1.permute(3, 2, 0, 1).contiguous()
+    res[a]["conv2d_z_half_ms"] = cuda_ms(
+        lambda: F.conv2d(xl, wl, b1, padding=1), 5)
+    for key, what in ((a, "A"), (b, "B")):
+        r = res[key]
+        print(f"{what} bfloat16: {key} {r['ms']:.3f} ms (device "
+              f"{r['device_ms']:.3f}), the CUDA-core kernel on the same "
+              f"inputs {r['cuda_core_ms']:.3f} ms (device "
+              f"{r['cuda_core_device_ms']:.3f})"
+              + (f", F.conv2d bf16 3 -> 64 {r['conv2d_z_half_ms']:.3f} ms"
+                 if key == a else ""))
+
+
 def stage1_check(dev):
     """Kernels A-D at the stage-1 shapes of the main path (4 x 512² x 3 ->
-    64 -> 64, pool to 256²), each against its plain version; C and D on
-    their bf16 routes (the tensor cores) and their float32 routes (3xTF32),
-    and the CUDA-core C and D in float32 on the same inputs as the 3xTF32
-    ones."""
+    64 -> 64, pool to 256²), each against its plain version, each call on
+    its route's kernel: A and B on the tensor cores in bf16 and on the CUDA
+    cores in float32 (the CUDA-core A and B also on the bf16 inputs), C and
+    D on the tensor cores in bf16 and by 3xTF32 in float32 (the CUDA-core C
+    and D on the float32 inputs too). A's statistics bit-identical on a
+    second call. A and B timed on both dtypes by CUDA events and by the
+    profiler's kernel time."""
     import torch
     from st3d_torch.kernels import conv as kconv
     from st3d_torch.kernels import stage1 as ks1
@@ -987,11 +1099,13 @@ def stage1_check(dev):
     plain_in_float32()
     gen = torch.Generator(device=dev).manual_seed(2)
     shape = (VIEWS, SIZE, SIZE)
-    names = KERNELS[3:] + (C_KEYS["float32"], D_KEYS["float32"],
+    names = KERNELS[3:] + (A_KEYS["float32"], B_KEYS["float32"],
+                           C_KEYS["float32"], D_KEYS["float32"],
                            "conv3x3_relu_pool", "pool_route_conv3x3_bwd")
     res = {n: {"max_abs_err": 0.0} for n in names}
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
         name = str(dtype)[6:]
+        a_key, b_key = A_KEYS[name], B_KEYS[name]
         c_key, d_key = C_KEYS[name], D_KEYS[name]
         x = torch.rand(shape + (3,), generator=gen, device=dev).to(dtype)
         w1 = (torch.randn((3, 3, 3, 64), generator=gen, device=dev)
@@ -1001,25 +1115,50 @@ def stage1_check(dev):
               * (2.0 / 576) ** 0.5).to(dtype)
         b2 = (0.1 * torch.randn((64,), generator=gen, device=dev)).to(dtype)
         dz = torch.randn(shape + (64,), generator=gen, device=dev).to(dtype)
-        dg = 1e-3 * torch.randn((VIEWS, 27, 27), generator=gen, device=dev)
+        # dPᵀP at 0.1 and ds27 at 1 make P·S and ds27 large enough that
+        # dropping either, or taking S of the wrong image, moves dx by more
+        # than ten tolerances: held below, so B's check sees its fold.
+        dg = 0.1 * torch.randn((VIEWS, 27, 27), generator=gen, device=dev)
         sym = dg + dg.transpose(1, 2)
-        ds = 1e-3 * torch.randn((VIEWS, 27), generator=gen, device=dev)
+        ds = torch.randn((VIEWS, 27), generator=gen, device=dev)
         ct = torch.randn((VIEWS, SIZE // 2, SIZE // 2, 64), generator=gen,
                          device=dev).to(dtype)
 
-        # A: z and the patch statistics.
+        # A: z and the patch statistics, on its route, twice.
+        before = dict(ks1.LAUNCHES)
         z, ptp, s27 = ks1.conv1_1_stats(x, w1, b1)
+        torch.cuda.synchronize()
+        if _s1_launched(before) != {a_key: 1}:
+            fail(f"A {name}: launched {_s1_launched(before)}, want {a_key}")
         z_p, ptp_p, s27_p = ks1.conv1_1_stats_plain(x, w1, b1)
-        errs = {"conv1_1_stats": _max_err(z, z_p, tol, f"A z {name}")}
-        for what, got, ref in (("PtP", ptp, ptp_p), ("s27", s27, s27_p)):
-            rel = float(torch.linalg.norm(got - ref) / torch.linalg.norm(ref))
-            print(f"A conv1_1_stats {name} {what} rel fro err {rel:.3g}")
-            if rel > 1e-4:
-                fail(f"A {what} {name}: rel fro err {rel} > 1e-4")
-        # B: dx from the plain forward's z.
+        errs = {a_key: _max_err(z, z_p, tol, f"A z {name}")}
+        res[a_key]["stats_rel_fro_err"] = _stats_err(
+            ptp, s27, ptp_p, s27_p, f"A {a_key} {name}", x)
+        again = ks1.conv1_1_stats(x, w1, b1)
+        if not (torch.equal(again[1], ptp) and torch.equal(again[2], s27)):
+            fail(f"A {a_key} {name}: statistics differ on a second call")
+        # B: dx from the plain forward's z, on its route.
+        before = dict(ks1.LAUNCHES)
         dx = ks1.conv1_1_bwd(x, dz, z_p, w1, sym, ds)
+        torch.cuda.synchronize()
+        if _s1_launched(before) != {b_key: 1}:
+            fail(f"B {name}: launched {_s1_launched(before)}, want {b_key}")
         dx_p = ks1.conv1_1_bwd_plain(x, dz, z_p, w1, sym, ds)
-        errs["conv1_1_bwd"] = _max_err(dx, dx_p, tol, f"B dx {name}")
+        errs[b_key] = _max_err(dx, dx_p, tol, f"B dx {name}")
+        moves = {}
+        for what, s_, d_ in (("sym = 0", torch.zeros_like(sym), ds),
+                             ("ds27 = 0", sym, torch.zeros_like(ds)),
+                             ("S of the next image", sym.roll(1, 0), ds)):
+            moved = float((ks1.conv1_1_bwd_plain(x, dz, z_p, w1, s_, d_)
+                           .float() - dx_p.float()).abs().max())
+            moves[what] = moved / (tol * errs[b_key][1])
+            if not moved > 10 * tol * errs[b_key][1]:
+                fail(f"B dx {name}: {what} moves the plain dx by only "
+                     f"{moved}, so the check cannot hold the statistics "
+                     f"fold")
+        print(f"B {b_key} {name}: the plain dx moves by "
+              + ", ".join(f"{v:.1f} tolerances at {k}"
+                          for k, v in moves.items()))
         # C: pooled and idx from the plain forward's z, on its route.
         before = dict(kconv.LAUNCHES)
         pooled, idx = kconv.conv3x3_relu_pool(z_p, w2, b2)
@@ -1062,9 +1201,9 @@ def stage1_check(dev):
         torch.cuda.synchronize()
 
         calls = {
-            "conv1_1_stats": (lambda: ks1.conv1_1_stats(x, w1, b1),
-                              lambda: ks1.conv1_1_stats_plain(x, w1, b1)),
-            "conv1_1_bwd": (
+            a_key: (lambda: ks1.conv1_1_stats(x, w1, b1),
+                    lambda: ks1.conv1_1_stats_plain(x, w1, b1)),
+            b_key: (
                 lambda: ks1.conv1_1_bwd(x, dz, z_p, w1, sym, ds),
                 lambda: ks1.conv1_1_bwd_plain(x, dz, z_p, w1, sym, ds)),
             c_key: (
@@ -1079,14 +1218,22 @@ def stage1_check(dev):
             r = res[n]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             line = f"{n} {name} max err {err:.3g}/{scale:.3g}"
-            # Timed on their main-path dtype: A and B in bf16, C and D on
-            # each dtype's route (the CUDA-core D below, beside 3xTF32's).
-            if n in calls and (dtype == torch.bfloat16 or n in (c_key, d_key)):
+            # Timed on each dtype's route (the CUDA-core C and D below,
+            # beside 3xTF32's); A and B also by the profiler's kernel time,
+            # since an event loop over a call this short times its issue.
+            if n in calls:
                 r["ms"] = cuda_ms(calls[n][0], 5)
                 r["plain_ms"] = cuda_ms(calls[n][1], 3, 1)
                 line += (f"  kernel {r['ms']:.3f} ms plain "
                          f"{r['plain_ms']:.3f} ms")
+            if n in (a_key, b_key):
+                r["device_ms"], per = profiled_ms(calls[n][0])
+                line += f" device {r['device_ms']:.4f} ms " + json.dumps(
+                    {k[:48]: round(v, 4) for k, v in per.items()})
             print(line)
+        if dtype == torch.bfloat16:
+            ab_versus(x, w1, b1, dz, sym, ds, (z_p, ptp_p, s27_p), dx_p, tol,
+                      res)
         what = f"conv1_2 4 x 512² x 64 -> 64 {name}"
         res[d_key].update(d_versus(ct, pooled_p, idx_p, w2, res[d_key]["ms"],
                                    d_key, what))
@@ -1098,6 +1245,10 @@ def stage1_check(dev):
                 res[cc_key]["ms"] = res[key]["cuda_core_ms"]
                 res[cc_key]["plain_ms"] = res[key]["plain_ms"]
     meta = {
+        "conv1_1_stats_wgmma": ("st3d_torch/csrc/conv1_1_stats_wgmma.cu",
+                                "st3d/kernels/stage1_pallas.py:446"),
+        "conv1_1_bwd_wgmma": ("st3d_torch/csrc/conv1_1_bwd_wgmma.cu",
+                              "st3d/kernels/stage1_pallas.py:583"),
         "conv1_1_stats": ("st3d_torch/csrc/conv1_1_stats.cu",
                           "st3d/kernels/stage1_pallas.py:446"),
         "conv1_1_bwd": ("st3d_torch/csrc/conv1_1_bwd.cu",
@@ -1125,17 +1276,18 @@ def stage1_check(dev):
     # statistics; B the same two products backwards; C and D conv1_2
     # (64 -> 64, 9 taps) forward and input gradient. bf16 at the bf16
     # tensor rate; the float32 routes at their own: C's and D's three TF32
-    # products at the TF32 rate, the CUDA-core C and D at the fp32 rate;
-    # float32 moves twice the bytes.
+    # products at the TF32 rate, the CUDA-core A, B, C and D at the fp32
+    # rate; float32 moves twice the bytes.
     px = VIEWS * SIZE * SIZE
     conv12 = 2 * px * 9 * 64 * 64
+    c11 = 2 * px * 27 * (64 + 27)
+    stats = 4 * VIEWS * (27 * 27 + 27)
     work = {
-        "conv1_1_stats": (2 * px * 27 * (64 + 27),
-                          2 * px * (3 + 64) + 4 * VIEWS * (27 * 27 + 27),
-                          BF16_FLOPS),
-        "conv1_1_bwd": (2 * px * 27 * (64 + 27),
-                        2 * px * (3 + 64 + 64 + 3)
-                        + 4 * VIEWS * (27 * 27 + 27), BF16_FLOPS),
+        "conv1_1_stats_wgmma": (c11, 2 * px * (3 + 64) + stats, BF16_FLOPS),
+        "conv1_1_bwd_wgmma": (c11, 2 * px * (3 + 64 + 64 + 3) + stats,
+                              BF16_FLOPS),
+        "conv1_1_stats": (c11, 4 * px * (3 + 64) + stats, F32_FLOPS),
+        "conv1_1_bwd": (c11, 4 * px * (3 + 64 + 64 + 3) + stats, F32_FLOPS),
         "conv3x3_relu_pool_wgmma": (conv12, 2 * px * 64 + 3 * (px // 4) * 64,
                                     BF16_FLOPS),
         "pool_route_wgmma": (conv12, 5 * (px // 4) * 64 + 2 * px * 64,
@@ -1150,8 +1302,8 @@ def stage1_check(dev):
         "pool_route_conv3x3_bwd": (conv12, 9 * (px // 4) * 64 + 4 * px * 64,
                                    F32_FLOPS),
     }
-    f32 = (C_KEYS["float32"], D_KEYS["float32"], "conv3x3_relu_pool",
-           "pool_route_conv3x3_bwd")
+    f32 = (A_KEYS["float32"], B_KEYS["float32"], C_KEYS["float32"],
+           D_KEYS["float32"], "conv3x3_relu_pool", "pool_route_conv3x3_bwd")
     return [with_bound({"name": n, "route": "cuda", "source": meta[n][0],
                         "replaces": meta[n][1],
                         "dtype": "float32" if n in f32 else "bfloat16",
@@ -1402,6 +1554,26 @@ def check_fused_pool_counts(default, fused):
     print(f"fused-pool route: C {default[c]} -> {fused[c]}, D {default[d]} "
           f"-> {fused[d]}, K2 {default[k2]} -> {fused[k2]} launches over "
           f"{EPOCHS} epochs")
+
+
+def check_stage1_counts(runs):
+    """A and B once a step: B runs only in each step's backward, so it
+    launches once per epoch; A runs in each step's forward and in the same
+    set-up passes (the content and style targets) on every run that takes
+    it. ``runs``: {what: (launches, epochs, dtype)}."""
+    setups = {}
+    for what, (launches, epochs, dtype) in runs.items():
+        a, b = A_KEYS[dtype], B_KEYS[dtype]
+        if launches[b] != epochs:
+            fail(f"{what}: {b} launched {launches[b]} times, want one a "
+                 f"step ({epochs})")
+        setups[what] = launches[a] - epochs
+    print("A and B once a step: " + json.dumps(
+        {what: {"epochs": epochs, A_KEYS[dtype]: launches[A_KEYS[dtype]],
+                B_KEYS[dtype]: launches[B_KEYS[dtype]]}
+         for what, (launches, epochs, dtype) in runs.items()}))
+    if len(set(setups.values())) != 1 or min(setups.values()) < 0:
+        fail(f"A's launches beyond one a step differ between runs: {setups}")
 
 
 def route_entries(kernels, default, routes):
@@ -1712,6 +1884,7 @@ def small_parity(tmp):
                 out = os.path.join(tmp, f"small_{entry.replace(' ', '_')}_"
                                    f"{device}")
                 before = dict(launch_counts()[1])
+                before_ab = dict(launch_counts()[2])
                 fn(common + extra + ["--compute_dtype", dtype, "--device",
                                      device, "--output_path", out])
                 runs[device] = read_log(out)
@@ -1732,6 +1905,13 @@ def small_parity(tmp):
                              f"{D_KEYS[dtype]}")
                     c_and_d[entry] = [launch_counts()[1][k] - before[k]
                                       for k in (C_KEYS[dtype], D_KEYS[dtype])]
+                    ab = {k for k, n in launch_counts()[2].items()
+                          if n > before_ab[k]}
+                    want_ab = (set() if route == "v3"
+                               else {A_KEYS[dtype], B_KEYS[dtype]})
+                    if ab != want_ab:
+                        fail(f"64² {entry}: A and B ran on {ab}, want "
+                             f"{want_ab}")
         finally:
             for k in ROUTES[route][0]:
                 os.environ.pop(k)
@@ -1807,6 +1987,11 @@ def main(argv=None):
         check_fused_pool_counts(texture, routes["fused_pool"])
         lap("texture target")
         f32 = f32_texture_path(tmp, obj, style)
+        check_stage1_counts({
+            "texture bf16": (texture, EPOCHS, "bfloat16"),
+            "texture bf16 fused_pool": (routes["fused_pool"], EPOCHS,
+                                        "bfloat16"),
+            "texture f32": (f32, F32_EPOCHS, "float32")})
         lap("f32 texture target")
         vertex = {}
         for mode, (target, *_) in VERTEX_RUNS.items():

@@ -1,9 +1,10 @@
 // Hopper building blocks shared by the tensor-core kernels
 // (conv3x3_wgmma.cu, conv3x3_tf32x3.cu, gram_wgmma.cu, gram_tf32x3.cu,
-// pool_route_wgmma.cu, pool_route_tf32x3.cu), from raw PTX: mbarriers, TMA tile loads, named
-// barriers, the proxy fence, wgmma shared-memory descriptors and the wgmma
-// instructions; the Grams' second pass; and, on the host, the tensor maps
-// the convolutions share.
+// pool_route_wgmma.cu, pool_route_tf32x3.cu, conv1_1_stats_wgmma.cu,
+// conv1_1_bwd_wgmma.cu), from raw PTX: mbarriers, TMA tile loads and
+// stores, named barriers, the proxy fence, wgmma shared-memory descriptors
+// and the wgmma instructions; the Grams' second pass; conv1_1's patch
+// rows; and, on the host, the tensor maps the convolutions share.
 // kernels/build.py folds every csrc/*.cuh into each library's hash, so an
 // edit here rebuilds the kernels that include it.
 
@@ -72,6 +73,36 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// TMA tile store of the shared-memory box at ``src`` to the given
+// coordinates (innermost first); elements outside the tensor are not
+// written. Committed as a bulk async-group by bulk_commit.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"((uint64_t)map),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// Returns once at most N of this thread's bulk groups still read shared
+// memory (their sources may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
+}
+
+// Returns once at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;" ::"n"(N) : "memory");
+}
+
 // Barrier ``id`` (1-15; 0 is __syncthreads) over ``count`` threads, a
 // multiple of 32.
 __device__ __forceinline__ void named_barrier(int id, int count) {
@@ -93,6 +124,13 @@ __device__ __forceinline__ void fence_proxy_async() {
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lead) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// Byte offset of 16-byte chunk j (0-7) of row r in a tile of 128-byte rows
+// with the 128-byte swizzle, as TMA writes it and desc_sw128 reads it (the
+// tile 1024-byte aligned): the chunk moves to j ^ (r % 8).
+__device__ __forceinline__ uint32_t sw128_chunk(int r, int j) {
+  return (uint32_t)(r * 128 + ((j ^ (r & 7)) << 4));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -168,6 +206,23 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
 }
 
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a,
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1), "n"(TA), "n"(TB));
+}
+
 // D += A * B, tf32 in (f32 words in shared memory, of which the tensor core
 // uses the sign, the exponent and the top 10 mantissa bits; whether it
 // truncates or rounds the low 13 is not relied on), f32 accumulators,
@@ -220,6 +275,69 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t a,
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(1));
+}
+
+// conv1_1's patch rows (conv1_1_stats_wgmma.cu, conv1_1_bwd_wgmma.cu).
+// XWindow holds the x window a tile's patches read: HY x HX pixels x 3
+// channels of the bf16 NHWC image xb (H, W, 3) from pixel (x0, y0), zero
+// outside the image (the SAME padding), ITEMS values a thread (entries tid,
+// tid + THREADS, ...: coalesced loads) so that the next tile's window can
+// be loaded while this tile's products run, then stored to shared memory.
+// TMA's 16-byte inner box does not fit a 6-byte pixel.
+template <int HX, int HY, int THREADS>
+struct XWindow {
+  static constexpr int VALUES = HX * HY * 3;
+  static constexpr int ITEMS = (VALUES + THREADS - 1) / THREADS;
+  uint32_t v[ITEMS];
+
+  __device__ __forceinline__ void load(const unsigned short* xb, int H, int W,
+                                       int x0, int y0, int tid) {
+#pragma unroll
+    for (int q = 0; q < ITEMS; ++q) {
+      const int i = tid + THREADS * q;
+      const int wy = i / (HX * 3), rem = i - wy * (HX * 3);
+      const int yy = y0 + wy, xx = x0 + rem / 3;
+      v[q] = (i < VALUES && yy >= 0 && yy < H && xx >= 0 && xx < W)
+                 ? __ldg(xb + ((long long)yy * W + x0) * 3 + rem)
+                 : 0u;
+    }
+  }
+
+  __device__ __forceinline__ void store(unsigned short* win, int tid) const {
+#pragma unroll
+    for (int q = 0; q < ITEMS; ++q)
+      if (tid + THREADS * q < VALUES)
+        win[tid + THREADS * q] = (unsigned short)v[q];
+  }
+};
+
+// Chunk J (columns 8J .. 8J+7) of the bf16 patch row whose 3 x 3 window
+// starts at (wy, wx) of a window of HX pixels a row in shared memory, as
+// 16 bytes: column (dy*3 + dx)*3 + c < 27 holds win[wy + dy][wx + dx][c],
+// column 27 holds 1 (the bias column of the products), columns 28-31 hold
+// 0; ``valid`` false (a pixel outside the image) gives a zero row, ones
+// column included.
+template <int HX, int J>
+__device__ __forceinline__ uint4 patch_row_chunk(const unsigned short* win,
+                                                 int wy, int wx,
+                                                 bool valid) {
+  uint32_t w[4] = {0u, 0u, 0u, 0u};
+  if (valid) {
+    const unsigned short* p = win + (wy * HX + wx) * 3;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      constexpr int K0 = 8 * J;
+      const int k = K0 + e;
+      uint32_t bits = 0u;
+      if (k < 27) {
+        bits = p[((k / 9) * HX + (k / 3) % 3) * 3 + k % 3];
+      } else if (k == 27) {
+        bits = 0x3F80u;                          // bf16 1.0
+      }
+      w[e >> 1] |= bits << (16 * (e & 1));
+    }
+  }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 // Pass 2 of the tensor-core Grams (gram_wgmma.cu, gram_tf32x3.cu), whose

@@ -5,10 +5,17 @@ Two autograd functions:
 
 - ``conv1_1_relu_stats(x, w, b) -> (z, ptp27, s27)``: z = relu(conv1_1(x)
   + b) in x's dtype, and per image the float32 statistics PᵀP (27, 27) and
-  s27 (27,) of the zero-padded 3x3 patches. Forward: kernel
-  ``conv1_1_stats`` (``csrc/conv1_1_stats.cu``, replaces K4a). Backward:
-  kernel ``conv1_1_bwd`` (``csrc/conv1_1_bwd.cu``, replaces K4c), which
-  folds the statistics' cotangents into dx.
+  s27 (27,) of the zero-padded 3x3 patches. Forward: kernel A
+  ``conv1_1_stats`` (replaces K4a). Backward: kernel B ``conv1_1_bwd``
+  (replaces K4c), which folds the statistics' cotangents into dx. Each has
+  two kernels, chosen by ``c11_route``: bf16 on the tensor cores
+  (``csrc/conv1_1_stats_wgmma.cu``: ``c11_stats_blocks`` persistent
+  blocks per image over ``C11_STATS_TILE`` tiles, the patch tile built in
+  shared memory, z and PᵀP by ``wgmma``; ``csrc/conv1_1_bwd_wgmma.cu``:
+  ``c11_bwd_blocks`` persistent blocks, dz and z by TMA on the halo of a
+  ``C11_BWD_TILE`` dx tile in two stages, dP by ``wgmma`` with S split
+  into bf16 hi + lo) and the CUDA cores (``csrc/conv1_1_stats.cu``,
+  ``csrc/conv1_1_bwd.cu``: float32 and widths TMA cannot stride).
 - ``conv1_2_relu_pool(z, w, b) -> (pooled, idx)``: conv1_2 + ReLU + 2x2
   max-pool. Forward ``conv3x3_relu_pool`` (replaces K4b), backward
   ``pool_route_conv3x3_bwd`` (replaces K4d); both kernels live in
@@ -34,13 +41,66 @@ import torch
 import torch.nn.functional as F
 
 from st3d_torch.kernels import build
-from st3d_torch.kernels.conv import conv3x3_bias_relu_pool_packed
+from st3d_torch.kernels.conv import (SMS, _tma_ready,
+                                     conv3x3_bias_relu_pool_packed)
 
-LAUNCHES: Dict[str, int] = {"conv1_1_stats": 0, "conv1_1_bwd": 0}
+LAUNCHES: Dict[str, int] = {"conv1_1_stats": 0, "conv1_1_bwd": 0,
+                            "conv1_1_stats_wgmma": 0,
+                            "conv1_1_bwd_wgmma": 0}
 
 K27 = 27
-# Pixels per block of conv1_1_stats' first pass: 128 chunks per 512² image.
+# Pixels per block of the CUDA-core conv1_1_stats' first pass: 128 chunks
+# per 512² image.
 STATS_PIX_PER_BLOCK = 2048
+C11_MAX_COUT = 128                # the tensor-core kernels keep W resident
+C11_STATS_TILE = (32, 4)          # (TW, TH) pixels of a tensor-core A tile
+C11_STATS_BLOCKS_PER_SM = 2
+C11_BWD_TILE = (22, 14)           # (TW, TH) dx pixels of a tensor-core B tile
+
+
+def c11_route(dtype: torch.dtype, cout: int) -> str:
+    """The kernel A and B take for a CUDA tensor: "wgmma"
+    (``csrc/conv1_1_stats_wgmma.cu``, ``csrc/conv1_1_bwd_wgmma.cu``) for
+    bf16 with Cout a multiple of 8 (the pixel rows of z and dz are Cout * 2
+    bytes apart, and TMA strides are multiples of 16 bytes) and at most
+    ``C11_MAX_COUT`` (the weights stay in shared memory), else "cuda_core"
+    (``csrc/conv1_1_stats.cu``, ``csrc/conv1_1_bwd.cu``), float32
+    included."""
+    if dtype == torch.bfloat16 and cout % 8 == 0 and cout <= C11_MAX_COUT:
+        return "wgmma"
+    return "cuda_core"
+
+
+def c11_stats_tiles(h: int, w: int) -> Tuple[int, int]:
+    """(tiles_x, tiles_y) of the tensor-core A over an h x w image; tile t
+    of an image is (t % tiles_x, t // tiles_x)."""
+    tw, th = C11_STATS_TILE
+    return -(-w // tw), -(-h // th)
+
+
+def c11_stats_blocks(bsz: int, h: int, w: int) -> int:
+    """Persistent blocks per image of the tensor-core A: about
+    ``C11_STATS_BLOCKS_PER_SM`` blocks on each SM over the batch, never
+    more than the image's tiles. Block c walks tiles c, c + blocks, ... of
+    its image."""
+    tiles_x, tiles_y = c11_stats_tiles(h, w)
+    return max(1, min(tiles_x * tiles_y,
+                      -(-C11_STATS_BLOCKS_PER_SM * SMS // bsz)))
+
+
+def c11_bwd_tiles(h: int, w: int) -> Tuple[int, int]:
+    """(tiles_x, tiles_y) of the tensor-core B over an h x w image."""
+    tw, th = C11_BWD_TILE
+    return -(-w // tw), -(-h // th)
+
+
+def c11_bwd_blocks(bsz: int, h: int, w: int) -> int:
+    """Persistent blocks of the tensor-core B: one on each SM (its two
+    stages take most of an SM's shared memory), never more than the
+    tiles. Block c walks tiles c, c + blocks, ... in raster order over
+    (image, tile row, tile column)."""
+    tiles_x, tiles_y = c11_bwd_tiles(h, w)
+    return max(1, min(bsz * tiles_x * tiles_y, SMS))
 
 
 def _c11_shapes(x: torch.Tensor, w: torch.Tensor) -> int:
@@ -85,6 +145,46 @@ def conv1_1_stats(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
         raise ValueError(f"conv1_1: bias {tuple(b.shape)}, want ({cout},)")
     if x.device.type == "cpu":
         return conv1_1_stats_plain(x, w, b)
+    build.check_operands("conv1_1_stats", x, w, b)
+    if c11_route(x.dtype, cout) == "wgmma":
+        return _conv1_1_stats_wgmma(x, w, b)
+    return conv1_1_stats_cuda_core(x, w, b)
+
+
+def _conv1_1_stats_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A on the tensor cores (bf16): ``c11_stats_blocks`` persistent blocks
+    per image; each lays out the weights with the bias as their row 27 (the
+    patch tile's ones column) itself."""
+    bsz, h, wd, _ = x.shape
+    cout = w.shape[3]
+    x = x.contiguous()
+    w27, b = w.reshape(K27, cout).contiguous(), b.contiguous()
+    blocks = c11_stats_blocks(bsz, h, wd)
+    dev = x.device
+    z = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=dev)
+    partial = torch.empty((bsz, blocks, 2, 28, 28), dtype=torch.float32,
+                          device=dev)
+    ptp = torch.empty((bsz, K27, K27), dtype=torch.float32, device=dev)
+    s27 = torch.empty((bsz, K27), dtype=torch.float32, device=dev)
+    fn = build.symbol("conv1_1_stats_wgmma", "st3d_conv1_1_stats_wgmma_bf16",
+                      7, 5)
+    err = fn(x.data_ptr(), w27.data_ptr(), b.data_ptr(), z.data_ptr(),
+             partial.data_ptr(), ptp.data_ptr(), s27.data_ptr(), bsz, h, wd,
+             cout, blocks, build.stream_handle(dev))
+    build.check(err, "conv1_1_stats_wgmma")
+    LAUNCHES["conv1_1_stats_wgmma"] += 1
+    return z, ptp, s27
+
+
+def conv1_1_stats_cuda_core(x: torch.Tensor, w: torch.Tensor,
+                            b: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """A on the CUDA cores (``csrc/conv1_1_stats.cu``), the route of
+    float32 and the widths ``c11_route`` keeps off the tensor cores; CUDA
+    tensors only."""
+    cout = _c11_shapes(x, w)
     build.check_operands("conv1_1_stats", x, w, b)
     bsz, h, wd, _ = x.shape
     chunks = -(-(h * wd) // STATS_PIX_PER_BLOCK)
@@ -148,12 +248,53 @@ def conv1_1_bwd(x: torch.Tensor, dz: torch.Tensor, z: torch.Tensor,
                          f"{tuple(ds27.shape)}")
     if x.device.type == "cpu":
         return conv1_1_bwd_plain(x, dz, z, w, sym, ds27)
+    _check_bwd_operands(x, dz, z, w, sym, ds27)
+    if c11_route(x.dtype, cout) == "wgmma":
+        return _conv1_1_bwd_wgmma(x, dz, z, w, sym, ds27)
+    return conv1_1_bwd_cuda_core(x, dz, z, w, sym, ds27)
+
+
+def _check_bwd_operands(x, dz, z, w, sym, ds27) -> None:
     build.check_operands("conv1_1_bwd", x, dz, z, w)
     for t in (sym, ds27):
         if t.device != x.device or t.dtype != torch.float32:
             raise ValueError(f"conv1_1_bwd: sym and ds27 must be float32 on "
                              f"{x.device}, got {t.dtype} on {t.device}")
-    _, h, wd, _ = x.shape
+
+
+def _conv1_1_bwd_wgmma(x: torch.Tensor, dz: torch.Tensor, z: torch.Tensor,
+                       w: torch.Tensor, sym: torch.Tensor,
+                       ds27: torch.Tensor) -> torch.Tensor:
+    """B on the tensor cores (bf16): tiles of ``C11_BWD_TILE``,
+    ``c11_bwd_blocks`` persistent blocks; each reads the (27, Cout)
+    weights as Wᵀ's K-major tile and splits S (with ds27 as its row 27)
+    into bf16 hi + lo itself."""
+    bsz, h, wd, _ = x.shape
+    cout = w.shape[3]
+    x, sym, ds27 = x.contiguous(), sym.contiguous(), ds27.contiguous()
+    dz, z = _tma_ready(dz), _tma_ready(z)
+    w27 = _tma_ready(w.reshape(K27, cout))
+    dx = torch.empty_like(x)
+    fn = build.symbol("conv1_1_bwd_wgmma", "st3d_conv1_1_bwd_wgmma_bf16", 7,
+                      5)
+    err = fn(x.data_ptr(), dz.data_ptr(), z.data_ptr(), w27.data_ptr(),
+             sym.data_ptr(), ds27.data_ptr(), dx.data_ptr(), bsz, h, wd, cout,
+             c11_bwd_blocks(bsz, h, wd), build.stream_handle(x.device))
+    build.check(err, "conv1_1_bwd_wgmma")
+    LAUNCHES["conv1_1_bwd_wgmma"] += 1
+    return dx
+
+
+def conv1_1_bwd_cuda_core(x: torch.Tensor, dz: torch.Tensor,
+                          z: torch.Tensor, w: torch.Tensor,
+                          sym: torch.Tensor,
+                          ds27: torch.Tensor) -> torch.Tensor:
+    """B on the CUDA cores (``csrc/conv1_1_bwd.cu``), the route of float32
+    and the widths ``c11_route`` keeps off the tensor cores; CUDA tensors
+    only."""
+    cout = _c11_shapes(x, w)
+    _check_bwd_operands(x, dz, z, w, sym, ds27)
+    bsz, h, wd, _ = x.shape
     x, dz, z = x.contiguous(), dz.contiguous(), z.contiguous()
     w27 = w.reshape(K27, cout).contiguous()
     sym, ds27 = sym.contiguous(), ds27.contiguous()

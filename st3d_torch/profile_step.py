@@ -90,6 +90,21 @@ def _group(name: str) -> str:
     return "other"
 
 
+def kernel_ms(events, reps: int) -> Dict[str, float]:
+    """Milliseconds per rep of each device-side event of a profiler trace
+    (kernels, copies, sets) over ``reps`` reps, by name. The host ranges
+    around them, and their GPU-side annotations (``ProfilerStep#k``,
+    ``Optimizer.step#...``), carry the same time again and are left out."""
+    per: Dict[str, float] = {}
+    for e in events:
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and "#" not in e.name):
+            per[e.name] = (per.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / 1e3 / reps)
+    return per
+
+
 def profile_mode(mode: str, obj: str, style: str, size: int, views: int,
                  steps: int, out: str) -> dict:
     """Run the mode and profile ``steps`` steps after the warm-up."""
@@ -126,16 +141,7 @@ def profile_mode(mode: str, obj: str, style: str, size: int, views: int,
         finally:
             hook.remove()
     walls = np.diff(ends[WARMUP_STEPS - 1:WARMUP_STEPS + steps])
-    # Device-side events only (kernels, copies, sets): the host ranges
-    # around them, and their GPU-side annotations (``ProfilerStep#k``,
-    # ``Optimizer.step#...``), carry the same time again.
-    per_kernel: Dict[str, float] = {}
-    for e in traces[-1] if traces else []:
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)
-                and "#" not in e.name):
-            ms = e.time_range.elapsed_us() / 1e3 / steps
-            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + ms
+    per_kernel = kernel_ms(traces[-1] if traces else [], steps)
     groups: Dict[str, float] = {}
     for name, ms in per_kernel.items():
         groups[_group(name)] = groups.get(_group(name), 0.0) + ms

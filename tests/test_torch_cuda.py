@@ -223,6 +223,16 @@ def _rel_err(got, ref):
                  / ref.float().abs().max())
 
 
+C11_KEYS = {"wgmma": ("conv1_1_stats_wgmma", "conv1_1_bwd_wgmma"),
+            "cuda_core": ("conv1_1_stats", "conv1_1_bwd")}
+
+
+def _s1_launched(n0):
+    from st3d_torch.kernels import stage1 as ks1
+
+    return {k: v - n0[k] for k, v in ks1.LAUNCHES.items() if v != n0[k]}
+
+
 def _idx_mismatch_where_separated(idx, idx_ref, pre_pool, tol):
     """idx cells that differ where the top two of the window (plain
     pre-pool values) are more than ``tol`` apart."""
@@ -245,11 +255,12 @@ def test_conv1_1_stats_kernel_matches_plain(dev, dtype, tol, shape):
     x = torch.rand(shape + (3,), generator=g, device=dev).to(dtype)
     w = (torch.randn((3, 3, 3, 64), generator=g, device=dev) * 0.3).to(dtype)
     b = (torch.randn((64,), generator=g, device=dev) * 0.1).to(dtype)
-    n0 = ks1.LAUNCHES["conv1_1_stats"]
+    key = C11_KEYS[ks1.c11_route(dtype, 64)][0]
+    n0 = dict(ks1.LAUNCHES)
     z, ptp, s27 = ks1.conv1_1_stats(x, w, b)
     z_p, ptp_p, s27_p = ks1.conv1_1_stats_plain(x, w, b)
     torch.cuda.synchronize()
-    assert ks1.LAUNCHES["conv1_1_stats"] == n0 + 1
+    assert _s1_launched(n0) == {key: 1}
     assert z.dtype == dtype and ptp.dtype == s27.dtype == torch.float32
     assert _rel_err(z, z_p) <= tol
     for got, ref in ((ptp, ptp_p), (s27, s27_p)):
@@ -273,12 +284,121 @@ def test_conv1_1_bwd_kernel_matches_plain(dev, dtype, tol, shape):
     dg = torch.randn((shape[0], 27, 27), generator=g, device=dev) * 1e-2
     sym = dg + dg.transpose(1, 2)
     ds = torch.randn((shape[0], 27), generator=g, device=dev) * 1e-2
-    n0 = ks1.LAUNCHES["conv1_1_bwd"]
+    key = C11_KEYS[ks1.c11_route(dtype, 64)][1]
+    n0 = dict(ks1.LAUNCHES)
     dx = ks1.conv1_1_bwd(x, dz, z, w, sym, ds)
     ref = ks1.conv1_1_bwd_plain(x, dz, z, w, sym, ds)
     torch.cuda.synchronize()
-    assert ks1.LAUNCHES["conv1_1_bwd"] == n0 + 1
+    assert _s1_launched(n0) == {key: 1}
     assert dx.dtype == dtype and _rel_err(dx, ref) <= tol
+
+
+# A and B on their bf16 tensor-core route: ragged tiles (37 x 29 leaves
+# A's 32 x 4 tiles 3 pixels wide and 1 high at the edge, and B's 22 x 14
+# tiles 7 wide and 9 high), Cout below one 64-channel chunk (8, 40), one
+# chunk (64) and several (72, 128), and at 4 x 128 x 136 more tiles than
+# blocks, so that each persistent block walks several tiles (B across
+# images and through both stages); the data exact (x in quarters, weights
+# and dz in eighths, S in 64ths), so every sum is exact in float32 in any
+# order and the kernels must equal the plain versions bit for bit, ReLU
+# boundary and bias included; then random data within one bf16 step.
+C11_SHAPES = [(2, 16, 16), (1, 24, 40), (1, 37, 29), (3, 64, 48),
+              (4, 128, 136)]
+C11_COUTS = [64, 8, 40, 72, 128]
+
+
+def _c11_exact(dev, seed, shape, cout):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def grid(size, lo, hi, unit):
+        return (torch.randint(lo, hi + 1, size, generator=g, device=dev)
+                .float() * unit).to(torch.bfloat16)
+
+    return (grid(shape + (3,), 0, 3, 0.25),
+            grid((3, 3, 3, cout), -4, 4, 0.125),
+            grid((cout,), -4, 4, 0.125))
+
+
+@pytest.mark.parametrize("cout", C11_COUTS)
+@pytest.mark.parametrize("shape", C11_SHAPES)
+def test_conv1_1_stats_wgmma_bit_equal_on_exact_data(dev, shape, cout):
+    from st3d_torch.kernels import stage1 as ks1
+
+    x, w, b = _c11_exact(dev, 21, shape, cout)
+    n0 = dict(ks1.LAUNCHES)
+    got = ks1.conv1_1_stats(x, w, b)
+    torch.cuda.synchronize()
+    assert _s1_launched(n0) == {"conv1_1_stats_wgmma": 1}
+    ref = ks1.conv1_1_stats_plain(x, w, b)
+    assert bool((ref[0] == 0).any()) and bool((ref[0] > 0).any())
+    for a, r in zip(got, ref):
+        assert a.dtype == r.dtype and torch.equal(a, r)
+    again = ks1.conv1_1_stats(x, w, b)                  # deterministic sums
+    assert all(torch.equal(a, r) for a, r in zip(again, got))
+
+
+@pytest.mark.parametrize("cout", C11_COUTS)
+@pytest.mark.parametrize("shape", C11_SHAPES)
+def test_conv1_1_bwd_wgmma_bit_equal_on_exact_data(dev, shape, cout):
+    from st3d_torch.kernels import stage1 as ks1
+
+    x, w, b = _c11_exact(dev, 22, shape, cout)
+    g = torch.Generator(device=dev).manual_seed(23)
+    z = ks1.conv1_1_stats_plain(x, w, b)[0]
+    dz = (torch.randint(-4, 5, z.shape, generator=g, device=dev).float()
+          / 8).to(torch.bfloat16)
+    dg = torch.randint(-8, 9, (shape[0], 27, 27), generator=g,
+                       device=dev).float() / 64
+    ds = torch.randint(-8, 9, (shape[0], 27), generator=g,
+                       device=dev).float() / 64
+    sym = dg + dg.transpose(1, 2)
+    n0 = dict(ks1.LAUNCHES)
+    dx = ks1.conv1_1_bwd(x, dz, z, w, sym, ds)
+    torch.cuda.synchronize()
+    assert _s1_launched(n0) == {"conv1_1_bwd_wgmma": 1}
+    ref = ks1.conv1_1_bwd_plain(x, dz, z, w, sym, ds)
+    assert dx.dtype == torch.bfloat16 and torch.equal(dx, ref)
+    # Each term matters: without S, or without ds27, dx moves.
+    for s_, d_ in ((torch.zeros_like(sym), ds), (sym, torch.zeros_like(ds))):
+        assert not torch.equal(ks1.conv1_1_bwd_plain(x, dz, z, w, s_, d_),
+                               ref)
+    assert torch.equal(ks1.conv1_1_bwd(x, dz, z, w, sym, ds), dx)
+
+
+def _within_one_bf16_step(got, ref):
+    ref = ref.float()
+    err = (got.float() - ref).abs()
+    return bool((err <= 2 ** -7 * ref.abs()
+                 + 1e-5 * float(ref.abs().max())).all())
+
+
+@pytest.mark.parametrize("cout", [64, 128])
+@pytest.mark.parametrize("shape", C11_SHAPES)
+def test_conv1_1_wgmma_within_one_bf16_step_on_random_data(dev, shape, cout):
+    """Random x, weights, dz and float32 S (split into bf16 hi + lo by the
+    wrapper): z and dx within one bf16 step of the plain versions (both
+    round float32 sums taken in different orders) plus 1e-5 of the
+    largest value; PᵀP and s27 within 1e-5 relative Frobenius."""
+    from st3d_torch.kernels import stage1 as ks1
+
+    g = torch.Generator(device=dev).manual_seed(24)
+    bf = torch.bfloat16
+    x = torch.rand(shape + (3,), generator=g, device=dev).to(bf)
+    w = (torch.randn((3, 3, 3, cout), generator=g, device=dev)
+         * (2.0 / 27) ** 0.5).to(bf)
+    b = (0.1 * torch.randn((cout,), generator=g, device=dev)).to(bf)
+    z, ptp, s27 = ks1.conv1_1_stats(x, w, b)
+    z_p, ptp_p, s27_p = ks1.conv1_1_stats_plain(x, w, b)
+    assert _within_one_bf16_step(z, z_p)
+    for got, ref in ((ptp, ptp_p), (s27, s27_p)):
+        assert torch.linalg.norm(got - ref) <= 1e-5 * torch.linalg.norm(ref)
+    dz = torch.randn(z.shape, generator=g, device=dev).to(bf)
+    dg = torch.randn((shape[0], 27, 27), generator=g, device=dev) * 1e-2
+    ds = torch.randn((shape[0], 27), generator=g, device=dev) * 1e-2
+    sym = dg + dg.transpose(1, 2)
+    dx = ks1.conv1_1_bwd(x, dz, z_p, w, sym, ds)
+    assert _within_one_bf16_step(
+        dx, ks1.conv1_1_bwd_plain(x, dz, z_p, w, sym, ds))
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
@@ -607,7 +727,7 @@ def _stage1_gradient_bf16(dev):
                       device=dev).to(bf)
     ctg = torch.tensor((rng.randn(2, 64, 64) * 1e-3).astype(np.float32),
                        device=dev)
-    n0 = dict(kconv.LAUNCHES)
+    n0, n1 = dict(kconv.LAUNCHES), dict(ks1.LAUNCHES)
     xt = x.clone().requires_grad_(True)
     z, ptp, s27 = ks1.conv1_1_relu_stats(xt, w1, b1)
     gm = gram1_closed_form(ptp, s27, w1, b1, 32 * 24)
@@ -616,6 +736,8 @@ def _stage1_gradient_bf16(dev):
     torch.cuda.synchronize()
     assert _launched(n0) == {"conv3x3_relu_pool_wgmma": 1,
                              "pool_route_wgmma": 1}
+    assert _s1_launched(n1) == {"conv1_1_stats_wgmma": 1,
+                                "conv1_1_bwd_wgmma": 1}
     # The plain chain on the kernels' own forward outputs.
     ptp_r = ptp.detach().requires_grad_(True)
     s27_r = s27.detach().requires_grad_(True)
