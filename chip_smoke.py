@@ -33,13 +33,17 @@ Phases; any failure raises and the script exits non-zero:
    inputs), and conv1_1's 27-wide PᵀP in bf16 on ``gram_nhwc``; each Gram
    bit-identical on a second call;
    stage 1 at 512² x 4 (conv1_1 3->64, conv1_2 64->64), bf16 and f32:
-   A (``conv1_1_stats_wgmma`` on the tensor cores in bf16, its statistics
-   bit-identical on a second call; ``conv1_1_stats`` on the CUDA cores in
-   f32, and held and timed on the bf16 inputs too, beside ``F.conv2d``
-   bf16 3 -> 64, the nearest library call to its z half), B
-   (``conv1_1_bwd_wgmma`` in bf16, ``conv1_1_bwd`` in f32 and on the bf16
-   inputs), each timed in both dtypes by CUDA events and by the kernels'
-   time under ``torch.profiler``, C (``conv3x3_relu_pool_wgmma``,
+   A (``conv1_1_stats_wgmma`` on the tensor cores in bf16,
+   ``conv1_1_stats_tf32x3`` by 3xTF32 in f32, its statistics bit-identical
+   on a second call and printed against a float64 sum; the CUDA-core
+   ``conv1_1_stats`` held and timed on the inputs of both dtypes, beside
+   ``F.conv2d`` bf16 3 -> 64, the nearest library call to its z half), B
+   (``conv1_1_bwd_wgmma`` in bf16, ``conv1_1_bwd_tf32x3`` in f32, the
+   CUDA-core ``conv1_1_bwd`` on the inputs of both dtypes; its fold of the
+   statistics' cotangents held: S = 0, ds27 = 0 or the next image's S
+   each move the plain dx by more than ten tolerances), each timed in both
+   dtypes by CUDA events and by the kernels' time under
+   ``torch.profiler``, C (``conv3x3_relu_pool_wgmma``,
    K2's mainloop with a pool epilogue, in bf16;
    ``conv3x3_relu_pool_tf32x3``, the 3xTF32 mainloop with the pool
    epilogue, in f32; the CUDA-core ``conv3x3_relu_pool`` held against the
@@ -77,9 +81,9 @@ Phases; any failure raises and the script exits non-zero:
    ``torch.bmm``); K2 and K3 print each shape's TFLOP/s. The f32 K2 is
    timed against ``F.conv2d`` in f32 with TF32 off (and, for information,
    on), the f32 K3 against ``torch.bmm`` in f32 with TF32 off; the bounds
-   of the f32 K2, K3, C and D count three TF32 products at 495 TFLOP/s.
-   The CUDA-core K3, C and D are timed in f32 on the 3xTF32 kernels'
-   inputs (the route f32 took before), at the fp32 rate.
+   of the f32 K2, K3, A, B, C and D count three TF32 products at 495
+   TFLOP/s. The CUDA-core K3, A, B, C and D are timed in f32 on the
+   3xTF32 kernels' inputs (the route f32 took before), at the fp32 rate.
 3. The second approach (``st3d_torch.second_approach.main``) at 512², 4
    views, batch 4, bf16, 20 epochs on a seeded synthetic scene, on the
    default VGG route: every loss finite, the last below the first,
@@ -100,8 +104,10 @@ Phases; any failure raises and the script exits non-zero:
    the default route: K2, K3, C and D only on their 3xTF32 kernels
    (``conv3x3_tf32x3``, ``gram_tf32x3`` four times a step,
    ``conv3x3_relu_pool_tf32x3`` once a step, ``pool_route_tf32x3``; A
-   and B on the CUDA cores; no launch of ``conv3x3_nhwc``, ``gram_nhwc``,
-   ``conv3x3_relu_pool`` or ``pool_route_conv3x3_bwd``); its median step.
+   and B by 3xTF32, ``conv1_1_stats_tf32x3`` and ``conv1_1_bwd_tf32x3``;
+   no launch of ``conv3x3_nhwc``, ``gram_nhwc``, ``conv3x3_relu_pool``,
+   ``pool_route_conv3x3_bwd``, ``conv1_1_stats`` or ``conv1_1_bwd``); its
+   median step.
    B once a step in the bf16 default and fused-pool runs and the f32 run,
    A once a step plus the same set-up launches in each.
    Then the vertex optimisation, ``--optimization_target both`` at 512², 4
@@ -173,12 +179,12 @@ F32_FLOPS = 67e12
 KERNELS = ("raster_hard", "conv3x3_wgmma", "gram_wgmma",
            "conv1_1_stats_wgmma", "conv1_1_bwd_wgmma",
            "conv3x3_relu_pool_wgmma", "pool_route_wgmma")
-# The default route in float32: K2, K3, C and D on 3xTF32 (no
-# conv3x3_nhwc, gram_nhwc, conv3x3_relu_pool or pool_route_conv3x3_bwd:
-# every width they meet fits the tensor cores), A and B on the CUDA cores.
+# The default route in float32: K2, K3, A, B, C and D on 3xTF32 (no
+# conv3x3_nhwc, gram_nhwc, conv1_1_stats, conv1_1_bwd, conv3x3_relu_pool
+# or pool_route_conv3x3_bwd: every width they meet fits the tensor cores).
 F32_KERNELS = {"raster_hard", "conv3x3_tf32x3", "gram_tf32x3",
-               "conv1_1_stats", "conv1_1_bwd", "conv3x3_relu_pool_tf32x3",
-               "pool_route_tf32x3"}
+               "conv1_1_stats_tf32x3", "conv1_1_bwd_tf32x3",
+               "conv3x3_relu_pool_tf32x3", "pool_route_tf32x3"}
 RASTER_KERNELS = ("raster_hard", "raster_soft", "raster_stream",
                   "raster_topk")
 # The vertex-optimisation runs: target, extra flags, ico level, the raster
@@ -984,8 +990,9 @@ def _add(rec, extra):
         rec[k] = rec.get(k, 0.0) + v
 
 
-A_KEYS = {"bfloat16": "conv1_1_stats_wgmma", "float32": "conv1_1_stats"}
-B_KEYS = {"bfloat16": "conv1_1_bwd_wgmma", "float32": "conv1_1_bwd"}
+A_KEYS = {"bfloat16": "conv1_1_stats_wgmma",
+          "float32": "conv1_1_stats_tf32x3"}
+B_KEYS = {"bfloat16": "conv1_1_bwd_wgmma", "float32": "conv1_1_bwd_tf32x3"}
 
 
 def _s1_launched(before):
@@ -1042,16 +1049,18 @@ def _stats_err(ptp, s27, ptp_p, s27_p, what, x):
 
 
 def ab_versus(x, w1, b1, dz, sym, ds, plain, dx_ref, tol, res):
-    """The CUDA-core A and B, which bf16 took before the tensor-core ones,
-    on the same bf16 inputs: held against the plain versions and timed
-    (events and profiler) beside the tensor-core kernels; and F.conv2d bf16
-    3 -> 64 + bias, the nearest library call to A's z half (no statistics,
-    no ReLU)."""
+    """The CUDA-core A and B, which both dtypes took before the
+    tensor-core ones, on the same inputs: held against the plain versions
+    and timed (events and profiler) beside the tensor-core kernels; in
+    float32 they are also entries of their own (``conv1_1_stats``,
+    ``conv1_1_bwd``). In bf16, F.conv2d 3 -> 64 + bias, the nearest library
+    call to A's z half (no statistics, no ReLU)."""
     import torch
     import torch.nn.functional as F
     from st3d_torch.kernels import stage1 as ks1
 
-    a, b = A_KEYS["bfloat16"], B_KEYS["bfloat16"]
+    name = str(x.dtype)[6:]
+    a, b = A_KEYS[name], B_KEYS[name]
     z_p, ptp_p, s27_p = plain
     before = dict(ks1.LAUNCHES)
     zc, ptpc, s27c = ks1.conv1_1_stats_cuda_core(x, w1, b1)
@@ -1060,38 +1069,84 @@ def ab_versus(x, w1, b1, dz, sym, ds, plain, dx_ref, tol, res):
     if _s1_launched(before) != {"conv1_1_stats": 1, "conv1_1_bwd": 1}:
         fail(f"CUDA-core A, B: launched {_s1_launched(before)}")
     res[a]["cuda_core_max_abs_err"] = _max_err(
-        zc, z_p, tol, "A conv1_1_stats z bfloat16")[0]
-    _stats_err(ptpc, s27c, ptp_p, s27_p, "A conv1_1_stats bfloat16", x)
+        zc, z_p, tol, f"A conv1_1_stats z {name}")[0]
+    stats_err = _stats_err(ptpc, s27c, ptp_p, s27_p,
+                           f"A conv1_1_stats {name}", x)
     res[b]["cuda_core_max_abs_err"] = _max_err(
-        dxc, dx_ref, tol, "B conv1_1_bwd dx bfloat16")[0]
+        dxc, dx_ref, tol, f"B conv1_1_bwd dx {name}")[0]
     calls = {a: lambda: ks1.conv1_1_stats_cuda_core(x, w1, b1),
              b: lambda: ks1.conv1_1_bwd_cuda_core(x, dz, z_p, w1, sym, ds)}
     for key, fn in calls.items():
         res[key]["cuda_core_ms"] = cuda_ms(fn, 5)
         res[key]["cuda_core_device_ms"] = profiled_ms(fn)[0]
-    xl = x.permute(0, 3, 1, 2)
-    wl = w1.permute(3, 2, 0, 1).contiguous()
-    res[a]["conv2d_z_half_ms"] = cuda_ms(
-        lambda: F.conv2d(xl, wl, b1, padding=1), 5)
+    if name == "float32":
+        for cc, key in (("conv1_1_stats", a), ("conv1_1_bwd", b)):
+            r = res[key]
+            res[cc].update(max_abs_err=r["cuda_core_max_abs_err"],
+                           ms=r["cuda_core_ms"],
+                           device_ms=r["cuda_core_device_ms"],
+                           plain_ms=r["plain_ms"])
+        res["conv1_1_stats"]["stats_rel_fro_err"] = stats_err
+    else:
+        xl = x.permute(0, 3, 1, 2)
+        wl = w1.permute(3, 2, 0, 1).contiguous()
+        res[a]["conv2d_z_half_ms"] = cuda_ms(
+            lambda: F.conv2d(xl, wl, b1, padding=1), 5)
+    work = stage1_work()
     for key, what in ((a, "A"), (b, "B")):
         r = res[key]
-        print(f"{what} bfloat16: {key} {r['ms']:.3f} ms (device "
-              f"{r['device_ms']:.3f}), the CUDA-core kernel on the same "
-              f"inputs {r['cuda_core_ms']:.3f} ms (device "
-              f"{r['cuda_core_device_ms']:.3f})"
+        print(f"{what} {name}: {key} {r['ms']:.3f} ms (device "
+              f"{r['device_ms']:.4f}, bound {bound(*work[key])[0]:.4f}), the "
+              f"CUDA-core kernel on the same inputs {r['cuda_core_ms']:.3f} "
+              f"ms (device {r['cuda_core_device_ms']:.4f})"
               + (f", F.conv2d bf16 3 -> 64 {r['conv2d_z_half_ms']:.3f} ms"
-                 if key == a else ""))
+                 if "conv2d_z_half_ms" in r else ""))
+
+
+def stage1_work():
+    """(operations, bytes, rate) of each stage-1 kernel at 4 x 512²: A
+    conv1_1 (27 -> 64) plus the 27 x 27 patch statistics; B the same two
+    products backwards; C and D conv1_2 (64 -> 64, 9 taps) forward and
+    input gradient. bf16 at the bf16 tensor rate; the float32 routes at
+    their own: the three TF32 products of the 3xTF32 A, B, C and D at the
+    TF32 rate, the CUDA-core A, B, C and D at the fp32 rate; float32 moves
+    twice the bytes."""
+    px = VIEWS * SIZE * SIZE
+    conv12 = 2 * px * 9 * 64 * 64
+    c11 = 2 * px * 27 * (64 + 27)
+    stats = 4 * VIEWS * (27 * 27 + 27)
+    a_bytes, b_bytes = px * (3 + 64), px * (3 + 64 + 64 + 3)
+    return {
+        "conv1_1_stats_wgmma": (c11, 2 * a_bytes + stats, BF16_FLOPS),
+        "conv1_1_bwd_wgmma": (c11, 2 * b_bytes + stats, BF16_FLOPS),
+        "conv1_1_stats_tf32x3": (3 * c11, 4 * a_bytes + stats, TF32_FLOPS),
+        "conv1_1_bwd_tf32x3": (3 * c11, 4 * b_bytes + stats, TF32_FLOPS),
+        "conv1_1_stats": (c11, 4 * a_bytes + stats, F32_FLOPS),
+        "conv1_1_bwd": (c11, 4 * b_bytes + stats, F32_FLOPS),
+        "conv3x3_relu_pool_wgmma": (conv12, 2 * px * 64 + 3 * (px // 4) * 64,
+                                    BF16_FLOPS),
+        "pool_route_wgmma": (conv12, 5 * (px // 4) * 64 + 2 * px * 64,
+                             BF16_FLOPS),
+        "conv3x3_relu_pool_tf32x3": (3 * conv12,
+                                     4 * px * 64 + 5 * (px // 4) * 64,
+                                     TF32_FLOPS),
+        "conv3x3_relu_pool": (conv12, 4 * px * 64 + 5 * (px // 4) * 64,
+                              F32_FLOPS),
+        "pool_route_tf32x3": (3 * conv12, 9 * (px // 4) * 64 + 4 * px * 64,
+                              TF32_FLOPS),
+        "pool_route_conv3x3_bwd": (conv12, 9 * (px // 4) * 64 + 4 * px * 64,
+                                   F32_FLOPS),
+    }
 
 
 def stage1_check(dev):
     """Kernels A-D at the stage-1 shapes of the main path (4 x 512² x 3 ->
     64 -> 64, pool to 256²), each against its plain version, each call on
-    its route's kernel: A and B on the tensor cores in bf16 and on the CUDA
-    cores in float32 (the CUDA-core A and B also on the bf16 inputs), C and
-    D on the tensor cores in bf16 and by 3xTF32 in float32 (the CUDA-core C
-    and D on the float32 inputs too). A's statistics bit-identical on a
-    second call. A and B timed on both dtypes by CUDA events and by the
-    profiler's kernel time."""
+    its route's kernel: A, B, C and D on the tensor cores in bf16 and by
+    3xTF32 in float32 (the CUDA-core A and B also on the inputs of both
+    dtypes, the CUDA-core C and D on the float32 inputs). A's statistics
+    bit-identical on a second call. A and B timed on both dtypes by CUDA
+    events and by the profiler's kernel time."""
     import torch
     from st3d_torch.kernels import conv as kconv
     from st3d_torch.kernels import stage1 as ks1
@@ -1101,6 +1156,7 @@ def stage1_check(dev):
     shape = (VIEWS, SIZE, SIZE)
     names = KERNELS[3:] + (A_KEYS["float32"], B_KEYS["float32"],
                            C_KEYS["float32"], D_KEYS["float32"],
+                           "conv1_1_stats", "conv1_1_bwd",
                            "conv3x3_relu_pool", "pool_route_conv3x3_bwd")
     res = {n: {"max_abs_err": 0.0} for n in names}
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
@@ -1231,9 +1287,8 @@ def stage1_check(dev):
                 line += f" device {r['device_ms']:.4f} ms " + json.dumps(
                     {k[:48]: round(v, 4) for k, v in per.items()})
             print(line)
-        if dtype == torch.bfloat16:
-            ab_versus(x, w1, b1, dz, sym, ds, (z_p, ptp_p, s27_p), dx_p, tol,
-                      res)
+        ab_versus(x, w1, b1, dz, sym, ds, (z_p, ptp_p, s27_p), dx_p, tol,
+                  res)
         what = f"conv1_2 4 x 512² x 64 -> 64 {name}"
         res[d_key].update(d_versus(ct, pooled_p, idx_p, w2, res[d_key]["ms"],
                                    d_key, what))
@@ -1249,6 +1304,10 @@ def stage1_check(dev):
                                 "st3d/kernels/stage1_pallas.py:446"),
         "conv1_1_bwd_wgmma": ("st3d_torch/csrc/conv1_1_bwd_wgmma.cu",
                               "st3d/kernels/stage1_pallas.py:583"),
+        "conv1_1_stats_tf32x3": ("st3d_torch/csrc/conv1_1_stats_tf32x3.cu",
+                                 "st3d/kernels/stage1_pallas.py:446"),
+        "conv1_1_bwd_tf32x3": ("st3d_torch/csrc/conv1_1_bwd_tf32x3.cu",
+                               "st3d/kernels/stage1_pallas.py:583"),
         "conv1_1_stats": ("st3d_torch/csrc/conv1_1_stats.cu",
                           "st3d/kernels/stage1_pallas.py:446"),
         "conv1_1_bwd": ("st3d_torch/csrc/conv1_1_bwd.cu",
@@ -1272,38 +1331,10 @@ def stage1_check(dev):
                                    "st3d/kernels/stage1_pallas.py:539, "
                                    "st3d/kernels/conv_pallas.py:785"),
     }
-    # Bounds at 4 x 512²: A conv1_1 (27 -> 64) plus the 27 x 27 patch
-    # statistics; B the same two products backwards; C and D conv1_2
-    # (64 -> 64, 9 taps) forward and input gradient. bf16 at the bf16
-    # tensor rate; the float32 routes at their own: C's and D's three TF32
-    # products at the TF32 rate, the CUDA-core A, B, C and D at the fp32
-    # rate; float32 moves twice the bytes.
-    px = VIEWS * SIZE * SIZE
-    conv12 = 2 * px * 9 * 64 * 64
-    c11 = 2 * px * 27 * (64 + 27)
-    stats = 4 * VIEWS * (27 * 27 + 27)
-    work = {
-        "conv1_1_stats_wgmma": (c11, 2 * px * (3 + 64) + stats, BF16_FLOPS),
-        "conv1_1_bwd_wgmma": (c11, 2 * px * (3 + 64 + 64 + 3) + stats,
-                              BF16_FLOPS),
-        "conv1_1_stats": (c11, 4 * px * (3 + 64) + stats, F32_FLOPS),
-        "conv1_1_bwd": (c11, 4 * px * (3 + 64 + 64 + 3) + stats, F32_FLOPS),
-        "conv3x3_relu_pool_wgmma": (conv12, 2 * px * 64 + 3 * (px // 4) * 64,
-                                    BF16_FLOPS),
-        "pool_route_wgmma": (conv12, 5 * (px // 4) * 64 + 2 * px * 64,
-                             BF16_FLOPS),
-        "conv3x3_relu_pool_tf32x3": (3 * conv12,
-                                     4 * px * 64 + 5 * (px // 4) * 64,
-                                     TF32_FLOPS),
-        "conv3x3_relu_pool": (conv12, 4 * px * 64 + 5 * (px // 4) * 64,
-                              F32_FLOPS),
-        "pool_route_tf32x3": (3 * conv12, 9 * (px // 4) * 64 + 4 * px * 64,
-                              TF32_FLOPS),
-        "pool_route_conv3x3_bwd": (conv12, 9 * (px // 4) * 64 + 4 * px * 64,
-                                   F32_FLOPS),
-    }
+    work = stage1_work()
     f32 = (A_KEYS["float32"], B_KEYS["float32"], C_KEYS["float32"],
-           D_KEYS["float32"], "conv3x3_relu_pool", "pool_route_conv3x3_bwd")
+           D_KEYS["float32"], "conv1_1_stats", "conv1_1_bwd",
+           "conv3x3_relu_pool", "pool_route_conv3x3_bwd")
     return [with_bound({"name": n, "route": "cuda", "source": meta[n][0],
                         "replaces": meta[n][1],
                         "dtype": "float32" if n in f32 else "bfloat16",
@@ -1676,7 +1707,8 @@ def steps_only(dev):
     no launch-set check, so that the same script times them on an earlier
     tree of the port in the same call: the texture step in bf16 and in
     float32, the both target in bf16 hard (K1) and soft (K1-soft) (the
-    median step over the last epochs, and the launches), and hot loop A.
+    median step over the last epochs, and the launches), and hot loop A in
+    bf16 and in float32 (the first approach's default dtype).
     Each second-approach run is made twice in the process and the second
     one counts: the bf16 step of a fresh process's first run read 17-21 ms
     where the full smoke, later in its process, read 13.0 ms (H100)."""
@@ -1706,6 +1738,7 @@ def steps_only(dev):
                   f"last {n} of {epochs} epochs (second run), launches "
                   + json.dumps(launches))
     hot_loop_a_ms(dev, check=False)
+    hot_loop_a_ms(dev, check=False, dtype="float32")
 
 
 def moved(obj, out):
@@ -1808,8 +1841,8 @@ def first_approach_path(tmp, obj, style, target="texture",
     return launches
 
 
-def hot_loop_a_ms(dev, route="default", check=True):
-    """ms per hot-loop-A step at 512² x 4 bf16 on a VGG route: two
+def hot_loop_a_ms(dev, route="default", check=True, dtype="bfloat16"):
+    """ms per hot-loop-A step at 512² x 4 in ``dtype`` on a VGG route: two
     synchronised runs of ``style_transfer`` (after a warm-up), their
     difference over the difference in steps, so the targets' set-up
     cancels; the route's VGG kernels must launch (unless ``check`` is
@@ -1827,7 +1860,7 @@ def hot_loop_a_ms(dev, route="default", check=True):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         style_transfer(content, content, style, model, steps=steps, lr=0.01,
-                       dtype=torch.bfloat16)
+                       dtype=getattr(torch, dtype))
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -1839,7 +1872,7 @@ def hot_loop_a_ms(dev, route="default", check=True):
         times.extend([run(3), run(5), run(25)])
     short, long = times[1:]
     ms = 1e3 * (long - short) / 20
-    print(f"hot loop A {SIZE}² x {VIEWS} bf16, route {route}: {ms:.2f} ms "
+    print(f"hot loop A {SIZE}² x {VIEWS} {dtype}, route {route}: {ms:.2f} ms "
           f"per step (25 steps {long:.3f}s, 5 steps {short:.3f}s)")
     return ms
 

@@ -1,7 +1,8 @@
 // Hopper building blocks shared by the tensor-core kernels
 // (conv3x3_wgmma.cu, conv3x3_tf32x3.cu, gram_wgmma.cu, gram_tf32x3.cu,
 // pool_route_wgmma.cu, pool_route_tf32x3.cu, conv1_1_stats_wgmma.cu,
-// conv1_1_bwd_wgmma.cu), from raw PTX: mbarriers, TMA tile loads and
+// conv1_1_bwd_wgmma.cu, conv1_1_stats_tf32x3.cu, conv1_1_bwd_tf32x3.cu),
+// from raw PTX: mbarriers, TMA tile loads and
 // stores, named barriers, the proxy fence, wgmma shared-memory descriptors
 // and the wgmma instructions; the Grams' second pass; conv1_1's patch
 // rows; and, on the host, the tensor maps the convolutions share.
@@ -277,21 +278,101 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(1));
 }
 
-// conv1_1's patch rows (conv1_1_stats_wgmma.cu, conv1_1_bwd_wgmma.cu).
-// XWindow holds the x window a tile's patches read: HY x HX pixels x 3
-// channels of the bf16 NHWC image xb (H, W, 3) from pixel (x0, y0), zero
-// outside the image (the SAME padding), ITEMS values a thread (entries tid,
-// tid + THREADS, ...: coalesced loads) so that the next tile's window can
-// be loaded while this tile's products run, then stored to shared memory.
-// TMA's 16-byte inner box does not fit a 6-byte pixel.
-template <int HX, int HY, int THREADS>
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16], uint64_t a,
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// The tf32 forms with A from registers (B from shared memory, K-major):
+// a[v] of thread (warp w, lane l) of the warpgroup holds the tf32 bits of
+// row 16w + l/4 + 8*(v & 1), column l%4 + 4*(v >> 1) of the 64 x 8 A tile
+// (PTX ISA's register fragment of .tf32 A, CUTLASS's ALayout_64x8). The
+// registers are read while the wgmma runs: keep them (fence_regs after the
+// wait) until wgmma_wait has returned.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16],
+                                                       const uint32_t (&a)[4],
+                                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Keeps the compiler from reusing A-fragment registers before the wgmma
+// that reads them has been waited for (fence_acc's twin).
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+// The exact split of a float32 into tf32 parts: hi is v with its low 13
+// mantissa bits cleared, lo = v - hi (exact in float32), as
+// kernels/conv.py::split_tf32.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  const float h = __uint_as_float(__float_as_uint(v) & 0xffffe000u);
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(v - h);
+}
+
+// conv1_1's patch rows (conv1_1_stats_wgmma.cu, conv1_1_bwd_wgmma.cu and
+// their tf32x3 twins). XWindow holds the x window a tile's patches read:
+// HY x HX pixels x 3 channels of the NHWC image xb (H, W, 3) from pixel
+// (x0, y0), T the bits of one element (unsigned short for bf16, float),
+// zero outside the image (the SAME padding), ITEMS values a thread
+// (entries tid, tid + THREADS, ...: coalesced loads) so that the next
+// tile's window can be loaded while this tile's products run, then stored
+// to shared memory. TMA's 16-byte inner box does not fit a 6- or 12-byte
+// pixel.
+template <int HX, int HY, int THREADS, typename T = unsigned short>
 struct XWindow {
   static constexpr int VALUES = HX * HY * 3;
   static constexpr int ITEMS = (VALUES + THREADS - 1) / THREADS;
-  uint32_t v[ITEMS];
+  T v[ITEMS];
 
-  __device__ __forceinline__ void load(const unsigned short* xb, int H, int W,
-                                       int x0, int y0, int tid) {
+  __device__ __forceinline__ void load(const T* xb, int H, int W, int x0,
+                                       int y0, int tid) {
 #pragma unroll
     for (int q = 0; q < ITEMS; ++q) {
       const int i = tid + THREADS * q;
@@ -299,17 +380,29 @@ struct XWindow {
       const int yy = y0 + wy, xx = x0 + rem / 3;
       v[q] = (i < VALUES && yy >= 0 && yy < H && xx >= 0 && xx < W)
                  ? __ldg(xb + ((long long)yy * W + x0) * 3 + rem)
-                 : 0u;
+                 : T(0);
     }
   }
 
-  __device__ __forceinline__ void store(unsigned short* win, int tid) const {
+  __device__ __forceinline__ void store(T* win, int tid) const {
 #pragma unroll
     for (int q = 0; q < ITEMS; ++q)
-      if (tid + THREADS * q < VALUES)
-        win[tid + THREADS * q] = (unsigned short)v[q];
+      if (tid + THREADS * q < VALUES) win[tid + THREADS * q] = v[q];
   }
 };
+
+// Value k (0-31) of the float32 patch row whose 3 x 3 window starts at
+// (wy, wx) of a window of WX pixels a row in shared memory: column
+// (dy*3 + dx)*3 + c < 27 holds win[wy + dy][wx + dx][c], column 27 holds 1
+// (the bias column of the products), columns 28-31 hold 0; ``valid`` false
+// (a pixel outside the image) gives 0 in every column, the ones included.
+template <int WX>
+__device__ __forceinline__ float patch_value(const float* win, int wy, int wx,
+                                             int k, bool valid) {
+  if (!valid || k > 27) return 0.f;
+  if (k == 27) return 1.f;
+  return win[((wy + k / 9) * WX + wx + (k / 3) % 3) * 3 + k % 3];
+}
 
 // Chunk J (columns 8J .. 8J+7) of the bf16 patch row whose 3 x 3 window
 // starts at (wy, wx) of a window of HX pixels a row in shared memory, as

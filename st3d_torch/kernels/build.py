@@ -44,7 +44,8 @@ EXTRA_FLAGS: Dict[str, List[str]] = {n: ["-fmad=false"]
 # registers, shared memory and spills (``-v``), kept in ``BUILD_LOGS``.
 WGMMA_SOURCES = ("conv3x3_wgmma", "conv3x3_tf32x3", "gram_wgmma",
                  "gram_tf32x3", "pool_route_wgmma", "pool_route_tf32x3",
-                 "conv1_1_stats_wgmma", "conv1_1_bwd_wgmma")
+                 "conv1_1_stats_wgmma", "conv1_1_bwd_wgmma",
+                 "conv1_1_stats_tf32x3", "conv1_1_bwd_tf32x3")
 EXTRA_FLAGS.update({n: ["-Xptxas", "-v"] for n in WGMMA_SOURCES})
 LINK_FLAGS: Dict[str, List[str]] = {n: ["-lcuda"] for n in WGMMA_SOURCES}
 

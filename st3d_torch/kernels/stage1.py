@@ -14,8 +14,12 @@ Two autograd functions:
   shared memory, z and PᵀP by ``wgmma``; ``csrc/conv1_1_bwd_wgmma.cu``:
   ``c11_bwd_blocks`` persistent blocks, dz and z by TMA on the halo of a
   ``C11_BWD_TILE`` dx tile in two stages, dP by ``wgmma`` with S split
-  into bf16 hi + lo) and the CUDA cores (``csrc/conv1_1_stats.cu``,
-  ``csrc/conv1_1_bwd.cu``: float32 and widths TMA cannot stride).
+  into bf16 hi + lo), float32 on the tensor cores by the 3xTF32 split
+  (``csrc/conv1_1_stats_tf32x3.cu``, ``csrc/conv1_1_bwd_tf32x3.cu``: the
+  same plans, every operand split into tf32 hi + lo, the A operands of the
+  products split in registers) and the CUDA cores
+  (``csrc/conv1_1_stats.cu``, ``csrc/conv1_1_bwd.cu``: the widths the
+  tensor-core kernels do not take).
 - ``conv1_2_relu_pool(z, w, b) -> (pooled, idx)``: conv1_2 + ReLU + 2x2
   max-pool. Forward ``conv3x3_relu_pool`` (replaces K4b), backward
   ``pool_route_conv3x3_bwd`` (replaces K4d); both kernels live in
@@ -46,16 +50,30 @@ from st3d_torch.kernels.conv import (SMS, _tma_ready,
 
 LAUNCHES: Dict[str, int] = {"conv1_1_stats": 0, "conv1_1_bwd": 0,
                             "conv1_1_stats_wgmma": 0,
-                            "conv1_1_bwd_wgmma": 0}
+                            "conv1_1_bwd_wgmma": 0,
+                            "conv1_1_stats_tf32x3": 0,
+                            "conv1_1_bwd_tf32x3": 0}
 
 K27 = 27
 # Pixels per block of the CUDA-core conv1_1_stats' first pass: 128 chunks
 # per 512² image.
 STATS_PIX_PER_BLOCK = 2048
-C11_MAX_COUT = 128                # the tensor-core kernels keep W resident
+C11_MAX_COUT = 128                # the bf16 tensor-core kernels keep W resident
+C11_TF32_MAX_COUT = 64            # B's float32 stages fill a block's 227 KB
 C11_STATS_TILE = (32, 4)          # (TW, TH) pixels of a tensor-core A tile
 C11_STATS_BLOCKS_PER_SM = 2
+C11_TF32_STATS_BLOCKS_PER_SM = 1  # its registers allow one block to an SM
 C11_BWD_TILE = (22, 14)           # (TW, TH) dx pixels of a tensor-core B tile
+# The tensor-core A and B of each route: A's and B's launch keys (and
+# libraries), the C symbols' dtype suffix, A's blocks per SM and its
+# 28 x 28 partials a block (one a warpgroup in bf16, folded in the block
+# in float32).
+_C11_TENSOR_CORES = {
+    "wgmma": ("conv1_1_stats_wgmma", "conv1_1_bwd_wgmma", "bf16",
+              C11_STATS_BLOCKS_PER_SM, 2),
+    "tf32x3": ("conv1_1_stats_tf32x3", "conv1_1_bwd_tf32x3", "f32",
+               C11_TF32_STATS_BLOCKS_PER_SM, 1),
+}
 
 
 def c11_route(dtype: torch.dtype, cout: int) -> str:
@@ -63,11 +81,17 @@ def c11_route(dtype: torch.dtype, cout: int) -> str:
     (``csrc/conv1_1_stats_wgmma.cu``, ``csrc/conv1_1_bwd_wgmma.cu``) for
     bf16 with Cout a multiple of 8 (the pixel rows of z and dz are Cout * 2
     bytes apart, and TMA strides are multiples of 16 bytes) and at most
-    ``C11_MAX_COUT`` (the weights stay in shared memory), else "cuda_core"
-    (``csrc/conv1_1_stats.cu``, ``csrc/conv1_1_bwd.cu``), float32
-    included."""
+    ``C11_MAX_COUT`` (the weights stay in shared memory); "tf32x3"
+    (``csrc/conv1_1_stats_tf32x3.cu``, ``csrc/conv1_1_bwd_tf32x3.cu``) for
+    float32 with Cout a multiple of 4 (rows Cout * 4 bytes apart) and at
+    most ``C11_TF32_MAX_COUT`` = 64 (B's two stages of 32-channel dz and z
+    boxes, 192 KB, leave room for the weights of two slabs only); else
+    "cuda_core" (``csrc/conv1_1_stats.cu``, ``csrc/conv1_1_bwd.cu``)."""
     if dtype == torch.bfloat16 and cout % 8 == 0 and cout <= C11_MAX_COUT:
         return "wgmma"
+    if dtype == torch.float32 and cout % 4 == 0 \
+            and cout <= C11_TF32_MAX_COUT:
+        return "tf32x3"
     return "cuda_core"
 
 
@@ -78,14 +102,14 @@ def c11_stats_tiles(h: int, w: int) -> Tuple[int, int]:
     return -(-w // tw), -(-h // th)
 
 
-def c11_stats_blocks(bsz: int, h: int, w: int) -> int:
-    """Persistent blocks per image of the tensor-core A: about
-    ``C11_STATS_BLOCKS_PER_SM`` blocks on each SM over the batch, never
-    more than the image's tiles. Block c walks tiles c, c + blocks, ... of
-    its image."""
+def c11_stats_blocks(bsz: int, h: int, w: int,
+                     per_sm: int = C11_STATS_BLOCKS_PER_SM) -> int:
+    """Persistent blocks per image of the tensor-core A: about ``per_sm``
+    blocks on each SM over the batch (``C11_STATS_BLOCKS_PER_SM`` in bf16,
+    ``C11_TF32_STATS_BLOCKS_PER_SM`` in float32), never more than the
+    image's tiles. Block c walks tiles c, c + blocks, ... of its image."""
     tiles_x, tiles_y = c11_stats_tiles(h, w)
-    return max(1, min(tiles_x * tiles_y,
-                      -(-C11_STATS_BLOCKS_PER_SM * SMS // bsz)))
+    return max(1, min(tiles_x * tiles_y, -(-per_sm * SMS // bsz)))
 
 
 def c11_bwd_tiles(h: int, w: int) -> Tuple[int, int]:
@@ -146,34 +170,38 @@ def conv1_1_stats(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     if x.device.type == "cpu":
         return conv1_1_stats_plain(x, w, b)
     build.check_operands("conv1_1_stats", x, w, b)
-    if c11_route(x.dtype, cout) == "wgmma":
-        return _conv1_1_stats_wgmma(x, w, b)
-    return conv1_1_stats_cuda_core(x, w, b)
+    route = c11_route(x.dtype, cout)
+    if route == "cuda_core":
+        return conv1_1_stats_cuda_core(x, w, b)
+    return _conv1_1_stats_tensor_cores(x, w, b, route)
 
 
-def _conv1_1_stats_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """A on the tensor cores (bf16): ``c11_stats_blocks`` persistent blocks
-    per image; each lays out the weights with the bias as their row 27 (the
-    patch tile's ones column) itself."""
+def _conv1_1_stats_tensor_cores(x: torch.Tensor, w: torch.Tensor,
+                                b: torch.Tensor, route: str
+                                ) -> Tuple[torch.Tensor, torch.Tensor,
+                                           torch.Tensor]:
+    """A on the tensor cores (``route`` "wgmma" or "tf32x3"):
+    ``c11_stats_blocks`` persistent blocks per image; each lays out the
+    weights with the bias as their row 27 (the patch tile's ones column)
+    itself, in float32 split into tf32 hi + lo."""
+    key, _, suffix, per_sm, parts = _C11_TENSOR_CORES[route]
     bsz, h, wd, _ = x.shape
     cout = w.shape[3]
     x = x.contiguous()
     w27, b = w.reshape(K27, cout).contiguous(), b.contiguous()
-    blocks = c11_stats_blocks(bsz, h, wd)
+    blocks = c11_stats_blocks(bsz, h, wd, per_sm)
     dev = x.device
     z = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=dev)
-    partial = torch.empty((bsz, blocks, 2, 28, 28), dtype=torch.float32,
+    partial = torch.empty((bsz, blocks, parts, 28, 28), dtype=torch.float32,
                           device=dev)
     ptp = torch.empty((bsz, K27, K27), dtype=torch.float32, device=dev)
     s27 = torch.empty((bsz, K27), dtype=torch.float32, device=dev)
-    fn = build.symbol("conv1_1_stats_wgmma", "st3d_conv1_1_stats_wgmma_bf16",
-                      7, 5)
+    fn = build.symbol(key, f"st3d_{key}_{suffix}", 7, 5)
     err = fn(x.data_ptr(), w27.data_ptr(), b.data_ptr(), z.data_ptr(),
              partial.data_ptr(), ptp.data_ptr(), s27.data_ptr(), bsz, h, wd,
              cout, blocks, build.stream_handle(dev))
-    build.check(err, "conv1_1_stats_wgmma")
-    LAUNCHES["conv1_1_stats_wgmma"] += 1
+    build.check(err, key)
+    LAUNCHES[key] += 1
     return z, ptp, s27
 
 
@@ -181,9 +209,8 @@ def conv1_1_stats_cuda_core(x: torch.Tensor, w: torch.Tensor,
                             b: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
-    """A on the CUDA cores (``csrc/conv1_1_stats.cu``), the route of
-    float32 and the widths ``c11_route`` keeps off the tensor cores; CUDA
-    tensors only."""
+    """A on the CUDA cores (``csrc/conv1_1_stats.cu``), the route of the
+    widths ``c11_route`` keeps off the tensor cores; CUDA tensors only."""
     cout = _c11_shapes(x, w)
     build.check_operands("conv1_1_stats", x, w, b)
     bsz, h, wd, _ = x.shape
@@ -249,9 +276,10 @@ def conv1_1_bwd(x: torch.Tensor, dz: torch.Tensor, z: torch.Tensor,
     if x.device.type == "cpu":
         return conv1_1_bwd_plain(x, dz, z, w, sym, ds27)
     _check_bwd_operands(x, dz, z, w, sym, ds27)
-    if c11_route(x.dtype, cout) == "wgmma":
-        return _conv1_1_bwd_wgmma(x, dz, z, w, sym, ds27)
-    return conv1_1_bwd_cuda_core(x, dz, z, w, sym, ds27)
+    route = c11_route(x.dtype, cout)
+    if route == "cuda_core":
+        return conv1_1_bwd_cuda_core(x, dz, z, w, sym, ds27)
+    return _conv1_1_bwd_tensor_cores(x, dz, z, w, sym, ds27, route)
 
 
 def _check_bwd_operands(x, dz, z, w, sym, ds27) -> None:
@@ -262,26 +290,28 @@ def _check_bwd_operands(x, dz, z, w, sym, ds27) -> None:
                              f"{x.device}, got {t.dtype} on {t.device}")
 
 
-def _conv1_1_bwd_wgmma(x: torch.Tensor, dz: torch.Tensor, z: torch.Tensor,
-                       w: torch.Tensor, sym: torch.Tensor,
-                       ds27: torch.Tensor) -> torch.Tensor:
-    """B on the tensor cores (bf16): tiles of ``C11_BWD_TILE``,
-    ``c11_bwd_blocks`` persistent blocks; each reads the (27, Cout)
-    weights as Wᵀ's K-major tile and splits S (with ds27 as its row 27)
-    into bf16 hi + lo itself."""
+def _conv1_1_bwd_tensor_cores(x: torch.Tensor, dz: torch.Tensor,
+                              z: torch.Tensor, w: torch.Tensor,
+                              sym: torch.Tensor, ds27: torch.Tensor,
+                              route: str) -> torch.Tensor:
+    """B on the tensor cores (``route`` "wgmma" or "tf32x3"): tiles of
+    ``C11_BWD_TILE``, ``c11_bwd_blocks`` persistent blocks; each reads the
+    (27, Cout) weights as Wᵀ's K-major tile and splits S (with ds27 as its
+    row 27) into hi + lo itself (bf16 parts, or tf32 parts with the
+    weights split too)."""
+    _, key, suffix, _, _ = _C11_TENSOR_CORES[route]
     bsz, h, wd, _ = x.shape
     cout = w.shape[3]
     x, sym, ds27 = x.contiguous(), sym.contiguous(), ds27.contiguous()
     dz, z = _tma_ready(dz), _tma_ready(z)
     w27 = _tma_ready(w.reshape(K27, cout))
     dx = torch.empty_like(x)
-    fn = build.symbol("conv1_1_bwd_wgmma", "st3d_conv1_1_bwd_wgmma_bf16", 7,
-                      5)
+    fn = build.symbol(key, f"st3d_{key}_{suffix}", 7, 5)
     err = fn(x.data_ptr(), dz.data_ptr(), z.data_ptr(), w27.data_ptr(),
              sym.data_ptr(), ds27.data_ptr(), dx.data_ptr(), bsz, h, wd, cout,
              c11_bwd_blocks(bsz, h, wd), build.stream_handle(x.device))
-    build.check(err, "conv1_1_bwd_wgmma")
-    LAUNCHES["conv1_1_bwd_wgmma"] += 1
+    build.check(err, key)
+    LAUNCHES[key] += 1
     return dx
 
 
@@ -289,9 +319,8 @@ def conv1_1_bwd_cuda_core(x: torch.Tensor, dz: torch.Tensor,
                           z: torch.Tensor, w: torch.Tensor,
                           sym: torch.Tensor,
                           ds27: torch.Tensor) -> torch.Tensor:
-    """B on the CUDA cores (``csrc/conv1_1_bwd.cu``), the route of float32
-    and the widths ``c11_route`` keeps off the tensor cores; CUDA tensors
-    only."""
+    """B on the CUDA cores (``csrc/conv1_1_bwd.cu``), the route of the
+    widths ``c11_route`` keeps off the tensor cores; CUDA tensors only."""
     cout = _c11_shapes(x, w)
     _check_bwd_operands(x, dz, z, w, sym, ds27)
     bsz, h, wd, _ = x.shape

@@ -224,6 +224,7 @@ def _rel_err(got, ref):
 
 
 C11_KEYS = {"wgmma": ("conv1_1_stats_wgmma", "conv1_1_bwd_wgmma"),
+            "tf32x3": ("conv1_1_stats_tf32x3", "conv1_1_bwd_tf32x3"),
             "cuda_core": ("conv1_1_stats", "conv1_1_bwd")}
 
 
@@ -399,6 +400,95 @@ def test_conv1_1_wgmma_within_one_bf16_step_on_random_data(dev, shape, cout):
     dx = ks1.conv1_1_bwd(x, dz, z_p, w, sym, ds)
     assert _within_one_bf16_step(
         dx, ks1.conv1_1_bwd_plain(x, dz, z_p, w, sym, ds))
+
+
+# A and B on their float32 tensor-core route (3xTF32), on C11_SHAPES with
+# Cout from 8 to the route's cap of 64 (20 fills part of one 32-channel
+# slab, 40 and 60 part of a second): on exact data (x in quarters, weights
+# and dz in eighths, S and ds27 in 64ths, all exact in TF32, so every lo
+# part is zero and every sum exact in float32) the kernels equal the plain
+# versions bit for bit; on random data z and dx lie within 1e-4 of the
+# largest value, PᵀP and s27 within 1e-4 relative Frobenius.
+C11_TF32_COUTS = [64, 8, 20, 40, 60]
+
+
+def _c11_exact_f32(dev, seed, shape, cout):
+    return tuple(t.float() for t in _c11_exact(dev, seed, shape, cout))
+
+
+@pytest.mark.parametrize("cout", C11_TF32_COUTS)
+@pytest.mark.parametrize("shape", C11_SHAPES)
+def test_conv1_1_stats_tf32x3_bit_equal_on_exact_data(dev, shape, cout):
+    from st3d_torch.kernels import stage1 as ks1
+
+    x, w, b = _c11_exact_f32(dev, 31, shape, cout)
+    assert ks1.c11_route(torch.float32, cout) == "tf32x3"
+    n0 = dict(ks1.LAUNCHES)
+    got = ks1.conv1_1_stats(x, w, b)
+    torch.cuda.synchronize()
+    assert _s1_launched(n0) == {"conv1_1_stats_tf32x3": 1}
+    ref = ks1.conv1_1_stats_plain(x, w, b)
+    assert bool((ref[0] == 0).any()) and bool((ref[0] > 0).any())
+    for a, r in zip(got, ref):
+        assert a.dtype == r.dtype == torch.float32 and torch.equal(a, r)
+    again = ks1.conv1_1_stats(x, w, b)                  # deterministic sums
+    assert all(torch.equal(a, r) for a, r in zip(again, got))
+
+
+@pytest.mark.parametrize("cout", C11_TF32_COUTS)
+@pytest.mark.parametrize("shape", C11_SHAPES)
+def test_conv1_1_bwd_tf32x3_bit_equal_on_exact_data(dev, shape, cout):
+    from st3d_torch.kernels import stage1 as ks1
+
+    x, w, b = _c11_exact_f32(dev, 32, shape, cout)
+    g = torch.Generator(device=dev).manual_seed(33)
+    z = ks1.conv1_1_stats_plain(x, w, b)[0]
+    dz = torch.randint(-4, 5, z.shape, generator=g, device=dev).float() / 8
+    dg = torch.randint(-8, 9, (shape[0], 27, 27), generator=g,
+                       device=dev).float() / 64
+    ds = torch.randint(-8, 9, (shape[0], 27), generator=g,
+                       device=dev).float() / 64
+    sym = dg + dg.transpose(1, 2)
+    n0 = dict(ks1.LAUNCHES)
+    dx = ks1.conv1_1_bwd(x, dz, z, w, sym, ds)
+    torch.cuda.synchronize()
+    assert _s1_launched(n0) == {"conv1_1_bwd_tf32x3": 1}
+    ref = ks1.conv1_1_bwd_plain(x, dz, z, w, sym, ds)
+    assert dx.dtype == torch.float32 and torch.equal(dx, ref)
+    # Each term matters: without S, or without ds27, dx moves.
+    for s_, d_ in ((torch.zeros_like(sym), ds), (sym, torch.zeros_like(ds))):
+        assert not torch.equal(ks1.conv1_1_bwd_plain(x, dz, z, w, s_, d_),
+                               ref)
+    assert torch.equal(ks1.conv1_1_bwd(x, dz, z, w, sym, ds), dx)
+
+
+@pytest.mark.parametrize("cout", [64, 20])
+@pytest.mark.parametrize("shape", C11_SHAPES)
+def test_conv1_1_tf32x3_within_1e4_on_random_data(dev, shape, cout):
+    from st3d_torch.kernels import stage1 as ks1
+
+    g = torch.Generator(device=dev).manual_seed(34)
+    x = torch.rand(shape + (3,), generator=g, device=dev)
+    w = torch.randn((3, 3, 3, cout), generator=g, device=dev) * (2 / 27) ** .5
+    b = 0.1 * torch.randn((cout,), generator=g, device=dev)
+    n0 = dict(ks1.LAUNCHES)
+    z, ptp, s27 = ks1.conv1_1_stats(x, w, b)
+    z_p, ptp_p, s27_p = ks1.conv1_1_stats_plain(x, w, b)
+    assert _rel_err(z, z_p) <= 1e-4
+    for got, ref in ((ptp, ptp_p), (s27, s27_p)):
+        assert torch.linalg.norm(got - ref) <= 1e-4 * torch.linalg.norm(ref)
+    again = ks1.conv1_1_stats(x, w, b)                  # deterministic sums
+    assert torch.equal(again[1], ptp) and torch.equal(again[2], s27)
+    dz = torch.randn(z.shape, generator=g, device=dev)
+    dg = torch.randn((shape[0], 27, 27), generator=g, device=dev) * 1e-2
+    ds = torch.randn((shape[0], 27), generator=g, device=dev) * 1e-2
+    sym = dg + dg.transpose(1, 2)
+    dx = ks1.conv1_1_bwd(x, dz, z_p, w, sym, ds)
+    torch.cuda.synchronize()
+    assert _rel_err(dx, ks1.conv1_1_bwd_plain(x, dz, z_p, w, sym, ds)) \
+        <= 1e-4
+    assert _s1_launched(n0) == {"conv1_1_stats_tf32x3": 2,
+                                "conv1_1_bwd_tf32x3": 1}
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),

@@ -206,7 +206,8 @@ def _rel_fro(got, ref):
 @pytest.mark.parametrize("dtype,cout,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 8, "wgmma"),
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 60, "cuda_core"),
-    (torch.bfloat16, 136, "cuda_core"), (torch.float32, 64, "cuda_core")])
+    (torch.bfloat16, 136, "cuda_core"), (torch.float32, 64, "tf32x3"),
+    (torch.float32, 6, "cuda_core")])
 def test_c11_route(dtype, cout, want):
     assert ks1.c11_route(dtype, cout) == want
 
