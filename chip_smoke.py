@@ -20,13 +20,20 @@ Phases; any failure raises and the script exits non-zero:
    K6 ``raster_stream``, forced, at 81,920 faces and 256² against its plain
    version (hard and soft: pix_to_face and nearest exactly equal, zbuf
    within rtol 1e-6), and at 327,680 faces x 512² x 4 against K1 (hard and
-   soft: pix_to_face and zbuf bit-equal);
+   soft: pix_to_face and zbuf bit-equal), every call also against the TPU
+   kernel's walk ``raster_stream_every_chunk`` (launched by no route: all
+   outputs equal), with the chunks each tested and ``stream_counts``;
    K2 at every VGG conv shape at batch 4, forward and input gradient, in
    bf16 on the tensor-core kernel ``conv3x3_wgmma`` (max-abs error <= 1e-2
    * max|plain|) and in f32 on the 3xTF32 tensor-core kernel
-   ``conv3x3_tf32x3`` (<= 1e-4 * max|plain|), and conv1_1's 3 -> 64 in
-   bf16, an odd width, on ``conv3x3_nhwc``; each call must launch the
+   ``conv3x3_tf32x3`` (<= 1e-4 * max|plain|); each call must launch the
    kernel its route names;
+   K2 at the widths TMA cannot stride (``narrow_check``): 3 -> 64 and 64 ->
+   3 at 512² x 4, 5 -> 12 and 12 -> 5 at 128² x 4, forward and dx, on
+   ``conv3x3_narrow_wgmma`` (bf16) and ``conv3x3_narrow_tf32x3`` (f32) with
+   K2's tolerances, bit-equal on exact data in both dtypes; at 512² each
+   timed beside the CUDA-core ``conv3x3_nhwc`` (launched by no route, held
+   against the plain version too) and ``F.conv2d``;
    K3 at the four style-Gram shapes, in bf16 on ``gram_wgmma`` (relative
    Frobenius error <= 1e-3) and in f32 on the 3xTF32 ``gram_tf32x3``
    (<= 1e-5; the CUDA-core ``gram_nhwc`` held and timed on the same f32
@@ -120,7 +127,11 @@ Phases; any failure raises and the script exits non-zero:
    moved, and the mode's raster kernel launched once per step plus once
    each for the content render and the final render (and, with the blur
    window, the two saturation checks), beside the VGG kernels; the median
-   step time of the last 5 epochs.
+   step time of the last 5 epochs. Then K6 on the faces of the 327,680-face
+   run as its ``final.obj`` holds them (``raster_stream_run_check``): hard
+   and soft bit-equal to K1's outputs and to the every-chunk walk, ids (and
+   nearest) bit-equal to the plain version at 64² to 128², the counts and
+   the times of both walks and K1.
 4. The first approach (``st3d_torch.first_approach.main``) at 512², 4 views,
    batch 4, bf16, 30 style-transfer and 20 MSE steps: finite losses, the MSE
    loss falling, four ``2d_style_transfer/`` views, 12 ``final_render/``
@@ -513,10 +524,66 @@ def raster_topk_check(dev):
                       F32_FLOPS)
 
 
+def stream_counts(coeffs, bounds, ranges, size):
+    """K6's work in hard mode on these faces, over the 256-pixel blocks (at
+    512² each lies in one image row): the chunks walked by the TPU kernel's
+    walk (the ranges' lengths), the chunks whose row band meets the block's
+    rows (the ones the redesigned kernel tests), the faces of those chunks
+    whose own y-extent meets the rows, the faces of the mesh that do, and
+    the (pixel, face) pairs needed."""
+    import torch
+    from st3d_torch.kernels.raster import FACE_CHUNK, _band_overlap
+
+    n, _, f_pad = coeffs.shape
+    per_row = size // 256                   # blocks a row
+    ov = _band_overlap(bounds, size, size, 256, 0.0)    # (N, blocks, chunks)
+    spans = (ranges[..., 1] - ranges[..., 0] + 1).clamp(min=0)
+    # Faces meeting row r: ymin <= r <= ymax, by a difference array per
+    # chunk (padding faces have ymin 1e9 and meet none).
+    lo = torch.ceil(coeffs[:, 17]).clamp(0, size).long()
+    hi = (torch.floor(coeffs[:, 18]) + 1).clamp(0, size).long()
+    hi = torch.maximum(hi, lo)
+    chunk = (torch.arange(f_pad, device=coeffs.device) // FACE_CHUNK
+             ).expand(n, f_pad)
+    diff = torch.zeros((n, f_pad // FACE_CHUNK, size + 1),
+                       device=coeffs.device)
+    ones = torch.ones_like(coeffs[:, 17])
+    diff.view(n, -1).scatter_add_(1, chunk * (size + 1) + lo, ones)
+    diff.view(n, -1).scatter_add_(1, chunk * (size + 1) + hi, -ones)
+    rows = torch.cumsum(diff, dim=2)[:, :, :size]       # (N, chunks, rows)
+    block_rows = rows.repeat_interleave(per_row, dim=2).transpose(1, 2)
+    return {"walked": int(spans.sum()), "tested": int(ov.sum()),
+            "faces_in_tested": int((block_rows * ov).sum()),
+            "faces_in_rows": int(rows.sum()) * per_row,
+            "pairs": needed_pairs(coeffs, size, 0.0)}
+
+
+def _stream_pair(kr, coeffs, bounds, size, soft):
+    """K6 (redesigned) and its every-chunk twin on the same inputs, each
+    with its tested-chunk count: fails unless all outputs are equal."""
+    import torch
+
+    tile = kr.cull_tile(size, size, soft)
+    margin = kr.soft_cull_margin(1.0) if soft else 0.0
+    ranges = kr.stream_ranges(bounds, size, size, tile, margin)
+    cnt = torch.zeros(2, dtype=torch.int64, device=coeffs.device)
+    got = kr.raster_stream(coeffs, bounds, ranges, size, size, tile, soft,
+                           margin, cnt[0:1])
+    old = kr.raster_stream_every_chunk(coeffs, bounds, ranges, size, size,
+                                       tile, soft, margin, cnt[1:2])
+    torch.cuda.synchronize()
+    for a, b in zip(got, old):
+        if a is not None and not torch.equal(a, b):
+            fail(f"K6 soft={soft} differs from its every-chunk walk")
+    return got, ranges, tile, margin, int(cnt[0]), int(cnt[1])
+
+
 def raster_stream_check(dev):
     """K6 forced at 81,920 faces x 256² against its plain version (hard and
     soft), then at 327,680 faces x 512² x 4 against K1 (bit-equal
-    pix_to_face and zbuf, hard and soft)."""
+    pix_to_face and zbuf, hard and soft); every call also against the TPU
+    kernel's walk (``raster_stream_every_chunk``, all outputs equal), with
+    the chunks each tested."""
     import torch
     from st3d_torch.kernels import raster as kr
 
@@ -524,10 +591,8 @@ def raster_stream_check(dev):
     _, coeffs, bounds = sphere_faces(dev, 6, size)
     plain_ms, zerr = None, 0.0
     for soft in (False, True):
-        tile = kr.cull_tile(size, size, soft)
-        margin = kr.soft_cull_margin(1.0) if soft else 0.0
-        ranges = kr.stream_ranges(bounds, size, size, tile, margin)
-        got = kr.raster_stream(coeffs, ranges, size, size, tile, soft)
+        got, ranges, tile, _, n_new, n_old = _stream_pair(kr, coeffs, bounds,
+                                                          size, soft)
         t0 = time.perf_counter()
         want = kr.raster_stream_plain(coeffs, ranges, size, size, tile, soft)
         torch.cuda.synchronize()
@@ -540,7 +605,8 @@ def raster_stream_check(dev):
         zrel = float(((got[1] - want[1]).abs() / want[1].abs())[hit].max())
         zerr = max(zerr, float((got[1] - want[1]).abs().max()))
         print(f"K6 raster_stream soft={soft} {coeffs.shape[2]} padded faces "
-              f"{size}²: id mismatches {bad}, zbuf max rel err {zrel:.3g}")
+              f"{size}²: id mismatches {bad}, zbuf max rel err {zrel:.3g}, "
+              f"chunks tested {n_new} of {n_old} walked")
         if bad or zrel > 1e-6:
             fail(f"K6 soft={soft} differs from its plain version")
 
@@ -548,10 +614,8 @@ def raster_stream_check(dev):
     if not kr.use_stream(coeffs.shape[2]):
         fail("the level-7 sphere does not pass the resident budget")
     for soft in (False, True):
-        tile = kr.cull_tile(SIZE, SIZE, soft)
-        margin = kr.soft_cull_margin(1.0) if soft else 0.0
-        ranges = kr.stream_ranges(bounds, SIZE, SIZE, tile, margin)
-        got = kr.raster_stream(coeffs, ranges, SIZE, SIZE, tile, soft)
+        got, ranges, tile, margin, n_new, n_old = _stream_pair(
+            kr, coeffs, bounds, SIZE, soft)
         want = (kr.raster_soft(coeffs, bounds, SIZE, SIZE, margin, tile)
                 if soft else kr.raster_hard(coeffs, bounds, SIZE, SIZE))
         torch.cuda.synchronize()
@@ -562,22 +626,23 @@ def raster_stream_check(dev):
                 if soft else "")
         print(f"K6 vs K1 soft={soft} at {coeffs.shape[2]} padded faces x "
               f"{SIZE}² x {VIEWS}: pix_to_face and zbuf bit-equal {same}"
-              + near)
+              + near + f"; chunks tested {n_new} of {n_old} walked")
         if not same:
             fail(f"K6 soft={soft} differs from K1 at 327,680 faces")
         if not soft:
             hard = (tile, ranges)
     tile, ranges = hard
-    ms = cuda_ms(lambda: kr.raster_stream(coeffs, ranges, SIZE, SIZE, tile,
-                                          False), reps=3, warmup=1)
+    ms = cuda_ms(lambda: kr.raster_stream(coeffs, bounds, ranges, SIZE, SIZE,
+                                          tile, False), reps=10)
+    old_ms = cuda_ms(lambda: kr.raster_stream_every_chunk(
+        coeffs, bounds, ranges, SIZE, SIZE, tile, False), reps=3, warmup=1)
     k1_ms = cuda_ms(lambda: kr.raster_hard(coeffs, bounds, SIZE, SIZE),
                     reps=3, warmup=1)
-    spans = (ranges[..., 1] - ranges[..., 0] + 1).clamp(min=0)
-    tested = int(spans.sum()) * tile * kr.FACE_CHUNK
-    pairs = needed_pairs(coeffs, SIZE, 0.0)      # K1's count: same function
-    print(f"K6 raster_stream hard at 327,680 faces: kernel {ms:.3f} ms, K1 "
-          f"on the same faces {k1_ms:.3f} ms, plain (81,920 faces, 256²) "
-          f"{plain_ms:.1f} ms, {pairs} pairs needed (bbox), {tested} tested")
+    cnt = stream_counts(coeffs, bounds, ranges, SIZE)
+    print(f"K6 raster_stream hard at 327,680 faces (pristine sphere): kernel "
+          f"{ms:.3f} ms, every-chunk walk {old_ms:.3f} ms, K1 on the same "
+          f"faces {k1_ms:.3f} ms, plain (81,920 faces, 256²) "
+          f"{plain_ms:.1f} ms; counts " + json.dumps(cnt))
     # max_abs_err: the largest zbuf error against the plain version (81,920
     # faces) and against K1 (327,680 faces), hard and soft.
     rec = {"name": "raster_stream", "route": "cuda",
@@ -585,9 +650,103 @@ def raster_stream_check(dev):
            "replaces": "st3d/kernels/raster_pallas.py:447",
            "max_abs_err": zerr, "ms": ms, "plain_ms": plain_ms,
            "plain_at": "81,920 faces, 256², 4 views (the plain version at "
-                       "327,680 faces x 512² would take minutes)"}
-    return with_bound(rec, pairs * PAIR_OPS["hard"],
+                       "327,680 faces x 512² would take minutes)",
+           "every_chunk_ms": old_ms, "k1_ms": k1_ms, "counts": cnt}
+    return with_bound(rec, cnt["pairs"] * PAIR_OPS["hard"],
                       raster_bytes(coeffs, 12, ranges, 8, SIZE), F32_FLOPS)
+
+
+def raster_stream_run_check(dev, obj, rec):
+    """K6 on the faces of the 327,680-face vertex run as they stand after
+    its epochs (its ``final.obj`` under the run's fixed cameras), where one
+    stretched face widens its chunk's band: the counts of
+    ``stream_counts``; hard and soft equal to the every-chunk walk, hard
+    outputs bit-equal to K1's (soft: to K1-soft's); ids and nearest
+    bit-equal to the plain version on the same faces at the largest of
+    128², 96² and 64² whose walk the plain version finishes in seconds;
+    times. Updates ``rec`` (the K6 row) with these faces' time and bound."""
+    import torch
+    from st3d_torch.core.cameras import build_fixed_cameras
+    from st3d_torch.io.obj import load_obj
+    from st3d_torch.kernels import raster as kr
+    from st3d_torch.render.rasterize import face_verts_screen
+
+    data = load_obj(obj, load_textures=False)
+    verts = torch.tensor(data.verts, device=dev)
+    faces = torch.tensor(data.faces, device=dev).long()
+    cams = build_fixed_cameras(VIEWS, seed=0).to(dev)
+
+    def faces_at(size):
+        return kr.preprocess(face_verts_screen(verts, faces, cams, size))[:2]
+
+    coeffs, bounds = faces_at(SIZE)
+    for soft in (False, True):
+        got, ranges, tile, margin, n_new, n_old = _stream_pair(
+            kr, coeffs, bounds, SIZE, soft)
+        want = (kr.raster_soft(coeffs, bounds, SIZE, SIZE, margin, tile)
+                if soft else kr.raster_hard(coeffs, bounds, SIZE, SIZE))
+        torch.cuda.synchronize()
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        print(f"K6 on the vertex run's faces soft={soft}: pix_to_face and "
+              f"zbuf bit-equal to K1 {same}, equal to the every-chunk walk; "
+              f"chunks tested {n_new} of {n_old} walked")
+        if not same:
+            fail(f"K6 soft={soft} differs from K1 on the run's faces")
+        if not soft:
+            hard = (tile, ranges)
+    tile, ranges = hard
+    ms = cuda_ms(lambda: kr.raster_stream(coeffs, bounds, ranges, SIZE, SIZE,
+                                          tile, False), reps=10)
+    old_ms = cuda_ms(lambda: kr.raster_stream_every_chunk(
+        coeffs, bounds, ranges, SIZE, SIZE, tile, False), reps=3, warmup=1)
+    k1_ms = cuda_ms(lambda: kr.raster_hard(coeffs, bounds, SIZE, SIZE),
+                    reps=3, warmup=1)
+    ranges_ms = cuda_ms(lambda: kr.stream_ranges(bounds, SIZE, SIZE, tile,
+                                                 0.0), reps=3, warmup=1)
+    cnt = stream_counts(coeffs, bounds, ranges, SIZE)
+    print(f"K6 raster_stream hard on the vertex run's faces: kernel "
+          f"{ms:.3f} ms, every-chunk walk {old_ms:.3f} ms, K1 {k1_ms:.3f} "
+          f"ms, stream_ranges {ranges_ms:.3f} ms; counts " + json.dumps(cnt))
+    # The plain version tests every pair its ranges hold: the largest size
+    # whose walk holds at most 2e9 pairs.
+    for size in (128, 96, 64):
+        c_s, b_s = faces_at(size)
+        walked = 0
+        for soft in (False, True):
+            t = kr.cull_tile(size, size, soft)
+            r = kr.stream_ranges(b_s, size, size, t,
+                                 kr.soft_cull_margin(1.0) if soft else 0.0)
+            walked = max(walked, int((r[..., 1] - r[..., 0] + 1).clamp(
+                min=0).sum()) * t * kr.FACE_CHUNK)
+        if walked <= 2e9 or size == 64:
+            break
+    plain_ms = None
+    for soft in (False, True):
+        got, r, t, _, n_new, n_old = _stream_pair(kr, c_s, b_s, size, soft)
+        t0 = time.perf_counter()
+        want = kr.raster_stream_plain(c_s, r, size, size, t, soft)
+        torch.cuda.synchronize()
+        if not soft:
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        if soft:
+            same = same and torch.equal(got[2], want[2])
+        print(f"K6 on the run's faces at {size}² soft={soft}: ids, zbuf"
+              f"{' and nearest' if soft else ''} bit-equal to the plain "
+              f"version {same}; chunks tested {n_new} of {n_old} walked")
+        if not same:
+            fail(f"K6 soft={soft} differs from its plain version on the "
+                 f"run's faces at {size}²")
+    rec.update({"pristine_ms": rec["ms"], "pristine_bound_ms":
+                rec["bound_ms"], "pristine_counts": rec.pop("counts"),
+                "ms": ms, "every_chunk_ms": old_ms, "k1_ms": k1_ms,
+                "stream_ranges_ms": ranges_ms, "counts": cnt,
+                "plain_ms": plain_ms,
+                "plain_at": f"the vertex run's faces at {size}², 4 views",
+                "faces": "the 327,680-face vertex run's final.obj"})
+    with_bound(rec, cnt["pairs"] * PAIR_OPS["hard"],
+               raster_bytes(coeffs, 12, ranges, 8, SIZE), F32_FLOPS,
+               rec["library_ms"])
 
 
 def _tie_check(fv, p_a, p_b, z):
@@ -719,8 +878,8 @@ def _conv_fwd_dx(x, w, b, ct, relu, tol, key, what):
 def conv_check(dev):
     """K2 at every VGG conv of the main path (batch 4, 512² input), forward
     and input gradient: in bf16 on the tensor-core kernel, in float32 on the
-    3xTF32 tensor-core kernel, plus conv1_1's 3 -> 64 in bf16 (an odd
-    width: CUDA cores). Times (CUDA events) of the 12-conv forward: bf16
+    3xTF32 tensor-core kernel (conv1_1's odd widths: ``narrow_check``).
+    Times (CUDA events) of the 12-conv forward: bf16
     against cuDNN's bf16 ``F.conv2d``, float32 against ``F.conv2d`` in
     float32 with TF32 off (the library time) and, for information, on. The
     3xTF32 bound counts its three products at the TF32 rate."""
@@ -773,26 +932,7 @@ def conv_check(dev):
                   f"plain {t_p:.3f} ms, F.conv2d {t_l:.3f} ms"
                   + (f" (TF32 on {t_l32:.3f})" if t_l32 else "")
                   + f", bound {t_b:.4f} ms")
-    # An odd width (conv1_1, 3 -> 64) in bf16 takes the CUDA cores.
-    x, w, b, ct = _conv_operands(gen, dev, 3, 64, SIZE, torch.bfloat16)
-    err, text = _conv_fwd_dx(x, w, b, ct, False, 1e-2, "conv3x3_nhwc",
-                             "3->64 512² bf16")
-    t_k = cuda_ms(lambda: conv3x3_nhwc(x, w, b), 5)
-    t_p = cuda_ms(lambda: conv3x3_nhwc_plain(x, w, b), 3, 1)
-    xl = x.permute(0, 3, 1, 2)
-    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-    t_l = cuda_ms(lambda: F.conv2d(xl, wl, b, padding=1), 5)
-    px = VIEWS * SIZE * SIZE
-    print(f"K2 conv3x3_nhwc   3->64  512² bf16 {text}  kernel {t_k:.3f} ms, "
-          f"plain {t_p:.3f} ms, F.conv2d {t_l:.3f} ms")
-    recs = [with_bound({
-        "name": "conv3x3_nhwc", "route": "cuda",
-        "source": "st3d_torch/csrc/conv3x3_nhwc.cu",
-        "replaces": "st3d/kernels/conv_pallas.py:128", "dtype": "bfloat16",
-        "shape": "3->64 at 512² x 4 (the widths conv_route keeps off the "
-                 "tensor cores)", "max_abs_err": err, "ms": t_k,
-        "plain_ms": t_p}, 2 * 9 * 3 * 64 * px,
-        2 * (px * (3 + 64) + 9 * 3 * 64 + 64), F32_FLOPS, t_l)]
+    recs = []
     for dtype, key in keys.items():
         t = tot[key]
         name = str(dtype)[6:]
@@ -818,11 +958,134 @@ def conv_check(dev):
     return recs
 
 
+# (Cin, Cout, H) of K2 at the widths TMA cannot stride: conv1_1 and its
+# input gradient at the main path's 512², two more odd pairs smaller.
+NARROW_CONVS = [(3, 64, SIZE), (64, 3, SIZE), (5, 12, 128), (12, 5, 128)]
+NARROW_KEYS = {"bfloat16": "conv3x3_narrow_wgmma",
+               "float32": "conv3x3_narrow_tf32x3"}
+
+
+def _exact_twins(gen, dev, cin, cout, h, dtype, key, what):
+    """Forward (with ReLU) and dx on data exact in bf16 and TF32 (x and the
+    cotangent in quarters, weights and bias in eighths): every sum is exact
+    in float32, so the kernel must equal the plain version bit for bit."""
+    import torch
+    from st3d_torch.kernels.conv import (LAUNCHES, _transpose_conv,
+                                         conv3x3_nhwc, conv3x3_nhwc_plain,
+                                         transpose_weights)
+
+    def grid(size, unit):
+        return (torch.randint(-4, 5, size, generator=gen, device=dev)
+                .float() * unit).to(dtype)
+
+    x, ct = grid((VIEWS, h, h, cin), 0.25), grid((VIEWS, h, h, cout), 0.25)
+    w, b = grid((3, 3, cin, cout), 0.125), grid((cout,), 0.125)
+    before = dict(LAUNCHES)
+    y, dx = conv3x3_nhwc(x, w, b, True), _transpose_conv(ct, w)
+    torch.cuda.synchronize()
+    if _launched(before) != {key: 2}:
+        fail(f"K2 {what} exact twins: launched {_launched(before)}")
+    zb = torch.zeros(cin, dtype=dtype, device=dev)
+    same = (torch.equal(y, conv3x3_nhwc_plain(x, w, b, True))
+            and torch.equal(dx, conv3x3_nhwc_plain(
+                ct, transpose_weights(w, dtype), zb)))
+    if not same:
+        fail(f"K2 {what}: not bit-equal to the plain version on exact data")
+
+
+def narrow_check(dev):
+    """K2 at the widths TMA cannot stride, on the narrow tensor-core
+    kernels (bf16 ``conv3x3_narrow_wgmma``, float32 ``conv3x3_narrow_tf32x3``)
+    at ``NARROW_CONVS``, batch 4: forward and input gradient against the
+    plain version (max-abs error <= 1e-2 * max|plain| in bf16, <= 1e-4 in
+    float32), each call on its route's kernel, and the exact-data twins
+    bit-equal in both dtypes. At 3 -> 64 and 64 -> 3 (512² x 4), each timed
+    (CUDA events over the wrapper's call, and its kernel's device time
+    under the profiler) beside the CUDA-core ``conv3x3_nhwc`` (launched by
+    no route) and ``F.conv2d`` on the same inputs (float32 with TF32 off).
+    The bound is the bytes (x, y and the weights once) over 3.35 TB/s, or
+    the products on the tensor cores (float32: three TF32 passes)."""
+    import torch
+    import torch.nn.functional as F
+    from st3d_torch.kernels.conv import (conv3x3_cuda_core, conv3x3_nhwc,
+                                         conv3x3_nhwc_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    recs, core = [], {}
+    for dtype, tol, passes, rate in ((torch.bfloat16, 1e-2, 1, BF16_FLOPS),
+                                     (torch.float32, 1e-4, 3, TF32_FLOPS)):
+        name = str(dtype)[6:]
+        key = NARROW_KEYS[name]
+        rec = {"name": key, "route": "cuda",
+               "source": f"st3d_torch/csrc/{key}.cu",
+               "replaces": "st3d/kernels/conv_pallas.py:128", "dtype": name,
+               "shape": "3->64 at 512² x 4 (conv1_1); dx_*: 64->3",
+               "max_abs_err": 0.0}
+        for cin, cout, h in NARROW_CONVS:
+            what = f"{cin:>2}->{cout:<2} {h}² {name}"
+            x, w, b, ct = _conv_operands(gen, dev, cin, cout, h, dtype)
+            err, text = _conv_fwd_dx(x, w, b, ct, False, tol, key, what)
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            _exact_twins(gen, dev, cin, cout, h, dtype, key, what)
+            if h != SIZE:
+                print(f"K2 {key} {what} {text}, exact twins bit-equal")
+                continue
+            t_k = cuda_ms(lambda: conv3x3_nhwc(x, w, b), 10)
+            dev_k = sum(v for k, v in profiled_ms(
+                lambda: conv3x3_nhwc(x, w, b))[1].items() if "narrow" in k)
+            t_c = cuda_ms(lambda: conv3x3_cuda_core(x, w, b), 5)
+            ref = conv3x3_nhwc_plain(x, w, b).float()
+            err_c = float((conv3x3_cuda_core(x, w, b).float() - ref).abs()
+                          .max())
+            if not err_c <= tol * float(ref.abs().max()):
+                fail(f"conv3x3_nhwc {what}: max err {err_c}")
+            t_p = cuda_ms(lambda: conv3x3_nhwc_plain(x, w, b), 3, 1)
+            xl = x.permute(0, 3, 1, 2)
+            wl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            t_l = cuda_ms(lambda: F.conv2d(xl, wl, b, padding=1), 10)
+            px = VIEWS * h * h
+            t_b, by = bound(passes * 2 * 9 * cin * cout * px,
+                            x.element_size() * (px * (cin + cout)
+                                                + 9 * cin * cout + cout),
+                            rate)
+            print(f"K2 {key} {what} {text}, exact twins bit-equal; kernel "
+                  f"{t_k:.4f} ms ({dev_k:.4f} device), CUDA-core "
+                  f"conv3x3_nhwc {t_c:.4f} ms, F.conv2d {t_l:.4f} ms "
+                  f"({t_k / t_l:.2f}x), plain {t_p:.3f} ms, bound "
+                  f"{t_b:.4f} ms ({by})")
+            part = {"ms": t_k, "device_ms": dev_k, "plain_ms": t_p,
+                    "bound_ms": t_b, "bound_by": by, "library_ms": t_l,
+                    "cuda_core_ms": t_c}
+            if cin == 3:
+                rec.update(part)
+            else:
+                rec.update({"dx_" + k: v for k, v in part.items()})
+            core.setdefault((cin, cout), {})[name] = (t_c, t_b, by, t_l, t_p,
+                                                      err_c)
+        recs.append(rec)
+    # The CUDA-core kernel, launched by no route: its times above, the bf16
+    # 3 -> 64 as its row.
+    t_c, t_b, by, t_l, t_p, err_c = core[(3, 64)]["bfloat16"]
+    recs.append({"name": "conv3x3_nhwc", "route": "cuda",
+                 "source": "st3d_torch/csrc/conv3x3_nhwc.cu",
+                 "replaces": "st3d/kernels/conv_pallas.py:128",
+                 "dtype": "bfloat16",
+                 "shape": "3->64 at 512² x 4 (launched by no route; timed "
+                          "beside the narrow kernels)",
+                 "max_abs_err": err_c, "ms": t_c, "plain_ms": t_p,
+                 "bound_ms": t_b, "bound_by": by, "library_ms": t_l,
+                 "times": {f"{ci}->{co} {dt}": v[0] for (ci, co), d in
+                           core.items() for dt, v in d.items()}})
+    return recs
+
+
 def gram_check(dev):
     """K3 at the four style-Gram shapes of the main path: bf16 on the
     tensor-core kernel, float32 on the 3xTF32 one (each bit-identical on a
     second call), the CUDA-core kernel held and timed on the same float32
-    inputs, plus conv1_1's 27-wide PᵀP in bf16 (CUDA cores). Times of the
+    inputs, plus conv1_1's 27-wide PᵀP in bf16 (CUDA cores, beside one
+    ``torch.bmm`` in bf16). Times of the
     four Grams: bf16 against ``torch.bmm`` in bf16 (its output rounded to
     bf16, where K3 keeps float32), float32 against ``torch.bmm`` in float32
     with TF32 off."""
@@ -870,8 +1133,15 @@ def gram_check(dev):
         g_p = gram_nhwc_plain(y)
         line = held(key, gram_nhwc, y, g_p, tol)
         if c == 27:
+            # conv1_1's PᵀP on the CUDA cores, beside one torch.bmm in bf16
+            # (bf16 out, as the bf16 Grams' yardstick).
             t27 = cuda_ms(lambda: gram_nhwc(y))
-            print(f"{line}  kernel {t27:.3f} ms")
+            t27_lib = cuda_ms(lambda: torch.bmm(y.transpose(1, 2), y))
+            t27_b = bound(2 * VIEWS * pixels * c * c,
+                          y.element_size() * VIEWS * pixels * c
+                          + 4 * VIEWS * c * c, F32_FLOPS)
+            print(f"{line}  kernel {t27:.3f} ms, bmm {t27_lib:.3f} ms, bound "
+                  f"{t27_b[0]:.4f} ms ({t27_b[1]})")
             continue
         flops = 2 * VIEWS * pixels * c * c
         nbytes = y.element_size() * VIEWS * pixels * c + 4 * VIEWS * c * c
@@ -913,7 +1183,9 @@ def gram_check(dev):
         if key == "gram_nhwc":
             rec["shapes"] = ("the four f32 style Grams (the widths "
                              "gram_route now sends to gram_tf32x3)")
-            rec["ms_27_wide_bf16"] = t27
+            rec.update({"ms_27_wide_bf16": t27,
+                        "library_ms_27_wide_bf16": t27_lib,
+                        "bound_ms_27_wide_bf16": t27_b[0]})
         recs.append(rec)
     return recs
 
@@ -1999,7 +2271,8 @@ def main(argv=None):
     card_phase()
     card = smi()
     lap("build")
-    kernels = [raster_check(dev)] + conv_check(dev) + gram_check(dev)
+    kernels = [raster_check(dev)] + conv_check(dev) + narrow_check(dev)
+    kernels += gram_check(dev)
     kernels += stage1_check(dev)
     lap("K1-K3, A-D checks")
     kernels += [raster_soft_check(dev), raster_stream_check(dev),
@@ -2030,6 +2303,10 @@ def main(argv=None):
         for mode, (target, *_) in VERTEX_RUNS.items():
             vertex[mode] = vertex_path(tmp, scenes, mode, card)
             lap(f"{target} {mode}")
+        raster_stream_run_check(
+            dev, os.path.join(tmp, "both_stream", "final.obj"),
+            next(k for k in kernels if k["name"] == "raster_stream"))
+        lap("K6 on the run's faces")
         first = first_approach_path(tmp, obj, style)
         first_approach_path(tmp, obj, style, "both",
                             (FA_BOTH_STEPS, FA_BOTH_STEPS))

@@ -96,9 +96,9 @@ def _check_config(cfg: PipelineConfig) -> None:
 def _unsupported(cfg: PipelineConfig) -> str:
     """Why ``cfg`` is outside what the port runs yet ('' when it is not)."""
     if cfg.checkpoint_every or cfg.resume:
-        return "checkpoints and --resume (ROADMAP queue 1 item 11)"
+        return "checkpoints and --resume (not yet ported)"
     if cfg.data_parallel or cfg.tile_parallel:
-        return "data/tile parallelism (ROADMAP queue 1 item 14)"
+        return "data/tile parallelism (not yet ported)"
     if cfg.profile or cfg.debug_nan:
         return "--profile and --debug_nan (not yet ported)"
     return ""

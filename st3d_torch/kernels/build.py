@@ -45,7 +45,8 @@ EXTRA_FLAGS: Dict[str, List[str]] = {n: ["-fmad=false"]
 WGMMA_SOURCES = ("conv3x3_wgmma", "conv3x3_tf32x3", "gram_wgmma",
                  "gram_tf32x3", "pool_route_wgmma", "pool_route_tf32x3",
                  "conv1_1_stats_wgmma", "conv1_1_bwd_wgmma",
-                 "conv1_1_stats_tf32x3", "conv1_1_bwd_tf32x3")
+                 "conv1_1_stats_tf32x3", "conv1_1_bwd_tf32x3",
+                 "conv3x3_narrow_wgmma", "conv3x3_narrow_tf32x3")
 EXTRA_FLAGS.update({n: ["-Xptxas", "-v"] for n in WGMMA_SOURCES})
 LINK_FLAGS: Dict[str, List[str]] = {n: ["-lcuda"] for n in WGMMA_SOURCES}
 
@@ -160,9 +161,11 @@ def build_all() -> Dict[str, float]:
 def ptxas_report(name: str) -> List[str]:
     """ptxas's lines on registers, shared memory and spills for the kernels
     of ``csrc/<name>.cu``, from its build in this process (empty if it was
-    built earlier or without ``-v``)."""
+    built earlier or without ``-v``); its notes on the warpgroup arrives
+    it injects around register-A ``wgmma`` are left out."""
     return [l.strip() for l in BUILD_LOGS.get(name, "").splitlines()
-            if "Compiling entry" in l or "registers" in l or "spill" in l]
+            if ("Compiling entry" in l or "registers" in l or "spill" in l)
+            and "warpgroup.arrive" not in l]
 
 
 def symbol(lib: str, name: str, n_ptr: int, n_int: int, n_float: int = 0):

@@ -7,12 +7,19 @@ kernels:
   activations, HWIO weights, float32 accumulation, output in the input
   dtype (bf16 or f32). It also runs every backward: the input gradient of a
   stride-1 SAME conv is the same conv of the cotangent with flipped,
-  IO-transposed weights and a zero bias. Three kernels, chosen by
+  IO-transposed weights and a zero bias. Four kernels, chosen by
   ``conv_route`` on dtype and widths: ``csrc/conv3x3_wgmma.cu`` (bf16 on
   the tensor cores, TMA-fed tiles of ``conv_tile``'s shape),
   ``csrc/conv3x3_tf32x3.cu`` (float32 on the tensor cores by the 3xTF32
-  split of ``split_tf32``, the same tiles) and ``csrc/conv3x3_nhwc.cu``
-  (the CUDA cores: widths TMA cannot stride).
+  split of ``split_tf32``, the same tiles), and for the widths TMA cannot
+  stride (conv1_1's 3 -> 64 and its 64 -> 3 input gradient)
+  ``csrc/conv3x3_narrow_wgmma.cu`` (bf16) and
+  ``csrc/conv3x3_narrow_tf32x3.cu`` (float32, 3xTF32), both on the tensor
+  cores with the A fragments loaded from a halo staged by cp.async (3
+  channels) or TMA (multiples of 32 bytes) and the weights laid out by
+  ``narrow_weights``. ``csrc/conv3x3_nhwc.cu`` (the CUDA cores) takes no
+  route but widths whose narrow tiles overflow shared memory (none in
+  VGG); ``conv3x3_cuda_core`` calls it.
 - K3 ``gram_nhwc``: per-image unnormalised Gram ``yᵀy`` from y in its
   stored dtype, into float32, split over pixel slices by ``gram_split``.
   Three kernels, chosen by ``gram_route``: ``csrc/gram_wgmma.cu`` (bf16,
@@ -50,6 +57,7 @@ as they were XLA ops outside the TPU kernel.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -59,6 +67,8 @@ from st3d_torch.kernels import build
 
 LAUNCHES: Dict[str, int] = {"conv3x3_nhwc": 0, "conv3x3_wgmma": 0,
                             "conv3x3_tf32x3": 0,
+                            "conv3x3_narrow_wgmma": 0,
+                            "conv3x3_narrow_tf32x3": 0,
                             "gram_nhwc": 0, "gram_wgmma": 0,
                             "gram_tf32x3": 0,
                             "conv3x3_relu_pool": 0,
@@ -79,14 +89,16 @@ POOL_TILE_WIDTH = 64            # widest tile that holds whole 2x2 windows
 GRAM_PLAN = {"wgmma": (128, True, 64, 256, 2 * SMS),
              "tf32x3": (128, True, 32, 256, 2 * SMS),
              "cuda_core": (64, False, 16, 256, 4 * SMS)}
+# The narrow K2 (csrc/conv_narrow.cuh): output channels a block (wgmma's n),
+# and a block's dynamic shared memory.
+NARROW_NB = (8, 16, 32, 64)
+NARROW_MAX_BW = 64              # its widest 128-pixel tile box: 64 x 2
+SMEM_LIMIT = 232448
+NARROW_ROUTES = {torch.bfloat16: "narrow_wgmma",
+                 torch.float32: "narrow_tf32x3"}
 
 
-def conv_route(dtype: torch.dtype, cin: int, cout: int) -> str:
-    """The K2 kernel a CUDA tensor takes: "wgmma" (``csrc/conv3x3_wgmma.cu``)
-    for bf16 with Cin and Cout multiples of 8, "tf32x3"
-    (``csrc/conv3x3_tf32x3.cu``) for float32 with Cin and Cout multiples of
-    4 (TMA's global strides are multiples of 16 bytes), else "cuda_core"
-    (``csrc/conv3x3_nhwc.cu``)."""
+def _tma_route(dtype: torch.dtype, cin: int, cout: int) -> str:
     if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0:
         return "wgmma"
     if dtype == torch.float32 and cin % 4 == 0 and cout % 4 == 0:
@@ -94,14 +106,31 @@ def conv_route(dtype: torch.dtype, cin: int, cout: int) -> str:
     return "cuda_core"
 
 
+def conv_route(dtype: torch.dtype, cin: int, cout: int) -> str:
+    """The K2 kernel a CUDA tensor takes: "wgmma" (``csrc/conv3x3_wgmma.cu``)
+    for bf16 with Cin and Cout multiples of 8, "tf32x3"
+    (``csrc/conv3x3_tf32x3.cu``) for float32 with Cin and Cout multiples of
+    4 (TMA's global strides are multiples of 16 bytes); the other widths
+    in bf16 "narrow_wgmma" (``csrc/conv3x3_narrow_wgmma.cu``) and in
+    float32 "narrow_tf32x3" (``csrc/conv3x3_narrow_tf32x3.cu``) wherever
+    ``narrow_nb`` finds a plan; else "cuda_core" (``csrc/conv3x3_nhwc.cu``:
+    widths whose narrow tiles overflow shared memory, and dtypes with no
+    tensor-core route, which the wrapper refuses)."""
+    route = _tma_route(dtype, cin, cout)
+    if route == "cuda_core" and dtype in NARROW_ROUTES and narrow_nb(
+            dtype, cin, cout):
+        return NARROW_ROUTES[dtype]
+    return route
+
+
 def relu_pool_route(dtype: torch.dtype, cin: int, cout: int) -> str:
     """The kernel ``conv3x3_relu_pool`` takes for a CUDA tensor: "wgmma"
     (``csrc/conv3x3_wgmma.cu`` with its pool epilogue) for bf16 with Cin
     and Cout multiples of 8, "tf32x3" (``csrc/conv3x3_tf32x3.cu`` with its
     pool epilogue) for float32 with Cin and Cout multiples of 4
-    (``conv_route``'s rules), else "cuda_core"
+    (``conv_route``'s TMA rules), else "cuda_core"
     (``csrc/conv3x3_relu_pool.cu``)."""
-    return conv_route(dtype, cin, cout)
+    return _tma_route(dtype, cin, cout)
 
 
 def pool_route(dtype: torch.dtype, c: int, cin: int) -> str:
@@ -131,6 +160,105 @@ def gram_route(dtype: torch.dtype, c: int) -> str:
     if dtype == torch.float32 and c % 4 == 0:
         return "tf32x3"
     return "cuda_core"
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def narrow_smem(esize: int, cin: int, cout: int, nb: int, bw: int) -> int:
+    """Dynamic shared memory of a narrow K2 block (``csrc/conv_narrow.cuh``
+    ``make_plan``) for ``esize``-byte elements, ``nb`` output channels and
+    tiles ``bw`` wide (a power of two up to ``NARROW_MAX_BW``): the
+    weights (hi and lo in float32), two halo stages (TMA boxes of
+    128-byte channel slabs when Cin fills whole 32-byte k-steps, else raw
+    rows), the output staging (two swizzled TMA tiles where an output
+    pixel is 128 or 256 bytes), the bias, the k table of a raw halo and
+    1 KB of alignment."""
+    kstep, slab = 32 // esize, 128 // esize
+    bh = CONV_TILE_PIXELS // bw
+    # 128- and 256-byte output pixels leave by TMA from two swizzled tiles.
+    out = (2 * CONV_TILE_PIXELS * cout * esize
+           if cout * esize in (128, 256) and nb == cout
+           else _round_up(bh * (_round_up(bw * nb * esize, 16) + 16), 128))
+    padded = cin % kstep == 0
+    pitch = 128 if padded else _round_up((bw + 2) * cin * esize, 16) + 32
+    kt = _round_up(9 * cin, kstep)
+    w = -(-kt * esize // 128) * nb * 128 * (2 if esize == 4 else 1)
+    stage = _round_up((bh + 2) * ((bw + 2) * pitch if padded else pitch),
+                      1024)
+    table = 0 if padded else 4 * kt
+    return (_round_up(w + 2 * stage, 1024) + out + _round_up(4 * nb, 128)
+            + table + 1024)
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_nb(dtype: torch.dtype, cin: int, cout: int):
+    """Output channels a narrow K2 block takes: the least of
+    ``NARROW_NB`` that covers Cout (64 past it: more blocks), halved while
+    a block of the widest tile plan overflows ``SMEM_LIMIT``; None where 8
+    does."""
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nb = next((n for n in NARROW_NB if n >= cout), NARROW_NB[-1])
+    widths = [2 ** i for i in range(NARROW_MAX_BW.bit_length())]
+    while nb >= NARROW_NB[0]:
+        if max(narrow_smem(esize, cin, cout, nb, bw) for bw in widths) \
+                <= SMEM_LIMIT:
+            return nb
+        nb //= 2
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def narrow_perm(cin: int, esize: int) -> torch.Tensor:
+    """The channel each K position of a tap holds in the narrow K2, for
+    ``esize``-byte elements: in order, but where Cin fills whole 32-byte
+    k-steps (a padded halo), each full 128-byte slab of 4 k-steps is
+    permuted so that a thread's fragment words of two k-steps are one
+    16-byte chunk of a halo pixel: position KSTEP * s + col holds channel
+    16 * ((col % 8) // 2) + 4 * s + 2 * (col // 8) + col % 2 in bf16 and
+    8 * (col % 4) + 2 * s + col // 4 in float32 (csrc/conv_narrow.cuh)."""
+    kstep, slab = 32 // esize, 128 // esize
+    perm = list(range(cin))
+    if cin % kstep == 0:
+        for base in range(0, cin - slab + 1, slab):
+            for s in range(4):
+                for col in range(kstep):
+                    ch = (16 * ((col % 8) // 2) + 4 * s + 2 * (col // 8)
+                          + col % 2 if esize == 2
+                          else 8 * (col % 4) + 2 * s + col // 4)
+                    perm[base + kstep * s + col] = base + ch
+    return torch.tensor(perm)
+
+
+@functools.lru_cache(maxsize=None)
+def _narrow_index(cin: int, cout: int, nb: int, esize: int,
+                  device: torch.device) -> torch.Tensor:
+    """``narrow_weights``' gather, built once: for each of its (rows, KT)
+    entries, the flat index into HWIO weights with one zero appended (the
+    padding's), on ``device``."""
+    kt = _round_up(9 * cin, 32 // esize)
+    rows = _round_up(cout, nb)
+    perm = narrow_perm(cin, esize)
+    k = torch.arange(kt)
+    tap, j = k // cin, k % cin
+    src = (tap[None, :] * cin + perm[j % cin][None, :]) * cout + torch.arange(
+        rows)[:, None]
+    pad = (k[None, :] >= 9 * cin) | (torch.arange(rows)[:, None] >= cout)
+    return torch.where(pad, 9 * cin * cout, src).reshape(-1).to(device)
+
+
+def narrow_weights(w: torch.Tensor, nb: int) -> torch.Tensor:
+    """HWIO (3, 3, Cin, Cout) weights as the narrow K2's B operand:
+    (nb * ceil(Cout / nb), KT) K-major, row n holding
+    w[dy, dx, narrow_perm[j], n] at k = (dy * 3 + dx) * Cin + j (the dense
+    im2col order), KT = 9 * Cin rounded up to a 32-byte k-step (16 bf16,
+    8 float32); padding rows and columns zero. One gather a call, by an
+    index built once per shape."""
+    cin, cout = w.shape[2], w.shape[3]
+    idx = _narrow_index(cin, cout, nb, w.element_size(), w.device)
+    flat = F.pad(w.reshape(-1), (0, 1))
+    return flat[idx].view(_round_up(cout, nb), -1)
 
 
 def conv_tile(width: int) -> Tuple[int, int]:
@@ -212,6 +340,18 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return _conv3x3_wgmma(x, w, b, relu)
     if route == "tf32x3":
         return _conv3x3_tf32x3(x, w, b, relu)
+    if route in ("narrow_wgmma", "narrow_tf32x3"):
+        return _conv3x3_narrow(x, w, b, relu)
+    return conv3x3_cuda_core(x, w, b, relu)
+
+
+def conv3x3_cuda_core(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                      relu: bool = False) -> torch.Tensor:
+    """K2 on the CUDA cores (``csrc/conv3x3_nhwc.cu``): scalar FMAs, any
+    widths; CUDA tensors only. ``conv_route`` sends it only widths whose
+    narrow tiles overflow shared memory."""
+    cin, cout = _conv_shapes(x, w, b)
+    build.check_operands("conv3x3_nhwc", x, w, b)
     bsz, h, wd, _ = x.shape
     x = x.contiguous()
     wf = w.reshape(9 * cin, cout).contiguous()
@@ -249,6 +389,37 @@ def _conv3x3_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
              build.stream_handle(x.device))
     build.check(err, "conv3x3_wgmma")
     LAUNCHES["conv3x3_wgmma"] += 1
+    return y
+
+
+def _conv3x3_narrow(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    relu: bool) -> torch.Tensor:
+    """K2 at the widths TMA cannot stride, on the tensor cores: bf16
+    (``csrc/conv3x3_narrow_wgmma.cu``) or float32 by the 3xTF32 split
+    (``csrc/conv3x3_narrow_tf32x3.cu``, the weights split by
+    ``split_tf32``), w laid out by ``narrow_weights``."""
+    bsz, h, wd, cin = x.shape
+    cout = w.shape[3]
+    nb = narrow_nb(x.dtype, cin, cout)
+    x = _tma_ready(x)
+    wk = narrow_weights(w, nb)
+    b = b.contiguous()
+    y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
+    stream = build.stream_handle(x.device)
+    if x.dtype == torch.bfloat16:
+        key = "conv3x3_narrow_wgmma"
+        fn = build.symbol(key, "st3d_conv3x3_narrow_wgmma_bf16", 4, 7)
+        err = fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(), y.data_ptr(),
+                 bsz, h, wd, cin, cout, int(relu), nb, stream)
+    else:
+        key = "conv3x3_narrow_tf32x3"
+        w_hi, w_lo = split_tf32(wk)
+        fn = build.symbol(key, "st3d_conv3x3_narrow_tf32x3_f32", 5, 7)
+        err = fn(x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(),
+                 b.data_ptr(), y.data_ptr(), bsz, h, wd, cin, cout,
+                 int(relu), nb, stream)
+    build.check(err, key)
+    LAUNCHES[key] += 1
     return y
 
 

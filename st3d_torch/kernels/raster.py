@@ -21,8 +21,12 @@ Counterpart of ``st3d/kernels/raster_pallas.py``:
      with the row-band cull widened by ``soft_cull_margin``.
    - ``raster_stream`` (K6, ``csrc/raster_stream.cu``): K1's outputs, hard
      or soft, with each tile walking its own [c_lo, c_hi] chunk range
-     (``stream_ranges``) and the chunks staged through a double buffer;
-     used for meshes whose coefficients pass ``RESIDENT_COEFF_BUDGET``.
+     (``stream_ranges``), testing only the chunks whose band meets the
+     block's rows (soft: by the margin, once every pixel of the block is
+     within it of a face) and staging them through a double buffer; used
+     for meshes whose coefficients pass ``RESIDENT_COEFF_BUDGET``.
+     ``raster_stream_every_chunk`` is the TPU kernel's walk (every chunk
+     of the range), launched by no route.
    - ``raster_topk`` (K7, ``csrc/raster_topk.cu``): per pixel, the K
      nearest-by-raw-1/z faces with signed distance > -window, near to far.
    - ``raster_2d`` (K9, ``csrc/raster_2d.cu``): K1's hard outputs on
@@ -67,8 +71,9 @@ MAX_TOPK = 16         # slots the top-K kernel is instantiated for
 RESIDENT_COEFF_BUDGET = 7 * 1024 * 1024
 
 LAUNCHES: Dict[str, int] = {"raster_hard": 0, "raster_soft": 0,
-                            "raster_stream": 0, "raster_topk": 0,
-                            "raster_2d": 0}
+                            "raster_stream": 0,
+                            "raster_stream_every_chunk": 0,
+                            "raster_topk": 0, "raster_2d": 0}
 TILE_2D = 16          # pixels per side of K9's tile (csrc/raster_2d.cu)
 
 
@@ -538,33 +543,61 @@ def raster_soft(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int,
     return p2f, zbuf, near
 
 
-def raster_stream(coeffs: torch.Tensor, ranges: torch.Tensor, h: int,
-                  w: int, tile: int, soft: bool):
-    """K6 on preprocessed faces and per-tile chunk ranges (N, n_tiles, 2)
-    int32 (``stream_ranges`` with the same ``tile``): (p2f, zbuf, nearest)
-    (N, H*W) in sorted ids; nearest is None in hard mode."""
+def raster_stream(coeffs: torch.Tensor, bounds: torch.Tensor,
+                  ranges: torch.Tensor, h: int, w: int, tile: int,
+                  soft: bool, margin: float = 0.0,
+                  tested: Optional[torch.Tensor] = None):
+    """K6 on preprocessed faces, their chunk bounds (N, 2, n_chunks) and
+    per-tile chunk ranges (N, n_tiles, 2) int32 (``stream_ranges`` with the
+    same ``tile`` and ``margin``): (p2f, zbuf, nearest) (N, H*W) in sorted
+    ids; nearest is None in hard mode. A CUDA kernel adds the chunks it
+    tested to ``tested`` (a one-element int64 CUDA tensor) if given."""
+    return _stream("raster_stream", coeffs, bounds, ranges, h, w, tile, soft,
+                   margin, tested)
+
+
+def raster_stream_every_chunk(coeffs: torch.Tensor, bounds: torch.Tensor,
+                              ranges: torch.Tensor, h: int, w: int,
+                              tile: int, soft: bool, margin: float = 0.0,
+                              tested: Optional[torch.Tensor] = None):
+    """``raster_stream`` by the TPU kernel's walk: every chunk of each
+    range is staged and tested. Launched by no route; the twin the
+    redesigned walk is held against."""
+    return _stream("raster_stream_every_chunk", coeffs, bounds, ranges, h, w,
+                   tile, soft, margin, tested)
+
+
+def _stream(name: str, coeffs: torch.Tensor, bounds: torch.Tensor,
+            ranges: torch.Tensor, h: int, w: int, tile: int, soft: bool,
+            margin: float, tested: Optional[torch.Tensor]):
     n, _, f_pad = coeffs.shape
     n_tiles = -(-(h * w) // tile)
-    if _check_coeffs("raster_stream", coeffs, ranges, (n, n_tiles, 2),
-                     torch.int32):
+    if _check_coeffs(name, coeffs, ranges, (n, n_tiles, 2), torch.int32):
         return raster_stream_plain(coeffs, ranges, h, w, tile, soft)
+    _check_coeffs(name, coeffs, bounds, (n, 2, f_pad // FACE_CHUNK),
+                  torch.float32)
     if tile % TILE_PIXELS and tile < h * w:
-        raise ValueError(f"raster_stream: tile {tile} must be a multiple of "
+        raise ValueError(f"{name}: tile {tile} must be a multiple of "
                          f"{TILE_PIXELS} or cover the frame")
-    coeffs, ranges = coeffs.contiguous(), ranges.contiguous()
+    coeffs, bounds = coeffs.contiguous(), bounds.contiguous()
+    ranges = ranges.contiguous()
     if coeffs.data_ptr() % 16:
-        raise ValueError("raster_stream: coeffs must be 16-byte aligned")
+        raise ValueError(f"{name}: coeffs must be 16-byte aligned")
     dev = coeffs.device
+    if tested is not None and (tested.device != dev or tested.dtype
+                               != torch.int64 or tested.numel() != 1):
+        raise ValueError(f"{name}: tested must be one int64 on {dev}")
     p2f = torch.empty((n, h * w), dtype=torch.int32, device=dev)
     zbuf = torch.empty((n, h * w), dtype=torch.float32, device=dev)
     near = torch.empty((n, h * w) if soft else (1,), dtype=torch.int32,
                        device=dev)
-    fn = build.symbol("raster_stream", "st3d_raster_stream", 5, 7)
-    err = fn(coeffs.data_ptr(), ranges.data_ptr(), p2f.data_ptr(),
-             zbuf.data_ptr(), near.data_ptr(), n, h, w, f_pad, n_tiles, tile,
-             int(soft), build.stream_handle(dev))
-    build.check(err, "raster_stream")
-    LAUNCHES["raster_stream"] += 1
+    fn = build.symbol("raster_stream", "st3d_" + name, 7, 7, 1)
+    err = fn(coeffs.data_ptr(), bounds.data_ptr(), ranges.data_ptr(),
+             p2f.data_ptr(), zbuf.data_ptr(), near.data_ptr(),
+             0 if tested is None else tested.data_ptr(), n, h, w, f_pad,
+             n_tiles, tile, int(soft), margin, build.stream_handle(dev))
+    build.check(err, name)
+    LAUNCHES[name] += 1
     return p2f, zbuf, (near if soft else None)
 
 
@@ -639,7 +672,8 @@ def _rasterize(face_verts: torch.Tensor, w: int, h: int, soft: bool,
         coeffs, bounds, order = preprocess(face_verts.detach())
         if stream:
             ranges = stream_ranges(bounds, h, w, tile, margin)
-            p2f, zbuf, near = raster_stream(coeffs, ranges, h, w, tile, soft)
+            p2f, zbuf, near = raster_stream(coeffs, bounds, ranges, h, w,
+                                            tile, soft, margin)
         elif soft:
             p2f, zbuf, near = raster_soft(coeffs, bounds, h, w, margin, tile)
         else:

@@ -1,8 +1,11 @@
 """Which K2, K3 and D kernel a CUDA tensor takes, and the tensor-core
 kernels' tile plans, as the pure functions of ``st3d_torch.kernels.conv``
 (no GPU): ``conv_route`` (bf16 with channel counts that are multiples of 8
-and float32 with multiples of 4 take the tensor cores, the latter by
-3xTF32; anything else the CUDA cores), ``gram_route`` (bf16, multiples of
+and float32 with multiples of 4 take the TMA-fed tensor-core kernels, the
+latter by 3xTF32; the other widths of both dtypes the narrow tensor-core
+kernels wherever ``narrow_nb`` finds a plan; anything else the CUDA
+cores), ``narrow_nb`` and ``narrow_smem`` (the narrow kernels' plan),
+``gram_route`` (bf16, multiples of
 8; float32, multiples of 4, by 3xTF32), ``relu_pool_route`` (``conv_route``'s
 rules), ``pool_route`` (bf16
 with C a multiple of 16 and Cin of 8; float32 with C a multiple of 16 and
@@ -23,14 +26,36 @@ BF16, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("dtype,cin,cout,route", [
     (BF16, 64, 64, "wgmma"), (BF16, 512, 512, "wgmma"),
     (BF16, 128, 64, "wgmma"), (BF16, 8, 16, "wgmma"), (BF16, 40, 24, "wgmma"),
-    (BF16, 3, 64, "cuda_core"), (BF16, 64, 27, "cuda_core"),
-    (BF16, 12, 64, "cuda_core"), (F32, 64, 64, "tf32x3"),
+    (BF16, 3, 64, "narrow_wgmma"), (BF16, 64, 27, "narrow_wgmma"),
+    (BF16, 12, 64, "narrow_wgmma"), (F32, 64, 64, "tf32x3"),
     (F32, 512, 512, "tf32x3"), (torch.float16, 64, 64, "cuda_core"),
-    (F32, 4, 8, "tf32x3"), (F32, 40, 24, "tf32x3"), (F32, 3, 64, "cuda_core"),
-    (F32, 64, 27, "cuda_core"), (F32, 64, 3, "cuda_core"),
-    (F32, 6, 64, "cuda_core")])
+    (F32, 4, 8, "tf32x3"), (F32, 40, 24, "tf32x3"),
+    (F32, 3, 64, "narrow_tf32x3"), (F32, 64, 27, "narrow_tf32x3"),
+    (F32, 64, 3, "narrow_tf32x3"), (F32, 6, 64, "narrow_tf32x3"),
+    (BF16, 64, 3, "narrow_wgmma"), (torch.float16, 3, 64, "cuda_core"),
+    (F32, 256, 3, "cuda_core"), (BF16, 512, 3, "narrow_wgmma")])
 def test_conv_route(dtype, cin, cout, route):
     assert kconv.conv_route(dtype, cin, cout) == route
+
+
+@pytest.mark.parametrize("dtype,cin,cout,nb", [
+    (BF16, 3, 64, 64), (BF16, 64, 3, 8), (BF16, 5, 12, 16), (BF16, 12, 5, 8),
+    (BF16, 3, 96, 64), (F32, 3, 64, 64), (F32, 64, 3, 8), (F32, 12, 5, 8),
+    (F32, 3, 30, 32), (F32, 256, 3, None)])
+def test_narrow_plan_fits_a_block(dtype, cin, cout, nb):
+    """The narrow K2's output channels a block, and its shared memory at
+    every tile width within a block's (two blocks an SM at conv1_1's
+    3 -> 64 and, in bf16, its 64 -> 3 input gradient); None (the CUDA
+    cores) where 8 channels overflow."""
+    assert kconv.narrow_nb(dtype, cin, cout) == nb
+    if nb is None:
+        return
+    esize = torch.tensor([], dtype=dtype).element_size()
+    widths = [2 ** i for i in range(kconv.NARROW_MAX_BW.bit_length())]
+    smem = [kconv.narrow_smem(esize, cin, cout, nb, bw) for bw in widths]
+    assert max(smem) <= kconv.SMEM_LIMIT
+    if (cin, cout) == (3, 64) or (dtype == BF16 and (cin, cout) == (64, 3)):
+        assert 2 * (smem[-1] + 1024) <= 233472
 
 
 # (dtype, C pooled channels, Cin input channels of the conv, route).

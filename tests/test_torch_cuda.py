@@ -43,6 +43,8 @@ def test_raster_kernel_equals_plain(dev):
 
 
 CONV_KEYS = {"wgmma": "conv3x3_wgmma", "tf32x3": "conv3x3_tf32x3",
+             "narrow_wgmma": "conv3x3_narrow_wgmma",
+             "narrow_tf32x3": "conv3x3_narrow_tf32x3",
              "cuda_core": "conv3x3_nhwc"}
 POOL_KEYS = {"wgmma": "pool_route_wgmma", "tf32x3": "pool_route_tf32x3",
              "cuda_core": "pool_route_conv3x3_bwd"}
@@ -883,9 +885,16 @@ def test_raster_stream_kernel_equals_plain_and_k1(dev, soft):
     margin = kraster.soft_cull_margin(1.0) if soft else 0.0
     ranges = kraster.stream_ranges(bounds, size, size, tile, margin)
     n0 = kraster.LAUNCHES["raster_stream"]
-    got = kraster.raster_stream(coeffs, ranges, size, size, tile, soft)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    got = kraster.raster_stream(coeffs, bounds, ranges, size, size, tile,
+                                soft, margin, counts[0:1])
+    kraster.raster_stream_every_chunk(coeffs, bounds, ranges, size, size,
+                                      tile, soft, margin, counts[1:2])
     torch.cuda.synchronize()
     assert kraster.LAUNCHES["raster_stream"] == n0 + 1
+    # The walk tests no chunk outside the ranges (on the pristine sphere
+    # every chunk of a range meets the rows: nothing to skip).
+    assert 0 < int(counts[0]) <= int(counts[1])
     want = kraster.raster_stream_plain(coeffs, ranges, size, size, tile,
                                        soft)
     assert torch.equal(got[0], want[0])
@@ -1082,3 +1091,138 @@ def test_raster_2d_kernel_equals_plain(dev, size):
     want = kraster.rasterize_batched(fv, size)
     assert torch.equal(got[1], want[1])
     assert float((got[0] != want[0]).float().mean()) < 1e-3
+
+
+# The narrow K2 (``csrc/conv_narrow.cuh``) at conv1_1's widths (3 -> 64, its
+# dx 64 -> 3), two more odd pairs (5 -> 12, 12 -> 5), more output channels
+# than a block takes (3 -> 96: two blocks along grid y, element stores) and
+# 72 channels (bf16: a raw halo wider than a slab; float32: a padded halo of
+# three slabs, the last part-filled), on tile boxes of W = 1, 5, 20, 33,
+# 64 and 130 (ragged), H off and below the box height; forward and dx.
+NARROW_CONVS = [((2, 9, 20), 3, 64), ((1, 5, 130), 3, 64),
+                ((2, 7, 64), 64, 3), ((1, 3, 1), 5, 12),
+                ((2, 11, 5), 12, 5), ((1, 6, 33), 3, 96),
+                ((1, 4, 40), 72, 3)]
+NARROW_KEYS = {torch.bfloat16: "conv3x3_narrow_wgmma",
+               torch.float32: "conv3x3_narrow_tf32x3"}
+
+
+def _narrow_pair(dev, dtype, shape, cin, cout, relu, x, w, b, ct):
+    """Forward and dx through ``conv3x3_nhwc``, both on the narrow kernel
+    of ``dtype``; returns ((got, plain args), ...) for both."""
+    n0 = dict(kconv.LAUNCHES)
+    y = kconv.conv3x3_nhwc(x, w, b, relu)
+    dx = kconv._transpose_conv(ct, w)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {NARROW_KEYS[dtype]: 2}
+    wt = kconv.transpose_weights(w, dtype)
+    zb = torch.zeros(cin, dtype=dtype, device=dev)
+    return ((y, (x, w, b, relu)), (dx, (ct, wt, zb, False)))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
+                                       (torch.float32, 1e-4)])
+@pytest.mark.parametrize("shape,cin,cout", NARROW_CONVS)
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv_narrow_matches_plain(dev, dtype, tol, shape, cin, cout, relu):
+    """max-abs error <= tol * max|plain| (``chip_smoke.py``'s K2
+    tolerances), and in float32 <= 1e-5 * max against a float64 conv."""
+    g = torch.Generator(device=dev).manual_seed(41)
+    x = torch.randn(shape + (cin,), generator=g, device=dev).to(dtype)
+    w = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
+         * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+    b = (torch.randn((cout,), generator=g, device=dev) * 0.1).to(dtype)
+    ct = torch.randn(shape + (cout,), generator=g, device=dev).to(dtype)
+    for got, args in _narrow_pair(dev, dtype, shape, cin, cout, relu, x, w,
+                                  b, ct):
+        assert got.shape == args[0].shape[:3] + (args[1].shape[3],)
+        assert got.dtype == dtype
+        assert _rel_err(got, kconv.conv3x3_nhwc_plain(*args)) <= tol
+        if dtype == torch.float32:
+            assert _rel_err(got, _conv_f64(*args)) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,cin,cout", NARROW_CONVS)
+def test_conv_narrow_bit_equal_on_exact_data(dev, dtype, shape, cin, cout):
+    """x and the cotangent in quarters, weights and bias in eighths (exact
+    in bf16 and TF32, every sum exact in float32): forward with ReLU and
+    dx equal the plain versions bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(43)
+
+    def grid(size, lo, hi, unit):
+        return (torch.randint(lo, hi + 1, size, generator=g, device=dev)
+                .float() * unit).to(dtype)
+
+    x = grid(shape + (cin,), -4, 4, 0.25)
+    w = grid((3, 3, cin, cout), -4, 4, 0.125)
+    b = grid((cout,), -4, 4, 0.125)
+    ct = grid(shape + (cout,), -4, 4, 0.25)
+    for got, args in _narrow_pair(dev, dtype, shape, cin, cout, True, x, w,
+                                  b, ct):
+        assert torch.equal(got, kconv.conv3x3_nhwc_plain(*args))
+
+
+def test_conv_cuda_core_kernel_matches_plain(dev):
+    """The CUDA-core K2, launched by no route since the narrow kernels,
+    still held against its plain version (3 -> 64, bf16)."""
+    g = torch.Generator(device=dev).manual_seed(44)
+    x = torch.randn((2, 12, 20, 3), generator=g, device=dev).bfloat16()
+    w = (torch.randn((3, 3, 3, 64), generator=g, device=dev) * 0.3).bfloat16()
+    b = torch.randn((64,), generator=g, device=dev).bfloat16()
+    n0 = dict(kconv.LAUNCHES)
+    y = kconv.conv3x3_cuda_core(x, w, b, True)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {"conv3x3_nhwc": 1}
+    assert _rel_err(y, kconv.conv3x3_nhwc_plain(x, w, b, True)) <= 1e-2
+
+
+def _stretched_faces(dev, level, size, views=2, seed=0):
+    """Screen faces of the ico-sphere with 3% of its vertices thrown by
+    seeded noise of 0.6 radii: stretched faces whose chunks' row bands span
+    the frame, as after a vertex run's first steps."""
+    from st3d_torch.core.cameras import build_fixed_cameras
+    from st3d_torch.core.primitives import ico_sphere
+    from st3d_torch.render.rasterize import face_verts_screen
+
+    mesh = ico_sphere(level=level)
+    rng = np.random.RandomState(seed)
+    moved = rng.rand(mesh.verts.shape[0]) < 0.03
+    noise = rng.randn(*mesh.verts.shape).astype(np.float32) * 0.6
+    verts = mesh.verts + torch.tensor(noise * moved[:, None])
+    return face_verts_screen(verts.to(dev), mesh.faces.to(dev),
+                             build_fixed_cameras(views, seed=1).to(dev), size)
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_raster_stream_walk_on_stretched_faces(dev, soft):
+    """K6's band-skipping walk on stretched faces: ids, zbuf (and nearest)
+    equal to its plain version and to the every-chunk walk, hard outputs
+    equal to K1's; it tests fewer chunks than the ranges hold."""
+    size = 128
+    fv = _stretched_faces(dev, 4, size)
+    coeffs, bounds, _ = kraster.preprocess(fv)
+    tile = kraster.cull_tile(size, size, soft)
+    margin = kraster.soft_cull_margin(1.0) if soft else 0.0
+    ranges = kraster.stream_ranges(bounds, size, size, tile, margin)
+    counts = torch.zeros(2, dtype=torch.int64, device=dev)
+    n0 = dict(kraster.LAUNCHES)
+    got = kraster.raster_stream(coeffs, bounds, ranges, size, size, tile,
+                                soft, margin, counts[0:1])
+    old = kraster.raster_stream_every_chunk(coeffs, bounds, ranges, size,
+                                            size, tile, soft, margin,
+                                            counts[1:2])
+    torch.cuda.synchronize()
+    assert {k: v - n0[k] for k, v in kraster.LAUNCHES.items()
+            if v != n0[k]} == {"raster_stream": 1,
+                               "raster_stream_every_chunk": 1}
+    want = kraster.raster_stream_plain(coeffs, ranges, size, size, tile,
+                                       soft)
+    for ref in (want, old):
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        if soft:
+            assert torch.equal(got[2], ref[2])
+    p2f, zbuf = kraster.raster_hard(coeffs, bounds, size, size)
+    assert torch.equal(got[0], p2f) and torch.equal(got[1], zbuf)
+    walked, tested = int(counts[1]), int(counts[0])
+    assert 0 < tested <= walked and (soft or tested < walked)

@@ -67,7 +67,7 @@ def test_cpu_tensors_take_the_plain_versions():
                                               256)):
         torch.testing.assert_close(a, c, atol=0, rtol=0)
     ranges = kraster.stream_ranges(bounds, 16, 16, 256, 0.0)
-    got = kraster.raster_stream(coeffs, ranges, 16, 16, 256, False)
+    got = kraster.raster_stream(coeffs, bounds, ranges, 16, 16, 256, False)
     want = kraster.raster_stream_plain(coeffs, ranges, 16, 16, 256, False)
     for a, c in zip(got[:2], want[:2]):
         torch.testing.assert_close(a, c, atol=0, rtol=0)
@@ -91,7 +91,8 @@ def test_wrappers_reject_bad_operands():
     with pytest.raises(ValueError):
         kraster.raster_soft(coeffs, torch.zeros(1, 2, 2), 4, 4, 8.0, 256)
     with pytest.raises(ValueError):
-        kraster.raster_stream(coeffs, torch.zeros(1, 3, 2, dtype=torch.int32),
+        kraster.raster_stream(coeffs, torch.zeros(1, 2, 1),
+                              torch.zeros(1, 3, 2, dtype=torch.int32),
                               4, 4, 256, False)
     with pytest.raises(ValueError):
         kraster.raster_topk(coeffs, torch.zeros(1, 2, 1), 4, 4, 17, 1.0)
