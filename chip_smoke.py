@@ -16,7 +16,11 @@ Phases; any failure raises and the script exits non-zero:
    pix_to_face and nearest_face exactly equal, zbuf within rtol 1e-6;
    K7 ``raster_topk`` (the same faces, K=4 with a 3 px window as SoftRas
    runs it, and K+slack=5 with the window of blur_radius 1e-4): ids
-   exactly equal;
+   exactly equal; each of the two also bit-equal to its every-face twin
+   (``raster_soft_every_face``, ``raster_topk_every_face``: the earlier
+   walk, launched by no route) and timed beside it, with the (pixel, face)
+   pairs its warps' face lists held (``tested``), the twin's and the pairs
+   the function needs;
    K6 ``raster_stream``, forced, at 81,920 faces and 256² against its plain
    version (hard and soft: pix_to_face and nearest exactly equal, zbuf
    within rtol 1e-6), and at 327,680 faces x 512² x 4 against K1 (hard and
@@ -131,7 +135,9 @@ Phases; any failure raises and the script exits non-zero:
    run as its ``final.obj`` holds them (``raster_stream_run_check``): hard
    and soft bit-equal to K1's outputs and to the every-chunk walk, ids (and
    nearest) bit-equal to the plain version at 64² to 128², the counts and
-   the times of both walks and K1.
+   the times of both walks and K1. Then K1-soft on the soft run's
+   ``final.obj`` and K7 (both cases) on the SoftRas run's
+   (``raster_lists_run_check``), held, counted and timed as on the sphere.
 4. The first approach (``st3d_torch.first_approach.main``) at 512², 4 views,
    batch 4, bf16, 30 style-transfer and 20 MSE steps: finite losses, the MSE
    loss falling, four ``2d_style_transfer/`` views, 12 ``final_render/``
@@ -151,7 +157,8 @@ Phases; any failure raises and the script exits non-zero:
    fused-pool run C and D four times as often as the f32 default run.
 6. The wall seconds of each phase, the card's name and power limit, one
    JSON line with the kernels' results (ptxas's registers and spills of
-   the tensor-core kernels are printed after the build), then the last line
+   the tensor-core kernels, K1-soft and K7 are printed after the build),
+   then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -311,7 +318,7 @@ def card_phase():
     secs = build.build_all()
     print(f"kernel build {time.perf_counter() - t0:.2f}s "
           + json.dumps({k: round(v, 2) for k, v in secs.items()}))
-    for name in build.WGMMA_SOURCES:
+    for name in build.REPORT_SOURCES:
         for line in build.ptxas_report(name):
             print(f"{name}: {line}")
 
@@ -435,93 +442,201 @@ def raster_check(dev):
                       raster_bytes(coeffs, 12, bounds, 8, SIZE), F32_FLOPS)
 
 
-def raster_soft_check(dev):
-    """K1's soft mode against its plain version (and its hard outputs
-    against K1) at the main path's shapes."""
+def _soft_held(kr, coeffs, bounds, what):
+    """K1-soft (per-warp face lists) on faces at 512² against its every-face
+    twin (all outputs bit-equal), its plain version (ids bit-equal, zbuf
+    within rtol 1e-6) and K1 (hard outputs bit-equal); its time and the
+    twin's, and the pairs its lists held (``tested``) beside the twin's and
+    the function's."""
     import torch
+
+    margin = kr.soft_cull_margin(1.0)
+    tile = kr.cull_tile(SIZE, SIZE, True)
+    cnt = torch.zeros(1, dtype=torch.int64, device=coeffs.device)
+    before = dict(kr.LAUNCHES)
+    got = kr.raster_soft(coeffs, bounds, SIZE, SIZE, margin, tile, cnt)
+    twin = kr.raster_soft_every_face(coeffs, bounds, SIZE, SIZE, margin,
+                                     tile)
+    launched = {k: n - before[k] for k, n in kr.LAUNCHES.items()
+                if n != before[k]}
+    want = kr.raster_soft_plain(coeffs, bounds, SIZE, SIZE, margin, tile)
+    hard = kr.raster_hard(coeffs, bounds, SIZE, SIZE)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, twin))
+    bad = int((got[0] != want[0]).sum()) + int((got[2] != want[2]).sum())
+    hit = want[0] >= 0
+    zerr = float((got[1] - want[1]).abs().max())
+    zrel = float(((got[1] - want[1]).abs() / want[1].abs())[hit].max())
+    k1 = torch.equal(got[0], hard[0]) and torch.equal(got[1], hard[1])
+    ms = cuda_ms(lambda: kr.raster_soft(coeffs, bounds, SIZE, SIZE, margin,
+                                        tile))
+    twin_ms = cuda_ms(lambda: kr.raster_soft_every_face(
+        coeffs, bounds, SIZE, SIZE, margin, tile))
+    res = {"ms": ms, "every_face_ms": twin_ms, "tested": int(cnt),
+           "tested_every_face": tested_pairs(bounds, SIZE, tile, margin),
+           "needed": needed_pairs(coeffs, SIZE, margin), "max_abs_err": zerr}
+    print(f"K1 raster_soft on {what}: pix_to_face + nearest mismatches "
+          f"{bad}, zbuf max rel err {zrel:.3g} against the plain version; "
+          f"all outputs bit-equal to the every-face twin {same}; hard "
+          f"outputs equal to K1's {k1}; kernel {ms:.3f} ms, every-face twin "
+          f"{twin_ms:.3f} ms; pairs tested {res['tested']} (every-face walk "
+          f"{res['tested_every_face']}), {res['needed']} needed (bbox + "
+          f"{margin} px); launches {json.dumps(launched)}")
+    if bad or zrel > 1e-6:
+        fail(f"K1 soft on {what} differs from its plain version: {bad} ids, "
+             f"zbuf rel {zrel}")
+    if not same:
+        fail(f"K1 soft on {what} differs from its every-face twin")
+    if not k1:
+        fail(f"K1 soft's pix_to_face/zbuf differ from K1's on {what}")
+    if launched != {"raster_soft": 1, "raster_soft_every_face": 1}:
+        fail(f"K1 soft on {what}: launched {launched}")
+    if not 0 < res["tested"] < res["tested_every_face"]:
+        fail(f"K1 soft on {what}: its lists held {res['tested']} pairs, the "
+             f"every-face walk tests {res['tested_every_face']}")
+    return res
+
+
+def raster_soft_check(dev):
+    """K1's soft mode at the main path's shapes (the level-4 sphere at 512²,
+    sigma 1 px), held by ``_soft_held``."""
     from st3d_torch.kernels import raster as kr
 
     _, coeffs, bounds = sphere_faces(dev, ICO_LEVEL, SIZE)
+    res = _soft_held(kr, coeffs, bounds, f"the level-{ICO_LEVEL} sphere")
     margin = kr.soft_cull_margin(1.0)
     tile = kr.cull_tile(SIZE, SIZE, True)
-    p2f, z, near = kr.raster_soft(coeffs, bounds, SIZE, SIZE, margin, tile)
-    p2f_p, z_p, near_p = kr.raster_soft_plain(coeffs, bounds, SIZE, SIZE,
-                                              margin, tile)
-    p2f_h, z_h = kr.raster_hard(coeffs, bounds, SIZE, SIZE)
-    torch.cuda.synchronize()
-    bad = int((p2f != p2f_p).sum()) + int((near != near_p).sum())
-    hit = p2f_p >= 0
-    zerr = float((z - z_p).abs().max())
-    zrel = float(((z - z_p).abs() / z_p.abs())[hit].max())
-    print(f"K1 raster_soft: pix_to_face + nearest mismatches {bad}, zbuf "
-          f"max rel err {zrel:.3g}, equal to K1's hard outputs "
-          f"{torch.equal(p2f, p2f_h) and torch.equal(z, z_h)}")
-    if bad or zrel > 1e-6:
-        fail(f"K1 soft differs from its plain version: {bad} ids, zbuf "
-             f"rel {zrel}")
-    if not (torch.equal(p2f, p2f_h) and torch.equal(z, z_h)):
-        fail("K1 soft's pix_to_face/zbuf differ from K1's")
-    ms = cuda_ms(lambda: kr.raster_soft(coeffs, bounds, SIZE, SIZE, margin,
-                                        tile))
     plain_ms = cuda_ms(lambda: kr.raster_soft_plain(
         coeffs, bounds, SIZE, SIZE, margin, tile), reps=3, warmup=1)
-    pairs = needed_pairs(coeffs, SIZE, margin)
-    print(f"K1 raster_soft: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"{pairs} pairs needed (bbox + {margin} px), "
-          f"{tested_pairs(bounds, SIZE, tile, margin)} tested")
+    print(f"K1 raster_soft: plain {plain_ms:.3f} ms")
     return with_bound({"name": "raster_soft", "route": "cuda",
                        "source": "st3d_torch/csrc/raster_soft.cu",
                        "replaces": "st3d/kernels/raster_pallas.py:202",
-                       "max_abs_err": zerr, "ms": ms, "plain_ms": plain_ms},
-                      pairs * PAIR_OPS["soft"],
+                       "plain_ms": plain_ms, **res},
+                      res["needed"] * PAIR_OPS["soft"],
                       raster_bytes(coeffs, 19, bounds, 12, SIZE), F32_FLOPS)
 
 
-def raster_topk_check(dev):
-    """K7 against its plain version: K=4 with SoftRas's 3 px window, and
-    K+slack=5 with the window of blur_radius 1e-4 (the hard blur path)."""
-    import torch
-    from st3d_torch.kernels import raster as kr
+def topk_cases():
+    """K7's two cases, (K, window): SoftRas K=4 in a 3 px window, and the
+    hard blur path's K+slack=5 in blur_radius 1e-4's window."""
     from st3d_torch.render.topk import blur_window_px
 
-    _, coeffs, bounds = sphere_faces(dev, ICO_LEVEL, SIZE)
-    cases = {"softras": (4, 3.0), "blur": (5, blur_window_px(1e-4, SIZE))}
-    id_err, mismatches = 0, 0
-    for what, (k, window) in cases.items():
-        ids = kr.raster_topk(coeffs, bounds, SIZE, SIZE, k, window)
-        ids_p = kr.raster_topk_plain(coeffs, bounds, SIZE, SIZE, k, window)
-        torch.cuda.synchronize()
-        bad = int((ids != ids_p).sum())
-        id_err = max(id_err, int((ids - ids_p).abs().max()))
-        mismatches += bad
-        filled = [float((ids[..., s] >= 0).float().mean()) for s in range(k)]
-        print(f"K7 raster_topk {what} K={k} window {window:.3f}: id "
-              f"mismatches {bad}, filled share per slot "
-              + " ".join(f"{f:.3f}" for f in filled))
-        if bad:
-            fail(f"K7 {what}: {bad} ids differ from the plain version")
-    k, window = cases["softras"]
+    return {"softras": (4, 3.0), "blur": (5, blur_window_px(1e-4, SIZE))}
+
+
+def _topk_held(kr, coeffs, bounds, k, window, what):
+    """K7 (per-warp face lists) on faces at 512² against its every-face twin
+    and its plain version (ids bit-equal to both); its time and the twin's,
+    and the pairs its lists held beside the twin's and the function's."""
+    import torch
+
+    cnt = torch.zeros(1, dtype=torch.int64, device=coeffs.device)
+    before = dict(kr.LAUNCHES)
+    got = kr.raster_topk(coeffs, bounds, SIZE, SIZE, k, window, cnt)
+    twin = kr.raster_topk_every_face(coeffs, bounds, SIZE, SIZE, k, window)
+    launched = {n: c - before[n] for n, c in kr.LAUNCHES.items()
+                if c != before[n]}
+    want = kr.raster_topk_plain(coeffs, bounds, SIZE, SIZE, k, window)
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    same = torch.equal(got, twin)
     ms = cuda_ms(lambda: kr.raster_topk(coeffs, bounds, SIZE, SIZE, k,
                                         window))
+    twin_ms = cuda_ms(lambda: kr.raster_topk_every_face(
+        coeffs, bounds, SIZE, SIZE, k, window))
+    filled = [float((got[..., s] >= 0).float().mean()) for s in range(k)]
+    res = {"k": k, "window": window, "ms": ms, "every_face_ms": twin_ms,
+           "tested": int(cnt),
+           "tested_every_face": tested_pairs(bounds, SIZE, 256, window + 2.0),
+           "needed": needed_pairs(coeffs, SIZE, window),
+           "eligible": eligible_pairs(coeffs, SIZE, window),
+           "id_err": int((got - want).abs().max()), "id_mismatches": bad}
+    print(f"K7 raster_topk on {what} K={k} window {window:.3f}: id "
+          f"mismatches {bad} against the plain version, bit-equal to the "
+          f"every-face twin {same}; filled share per slot "
+          + " ".join(f"{f:.3f}" for f in filled)
+          + f"; kernel {ms:.3f} ms, every-face twin {twin_ms:.3f} ms; pairs "
+          f"tested {res['tested']} (every-face walk "
+          f"{res['tested_every_face']}), {res['needed']} needed (bbox + "
+          f"{window:.3f} px), {res['eligible']} of them eligible; launches "
+          f"{json.dumps(launched)}")
+    if bad:
+        fail(f"K7 on {what} K={k}: {bad} ids differ from the plain version")
+    if not same:
+        fail(f"K7 on {what} K={k} differs from its every-face twin")
+    if launched != {"raster_topk": 1, "raster_topk_every_face": 1}:
+        fail(f"K7 on {what}: launched {launched}")
+    if not 0 < res["tested"] < res["tested_every_face"]:
+        fail(f"K7 on {what}: its lists held {res['tested']} pairs, the "
+             f"every-face walk tests {res['tested_every_face']}")
+    return res
+
+
+def raster_topk_check(dev):
+    """K7 at the main path's shapes, held by ``_topk_held``: K=4 with
+    SoftRas's 3 px window, and K+slack=5 with the window of blur_radius
+    1e-4 (the hard blur path)."""
+    from st3d_torch.kernels import raster as kr
+
+    _, coeffs, bounds = sphere_faces(dev, ICO_LEVEL, SIZE)
+    cases = {what: _topk_held(kr, coeffs, bounds, k, window,
+                              f"the level-{ICO_LEVEL} sphere, {what}")
+             for what, (k, window) in topk_cases().items()}
+    res = cases["softras"]
+    k, window = res["k"], res["window"]
     plain_ms = cuda_ms(lambda: kr.raster_topk_plain(
         coeffs, bounds, SIZE, SIZE, k, window), reps=2, warmup=1)
-    pairs = needed_pairs(coeffs, SIZE, window)
-    eligible = eligible_pairs(coeffs, SIZE, window)
-    print(f"K7 raster_topk K={k}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-          f"ms, {pairs} pairs needed (bbox + {window} px), {eligible} of "
-          f"them eligible, {tested_pairs(bounds, SIZE, 256, window + 2.0)} "
-          f"tested")
+    print(f"K7 raster_topk K={k}: plain {plain_ms:.3f} ms")
     # max_abs_err: the largest |id - plain id| over both cases.
     return with_bound({"name": "raster_topk", "route": "cuda",
                        "source": "st3d_torch/csrc/raster_topk.cu",
                        "replaces": "st3d/kernels/raster_pallas.py:693",
-                       "max_abs_err": float(id_err),
-                       "id_mismatches": mismatches, "ms": ms,
-                       "plain_ms": plain_ms},
-                      pairs * PAIR_OPS["topk_test"]
-                      + eligible * PAIR_OPS["topk_eligible"],
+                       "max_abs_err": float(max(c["id_err"]
+                                                for c in cases.values())),
+                       "id_mismatches": sum(c["id_mismatches"]
+                                            for c in cases.values()),
+                       "ms": res["ms"], "plain_ms": plain_ms,
+                       "every_face_ms": res["every_face_ms"],
+                       "tested": res["tested"],
+                       "tested_every_face": res["tested_every_face"],
+                       "blur": cases["blur"]},
+                      res["needed"] * PAIR_OPS["topk_test"]
+                      + res["eligible"] * PAIR_OPS["topk_eligible"],
                       raster_bytes(coeffs, 19, bounds, 4 * k, SIZE),
                       F32_FLOPS)
+
+
+def run_faces(dev, obj, size):
+    """Coefficients and bounds of a vertex run's ``final.obj`` under the
+    runs' fixed cameras at ``size``."""
+    import torch
+    from st3d_torch.core.cameras import build_fixed_cameras
+    from st3d_torch.io.obj import load_obj
+    from st3d_torch.kernels import raster as kr
+    from st3d_torch.render.rasterize import face_verts_screen
+
+    data = load_obj(obj, load_textures=False)
+    verts = torch.tensor(data.verts, device=dev)
+    faces = torch.tensor(data.faces, device=dev).long()
+    cams = build_fixed_cameras(VIEWS, seed=0).to(dev)
+    return kr.preprocess(face_verts_screen(verts, faces, cams, size))[:2]
+
+
+def raster_lists_run_check(dev, soft_obj, softras_obj, soft_rec, topk_rec):
+    """K1-soft on the faces of the soft vertex run and K7 (both cases) on
+    those of the SoftRas run, as their ``final.obj`` holds them, held as on
+    the sphere; adds each run's results to the kernels' rows."""
+    from st3d_torch.kernels import raster as kr
+
+    coeffs, bounds = run_faces(dev, soft_obj, SIZE)
+    soft_rec["run"] = _soft_held(kr, coeffs, bounds,
+                                 "the soft run's final.obj")
+    coeffs, bounds = run_faces(dev, softras_obj, SIZE)
+    topk_rec["run"] = {
+        what: _topk_held(kr, coeffs, bounds, k, window,
+                         f"the SoftRas run's final.obj, {what}")
+        for what, (k, window) in topk_cases().items()}
 
 
 def stream_counts(coeffs, bounds, ranges, size):
@@ -666,20 +781,9 @@ def raster_stream_run_check(dev, obj, rec):
     128², 96² and 64² whose walk the plain version finishes in seconds;
     times. Updates ``rec`` (the K6 row) with these faces' time and bound."""
     import torch
-    from st3d_torch.core.cameras import build_fixed_cameras
-    from st3d_torch.io.obj import load_obj
     from st3d_torch.kernels import raster as kr
-    from st3d_torch.render.rasterize import face_verts_screen
 
-    data = load_obj(obj, load_textures=False)
-    verts = torch.tensor(data.verts, device=dev)
-    faces = torch.tensor(data.faces, device=dev).long()
-    cams = build_fixed_cameras(VIEWS, seed=0).to(dev)
-
-    def faces_at(size):
-        return kr.preprocess(face_verts_screen(verts, faces, cams, size))[:2]
-
-    coeffs, bounds = faces_at(SIZE)
+    coeffs, bounds = run_faces(dev, obj, SIZE)
     for soft in (False, True):
         got, ranges, tile, margin, n_new, n_old = _stream_pair(
             kr, coeffs, bounds, SIZE, soft)
@@ -710,7 +814,7 @@ def raster_stream_run_check(dev, obj, rec):
     # The plain version tests every pair its ranges hold: the largest size
     # whose walk holds at most 2e9 pairs.
     for size in (128, 96, 64):
-        c_s, b_s = faces_at(size)
+        c_s, b_s = run_faces(dev, obj, size)
         walked = 0
         for soft in (False, True):
             t = kr.cull_tile(size, size, soft)
@@ -2303,10 +2407,16 @@ def main(argv=None):
         for mode, (target, *_) in VERTEX_RUNS.items():
             vertex[mode] = vertex_path(tmp, scenes, mode, card)
             lap(f"{target} {mode}")
+        by_name = {k["name"]: k for k in kernels}
         raster_stream_run_check(
             dev, os.path.join(tmp, "both_stream", "final.obj"),
-            next(k for k in kernels if k["name"] == "raster_stream"))
+            by_name["raster_stream"])
         lap("K6 on the run's faces")
+        raster_lists_run_check(
+            dev, os.path.join(tmp, "both_soft", "final.obj"),
+            os.path.join(tmp, "both_softras", "final.obj"),
+            by_name["raster_soft"], by_name["raster_topk"])
+        lap("K1-soft, K7 on the runs' faces")
         first = first_approach_path(tmp, obj, style)
         first_approach_path(tmp, obj, style, "both",
                             (FA_BOTH_STEPS, FA_BOTH_STEPS))

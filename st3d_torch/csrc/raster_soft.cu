@@ -10,17 +10,32 @@
 //   - hard: the covering face of largest 1/z (strict '>' from 0, sorted
 //     order), exactly as raster_hard.cu;
 //   - nearest: the face of largest signed distance
-//       sd = min(b0*h0, b1*h1, b2*h2, bbox distance)
+//       d = min(b0*h0, b1*h1, b2*h2, bbox distance)
 //     by strict '>' from -3e38 and id 0, in sorted order. That is the TPU
 //     kernel's "first argmax within a chunk, strict '>' across chunks".
 // The cull band is the JAX package's 1024-pixel tile (the wrapper passes
 // it): for a pixel farther than the margin from every face, the nearest
 // face is whichever survives the cull, so the band is part of the result.
 //
-// Work layout: one thread per pixel, one block per 256 consecutive pixels of
-// the flat row-major index. A block lies inside one cull tile, so the chunk
-// test is uniform across it. A surviving chunk's 19 x 128 coefficient rows
-// are staged in shared memory (9.5 KB).
+// Work layout (raster_walk.cuh): one thread per pixel, one block per 256
+// consecutive pixels (a block lies inside one cull tile, so the chunk test
+// is uniform across it); the next chunk to test is found by a warp ballot
+// over 32 bands and staged face-major by cp.async while the previous one
+// is tested. Each warp then tests only the faces that can still change one
+// of its 32 pixels: it drops a face when ub <= min(-1, s_w), where ub is the
+// face's bbox upper bound over the warp's pixel rectangle and s_w the least
+// nearest distance over the warp's pixels at the chunk's start. Exact:
+//   - ub <= -1: every pixel of the warp is 1 or more outside the face's
+//     bbox, so none is covered (a barycentric's rounding error is some
+//     1e-4 pixel here);
+//   - ub <= s_w: at every pixel d <= bbox distance <= ub <= s_w <= the
+//     pixel's best, so the strict '>' cannot pick the face, now or later
+//     (the best only rises).
+// Inside the list a pixel also skips a face whose own bbox distance is
+// <= -1 and <= its best so far, by the same argument.
+// st3d_raster_soft_every_face keeps the earlier walk (every face of every
+// chunk in band, 19 x 128 rows staged between two barriers): launched by no
+// route, the twin chip_smoke.py holds this kernel against.
 //
 // Exactness: every affine value is two rounded products and two rounded
 // sums in the plain version's order (__fmul_rn / __fadd_rn, never contracted
@@ -28,29 +43,125 @@
 // equal the plain version bit for bit.
 //
 // What bounds it on an H100: compute per tested (pixel, face) pair, 11
-// multiplies, 12 adds/subtracts, 7 min and 5 compares. The widened cull
-// keeps the pairs to faces within the margin of the block's rows.
+// multiplies, 12 adds/subtracts, 7 min and 5 compares, and a face's five
+// broadcast loads per warp. Far pixels (most of a frame around a mesh) keep
+// the faces of their band until their nearest distance rises past them.
+// The lists leave so few pairs that the walk's latency (staging, barriers)
+// weighs as much: five blocks an SM (__launch_bounds__) hide it better than
+// the registers the compiler would otherwise take.
 
 #include <cuda_runtime.h>
 
+#include "raster_walk.cuh"
+
 namespace {
 
-constexpr int CHUNK = 128;     // faces per chunk (the wrapper pads to it)
-constexpr int TILE = 256;      // pixels per block
-constexpr int NROWS = 19;      // coefficient rows read in soft mode
+using namespace st3d_walk;
+
 constexpr float BIG_Z = 1e10f;
-constexpr float NEG_INIT = -3.0e38f;
 
-__device__ __forceinline__ float affine(float px, float py, float a, float b,
-                                        float c) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(px, a), __fmul_rn(py, b)), c);
-}
-
-__global__ void __launch_bounds__(TILE)
+__global__ void __launch_bounds__(TILE, 5)
 raster_soft_kernel(const float* __restrict__ coeffs,
                    const float* __restrict__ bounds, int* __restrict__ p2f,
-                   float* __restrict__ zbuf, int* __restrict__ near, int H,
-                   int W, int f_pad, int n_chunks, int cull, float margin) {
+                   float* __restrict__ zbuf, int* __restrict__ near,
+                   unsigned long long* __restrict__ tested, int H, int W,
+                   int f_pad, int n_chunks, int cull, float margin) {
+  __shared__ __align__(16) float buf[2][CHUNK * REC];
+  const int v = blockIdx.y;
+  const long long hw = (long long)H * W;
+  const long long t0 = (long long)blockIdx.x * TILE;
+  const long long p = t0 + threadIdx.x;
+  const long long c0 = (t0 / cull) * cull;
+  const long long last = min(c0 + cull - 1, hw - 1);
+  const float lo = __fsub_rn((float)(c0 / W), margin);
+  const float hi = __fadd_rn((float)(last / W), margin);
+  const float px = (float)(p % W);
+  const float py = (float)(p / W);
+  const bool live = p < hw;
+  const int n_live = __popc(__ballot_sync(FULL, live));
+  const Box box = warp_box(px, py, W);
+
+  const float* cv = coeffs + (long long)v * 20 * f_pad;
+  const float* bv = bounds + (long long)v * 2 * n_chunks;
+
+  float best = 0.f;   // background: 1/z <= 0
+  int fid = -1;
+  float sbest = NEG_INIT;
+  int sid = 0;
+  unsigned long long pairs = 0;
+  ChunkScan scan(bv, n_chunks, lo, hi);
+  int cur = scan.next(-1);
+  int nxt = n_chunks;
+  if (cur < n_chunks) {
+    stage(buf[0], cv, f_pad, cur);
+    nxt = scan.next(cur);
+  }
+  int slot = 0;
+  while (cur < n_chunks) {
+    if (nxt < n_chunks) {
+      stage(buf[slot ^ 1], cv, f_pad, nxt);
+      cp_async_wait<1>();   // chunk cur has landed, nxt may be in flight
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sc = buf[slot];
+    // s_w: the least best over the warp's pixels in the frame.
+    float s_w = live ? sbest : 3.0e38f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      s_w = fminf(s_w, __shfl_xor_sync(FULL, s_w, o));
+    unsigned keep[CHUNK / 32];
+    face_list(sc, box, fminf(-1.f, s_w), keep);
+#pragma unroll
+    for (int w = 0; w < CHUNK / 32; ++w)
+      pairs += (unsigned long long)(__popc(keep[w]) * n_live);
+    if (live) {
+#pragma unroll
+      for (int w = 0; w < CHUNK / 32; ++w) {
+        for (unsigned m = keep[w]; m; m &= m - 1) {
+          const int f = 32 * w + __ffs(m) - 1;
+          const Face q = load_face(sc, f);
+          const float bb = bbox_dist(q, px, py);
+          if (bb <= -1.f && bb <= sbest) continue;
+          float b0, b1, b2;
+          planes(q, px, py, b0, b1, b2);
+          const float iz = inv_z(q, px, py);
+          if (b0 >= 0.f && b1 >= 0.f && b2 >= 0.f && iz > best) {
+            best = iz;
+            fid = cur * CHUNK + f;
+          }
+          const float d = fminf(edge_dist(q, b0, b1, b2), bb);
+          if (d > sbest) {
+            sbest = d;
+            sid = cur * CHUNK + f;
+          }
+        }
+      }
+    }
+    __syncthreads();   // slot `slot` is refilled next
+    cur = nxt;
+    slot ^= 1;
+    if (cur < n_chunks) nxt = scan.next(cur);
+  }
+  add_tested(tested, pairs);
+  if (live) {
+    const bool hit = best > 0.f;
+    p2f[(long long)v * hw + p] = hit ? fid : -1;
+    zbuf[(long long)v * hw + p] =
+        hit ? __fdiv_rn(1.f, fmaxf(best, 1e-12f)) : BIG_Z;
+    near[(long long)v * hw + p] = sid;
+  }
+}
+
+// The earlier walk: every face of every chunk in band, the chunk's 19 x 128
+// rows staged between two barriers.
+__global__ void __launch_bounds__(TILE)
+raster_soft_every_face_kernel(const float* __restrict__ coeffs,
+                              const float* __restrict__ bounds,
+                              int* __restrict__ p2f, float* __restrict__ zbuf,
+                              int* __restrict__ near, int H, int W, int f_pad,
+                              int n_chunks, int cull, float margin) {
   __shared__ float sc[NROWS][CHUNK];
   const int v = blockIdx.y;
   const long long hw = (long long)H * W;
@@ -117,17 +228,36 @@ raster_soft_kernel(const float* __restrict__ coeffs,
 
 }  // namespace
 
-// coeffs (N, 20, f_pad) float32, rows 0..18 read; bounds (N, 2, n_chunks)
-// float32; p2f, near (N, H*W) int32 in sorted face order; zbuf (N, H*W)
-// float32. `cull` is the cull tile in pixels (a multiple of 256, or at
-// least H*W); `margin` widens its row band.
+// coeffs (N, 20, f_pad) float32, rows 0..18 read; bounds
+// (N, 2, n_chunks) float32; p2f, near (N, H*W) int32 in sorted face order;
+// zbuf (N, H*W) float32. `cull` is the cull tile in pixels (a multiple of
+// 256, or at least H*W); `margin` widens its row band. tested, if not
+// null, a uint64 the (pixel, face) pairs of the warps' lists are added to
+// (one atomic a block).
 extern "C" int st3d_raster_soft(const void* coeffs, const void* bounds,
-                                void* p2f, void* zbuf, void* near, int N,
-                                int H, int W, int f_pad, int n_chunks,
-                                int cull, float margin, void* stream) {
+                                void* p2f, void* zbuf, void* near,
+                                void* tested, int N, int H, int W, int f_pad,
+                                int n_chunks, int cull, float margin,
+                                void* stream) {
   const long long hw = (long long)H * W;
   dim3 grid((unsigned)((hw + TILE - 1) / TILE), (unsigned)N);
   raster_soft_kernel<<<grid, TILE, 0, (cudaStream_t)stream>>>(
+      (const float*)coeffs, (const float*)bounds, (int*)p2f, (float*)zbuf,
+      (int*)near, (unsigned long long*)tested, H, W, f_pad, n_chunks, cull,
+      margin);
+  return (int)cudaGetLastError();
+}
+
+// The same outputs by the earlier walk (every face of every chunk in band).
+extern "C" int st3d_raster_soft_every_face(const void* coeffs,
+                                           const void* bounds, void* p2f,
+                                           void* zbuf, void* near, int N,
+                                           int H, int W, int f_pad,
+                                           int n_chunks, int cull,
+                                           float margin, void* stream) {
+  const long long hw = (long long)H * W;
+  dim3 grid((unsigned)((hw + TILE - 1) / TILE), (unsigned)N);
+  raster_soft_every_face_kernel<<<grid, TILE, 0, (cudaStream_t)stream>>>(
       (const float*)coeffs, (const float*)bounds, (int*)p2f, (float*)zbuf,
       (int*)near, H, W, f_pad, n_chunks, cull, margin);
   return (int)cudaGetLastError();

@@ -18,7 +18,10 @@ Counterpart of ``st3d/kernels/raster_pallas.py``:
      face of largest 1/z, lowest sorted id on ties.
    - ``raster_soft`` (K1's soft mode, ``csrc/raster_soft.cu``): the same,
      plus ``nearest``, the face of largest bbox-gated signed edge distance,
-     with the row-band cull widened by ``soft_cull_margin``.
+     with the row-band cull widened by ``soft_cull_margin``; each warp tests
+     only the faces that can still change one of its 32 pixels
+     (``csrc/raster_walk.cuh``). ``raster_soft_every_face`` is the earlier
+     walk (every face of every chunk in band), launched by no route.
    - ``raster_stream`` (K6, ``csrc/raster_stream.cu``): K1's outputs, hard
      or soft, with each tile walking its own [c_lo, c_hi] chunk range
      (``stream_ranges``), testing only the chunks whose band meets the
@@ -28,7 +31,9 @@ Counterpart of ``st3d/kernels/raster_pallas.py``:
      ``raster_stream_every_chunk`` is the TPU kernel's walk (every chunk
      of the range), launched by no route.
    - ``raster_topk`` (K7, ``csrc/raster_topk.cu``): per pixel, the K
-     nearest-by-raw-1/z faces with signed distance > -window, near to far.
+     nearest-by-raw-1/z faces with signed distance > -window, near to far;
+     each warp tests only the faces within the window of its 32 pixels.
+     ``raster_topk_every_face`` is the earlier walk, launched by no route.
    - ``raster_2d`` (K9, ``csrc/raster_2d.cu``): K1's hard outputs on
      16 x 16 pixel tiles over faces in Morton order (``preprocess_2d``),
      each chunk culled in x and y; exact 1/z ties go to the lowest
@@ -71,9 +76,11 @@ MAX_TOPK = 16         # slots the top-K kernel is instantiated for
 RESIDENT_COEFF_BUDGET = 7 * 1024 * 1024
 
 LAUNCHES: Dict[str, int] = {"raster_hard": 0, "raster_soft": 0,
+                            "raster_soft_every_face": 0,
                             "raster_stream": 0,
                             "raster_stream_every_chunk": 0,
-                            "raster_topk": 0, "raster_2d": 0}
+                            "raster_topk": 0, "raster_topk_every_face": 0,
+                            "raster_2d": 0}
 TILE_2D = 16          # pixels per side of K9's tile (csrc/raster_2d.cu)
 
 
@@ -523,23 +530,54 @@ def raster_hard(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int
 
 
 def raster_soft(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int,
-                margin: float, tile: int):
-    """K1's soft mode: (p2f, zbuf, nearest) (N, H*W) in sorted ids."""
+                margin: float, tile: int,
+                tested: Optional[torch.Tensor] = None):
+    """K1's soft mode: (p2f, zbuf, nearest) (N, H*W) in sorted ids. A CUDA
+    kernel adds the (pixel, face) pairs of its warps' face lists to
+    ``tested`` (a one-element int64 CUDA tensor) if given."""
+    return _soft("raster_soft", coeffs, bounds, h, w, margin, tile, tested)
+
+
+def raster_soft_every_face(coeffs: torch.Tensor, bounds: torch.Tensor,
+                           h: int, w: int, margin: float, tile: int):
+    """``raster_soft`` by the earlier walk: every face of every chunk in
+    band is tested at every pixel. Launched by no route; the twin the
+    per-warp face lists are held against."""
+    return _soft("raster_soft_every_face", coeffs, bounds, h, w, margin,
+                 tile, None)
+
+
+def _check_tested(name: str, tested: Optional[torch.Tensor], dev) -> int:
+    """The pointer of a pair counter (0 for none); raises unless it is one
+    int64 on ``dev``."""
+    if tested is None:
+        return 0
+    if (tested.device != dev or tested.dtype != torch.int64
+            or tested.numel() != 1):
+        raise ValueError(f"{name}: tested must be one int64 on {dev}")
+    return tested.data_ptr()
+
+
+def _soft(name: str, coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
+          w: int, margin: float, tile: int, tested: Optional[torch.Tensor]):
     n, _, f_pad = coeffs.shape
-    if _check_coeffs("raster_soft", coeffs, bounds,
-                     (n, 2, f_pad // FACE_CHUNK), torch.float32):
+    if _check_coeffs(name, coeffs, bounds, (n, 2, f_pad // FACE_CHUNK),
+                     torch.float32):
         return raster_soft_plain(coeffs, bounds, h, w, margin, tile)
     coeffs, bounds = coeffs.contiguous(), bounds.contiguous()
     dev = coeffs.device
     p2f = torch.empty((n, h * w), dtype=torch.int32, device=dev)
     zbuf = torch.empty((n, h * w), dtype=torch.float32, device=dev)
     near = torch.empty((n, h * w), dtype=torch.int32, device=dev)
-    fn = build.symbol("raster_soft", "st3d_raster_soft", 5, 6, 1)
-    err = fn(coeffs.data_ptr(), bounds.data_ptr(), p2f.data_ptr(),
-             zbuf.data_ptr(), near.data_ptr(), n, h, w, f_pad,
-             f_pad // FACE_CHUNK, tile, margin, build.stream_handle(dev))
-    build.check(err, "raster_soft")
-    LAUNCHES["raster_soft"] += 1
+    args = [coeffs.data_ptr(), bounds.data_ptr(), p2f.data_ptr(),
+            zbuf.data_ptr(), near.data_ptr()]
+    if name == "raster_soft":
+        args.append(_check_tested(name, tested, dev))
+    fn = build.symbol("raster_soft", "st3d_" + name, len(args), 6, 1)
+    err = fn(*args, n, h, w, f_pad, f_pad // FACE_CHUNK, tile, margin,
+             build.stream_handle(dev))
+    build.check(err, name)
+    LAUNCHES[name] += 1
     return p2f, zbuf, near
 
 
@@ -584,9 +622,7 @@ def _stream(name: str, coeffs: torch.Tensor, bounds: torch.Tensor,
     if coeffs.data_ptr() % 16:
         raise ValueError(f"{name}: coeffs must be 16-byte aligned")
     dev = coeffs.device
-    if tested is not None and (tested.device != dev or tested.dtype
-                               != torch.int64 or tested.numel() != 1):
-        raise ValueError(f"{name}: tested must be one int64 on {dev}")
+    counter = _check_tested(name, tested, dev)
     p2f = torch.empty((n, h * w), dtype=torch.int32, device=dev)
     zbuf = torch.empty((n, h * w), dtype=torch.float32, device=dev)
     near = torch.empty((n, h * w) if soft else (1,), dtype=torch.int32,
@@ -594,7 +630,7 @@ def _stream(name: str, coeffs: torch.Tensor, bounds: torch.Tensor,
     fn = build.symbol("raster_stream", "st3d_" + name, 7, 7, 1)
     err = fn(coeffs.data_ptr(), bounds.data_ptr(), ranges.data_ptr(),
              p2f.data_ptr(), zbuf.data_ptr(), near.data_ptr(),
-             0 if tested is None else tested.data_ptr(), n, h, w, f_pad,
+             counter, n, h, w, f_pad,
              n_tiles, tile, int(soft), margin, build.stream_handle(dev))
     build.check(err, name)
     LAUNCHES[name] += 1
@@ -602,27 +638,47 @@ def _stream(name: str, coeffs: torch.Tensor, bounds: torch.Tensor,
 
 
 def raster_topk(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int,
-                k: int, window: float) -> torch.Tensor:
+                k: int, window: float,
+                tested: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K7 on preprocessed faces: ids (N, H*W, K) int32 in sorted ids, near
     to far by raw 1/z among faces with signed distance > -window, -1
-    empty."""
+    empty. A CUDA kernel adds the (pixel, face) pairs of its warps' face
+    lists to ``tested`` (a one-element int64 CUDA tensor) if given."""
+    return _topk("raster_topk", coeffs, bounds, h, w, k, window, tested)
+
+
+def raster_topk_every_face(coeffs: torch.Tensor, bounds: torch.Tensor,
+                           h: int, w: int, k: int,
+                           window: float) -> torch.Tensor:
+    """``raster_topk`` by the earlier walk: every face of every chunk in
+    band is tested at every pixel. Launched by no route; the twin the
+    per-warp face lists are held against."""
+    return _topk("raster_topk_every_face", coeffs, bounds, h, w, k, window,
+                 None)
+
+
+def _topk(name: str, coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
+          w: int, k: int, window: float,
+          tested: Optional[torch.Tensor]) -> torch.Tensor:
     n, _, f_pad = coeffs.shape
     if not 1 <= k <= MAX_TOPK:
-        raise ValueError(f"raster_topk: K={k} outside 1..{MAX_TOPK}")
-    if _check_coeffs("raster_topk", coeffs, bounds,
-                     (n, 2, f_pad // FACE_CHUNK), torch.float32):
+        raise ValueError(f"{name}: K={k} outside 1..{MAX_TOPK}")
+    if _check_coeffs(name, coeffs, bounds, (n, 2, f_pad // FACE_CHUNK),
+                     torch.float32):
         return raster_topk_plain(coeffs, bounds, h, w, k, window)
     coeffs, bounds = coeffs.contiguous(), bounds.contiguous()
     dev = coeffs.device
     ids = torch.empty((n, h * w, k), dtype=torch.int32, device=dev)
+    args = [coeffs.data_ptr(), bounds.data_ptr(), ids.data_ptr()]
+    if name == "raster_topk":
+        args.append(_check_tested(name, tested, dev))
     # The cull margin is rounded to float32 from the double sum, as the
     # JAX package's Python-side ``window_px + 2.0`` is.
-    fn = build.symbol("raster_topk", "st3d_raster_topk", 3, 6, 2)
-    err = fn(coeffs.data_ptr(), bounds.data_ptr(), ids.data_ptr(), n, h, w,
-             f_pad, f_pad // FACE_CHUNK, k, window, window + 2.0,
-             build.stream_handle(dev))
-    build.check(err, "raster_topk")
-    LAUNCHES["raster_topk"] += 1
+    fn = build.symbol("raster_topk", "st3d_" + name, len(args), 6, 2)
+    err = fn(*args, n, h, w, f_pad, f_pad // FACE_CHUNK, k, window,
+             window + 2.0, build.stream_handle(dev))
+    build.check(err, name)
+    LAUNCHES[name] += 1
     return ids
 
 

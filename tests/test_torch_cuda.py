@@ -1226,3 +1226,88 @@ def test_raster_stream_walk_on_stretched_faces(dev, soft):
     assert torch.equal(got[0], p2f) and torch.equal(got[1], zbuf)
     walked, tested = int(counts[1]), int(counts[0])
     assert 0 < tested <= walked and (soft or tested < walked)
+
+
+# ---------------------------------------------------------------------------
+# K1-soft and K7: per-warp face lists against the earlier walk
+# ---------------------------------------------------------------------------
+
+def _walk_faces(dev, kind, size):
+    """Screen faces for the per-warp walks: the ico-sphere (level 4 at 512²,
+    else level 3) pristine or stretched; at 48² (warps wrap rows) the last
+    77 faces are left out, so the last chunk holds padding faces."""
+    level = 4 if size == 512 else 3
+    fv = (_stretched_faces(dev, level, size) if kind == "stretched"
+          else _sphere_faces(dev, level, size, views=2))
+    return fv[:, :1203] if size == 48 else fv
+
+
+@pytest.mark.parametrize("sigma", [1.0, 1.5])
+@pytest.mark.parametrize("kind", ["pristine", "stretched"])
+@pytest.mark.parametrize("size", [48, 64, 512])
+def test_raster_soft_lists_equal_twin_and_plain(dev, size, kind, sigma):
+    """K1-soft's per-warp lists: all outputs bit-equal to the every-face
+    twin, ids bit-equal and zbuf within rtol 1e-6 of the plain version, the
+    hard outputs equal to K1's; one launch each; ``tested`` equal to the
+    CPU model's count (below 512²) and below the twin's pairs."""
+    from test_torch_soft_walk import every_face_pairs, soft_walk
+
+    coeffs, bounds, _ = kraster.preprocess(_walk_faces(dev, kind, size))
+    tile = kraster.cull_tile(size, size, True)
+    margin = kraster.soft_cull_margin(sigma)
+    tested = torch.zeros(1, dtype=torch.int64, device=dev)
+    n0 = dict(kraster.LAUNCHES)
+    got = kraster.raster_soft(coeffs, bounds, size, size, margin, tile,
+                              tested)
+    twin = kraster.raster_soft_every_face(coeffs, bounds, size, size, margin,
+                                          tile)
+    torch.cuda.synchronize()
+    assert {k: v - n0[k] for k, v in kraster.LAUNCHES.items()
+            if v != n0[k]} == {"raster_soft": 1, "raster_soft_every_face": 1}
+    for a, b in zip(got, twin):
+        assert torch.equal(a, b)
+    want = kraster.raster_soft_plain(coeffs, bounds, size, size, margin,
+                                     tile)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+    p2f, zbuf = kraster.raster_hard(coeffs, bounds, size, size)
+    assert torch.equal(got[0], p2f) and torch.equal(got[1], zbuf)
+    every = every_face_pairs(bounds.cpu(), size, size, tile, margin)
+    assert 0 < int(tested) < every
+    if size < 512:
+        model = soft_walk(coeffs.cpu(), bounds.cpu(), size, size, margin,
+                          tile)
+        assert int(tested) == model[3]
+
+
+@pytest.mark.parametrize("k,window", [(4, 3.0), (5, 0.32), (5, 2.56),
+                                      (1, 2.0), (16, 4.0)])
+@pytest.mark.parametrize("kind", ["pristine", "stretched"])
+@pytest.mark.parametrize("size", [48, 64, 512])
+def test_raster_topk_lists_equal_twin_and_plain(dev, size, kind, k, window):
+    """K7's per-warp lists: ids bit-equal to the every-face twin and to the
+    plain version; one launch each; ``tested`` equal to the CPU model's
+    count (below 512²) and below the twin's pairs. The windows include
+    blur_radius 1e-4's at 64² (0.32) and 512² (2.56)."""
+    from test_torch_soft_walk import every_face_pairs, topk_walk
+
+    coeffs, bounds, _ = kraster.preprocess(_walk_faces(dev, kind, size))
+    tested = torch.zeros(1, dtype=torch.int64, device=dev)
+    n0 = dict(kraster.LAUNCHES)
+    got = kraster.raster_topk(coeffs, bounds, size, size, k, window, tested)
+    twin = kraster.raster_topk_every_face(coeffs, bounds, size, size, k,
+                                          window)
+    torch.cuda.synchronize()
+    assert {name: v - n0[name] for name, v in kraster.LAUNCHES.items()
+            if v != n0[name]} == {"raster_topk": 1,
+                                  "raster_topk_every_face": 1}
+    assert torch.equal(got, twin)
+    assert torch.equal(got, kraster.raster_topk_plain(coeffs, bounds, size,
+                                                      size, k, window))
+    assert (got[..., 0] >= 0).any()
+    every = every_face_pairs(bounds.cpu(), size, size, kraster.TILE_PIXELS,
+                             window + 2.0)
+    assert 0 < int(tested) < every
+    if size < 512:
+        model = topk_walk(coeffs.cpu(), bounds.cpu(), size, size, k, window)
+        assert int(tested) == model[1]
