@@ -70,9 +70,16 @@ Phases; any failure raises and the script exits non-zero:
    relative Frobenius error <= 1e-4 (sums of 2¹⁸ terms per image, taken in
    another order); idx equal wherever the plain top two of the window
    differ by more than the output tolerance;
-   stage 1 v3 at the same shapes, bf16 and f32: E ``conv1_1_gram`` (z as
-   A's, g64 relative Frobenius error <= 1e-4) and F ``conv1_1_gram_bwd``
-   (dx as B's); K10c and K10d are C and D at the shapes above;
+   stage 1 v3 at the same shapes: E (``conv1_1_gram_wgmma`` on the tensor
+   cores in bf16, the CUDA-core ``conv1_1_gram`` in f32; z as A's, g64
+   relative Frobenius error <= 1e-4, printed against a float64 Gram too,
+   bit-identical on a second call) and F (``conv1_1_gram_bwd_wgmma`` in
+   bf16, ``conv1_1_gram_bwd`` in f32; dx as B's, its fold of the Gram
+   cotangent held: S = 0 or the next image's S each move the plain dx by
+   more than ten tolerances), each call on its route's kernel, each timed
+   in both dtypes by CUDA events and by the profiler's kernel time; in
+   bf16 the CUDA-core twins held and timed on the same inputs; K10c and
+   K10d are C and D at the shapes above;
    K8, C and D at conv2_2's, conv3_4's and conv4_4's shapes (4 x 256² x 128,
    4 x 128² x 256, 4 x 64² x 512), bf16 and f32, with C's and D's
    tolerances, routes and comparisons, each timed in both dtypes;
@@ -94,7 +101,8 @@ Phases; any failure raises and the script exits non-zero:
    on), the f32 K3 against ``torch.bmm`` in f32 with TF32 off; the bounds
    of the f32 K2, K3, A, B, C and D count three TF32 products at 495
    TFLOP/s. The CUDA-core K3, A, B, C and D are timed in f32 on the
-   3xTF32 kernels' inputs (the route f32 took before), at the fp32 rate.
+   3xTF32 kernels' inputs (the route f32 took before), at the fp32 rate;
+   so are E and F in f32, whose route they still are.
 3. The second approach (``st3d_torch.second_approach.main``) at 512², 4
    views, batch 4, bf16, 20 epochs on a seeded synthetic scene, on the
    default VGG route: every loss finite, the last below the first,
@@ -107,7 +115,9 @@ Phases; any failure raises and the script exits non-zero:
    ST3D_NO_PACKED1=1``: K1-K3 only) and on the K5 route
    (``ST3D_NO_STAGE1_V2=1``: C and D, not A and B), where conv1_1's
    27-wide PᵀP takes ``gram_nhwc`` exactly once a step, and 20 epochs each on
-   the v3 route (``ST3D_STAGE1=v3``: E and F, not A and B) and the
+   the v3 route (``ST3D_STAGE1=v3``: E and F on the tensor cores,
+   ``conv1_1_gram_wgmma`` and ``conv1_1_gram_bwd_wgmma``, not A and B,
+   and no CUDA-core E or F) and the
    fused-pool route (``ST3D_FUSED_POOL=1``: the default's kernels, C and D
    four times as often, ``conv3x3_wgmma`` three times fewer for each C and
    each D).
@@ -153,8 +163,9 @@ Phases; any failure raises and the script exits non-zero:
    fused-pool routes: losses within rtol 1e-3; and the second approach at
    64² in bf16 on the default route (the tensor-core K2, K3, A, B, C and
    D): losses within rtol 1e-2. Each GPU run must take K2, C and D on its
-   dtype's route, and A and B on theirs (none on v3), and the f32
-   fused-pool run C and D four times as often as the f32 default run.
+   dtype's route, A and B on theirs (none on v3), E and F on theirs on v3
+   only (the CUDA-core ones in f32), and the f32 fused-pool run C and D
+   four times as often as the f32 default run.
 6. The wall seconds of each phase, the card's name and power limit, one
    JSON line with the kernels' results (ptxas's registers and spills of
    the tensor-core kernels, K1-soft and K7 are printed after the build),
@@ -225,14 +236,17 @@ VERTEX_RUNS = {
 # get the 1/z plane and its compare with the K-th slot ("eligible").
 # Insertions into the K slots are not counted.
 PAIR_OPS = {"hard": 20, "soft": 34, "topk_test": 26, "topk_eligible": 5}
-V3_KERNELS = ("conv1_1_gram", "conv1_1_gram_bwd")
+# E and F by dtype: bf16 on the tensor cores, float32 on the CUDA cores
+# (kernels/stage1v3.py::v3_route).
+V3_KEYS = {"bfloat16": ("conv1_1_gram_wgmma", "conv1_1_gram_bwd_wgmma"),
+           "float32": ("conv1_1_gram", "conv1_1_gram_bwd")}
 ROUTE_ENV = ("ST3D_NO_STAGE1_V2", "ST3D_NO_PACKED1", "ST3D_STAGE1",
              "ST3D_FUSED_POOL")
 ROUTES = {
     "default": ({}, set(KERNELS)),
     "v3": ({"ST3D_STAGE1": "v3"},
            set(KERNELS) - {"conv1_1_stats_wgmma", "conv1_1_bwd_wgmma"}
-           | set(V3_KERNELS)),
+           | set(V3_KEYS["bfloat16"])),
     "fused_pool": ({"ST3D_FUSED_POOL": "1"}, set(KERNELS)),
     "pr1": ({"ST3D_NO_STAGE1_V2": "1", "ST3D_NO_PACKED1": "1"},
             {"raster_hard", "conv3x3_wgmma", "gram_wgmma", "gram_nhwc"}),
@@ -1378,24 +1392,31 @@ def _s1_launched(before):
     return {k: n - before[k] for k, n in LAUNCHES.items() if n != before[k]}
 
 
-def profiled_ms(fn, reps=10):
+def profiled_ms(fn, reps=10, attempts=3):
     """Device time of one call of ``fn``: the time of its CUDA kernels
     under ``torch.profiler`` over ``reps`` calls after a warm-up, so the
-    host's issue is left out. Returns (ms, {kernel: ms per call})."""
+    host's issue is left out. Returns (ms, {kernel: ms per call}). A
+    profile that holds no device event at all, not even PyTorch's own
+    kernels, is taken again (printed), up to ``attempts`` profiles: one
+    such profile, of a call whose kernels had run, was seen on an H100 in
+    one of two runs of the same script."""
     import torch
     from st3d_torch.profile_step import kernel_ms
 
     fn()
     torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    per = kernel_ms(prof.events(), reps)
-    if not per:
-        fail("torch.profiler saw no device time")
-    return sum(per.values()), per
+    for attempt in range(1, attempts + 1):
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per = kernel_ms(prof.events(), reps)
+        if per:
+            return sum(per.values()), per
+        print(f"torch.profiler saw no device time in profile {attempt} of "
+              f"{attempts}")
+    fail(f"torch.profiler saw no device time in {attempts} profiles")
 
 
 def _stats_err(ptp, s27, ptp_p, s27_p, what, x):
@@ -1717,17 +1738,74 @@ def stage1_check(dev):
                         **res[n]}, *work[n]) for n in names]
 
 
+def _v3_launched(before):
+    """E/F launch counts that moved since ``before``."""
+    from st3d_torch.kernels.stage1v3 import LAUNCHES
+
+    return {k: n - before[k] for k, n in LAUNCHES.items() if n != before[k]}
+
+
+def _g64_err(g64, g_p, yr, what):
+    """g64 against the plain version: relative Frobenius <= 1e-4; also
+    printed against a float64 Gram of the plain version's y_r, which
+    shows whether the kernel or the plain float32 sum (2¹⁸ terms an entry)
+    is the further off."""
+    import torch
+
+    yr = yr.double().reshape(g64.shape[0], -1, 64)
+    exact = yr.transpose(1, 2) @ yr
+    rel = float(torch.linalg.norm(g64 - g_p) / torch.linalg.norm(g_p))
+    rel64 = float(torch.linalg.norm(g64.double() - exact)
+                  / torch.linalg.norm(exact))
+    plain64 = float(torch.linalg.norm(g_p.double() - exact)
+                    / torch.linalg.norm(exact))
+    print(f"{what} g64 rel fro err {rel:.3g} (against float64: kernel "
+          f"{rel64:.3g}, plain {plain64:.3g})")
+    if rel > 1e-4:
+        fail(f"{what} g64: rel fro err {rel} > 1e-4")
+    return rel
+
+
+def stage1v3_work():
+    """(operations, bytes, rate) of E and F at 4 x 512², the function's
+    work whatever the kernel recomputes: E conv1_1 (27 -> 64) and the 64 x
+    64 Gram, reading x, writing z and g64; F the recompute of y, y_r·S and
+    the transpose conv (64 -> 27), reading x, dz and S, writing dx. bf16
+    at the bf16 tensor rate, float32 (the CUDA-core kernels' route) at the
+    fp32 rate with four-byte values."""
+    px = VIEWS * SIZE * SIZE
+    e_ops, f_ops = 2 * px * 64 * (27 + 64), 2 * px * 64 * (27 + 64 + 27)
+    grams = 4 * VIEWS * 64 * 64
+    e_px, f_px = px * (3 + 64), px * (3 + 64 + 3)
+    return {
+        V3_KEYS["bfloat16"][0]: (e_ops, 2 * e_px + grams, BF16_FLOPS),
+        V3_KEYS["bfloat16"][1]: (f_ops, 2 * f_px + grams, BF16_FLOPS),
+        V3_KEYS["float32"][0]: (e_ops, 4 * e_px + grams, F32_FLOPS),
+        V3_KEYS["float32"][1]: (f_ops, 4 * f_px + grams, F32_FLOPS),
+    }
+
+
 def stage1v3_check(dev):
     """Kernels E and F at the stage-1 shapes of the main path (4 x 512² x 3
-    -> 64), each against its plain version, bf16 and f32."""
+    -> 64), each call on its route's kernel and against its plain version:
+    bf16 on the tensor cores (``conv1_1_gram_wgmma``,
+    ``conv1_1_gram_bwd_wgmma``), float32 on the CUDA cores
+    (``conv1_1_gram``, ``conv1_1_gram_bwd``); g64 bit-identical on a second
+    call. Each timed by CUDA events and by the profiler's kernel time; in
+    bf16 beside the CUDA-core twins on the same inputs (held against the
+    plain versions too), which bf16 took before."""
     import torch
     from st3d_torch.kernels import stage1v3 as ks3
+    from st3d_torch.kernels.stage1 import patches27
 
+    plain_in_float32()
     gen = torch.Generator(device=dev).manual_seed(4)
     shape = (VIEWS, SIZE, SIZE)
-    res = {n: {"max_abs_err": 0.0} for n in V3_KERNELS}
+    names = V3_KEYS["bfloat16"] + V3_KEYS["float32"]
+    res = {n: {"max_abs_err": 0.0} for n in names}
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
         name = str(dtype)[6:]
+        e_key, f_key = V3_KEYS[name]
         x = torch.rand(shape + (3,), generator=gen, device=dev).to(dtype)
         w = (torch.randn((3, 3, 3, 64), generator=gen, device=dev)
              * (2.0 / 27) ** 0.5).to(dtype)
@@ -1739,57 +1817,88 @@ def stage1v3_check(dev):
         dg = 3e-2 * torch.randn((VIEWS, 64, 64), generator=gen, device=dev)
         sym = dg + dg.transpose(1, 2)
 
+        before = dict(ks3.LAUNCHES)
         z, g64 = ks3.conv1_1_gram(x, w, b)
+        torch.cuda.synchronize()
+        if _v3_launched(before) != {e_key: 1}:
+            fail(f"E {name}: launched {_v3_launched(before)}, want {e_key}")
         z_p, g_p = ks3.conv1_1_gram_plain(x, w, b)
-        errs = {"conv1_1_gram": _max_err(z, z_p, tol, f"E z {name}")}
-        rel = float(torch.linalg.norm(g64 - g_p) / torch.linalg.norm(g_p))
-        print(f"E conv1_1_gram {name} g64 rel fro err {rel:.3g}")
-        if rel > 1e-4:
-            fail(f"E g64 {name}: rel fro err {rel} > 1e-4")
+        yr = (patches27(x) @ w.reshape(27, 64).float() + b.float()).to(dtype)
+        errs = {e_key: _max_err(z, z_p, tol, f"E z {name}")}
+        res[e_key]["g64_rel_fro_err"] = _g64_err(g64, g_p, yr,
+                                                 f"E {e_key} {name}")
+        if not torch.equal(ks3.conv1_1_gram(x, w, b)[1], g64):
+            fail(f"E {e_key} {name}: g64 differs on a second call")
+        before = dict(ks3.LAUNCHES)
         dx = ks3.conv1_1_gram_bwd(x, dz, w, b, sym)
+        torch.cuda.synchronize()
+        if _v3_launched(before) != {f_key: 1}:
+            fail(f"F {name}: launched {_v3_launched(before)}, want {f_key}")
         dx_p = ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)
-        errs["conv1_1_gram_bwd"] = _max_err(dx, dx_p, tol, f"F dx {name}")
+        errs[f_key] = _max_err(dx, dx_p, tol, f"F dx {name}")
+        moves = {}
         for what, other in (("sym = 0", torch.zeros_like(sym)),
                             ("S of the next image", sym.roll(1, 0))):
             moved = float((ks3.conv1_1_gram_bwd_plain(x, dz, w, b, other)
                            .float() - dx_p.float()).abs().max())
-            if not moved > 10 * tol * errs["conv1_1_gram_bwd"][1]:
+            moves[what] = moved / (tol * errs[f_key][1])
+            if not moved > 10 * tol * errs[f_key][1]:
                 fail(f"F dx {name}: {what} moves the plain dx by only "
                      f"{moved}, so the check cannot hold the Gram fold")
-        torch.cuda.synchronize()
+        print(f"F {f_key} {name}: the plain dx moves by "
+              + ", ".join(f"{v:.1f} tolerances at {k}"
+                          for k, v in moves.items()))
         calls = {
-            "conv1_1_gram": (lambda: ks3.conv1_1_gram(x, w, b),
-                             lambda: ks3.conv1_1_gram_plain(x, w, b)),
-            "conv1_1_gram_bwd": (
-                lambda: ks3.conv1_1_gram_bwd(x, dz, w, b, sym),
-                lambda: ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)),
+            e_key: (lambda: ks3.conv1_1_gram(x, w, b),
+                    lambda: ks3.conv1_1_gram_plain(x, w, b)),
+            f_key: (lambda: ks3.conv1_1_gram_bwd(x, dz, w, b, sym),
+                    lambda: ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)),
         }
         for n, (err, scale) in errs.items():
             r = res[n]
-            r["max_abs_err"] = max(r["max_abs_err"], err)
-            line = f"{n} {name} max err {err:.3g}/{scale:.3g}"
-            if dtype == torch.bfloat16:
-                r["ms"] = cuda_ms(calls[n][0], 5)
-                r["plain_ms"] = cuda_ms(calls[n][1], 3, 1)
-                line += (f"  kernel {r['ms']:.3f} ms plain "
-                         f"{r['plain_ms']:.3f} ms")
-            print(line)
-    # Bounds at bf16, 4 x 512²: E conv1_1 (27 -> 64) and the 64 x 64 Gram,
-    # reading x, writing z and g64; F the recompute, y_r·S and the
-    # transpose conv (64 -> 27), reading x and dz, writing dx.
-    px = VIEWS * SIZE * SIZE
-    work = {
-        "conv1_1_gram": (2 * px * 64 * (27 + 64),
-                         2 * px * (3 + 64) + 4 * VIEWS * 64 * 64),
-        "conv1_1_gram_bwd": (2 * px * 64 * (27 + 64 + 27),
-                             2 * px * (3 + 64 + 3) + 4 * VIEWS * 64 * 64),
-    }
+            r["max_abs_err"] = err
+            r["ms"] = cuda_ms(calls[n][0], 5)
+            r["plain_ms"] = cuda_ms(calls[n][1], 3, 1)
+            r["device_ms"], per = profiled_ms(calls[n][0])
+            print(f"{n} {name} max err {err:.3g}/{scale:.3g}  kernel "
+                  f"{r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms device "
+                  f"{r['device_ms']:.4f} ms " + json.dumps(
+                      {k[:48]: round(v, 4) for k, v in per.items()}))
+        if dtype == torch.bfloat16:
+            # The CUDA-core twins on the same inputs.
+            before = dict(ks3.LAUNCHES)
+            zc, gc = ks3.conv1_1_gram_cuda_core(x, w, b)
+            dxc = ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
+            torch.cuda.synchronize()
+            twins = dict(zip(V3_KEYS["float32"], (1, 1)))
+            if _v3_launched(before) != twins:
+                fail(f"CUDA-core E, F: launched {_v3_launched(before)}")
+            _max_err(zc, z_p, tol, f"E conv1_1_gram z {name}")
+            _g64_err(gc, g_p, yr, f"E conv1_1_gram {name}")
+            _max_err(dxc, dx_p, tol, f"F conv1_1_gram_bwd dx {name}")
+            twin_calls = {
+                e_key: lambda: ks3.conv1_1_gram_cuda_core(x, w, b),
+                f_key: lambda: ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b,
+                                                              sym)}
+            work = stage1v3_work()
+            for n, fn in twin_calls.items():
+                r = res[n]
+                r["cuda_core_ms"] = cuda_ms(fn, 5)
+                r["cuda_core_device_ms"] = profiled_ms(fn)[0]
+                print(f"{n} {name}: {r['ms']:.3f} ms (device "
+                      f"{r['device_ms']:.4f}, bound "
+                      f"{bound(*work[n])[0]:.4f}), the CUDA-core twin on "
+                      f"the same inputs {r['cuda_core_ms']:.3f} ms (device "
+                      f"{r['cuda_core_device_ms']:.4f})")
+    work = stage1v3_work()
     meta = {"conv1_1_gram": "st3d/kernels/stage1v3_pallas.py:256",
             "conv1_1_gram_bwd": "st3d/kernels/stage1v3_pallas.py:366"}
     return [with_bound({"name": n, "route": "cuda",
                         "source": f"st3d_torch/csrc/{n}.cu",
-                        "replaces": meta[n], **res[n]}, *work[n], BF16_FLOPS)
-            for n in V3_KERNELS]
+                        "replaces": meta[n.replace("_wgmma", "")],
+                        "dtype": ("float32" if n in V3_KEYS["float32"]
+                                  else "bfloat16"),
+                        **res[n]}, *work[n]) for n in names]
 
 
 def k8_check(dev):
@@ -1985,10 +2094,11 @@ def check_stage1_counts(runs):
 
 def route_entries(kernels, default, routes):
     """Launch counts on the opt-in routes: E and F get theirs from the v3
-    run; K10c/K10d (C and D at stage 1's shapes, as measured there) and K8
-    (C and D at its own shapes) are added as entries of their own."""
+    run (the float32 CUDA-core E and F none: that run is bf16);
+    K10c/K10d (C and D at stage 1's shapes, as measured there) and K8 (C
+    and D at its own shapes) are added as entries of their own."""
     by_name = {k["name"]: k for k in kernels}
-    for n in V3_KERNELS:
+    for n in V3_KEYS["bfloat16"] + V3_KEYS["float32"]:
         by_name[n]["launches"] = routes["v3"][n]
     out = []
     for n, k10, line in (
@@ -2294,6 +2404,7 @@ def small_parity(tmp):
                                    f"{device}")
                 before = dict(launch_counts()[1])
                 before_ab = dict(launch_counts()[2])
+                before_v3 = dict(launch_counts()[3])
                 fn(common + extra + ["--compute_dtype", dtype, "--device",
                                      device, "--output_path", out])
                 runs[device] = read_log(out)
@@ -2321,6 +2432,12 @@ def small_parity(tmp):
                     if ab != want_ab:
                         fail(f"64² {entry}: A and B ran on {ab}, want "
                              f"{want_ab}")
+                    ef = {k for k, n in launch_counts()[3].items()
+                          if n > before_v3[k]}
+                    want_ef = set(V3_KEYS[dtype]) if route == "v3" else set()
+                    if ef != want_ef:
+                        fail(f"64² {entry}: E and F ran on {ef}, want "
+                             f"{want_ef}")
         finally:
             for k in ROUTES[route][0]:
                 os.environ.pop(k)

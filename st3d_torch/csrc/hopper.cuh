@@ -1,19 +1,20 @@
 // Hopper building blocks shared by the tensor-core kernels
 // (conv3x3_wgmma.cu, conv3x3_tf32x3.cu, gram_wgmma.cu, gram_tf32x3.cu,
 // pool_route_wgmma.cu, pool_route_tf32x3.cu, conv1_1_stats_wgmma.cu,
-// conv1_1_bwd_wgmma.cu, conv1_1_stats_tf32x3.cu, conv1_1_bwd_tf32x3.cu and,
-// through conv_narrow.cuh, conv3x3_narrow_wgmma.cu and
-// conv3x3_narrow_tf32x3.cu), from raw PTX: mbarriers, cp.async, TMA tile
-// loads and
-// stores, named barriers, the proxy fence, wgmma shared-memory descriptors
-// and the wgmma instructions; the Grams' second pass; conv1_1's patch
-// rows; and, on the host, the tensor maps the convolutions share.
+// conv1_1_bwd_wgmma.cu, conv1_1_stats_tf32x3.cu, conv1_1_bwd_tf32x3.cu,
+// conv1_1_gram_wgmma.cu, conv1_1_gram_bwd_wgmma.cu and, through
+// conv_narrow.cuh, conv3x3_narrow_wgmma.cu and conv3x3_narrow_tf32x3.cu),
+// from raw PTX: mbarriers, cp.async, TMA tile loads and stores, named
+// barriers, the proxy fence, wgmma shared-memory descriptors and the wgmma
+// instructions; the Grams' second pass; conv1_1's patch rows and stage 1
+// v3's y; and, on the host, the tensor maps the convolutions share.
 // kernels/build.py folds every csrc/*.cuh into each library's hash, so an
 // edit here rebuilds the kernels that include it.
 
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -547,6 +548,69 @@ __device__ __forceinline__ uint4 patch_row_chunk(const unsigned short* win,
     }
   }
   return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// Stage 1 v3's pre-ReLU y = P W' of 64 conv1_1 channels
+// (conv1_1_gram_wgmma.cu, conv1_1_gram_bwd_wgmma.cu): both kernels lay out
+// W' and issue y's products through these two functions, so that the
+// backward's ReLU mask and y_r equal the forward's bit for bit.
+//
+// W' as the K-major wgmma B tile at ``dst`` (1024-byte aligned, 64 rows of
+// 128 bytes, the 128-byte swizzle): row n holds W[k][n] of the (27, 64)
+// bf16 weights in column k < 27, b[n] in column 27 (the patch tile's ones
+// column adds the bias), zeros after.
+template <int THREADS>
+__device__ __forceinline__ void load_conv1_1_wb(uint8_t* dst,
+                                                const unsigned short* w16,
+                                                const unsigned short* b16,
+                                                int tid) {
+  for (int i = tid; i < 64 * 8; i += THREADS) {
+    const int n = i >> 3, j = i & 7;
+    uint32_t v[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int k = 8 * j + e;
+      const uint32_t bits = k < 27 ? __ldg(w16 + k * 64 + n)
+                            : k == 27 ? __ldg(b16 + n)
+                                      : 0u;
+      v[e >> 1] |= bits << (16 * (e & 1));
+    }
+    *reinterpret_cast<uint4*>(dst + sw128_chunk(n, j)) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+// acc += the 64 patch rows at ``p_rows`` (K-major, 128-byte swizzle,
+// columns 0-31 as patch_row_chunk builds them) times W' at ``wb``: two k16
+// steps. The caller zeroes acc, fences, commits and waits.
+__device__ __forceinline__ void conv1_1_y(float (&acc)[32], uint32_t p_rows,
+                                          uint32_t wb) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+    wgmma_m64n64k16<0, 0>(acc, desc_sw128(p_rows + kk * 32, 16),
+                          desc_sw128(wb + kk * 32, 16));
+}
+
+// Two floats as the two bf16 halves of a word, ``lo`` in the low half,
+// each rounded to nearest even: a wgmma A-fragment register.
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The bf16 A fragments of k16 steps j = 0 .. N/16 - 1 from an m64nN f32
+// accumulator, rounded once: for m64nNk16 the accumulator's columns 16j ..
+// 16j + 15 sit in the registers where k-step j's A fragment wants them
+// (acc[8j + 2v], acc[8j + 2v + 1] are a[j][v]'s two halves, row and columns
+// as wgmma_m64n64k16_rs states).
+template <int R>
+__device__ __forceinline__ void acc_to_a_bf16(const float (&acc)[R],
+                                              uint32_t (&a)[R / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < R / 8; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      a[j][v] = pack_bf16x2(acc[8 * j + 2 * v], acc[8 * j + 2 * v + 1]);
 }
 
 // Pass 2 of the tensor-core Grams (gram_wgmma.cu, gram_tf32x3.cu), whose

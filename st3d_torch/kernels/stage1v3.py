@@ -6,9 +6,16 @@ of ``models.vgg.get_features``.
 - ``conv1_1_relu_gram(x, w, b) -> (z, g64)``: z = relu(y) in x's dtype and
   per image the float32 Gram g64 = y_rᵀ y_r (64, 64) of y rounded to x's
   dtype, y = conv1_1(x) + b; differentiable in x through both. Forward:
-  kernel E ``conv1_1_gram`` (``csrc/conv1_1_gram.cu``, replaces K10a).
-  Backward: kernel F ``conv1_1_gram_bwd`` (``csrc/conv1_1_gram_bwd.cu``,
-  replaces K10b).
+  kernel E ``conv1_1_gram`` (replaces K10a). Backward: kernel F
+  ``conv1_1_gram_bwd`` (replaces K10b). Each has two kernels, chosen by
+  ``v3_route``: bf16 on the tensor cores (``csrc/conv1_1_gram_wgmma.cu``:
+  kernel A's plan, ``c11_stats_blocks`` persistent blocks per image over
+  ``C11_STATS_TILE`` tiles, y and the Gram by ``wgmma`` from one staged
+  y_r tile; ``csrc/conv1_1_gram_bwd_wgmma.cu``: kernel B's plan,
+  ``c11_bwd_blocks`` persistent blocks over ``C11_BWD_TILE`` tiles, dz by
+  TMA, y recomputed and d and dP by ``wgmma`` with their A operands in
+  registers, S split into bf16 hi + lo by ``split_bf16``), float32 on the
+  CUDA cores (``csrc/conv1_1_gram.cu``, ``csrc/conv1_1_gram_bwd.cu``).
 - ``conv1_2_relu_pool_v3``: K10c and K10d compute the function of v2's
   conv1_2 half, so they are kernels C and D (``kernels.stage1``).
 
@@ -33,18 +40,39 @@ from typing import Dict, Tuple
 import torch
 
 from st3d_torch.kernels import build
-from st3d_torch.kernels.conv import conv3x3_nhwc_plain, transpose_weights
-from st3d_torch.kernels.stage1 import K27, conv1_2_relu_pool, patches27
+from st3d_torch.kernels.conv import (_tma_ready, conv3x3_nhwc_plain,
+                                     transpose_weights)
+from st3d_torch.kernels.stage1 import (K27, c11_bwd_blocks, c11_stats_blocks,
+                                       conv1_2_relu_pool, patches27)
 
-LAUNCHES: Dict[str, int] = {"conv1_1_gram": 0, "conv1_1_gram_bwd": 0}
+LAUNCHES: Dict[str, int] = {"conv1_1_gram": 0, "conv1_1_gram_bwd": 0,
+                            "conv1_1_gram_wgmma": 0,
+                            "conv1_1_gram_bwd_wgmma": 0}
 
 COUT = 64
-# Pixels per block of conv1_1_gram's first pass: 128 chunks per 512² image.
+# Pixels per block of the CUDA-core conv1_1_gram's first pass: 128 chunks
+# per 512² image.
 GRAM_PIX_PER_BLOCK = 2048
 
 # K10c and K10d compute exactly the function of v2's conv1_2 + ReLU + pool
 # and its routed backward: kernels C and D.
 conv1_2_relu_pool_v3 = conv1_2_relu_pool
+
+
+def v3_route(dtype: torch.dtype) -> str:
+    """The kernel E and F take for a CUDA tensor: "wgmma"
+    (``csrc/conv1_1_gram_wgmma.cu``, ``csrc/conv1_1_gram_bwd_wgmma.cu``)
+    for bf16 (Cout is always 64, one ``wgmma`` N tile); else "cuda_core"
+    (``csrc/conv1_1_gram.cu``, ``csrc/conv1_1_gram_bwd.cu``)."""
+    return "wgmma" if dtype == torch.bfloat16 else "cuda_core"
+
+
+def split_bf16(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``t`` as bf16 ``(hi, lo)``: hi = t rounded to bf16, lo =
+    t - hi (exact in float32) rounded to bf16, so hi + lo is t to 2⁻¹⁶ of
+    each value. F's tensor-core kernel takes S this way."""
+    hi = t.to(torch.bfloat16)
+    return hi, (t - hi.float()).to(torch.bfloat16)
 
 
 def _operands(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
@@ -86,6 +114,41 @@ def conv1_1_gram(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     w27, b = _operands(x, w, b)
     if x.device.type == "cpu":
         return conv1_1_gram_plain(x, w, b)
+    build.check_operands("conv1_1_gram", x, w27, b)
+    if v3_route(x.dtype) == "wgmma":
+        return _conv1_1_gram_wgmma(x, w27, b)
+    return conv1_1_gram_cuda_core(x, w, b)
+
+
+def _conv1_1_gram_wgmma(x: torch.Tensor, w27: torch.Tensor, b: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """E on the tensor cores: ``c11_stats_blocks`` persistent blocks per
+    image, each (block, warpgroup) writing one 64 x 64 partial that a
+    second pass adds in order."""
+    bsz, h, wd, _ = x.shape
+    x, w27, b = x.contiguous(), w27.contiguous(), b.contiguous()
+    blocks = c11_stats_blocks(bsz, h, wd)
+    dev = x.device
+    z = torch.empty((bsz, h, wd, COUT), dtype=x.dtype, device=dev)
+    partial = torch.empty((bsz, blocks, 2, COUT, COUT), dtype=torch.float32,
+                          device=dev)
+    g64 = torch.empty((bsz, COUT, COUT), dtype=torch.float32, device=dev)
+    fn = build.symbol("conv1_1_gram_wgmma", "st3d_conv1_1_gram_wgmma_bf16",
+                      6, 4)
+    err = fn(x.data_ptr(), w27.data_ptr(), b.data_ptr(), z.data_ptr(),
+             partial.data_ptr(), g64.data_ptr(), bsz, h, wd, blocks,
+             build.stream_handle(dev))
+    build.check(err, "conv1_1_gram_wgmma")
+    LAUNCHES["conv1_1_gram_wgmma"] += 1
+    return z, g64
+
+
+def conv1_1_gram_cuda_core(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """E on the CUDA cores (``csrc/conv1_1_gram.cu``), float32's route,
+    callable in bf16 too as the tensor-core kernel's twin; CUDA tensors
+    only."""
+    w27, b = _operands(x, w, b)
     build.check_operands("conv1_1_gram", x, w27, b)
     bsz, h, wd, _ = x.shape
     chunks = -(-(h * wd) // GRAM_PIX_PER_BLOCK)
@@ -140,11 +203,50 @@ def conv1_1_gram_bwd(x: torch.Tensor, dz: torch.Tensor, w: torch.Tensor,
                          f"{(bsz, COUT, COUT)}")
     if x.device.type == "cpu":
         return conv1_1_gram_bwd_plain(x, dz, w, b, sym)
+    _check_bwd_operands(x, dz, w27, b, sym)
+    if v3_route(x.dtype) == "wgmma":
+        return _conv1_1_gram_bwd_wgmma(x, dz, w27, b, sym)
+    return conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
+
+
+def _check_bwd_operands(x, dz, w27, b, sym) -> None:
     build.check_operands("conv1_1_gram_bwd", x, dz, w27, b)
     if sym.device != x.device or sym.dtype != torch.float32:
         raise ValueError(f"conv1_1_gram_bwd: sym must be float32 on "
                          f"{x.device}, got {sym.dtype} on {sym.device}")
-    _, h, wd, _ = x.shape
+
+
+def _conv1_1_gram_bwd_wgmma(x: torch.Tensor, dz: torch.Tensor,
+                            w27: torch.Tensor, b: torch.Tensor,
+                            sym: torch.Tensor) -> torch.Tensor:
+    """F on the tensor cores: tiles of ``C11_BWD_TILE``, ``c11_bwd_blocks``
+    persistent blocks; S goes in as Sᵀ split by ``split_bf16``, (B, 2, 64,
+    64), so that row o of each part is S[:, o], the K-major B tile of
+    y_r·S."""
+    bsz, h, wd, _ = x.shape
+    x, b = x.contiguous(), b.contiguous()
+    dz, w27 = _tma_ready(dz), _tma_ready(w27)
+    s_parts = torch.stack(split_bf16(sym.transpose(1, 2)), dim=1)
+    dx = torch.empty_like(x)
+    fn = build.symbol("conv1_1_gram_bwd_wgmma",
+                      "st3d_conv1_1_gram_bwd_wgmma_bf16", 6, 4)
+    err = fn(x.data_ptr(), dz.data_ptr(), w27.data_ptr(), b.data_ptr(),
+             s_parts.data_ptr(), dx.data_ptr(), bsz, h, wd,
+             c11_bwd_blocks(bsz, h, wd), build.stream_handle(x.device))
+    build.check(err, "conv1_1_gram_bwd_wgmma")
+    LAUNCHES["conv1_1_gram_bwd_wgmma"] += 1
+    return dx
+
+
+def conv1_1_gram_bwd_cuda_core(x: torch.Tensor, dz: torch.Tensor,
+                               w: torch.Tensor, b: torch.Tensor,
+                               sym: torch.Tensor) -> torch.Tensor:
+    """F on the CUDA cores (``csrc/conv1_1_gram_bwd.cu``), float32's route,
+    callable in bf16 too as the tensor-core kernel's twin; CUDA tensors
+    only."""
+    w27, b = _operands(x, w, b)
+    _check_bwd_operands(x, dz, w27, b, sym)
+    bsz, h, wd, _ = x.shape
     x, dz, sym = x.contiguous(), dz.contiguous(), sym.contiguous()
     w27, b = w27.contiguous(), b.contiguous()
     dx = torch.empty_like(x)

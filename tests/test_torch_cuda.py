@@ -974,6 +974,16 @@ def test_render_gradients_match_plain_path(dev, mode):
 # and K9 (G raster_2d)
 # ---------------------------------------------------------------------------
 
+V3_KEYS = {"wgmma": ("conv1_1_gram_wgmma", "conv1_1_gram_bwd_wgmma"),
+           "cuda_core": ("conv1_1_gram", "conv1_1_gram_bwd")}
+
+
+def _v3_launched(n0):
+    from st3d_torch.kernels import stage1v3 as ks3
+
+    return {k: v - n0[k] for k, v in ks3.LAUNCHES.items() if v != n0[k]}
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("shape", [(2, 24, 40), (1, 37, 19)])
@@ -984,11 +994,11 @@ def test_conv1_1_gram_kernel_matches_plain(dev, dtype, tol, shape):
     x = torch.rand(shape + (3,), generator=g, device=dev).to(dtype)
     w = (torch.randn((3, 3, 3, 64), generator=g, device=dev) * 0.3).to(dtype)
     b = (torch.randn((64,), generator=g, device=dev) * 0.1).to(dtype)
-    n0 = ks3.LAUNCHES["conv1_1_gram"]
+    n0 = dict(ks3.LAUNCHES)
     z, g64 = ks3.conv1_1_gram(x, w, b)
     z_p, g_p = ks3.conv1_1_gram_plain(x, w, b)
     torch.cuda.synchronize()
-    assert ks3.LAUNCHES["conv1_1_gram"] == n0 + 1
+    assert _v3_launched(n0) == {V3_KEYS[ks3.v3_route(dtype)][0]: 1}
     assert z.dtype == dtype and g64.dtype == torch.float32
     assert _rel_err(z, z_p) <= tol
     assert torch.linalg.norm(g64 - g_p) <= 1e-4 * torch.linalg.norm(g_p)
@@ -1008,12 +1018,104 @@ def test_conv1_1_gram_bwd_kernel_matches_plain(dev, dtype, tol, shape):
     dz = torch.randn(shape + (64,), generator=g, device=dev).to(dtype)
     dg = torch.randn((shape[0], 64, 64), generator=g, device=dev) * 1e-2
     sym = dg + dg.transpose(1, 2)
-    n0 = ks3.LAUNCHES["conv1_1_gram_bwd"]
+    n0 = dict(ks3.LAUNCHES)
     dx = ks3.conv1_1_gram_bwd(x, dz, w, b, sym)
     ref = ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)
     torch.cuda.synchronize()
-    assert ks3.LAUNCHES["conv1_1_gram_bwd"] == n0 + 1
+    assert _v3_launched(n0) == {V3_KEYS[ks3.v3_route(dtype)][1]: 1}
     assert dx.dtype == dtype and _rel_err(dx, ref) <= tol
+
+
+# E and F on their bf16 tensor-core route against their CUDA-core twins
+# (``conv1_1_gram_cuda_core``, ``conv1_1_gram_bwd_cuda_core``) and the plain
+# versions: one E tile (4 x 32), one F tile (14 x 22), ragged tiles both
+# ways (37 x 19, 37 x 29) and 24 x 40; at 4 x 128 x 136 more tiles than
+# blocks, so that E's blocks walk several tiles and F's cross images. On
+# exact data (x in halves, weights and bias in eighths up to 1/8, dz in
+# eighths, dG in 64ths up to 1/32) y is exact in bf16 and every sum of E
+# and F is exact in float32 in any order (|y| <= 3.5, the Gram's sums
+# below 2^14 in units of 2^-8 up to 960 pixels an image, |dP| below 2^7
+# and dx below 2^11 in units of 2^-13), and S needs no lo part: z, g64 and
+# dx equal the twins and the plain versions bit for bit, ReLU boundary
+# (y = 0) included. On random data: z within one bf16 step, g64 within
+# 1e-5 relative Frobenius, dx within 1e-2 of the largest value (d is
+# rounded from float32 sums taken in other orders, and S's hi + lo is S to
+# 2^-16, so a d may land one bf16 step apart).
+V3_TILE_SHAPES = [(1, 4, 32), (1, 14, 22), (1, 37, 19), (1, 37, 29),
+                  (2, 24, 40)]
+
+
+def _v3_exact(dev, seed, shape):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def grid(size, lo, hi, unit):
+        return (torch.randint(lo, hi + 1, size, generator=g, device=dev)
+                .float() * unit).to(torch.bfloat16)
+
+    x = grid(shape + (3,), 0, 2, 0.5)
+    w, b = grid((3, 3, 3, 64), -1, 1, 0.125), grid((64,), -1, 1, 0.125)
+    dz = grid(shape + (64,), -4, 4, 0.125)
+    dg = torch.randint(-2, 3, (shape[0], 64, 64), generator=g,
+                       device=dev).float() / 64
+    return x, w, b, dz, dg + dg.transpose(1, 2)
+
+
+@pytest.mark.parametrize("shape", V3_TILE_SHAPES)
+def test_conv1_1_gram_wgmma_bit_equal_on_exact_data(dev, shape):
+    from st3d_torch.kernels import stage1v3 as ks3
+
+    x, w, b, dz, sym = _v3_exact(dev, 31, shape)
+    n0 = dict(ks3.LAUNCHES)
+    z, g64 = ks3.conv1_1_gram(x, w, b)
+    dx = ks3.conv1_1_gram_bwd(x, dz, w, b, sym)
+    torch.cuda.synchronize()
+    assert _v3_launched(n0) == {"conv1_1_gram_wgmma": 1,
+                                "conv1_1_gram_bwd_wgmma": 1}
+    z_p, g_p = ks3.conv1_1_gram_plain(x, w, b)
+    dx_p = ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)
+    z_t, g_t = ks3.conv1_1_gram_cuda_core(x, w, b)
+    dx_t = ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
+    assert bool((z_p == 0).any()) and bool((z_p > 0).any())
+    for got, plain, twin in ((z, z_p, z_t), (g64, g_p, g_t),
+                             (dx, dx_p, dx_t)):
+        assert torch.equal(got, plain) and torch.equal(got, twin)
+    # The Gram cotangent matters: without it dx moves.
+    assert not torch.equal(
+        ks3.conv1_1_gram_bwd_plain(x, dz, w, b, torch.zeros_like(sym)), dx)
+    again = ks3.conv1_1_gram(x, w, b)
+    assert torch.equal(again[0], z) and torch.equal(again[1], g64)
+    assert torch.equal(ks3.conv1_1_gram_bwd(x, dz, w, b, sym), dx)
+
+
+@pytest.mark.parametrize("shape", V3_TILE_SHAPES + [(4, 128, 136)])
+def test_conv1_1_gram_wgmma_matches_twin_and_plain(dev, shape):
+    from st3d_torch.kernels import stage1v3 as ks3
+
+    g = torch.Generator(device=dev).manual_seed(32)
+    bf = torch.bfloat16
+    x = torch.rand(shape + (3,), generator=g, device=dev).to(bf)
+    w = (torch.randn((3, 3, 3, 64), generator=g, device=dev)
+         * (2.0 / 27) ** 0.5).to(bf)
+    b = (0.1 * torch.randn((64,), generator=g, device=dev)).to(bf)
+    dz = torch.randn(shape + (64,), generator=g, device=dev).to(bf)
+    dg = 3e-2 * torch.randn((shape[0], 64, 64), generator=g, device=dev)
+    sym = dg + dg.transpose(1, 2)
+    n0 = dict(ks3.LAUNCHES)
+    z, g64 = ks3.conv1_1_gram(x, w, b)
+    dx = ks3.conv1_1_gram_bwd(x, dz, w, b, sym)
+    torch.cuda.synchronize()
+    assert _v3_launched(n0) == {"conv1_1_gram_wgmma": 1,
+                                "conv1_1_gram_bwd_wgmma": 1}
+    for z_r, g_r, dx_r in (
+            ks3.conv1_1_gram_plain(x, w, b)
+            + (ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym),),
+            ks3.conv1_1_gram_cuda_core(x, w, b)
+            + (ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym),)):
+        assert _within_one_bf16_step(z, z_r)
+        assert torch.linalg.norm(g64 - g_r) <= 1e-5 * torch.linalg.norm(g_r)
+        assert _rel_err(dx, dx_r) <= 1e-2
+    assert torch.equal(ks3.conv1_1_gram(x, w, b)[1], g64)   # deterministic
+    assert torch.equal(ks3.conv1_1_gram_bwd(x, dz, w, b, sym), dx)
 
 
 def test_stage1v3_gradient_matches_plain_path(dev):
