@@ -71,15 +71,18 @@ Phases; any failure raises and the script exits non-zero:
    another order); idx equal wherever the plain top two of the window
    differ by more than the output tolerance;
    stage 1 v3 at the same shapes: E (``conv1_1_gram_wgmma`` on the tensor
-   cores in bf16, the CUDA-core ``conv1_1_gram`` in f32; z as A's, g64
+   cores in bf16, ``conv1_1_gram_tf32x3`` by 3xTF32 in f32; z as A's, g64
    relative Frobenius error <= 1e-4, printed against a float64 Gram too,
    bit-identical on a second call) and F (``conv1_1_gram_bwd_wgmma`` in
-   bf16, ``conv1_1_gram_bwd`` in f32; dx as B's, its fold of the Gram
-   cotangent held: S = 0 or the next image's S each move the plain dx by
-   more than ten tolerances), each call on its route's kernel, each timed
-   in both dtypes by CUDA events and by the profiler's kernel time; in
-   bf16 the CUDA-core twins held and timed on the same inputs; K10c and
-   K10d are C and D at the shapes above;
+   bf16, ``conv1_1_gram_bwd_tf32x3`` in f32; dx as B's, in f32 against the
+   plain F masked by E's own z > 0, with the values where that mask and
+   the plain y > 0 differ counted and each held to |y| <= 1e-5 max|y|;
+   its fold of the Gram cotangent held: S = 0 or the next image's S each
+   move the plain dx by more than ten tolerances), each call on its
+   route's kernel, each timed in both dtypes by CUDA events and by the
+   profiler's kernel time, beside the CUDA-core twins ``conv1_1_gram``
+   and ``conv1_1_gram_bwd`` (launched by no route) held and timed on the
+   same inputs; K10c and K10d are C and D at the shapes above;
    K8, C and D at conv2_2's, conv3_4's and conv4_4's shapes (4 x 256² x 128,
    4 x 128² x 256, 4 x 64² x 512), bf16 and f32, with C's and D's
    tolerances, routes and comparisons, each timed in both dtypes;
@@ -102,7 +105,8 @@ Phases; any failure raises and the script exits non-zero:
    of the f32 K2, K3, A, B, C and D count three TF32 products at 495
    TFLOP/s. The CUDA-core K3, A, B, C and D are timed in f32 on the
    3xTF32 kernels' inputs (the route f32 took before), at the fp32 rate;
-   so are E and F in f32, whose route they still are.
+   so are the CUDA-core E and F; the 3xTF32 E and F count three TF32
+   products too.
 3. The second approach (``st3d_torch.second_approach.main``) at 512², 4
    views, batch 4, bf16, 20 epochs on a seeded synthetic scene, on the
    default VGG route: every loss finite, the last below the first,
@@ -128,7 +132,10 @@ Phases; any failure raises and the script exits non-zero:
    and B by 3xTF32, ``conv1_1_stats_tf32x3`` and ``conv1_1_bwd_tf32x3``;
    no launch of ``conv3x3_nhwc``, ``gram_nhwc``, ``conv3x3_relu_pool``,
    ``pool_route_conv3x3_bwd``, ``conv1_1_stats`` or ``conv1_1_bwd``); its
-   median step.
+   median step. Then 10 epochs of it on the v3 route: E and F by 3xTF32
+   (``conv1_1_gram_tf32x3`` once a step plus A's set-up launches,
+   ``conv1_1_gram_bwd_tf32x3`` once a step) in place of A and B, never
+   ``conv1_1_gram`` or ``conv1_1_gram_bwd``; the loss falling.
    B once a step in the bf16 default and fused-pool runs and the f32 run,
    A once a step plus the same set-up launches in each.
    Then the vertex optimisation, ``--optimization_target both`` at 512², 4
@@ -164,8 +171,8 @@ Phases; any failure raises and the script exits non-zero:
    64² in bf16 on the default route (the tensor-core K2, K3, A, B, C and
    D): losses within rtol 1e-2. Each GPU run must take K2, C and D on its
    dtype's route, A and B on theirs (none on v3), E and F on theirs on v3
-   only (the CUDA-core ones in f32), and the f32 fused-pool run C and D
-   four times as often as the f32 default run.
+   only (by 3xTF32 in f32), and the f32 fused-pool run C and D four times
+   as often as the f32 default run.
 6. The wall seconds of each phase, the card's name and power limit, one
    JSON line with the kernels' results (ptxas's registers and spills of
    the tensor-core kernels, K1-soft and K7 are printed after the build),
@@ -236,10 +243,16 @@ VERTEX_RUNS = {
 # get the 1/z plane and its compare with the K-th slot ("eligible").
 # Insertions into the K slots are not counted.
 PAIR_OPS = {"hard": 20, "soft": 34, "topk_test": 26, "topk_eligible": 5}
-# E and F by dtype: bf16 on the tensor cores, float32 on the CUDA cores
-# (kernels/stage1v3.py::v3_route).
+# E and F by dtype, both on the tensor cores: bf16 on wgmma, float32 by
+# 3xTF32 (kernels/stage1v3.py::v3_route); their CUDA-core twins, which
+# float32 took before, are launched by no route.
 V3_KEYS = {"bfloat16": ("conv1_1_gram_wgmma", "conv1_1_gram_bwd_wgmma"),
-           "float32": ("conv1_1_gram", "conv1_1_gram_bwd")}
+           "float32": ("conv1_1_gram_tf32x3", "conv1_1_gram_bwd_tf32x3")}
+V3_TWINS = ("conv1_1_gram", "conv1_1_gram_bwd")
+# The v3 route in float32: E and F by 3xTF32 in place of A and B, the rest
+# as the float32 default route.
+F32_V3_KERNELS = (F32_KERNELS - {"conv1_1_stats_tf32x3", "conv1_1_bwd_tf32x3"}
+                  | set(V3_KEYS["float32"]))
 ROUTE_ENV = ("ST3D_NO_STAGE1_V2", "ST3D_NO_PACKED1", "ST3D_STAGE1",
              "ST3D_FUSED_POOL")
 ROUTES = {
@@ -1771,29 +1784,55 @@ def stage1v3_work():
     work whatever the kernel recomputes: E conv1_1 (27 -> 64) and the 64 x
     64 Gram, reading x, writing z and g64; F the recompute of y, y_r·S and
     the transpose conv (64 -> 27), reading x, dz and S, writing dx. bf16
-    at the bf16 tensor rate, float32 (the CUDA-core kernels' route) at the
-    fp32 rate with four-byte values."""
+    at the bf16 tensor rate; float32 with four-byte values, where y_r = y
+    and d is not rounded, so F's y·S and d·Wᵀ fold into (dz·mask)·Wᵀ + y·M
+    with M = S·Wᵀ (64 x 27): the 3xTF32 kernels' three TF32 products of
+    each 27-wide product and two of E's Gram (HH + LH + LHᵀ) at the TF32
+    rate, the CUDA-core twins' one at the fp32 rate."""
     px = VIEWS * SIZE * SIZE
     e_ops, f_ops = 2 * px * 64 * (27 + 64), 2 * px * 64 * (27 + 64 + 27)
+    f_fold = 2 * px * 64 * (27 + 27 + 27)
+    e_tf32 = 3 * 2 * px * 64 * 27 + 2 * 2 * px * 64 * 64
     grams = 4 * VIEWS * 64 * 64
     e_px, f_px = px * (3 + 64), px * (3 + 64 + 3)
     return {
         V3_KEYS["bfloat16"][0]: (e_ops, 2 * e_px + grams, BF16_FLOPS),
         V3_KEYS["bfloat16"][1]: (f_ops, 2 * f_px + grams, BF16_FLOPS),
-        V3_KEYS["float32"][0]: (e_ops, 4 * e_px + grams, F32_FLOPS),
-        V3_KEYS["float32"][1]: (f_ops, 4 * f_px + grams, F32_FLOPS),
+        V3_KEYS["float32"][0]: (e_tf32, 4 * e_px + grams, TF32_FLOPS),
+        V3_KEYS["float32"][1]: (3 * f_fold, 4 * f_px + grams, TF32_FLOPS),
+        V3_TWINS[0]: (e_ops, 4 * e_px + grams, F32_FLOPS),
+        V3_TWINS[1]: (f_fold, 4 * f_px + grams, F32_FLOPS),
     }
+
+
+def _mask_flips(z, y, what):
+    """Pixels (values) where the kernel's forward mask z > 0 and the plain
+    float32 y's y > 0 differ; each must lie within 1e-5 max|y| of 0 (the
+    two y differ by float32 rounding). Printed; returns (count, the largest
+    |y| among them over max|y|)."""
+    flips = (z > 0) != (y > 0)
+    n = int(flips.sum())
+    worst = (float(y[flips].abs().max() / y.abs().max()) if n else 0.0)
+    print(f"{what}: {n} mask flips between E's z > 0 and the plain y > 0, "
+          f"the largest at |y| = {worst:.3g} max|y|")
+    if worst > 1e-5:
+        fail(f"{what}: a mask flip at |y| = {worst} max|y| > 1e-5")
+    return n, worst
 
 
 def stage1v3_check(dev):
     """Kernels E and F at the stage-1 shapes of the main path (4 x 512² x 3
-    -> 64), each call on its route's kernel and against its plain version:
-    bf16 on the tensor cores (``conv1_1_gram_wgmma``,
-    ``conv1_1_gram_bwd_wgmma``), float32 on the CUDA cores
-    (``conv1_1_gram``, ``conv1_1_gram_bwd``); g64 bit-identical on a second
-    call. Each timed by CUDA events and by the profiler's kernel time; in
-    bf16 beside the CUDA-core twins on the same inputs (held against the
-    plain versions too), which bf16 took before."""
+    -> 64), each call on its route's tensor-core kernel and against its
+    plain version: bf16 on ``wgmma`` (``conv1_1_gram_wgmma``,
+    ``conv1_1_gram_bwd_wgmma``), float32 by 3xTF32 (``conv1_1_gram_tf32x3``,
+    ``conv1_1_gram_bwd_tf32x3``); g64 bit-identical on a second call. The
+    float32 F is held against the plain F masked by E's own z > 0: it
+    recomputes y by E's instructions, and a y within float32 rounding of 0
+    may fall on the other side of the plain version's matmul; those pixels
+    are counted, and each must have |y| <= 1e-5 max|y|. Each timed by CUDA
+    events and by the profiler's kernel time, beside the CUDA-core twins on
+    the same inputs (held against the plain versions as before), which are
+    entries of their own in float32, the dtype they served."""
     import torch
     from st3d_torch.kernels import stage1v3 as ks3
     from st3d_torch.kernels.stage1 import patches27
@@ -1801,8 +1840,9 @@ def stage1v3_check(dev):
     plain_in_float32()
     gen = torch.Generator(device=dev).manual_seed(4)
     shape = (VIEWS, SIZE, SIZE)
-    names = V3_KEYS["bfloat16"] + V3_KEYS["float32"]
+    names = V3_KEYS["bfloat16"] + V3_KEYS["float32"] + V3_TWINS
     res = {n: {"max_abs_err": 0.0} for n in names}
+    work = stage1v3_work()
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
         name = str(dtype)[6:]
         e_key, f_key = V3_KEYS[name]
@@ -1823,7 +1863,8 @@ def stage1v3_check(dev):
         if _v3_launched(before) != {e_key: 1}:
             fail(f"E {name}: launched {_v3_launched(before)}, want {e_key}")
         z_p, g_p = ks3.conv1_1_gram_plain(x, w, b)
-        yr = (patches27(x) @ w.reshape(27, 64).float() + b.float()).to(dtype)
+        y = patches27(x) @ w.reshape(27, 64).float() + b.float()
+        yr = y.to(dtype)
         errs = {e_key: _max_err(z, z_p, tol, f"E z {name}")}
         res[e_key]["g64_rel_fro_err"] = _g64_err(g64, g_p, yr,
                                                  f"E {e_key} {name}")
@@ -1835,7 +1876,20 @@ def stage1v3_check(dev):
         if _v3_launched(before) != {f_key: 1}:
             fail(f"F {name}: launched {_v3_launched(before)}, want {f_key}")
         dx_p = ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)
-        errs[f_key] = _max_err(dx, dx_p, tol, f"F dx {name}")
+        if dtype == torch.float32:
+            n, worst = _mask_flips(z, y, f"F {f_key} {name}")
+            res[f_key].update(mask_flips=n, mask_flip_max_y_share=worst)
+            own = ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym, mask=z > 0)
+            errs[f_key] = _max_err(dx, own, tol,
+                                   f"F dx {name} (plain F, E's mask)")
+            res[f_key]["max_abs_err_plain_mask"] = float(
+                (dx - dx_p).abs().max())
+            print(f"F {f_key} {name}: max err against the plain F with "
+                  f"E's mask {errs[f_key][0]:.3g}, with its own mask "
+                  f"{res[f_key]['max_abs_err_plain_mask']:.3g} (scale "
+                  f"{errs[f_key][1]:.3g})")
+        else:
+            errs[f_key] = _max_err(dx, dx_p, tol, f"F dx {name}")
         moves = {}
         for what, other in (("sym = 0", torch.zeros_like(sym)),
                             ("S of the next image", sym.roll(1, 0))):
@@ -1864,40 +1918,41 @@ def stage1v3_check(dev):
                   f"{r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms device "
                   f"{r['device_ms']:.4f} ms " + json.dumps(
                       {k[:48]: round(v, 4) for k, v in per.items()}))
-        if dtype == torch.bfloat16:
-            # The CUDA-core twins on the same inputs.
-            before = dict(ks3.LAUNCHES)
-            zc, gc = ks3.conv1_1_gram_cuda_core(x, w, b)
-            dxc = ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
-            torch.cuda.synchronize()
-            twins = dict(zip(V3_KEYS["float32"], (1, 1)))
-            if _v3_launched(before) != twins:
-                fail(f"CUDA-core E, F: launched {_v3_launched(before)}")
-            _max_err(zc, z_p, tol, f"E conv1_1_gram z {name}")
-            _g64_err(gc, g_p, yr, f"E conv1_1_gram {name}")
-            _max_err(dxc, dx_p, tol, f"F conv1_1_gram_bwd dx {name}")
-            twin_calls = {
-                e_key: lambda: ks3.conv1_1_gram_cuda_core(x, w, b),
-                f_key: lambda: ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b,
-                                                              sym)}
-            work = stage1v3_work()
-            for n, fn in twin_calls.items():
-                r = res[n]
-                r["cuda_core_ms"] = cuda_ms(fn, 5)
-                r["cuda_core_device_ms"] = profiled_ms(fn)[0]
-                print(f"{n} {name}: {r['ms']:.3f} ms (device "
-                      f"{r['device_ms']:.4f}, bound "
-                      f"{bound(*work[n])[0]:.4f}), the CUDA-core twin on "
-                      f"the same inputs {r['cuda_core_ms']:.3f} ms (device "
-                      f"{r['cuda_core_device_ms']:.4f})")
-    work = stage1v3_work()
-    meta = {"conv1_1_gram": "st3d/kernels/stage1v3_pallas.py:256",
-            "conv1_1_gram_bwd": "st3d/kernels/stage1v3_pallas.py:366"}
+        # The CUDA-core twins on the same inputs, held as before.
+        before = dict(ks3.LAUNCHES)
+        zc, gc = ks3.conv1_1_gram_cuda_core(x, w, b)
+        dxc = ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
+        torch.cuda.synchronize()
+        if _v3_launched(before) != dict.fromkeys(V3_TWINS, 1):
+            fail(f"CUDA-core E, F: launched {_v3_launched(before)}")
+        twin_errs = (_max_err(zc, z_p, tol, f"E conv1_1_gram z {name}")[0],
+                     _max_err(dxc, dx_p, tol,
+                              f"F conv1_1_gram_bwd dx {name}")[0])
+        _g64_err(gc, g_p, yr, f"E conv1_1_gram {name}")
+        twin_calls = {
+            e_key: lambda: ks3.conv1_1_gram_cuda_core(x, w, b),
+            f_key: lambda: ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)}
+        for (n, fn), twin, err in zip(twin_calls.items(), V3_TWINS,
+                                      twin_errs):
+            r = res[n]
+            r["cuda_core_ms"] = cuda_ms(fn, 5)
+            r["cuda_core_device_ms"] = profiled_ms(fn)[0]
+            print(f"{n} {name}: {r['ms']:.3f} ms (device "
+                  f"{r['device_ms']:.4f}, bound "
+                  f"{bound(*work[n])[0]:.4f}), the CUDA-core twin on "
+                  f"the same inputs {r['cuda_core_ms']:.3f} ms (device "
+                  f"{r['cuda_core_device_ms']:.4f})")
+            if dtype == torch.float32:
+                res[twin].update(max_abs_err=err, ms=r["cuda_core_ms"],
+                                 device_ms=r["cuda_core_device_ms"],
+                                 plain_ms=r["plain_ms"])
+    f32 = V3_KEYS["float32"] + V3_TWINS
     return [with_bound({"name": n, "route": "cuda",
                         "source": f"st3d_torch/csrc/{n}.cu",
-                        "replaces": meta[n.replace("_wgmma", "")],
-                        "dtype": ("float32" if n in V3_KEYS["float32"]
-                                  else "bfloat16"),
+                        "replaces": ("st3d/kernels/stage1v3_pallas.py:366"
+                                     if "bwd" in n else
+                                     "st3d/kernels/stage1v3_pallas.py:256"),
+                        "dtype": "float32" if n in f32 else "bfloat16",
                         **res[n]}, *work[n]) for n in names]
 
 
@@ -2093,12 +2148,13 @@ def check_stage1_counts(runs):
 
 
 def route_entries(kernels, default, routes):
-    """Launch counts on the opt-in routes: E and F get theirs from the v3
-    run (the float32 CUDA-core E and F none: that run is bf16);
-    K10c/K10d (C and D at stage 1's shapes, as measured there) and K8 (C
-    and D at its own shapes) are added as entries of their own."""
+    """Launch counts on the opt-in routes: the bf16 E and F get theirs from
+    the bf16 v3 run (the float32 ones and the twins theirs from the float32
+    v3 run, in ``main``); K10c/K10d (C and D at stage 1's shapes, as
+    measured there) and K8 (C and D at its own shapes) are added as entries
+    of their own."""
     by_name = {k["name"]: k for k in kernels}
-    for n in V3_KEYS["bfloat16"] + V3_KEYS["float32"]:
+    for n in V3_KEYS["bfloat16"]:
         by_name[n]["launches"] = routes["v3"][n]
     out = []
     for n, k10, line in (
@@ -2184,6 +2240,24 @@ def f32_texture_path(tmp, obj, style):
     got = {k: launches[k] for k in want}
     if got != want:
         fail(f"f32 texture: launched {got}, want {want} ({F32_EPOCHS} "
+             f"steps)")
+    return launches
+
+
+def f32_v3_texture_path(tmp, obj, style, a_setups):
+    """The texture step in float32 on the v3 route (``ST3D_STAGE1=v3``): E
+    and F by 3xTF32 in place of A and B, the rest as on the float32 default
+    route (``drive`` fails on any launch outside ``F32_V3_KERNELS``, the
+    CUDA-core ``conv1_1_gram`` and ``conv1_1_gram_bwd`` among them); F once
+    a step, E once a step plus the set-up launches A takes on the default
+    route (``a_setups``: the content and style targets)."""
+    launches = second_approach_path(tmp, obj, style, "v3", F32_EPOCHS,
+                                    "float32", want=F32_V3_KERNELS)
+    e, f = V3_KEYS["float32"]
+    want = {e: F32_EPOCHS + a_setups, f: F32_EPOCHS}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        fail(f"f32 v3 texture: launched {got}, want {want} ({F32_EPOCHS} "
              f"steps)")
     return launches
 
@@ -2519,6 +2593,8 @@ def main(argv=None):
             "texture bf16 fused_pool": (routes["fused_pool"], EPOCHS,
                                         "bfloat16"),
             "texture f32": (f32, F32_EPOCHS, "float32")})
+        f32_v3 = f32_v3_texture_path(
+            tmp, obj, style, f32[A_KEYS["float32"]] - F32_EPOCHS)
         lap("f32 texture target")
         vertex = {}
         for mode, (target, *_) in VERTEX_RUNS.items():
@@ -2545,11 +2621,16 @@ def main(argv=None):
     print("phase seconds " + json.dumps(seconds))
     # Launches on this slice's path: each raster kernel from the first
     # vertex run of its mode (K7: SoftRas), the VGG kernels from the hard
-    # run, the float32 route's kernels from the f32 texture run.
+    # run, the float32 route's kernels from the f32 texture run, the
+    # float32 E and F (and their twins, launched by no route) from the f32
+    # v3 texture run.
     mode_of = {}
     for mode, (*_, kernel) in VERTEX_RUNS.items():
         mode_of.setdefault(kernel, mode)
     for k in kernels:
+        if k["name"] in V3_KEYS["float32"] + V3_TWINS:
+            k["launches"] = f32_v3.get(k["name"], 0)
+            continue
         if k.get("dtype") == "float32":
             k["launches"] = f32.get(k["name"], 0)
             continue

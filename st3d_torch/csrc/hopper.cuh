@@ -2,12 +2,14 @@
 // (conv3x3_wgmma.cu, conv3x3_tf32x3.cu, gram_wgmma.cu, gram_tf32x3.cu,
 // pool_route_wgmma.cu, pool_route_tf32x3.cu, conv1_1_stats_wgmma.cu,
 // conv1_1_bwd_wgmma.cu, conv1_1_stats_tf32x3.cu, conv1_1_bwd_tf32x3.cu,
-// conv1_1_gram_wgmma.cu, conv1_1_gram_bwd_wgmma.cu and, through
+// conv1_1_gram_wgmma.cu, conv1_1_gram_bwd_wgmma.cu,
+// conv1_1_gram_tf32x3.cu, conv1_1_gram_bwd_tf32x3.cu and, through
 // conv_narrow.cuh, conv3x3_narrow_wgmma.cu and conv3x3_narrow_tf32x3.cu),
 // from raw PTX: mbarriers, cp.async, TMA tile loads and stores, named
 // barriers, the proxy fence, wgmma shared-memory descriptors and the wgmma
 // instructions; the Grams' second pass; conv1_1's patch rows and stage 1
-// v3's y; and, on the host, the tensor maps the convolutions share.
+// v3's y in bf16 and in float32; and, on the host, the tensor maps the
+// convolutions share.
 // kernels/build.py folds every csrc/*.cuh into each library's hash, so an
 // edit here rebuilds the kernels that include it.
 
@@ -589,6 +591,137 @@ __device__ __forceinline__ void conv1_1_y(float (&acc)[32], uint32_t p_rows,
   for (int kk = 0; kk < 2; ++kk)
     wgmma_m64n64k16<0, 0>(acc, desc_sw128(p_rows + kk * 32, 16),
                           desc_sw128(wb + kk * 32, 16));
+}
+
+// Stage 1 v3's y in float32 by the 3xTF32 split (conv1_1_gram_tf32x3.cu,
+// conv1_1_gram_bwd_tf32x3.cu): both kernels lay out W' and issue y's
+// products through the three functions below, so that the backward's ReLU
+// mask equals the forward's z > 0 bit for bit. The k order of the 32 patch
+// columns is kernel A f32's (conv1_1_stats_tf32x3.cu's z_column): position
+// p = 8kk + t + 4h, j = 2kk + h, holds patch column 3j + t (tap j, channel
+// t) for t < 3; for t = 3, tap 8's channel j (j < 3), the ones column (j =
+// 3) or zero. Thread (l/4, t = l%4) then reads tap j's channel t of its
+// pixel: a compile-time offset plus t.
+__host__ __device__ constexpr int tf32_patch_column(int p) {
+  return (p & 3) < 3 ? 3 * (2 * (p >> 3) + ((p >> 2) & 1)) + (p & 3)
+                     : 24 + 2 * (p >> 3) + ((p >> 2) & 1);
+}
+
+// W' hi and lo as K-major wgmma B tiles at ``dst`` (1024-byte aligned; hi,
+// then lo 8 KB later; 64 rows of 128 bytes, the 128-byte swizzle): row n
+// holds, at position p, W[k][n] of the (27, 64) float32 weights for k =
+// tf32_patch_column(p) < 27, b[n] for k = 27, zeros after; each value split
+// exactly into tf32 hi + lo.
+template <int THREADS>
+__device__ __forceinline__ void load_conv1_1_wb_tf32x3(uint8_t* dst,
+                                                       const float* w,
+                                                       const float* b,
+                                                       int tid) {
+  for (int i = tid; i < 64 * 8; i += THREADS) {
+    const int n = i >> 3, j = i & 7;
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int k = tf32_patch_column(4 * j + e);
+      const float v = k < 27 ? __ldg(w + k * 64 + n)
+                      : k == 27 ? __ldg(b + n)
+                                : 0.f;
+      split_tf32(v, hi[e], lo[e]);
+    }
+    *reinterpret_cast<uint4*>(dst + sw128_chunk(n, j)) =
+        make_uint4(hi[0], hi[1], hi[2], hi[3]);
+    *reinterpret_cast<uint4*>(dst + 64 * 128 + sw128_chunk(n, j)) =
+        make_uint4(lo[0], lo[1], lo[2], lo[3]);
+  }
+}
+
+// The value at tap J of the k order (lane column t) of the patch row whose
+// 3 x 3 window starts at float ``pix`` of a window WX pixels wide: 0 for an
+// invalid row (a pixel outside the image), the ones column included.
+template <int WX, int J>
+__device__ __forceinline__ float tf32_patch_value(const float* win, int pix,
+                                                  int t, bool valid) {
+  constexpr int TAP = ((J / 3) * WX + J % 3) * 3;
+  constexpr int TAP8 = (2 * WX + 2) * 3 + J;
+  if (!valid) return 0.f;
+  if (t < 3) return win[pix + TAP + t];
+  if (J < 3) return win[pix + TAP8];
+  return J == 3 ? 1.f : 0.f;
+}
+
+// acc = y = P' W' of a warpgroup's 64 rows: this thread's rows are the
+// patch rows whose windows start at floats pix0 (row l/4 of its warp's 16)
+// and pix1 (row l/4 + 8) of the float32 window ``win`` (WX pixels a row, 3
+// channels), t4 = l % 4. Each thread reads its tf32 A fragments from the
+// window and splits them in registers; 12 wgmma m64n64k8 (per k8 step lo
+// x hi, hi x lo, hi x hi) against W' hi and lo at ``wb`` (as
+// load_conv1_1_wb_tf32x3 lays them out). Returns once acc holds y.
+template <int WX>
+__device__ __forceinline__ void conv1_1_y_tf32x3(float (&acc)[32],
+                                                 const float* win, int pix0,
+                                                 int pix1, bool valid0,
+                                                 bool valid1, int t4,
+                                                 uint32_t wb) {
+  // a[kk][v] holds position 8kk + t4 + 4*(v >> 1) of row (v & 1).
+  uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+  for (int rsel = 0; rsel < 2; ++rsel) {
+    const int pix = rsel ? pix1 : pix0;
+    const bool valid = rsel ? valid1 : valid0;
+    const int v0 = rsel, v1 = rsel + 2;
+    split_tf32(tf32_patch_value<WX, 0>(win, pix, t4, valid), ahi[0][v0],
+               alo[0][v0]);
+    split_tf32(tf32_patch_value<WX, 1>(win, pix, t4, valid), ahi[0][v1],
+               alo[0][v1]);
+    split_tf32(tf32_patch_value<WX, 2>(win, pix, t4, valid), ahi[1][v0],
+               alo[1][v0]);
+    split_tf32(tf32_patch_value<WX, 3>(win, pix, t4, valid), ahi[1][v1],
+               alo[1][v1]);
+    split_tf32(tf32_patch_value<WX, 4>(win, pix, t4, valid), ahi[2][v0],
+               alo[2][v0]);
+    split_tf32(tf32_patch_value<WX, 5>(win, pix, t4, valid), ahi[2][v1],
+               alo[2][v1]);
+    split_tf32(tf32_patch_value<WX, 6>(win, pix, t4, valid), ahi[3][v0],
+               alo[3][v0]);
+    split_tf32(tf32_patch_value<WX, 7>(win, pix, t4, valid), ahi[3][v1],
+               alo[3][v1]);
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    fence_regs(ahi[kk]);
+    fence_regs(alo[kk]);
+  }
+  fence_acc(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t bh = desc_sw128(wb + kk * 32, 16);
+    const uint64_t bl = desc_sw128(wb + 64 * 128 + kk * 32, 16);
+    wgmma_m64n64k8_tf32_rs(acc, alo[kk], bh);
+    wgmma_m64n64k8_tf32_rs(acc, ahi[kk], bl);
+    wgmma_m64n64k8_tf32_rs(acc, ahi[kk], bh);
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_acc(acc);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    fence_regs(ahi[kk]);
+    fence_regs(alo[kk]);
+  }
+}
+
+// The channel at k position p of a product whose A operand is an m64nN
+// f32 accumulator (or data read in its layout), fed to tf32 m64nNk8
+// without moving a value between threads: the accumulator holds columns
+// 8j + 2t + {0, 1} where the A fragment of k8 step j wants positions 8j +
+// t + {0, 4}, so position p = 8kk + t + 4h holds channel 8kk + 2t + h, and
+// a[kk][rsel + 2h] = acc[4kk + 2rsel + h]. A B tile of such a product
+// holds, at position p, the row of channel acc_k_channel(p).
+__host__ __device__ constexpr int acc_k_channel(int p) {
+  return (p & ~7) + 2 * (p & 3) + ((p >> 2) & 1);
 }
 
 // Two floats as the two bf16 halves of a word, ``lo`` in the low half,

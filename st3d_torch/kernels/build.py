@@ -47,7 +47,8 @@ WGMMA_SOURCES = ("conv3x3_wgmma", "conv3x3_tf32x3", "gram_wgmma",
                  "conv1_1_stats_wgmma", "conv1_1_bwd_wgmma",
                  "conv1_1_stats_tf32x3", "conv1_1_bwd_tf32x3",
                  "conv3x3_narrow_wgmma", "conv3x3_narrow_tf32x3",
-                 "conv1_1_gram_wgmma", "conv1_1_gram_bwd_wgmma")
+                 "conv1_1_gram_wgmma", "conv1_1_gram_bwd_wgmma",
+                 "conv1_1_gram_tf32x3", "conv1_1_gram_bwd_tf32x3")
 # The two rasterizers with per-warp face lists report theirs too: their
 # register cap trades spills for occupancy.
 REPORT_SOURCES = WGMMA_SOURCES + ("raster_soft", "raster_topk")

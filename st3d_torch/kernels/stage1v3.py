@@ -7,15 +7,22 @@ of ``models.vgg.get_features``.
   per image the float32 Gram g64 = y_rᵀ y_r (64, 64) of y rounded to x's
   dtype, y = conv1_1(x) + b; differentiable in x through both. Forward:
   kernel E ``conv1_1_gram`` (replaces K10a). Backward: kernel F
-  ``conv1_1_gram_bwd`` (replaces K10b). Each has two kernels, chosen by
-  ``v3_route``: bf16 on the tensor cores (``csrc/conv1_1_gram_wgmma.cu``:
+  ``conv1_1_gram_bwd`` (replaces K10b). Each takes the tensor cores, the
+  kernel chosen by ``v3_route``: bf16 (``csrc/conv1_1_gram_wgmma.cu``:
   kernel A's plan, ``c11_stats_blocks`` persistent blocks per image over
   ``C11_STATS_TILE`` tiles, y and the Gram by ``wgmma`` from one staged
   y_r tile; ``csrc/conv1_1_gram_bwd_wgmma.cu``: kernel B's plan,
   ``c11_bwd_blocks`` persistent blocks over ``C11_BWD_TILE`` tiles, dz by
   TMA, y recomputed and d and dP by ``wgmma`` with their A operands in
-  registers, S split into bf16 hi + lo by ``split_bf16``), float32 on the
-  CUDA cores (``csrc/conv1_1_gram.cu``, ``csrc/conv1_1_gram_bwd.cu``).
+  registers, S split into bf16 hi + lo by ``split_bf16``) and float32 by
+  the 3xTF32 split (``csrc/conv1_1_gram_tf32x3.cu``: the same plan, y by
+  the A fragments split in registers, the Gram as HH + LH + LHᵀ from a
+  transposed, split y tile; ``csrc/conv1_1_gram_bwd_tf32x3.cu``: the same
+  plan with 32-channel dz slabs, dP = (dz·mask)·Wᵀ + y·M with M = S·Wᵀ
+  formed in the kernel; y from one device function shared by the two, so
+  F's mask is E's z > 0). The CUDA-core kernels (``csrc/conv1_1_gram.cu``,
+  ``csrc/conv1_1_gram_bwd.cu``) are their twins: the route "cuda_core"
+  names them, which only dtypes they refuse reach.
 - ``conv1_2_relu_pool_v3``: K10c and K10d compute the function of v2's
   conv1_2 half, so they are kernels C and D (``kernels.stage1``).
 
@@ -35,19 +42,23 @@ kernel launches.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from st3d_torch.kernels import build
 from st3d_torch.kernels.conv import (_tma_ready, conv3x3_nhwc_plain,
                                      transpose_weights)
-from st3d_torch.kernels.stage1 import (K27, c11_bwd_blocks, c11_stats_blocks,
+from st3d_torch.kernels.stage1 import (C11_STATS_BLOCKS_PER_SM,
+                                       C11_TF32_STATS_BLOCKS_PER_SM, K27,
+                                       c11_bwd_blocks, c11_stats_blocks,
                                        conv1_2_relu_pool, patches27)
 
 LAUNCHES: Dict[str, int] = {"conv1_1_gram": 0, "conv1_1_gram_bwd": 0,
                             "conv1_1_gram_wgmma": 0,
-                            "conv1_1_gram_bwd_wgmma": 0}
+                            "conv1_1_gram_bwd_wgmma": 0,
+                            "conv1_1_gram_tf32x3": 0,
+                            "conv1_1_gram_bwd_tf32x3": 0}
 
 COUT = 64
 # Pixels per block of the CUDA-core conv1_1_gram's first pass: 128 chunks
@@ -59,12 +70,29 @@ GRAM_PIX_PER_BLOCK = 2048
 conv1_2_relu_pool_v3 = conv1_2_relu_pool
 
 
+# The tensor-core E and F of each route: E's and F's launch keys (and
+# libraries), the C symbols' dtype suffix, E's blocks per SM and its 64 x 64
+# partials a block (one a warpgroup in bf16, folded in the block in
+# float32).
+_V3_TENSOR_CORES = {
+    "wgmma": ("conv1_1_gram_wgmma", "conv1_1_gram_bwd_wgmma", "bf16",
+              C11_STATS_BLOCKS_PER_SM, 2),
+    "tf32x3": ("conv1_1_gram_tf32x3", "conv1_1_gram_bwd_tf32x3", "f32",
+               C11_TF32_STATS_BLOCKS_PER_SM, 1),
+}
+
+
 def v3_route(dtype: torch.dtype) -> str:
-    """The kernel E and F take for a CUDA tensor: "wgmma"
-    (``csrc/conv1_1_gram_wgmma.cu``, ``csrc/conv1_1_gram_bwd_wgmma.cu``)
-    for bf16 (Cout is always 64, one ``wgmma`` N tile); else "cuda_core"
-    (``csrc/conv1_1_gram.cu``, ``csrc/conv1_1_gram_bwd.cu``)."""
-    return "wgmma" if dtype == torch.bfloat16 else "cuda_core"
+    """The kernel E and F take for a CUDA tensor (Cout is always 64, one
+    ``wgmma`` N tile): "wgmma" (``csrc/conv1_1_gram_wgmma.cu``,
+    ``csrc/conv1_1_gram_bwd_wgmma.cu``) for bf16, "tf32x3"
+    (``csrc/conv1_1_gram_tf32x3.cu``, ``csrc/conv1_1_gram_bwd_tf32x3.cu``)
+    for float32; else "cuda_core", the twins ``conv1_1_gram_cuda_core``
+    and ``conv1_1_gram_bwd_cuda_core``, whose ``build.check_operands``
+    refuses such a dtype before any launch."""
+    if dtype == torch.bfloat16:
+        return "wgmma"
+    return "tf32x3" if dtype == torch.float32 else "cuda_core"
 
 
 def split_bf16(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -114,40 +142,43 @@ def conv1_1_gram(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     w27, b = _operands(x, w, b)
     if x.device.type == "cpu":
         return conv1_1_gram_plain(x, w, b)
+    route = v3_route(x.dtype)
+    if route == "cuda_core":
+        return conv1_1_gram_cuda_core(x, w, b)
     build.check_operands("conv1_1_gram", x, w27, b)
-    if v3_route(x.dtype) == "wgmma":
-        return _conv1_1_gram_wgmma(x, w27, b)
-    return conv1_1_gram_cuda_core(x, w, b)
+    return _conv1_1_gram_tensor_cores(x, w27, b, route)
 
 
-def _conv1_1_gram_wgmma(x: torch.Tensor, w27: torch.Tensor, b: torch.Tensor
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """E on the tensor cores: ``c11_stats_blocks`` persistent blocks per
-    image, each (block, warpgroup) writing one 64 x 64 partial that a
-    second pass adds in order."""
+def _conv1_1_gram_tensor_cores(x: torch.Tensor, w27: torch.Tensor,
+                               b: torch.Tensor, route: str
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """E on the tensor cores of ``route`` ("wgmma" or "tf32x3"):
+    ``c11_stats_blocks`` persistent blocks per image, each writing one 64
+    x 64 partial per warpgroup (bf16) or per block (float32, HH + LH + LHᵀ
+    folded in the block) that a second pass adds in order."""
+    key, _, suffix, per_sm, parts = _V3_TENSOR_CORES[route]
     bsz, h, wd, _ = x.shape
     x, w27, b = x.contiguous(), w27.contiguous(), b.contiguous()
-    blocks = c11_stats_blocks(bsz, h, wd)
+    blocks = c11_stats_blocks(bsz, h, wd, per_sm)
     dev = x.device
     z = torch.empty((bsz, h, wd, COUT), dtype=x.dtype, device=dev)
-    partial = torch.empty((bsz, blocks, 2, COUT, COUT), dtype=torch.float32,
-                          device=dev)
+    partial = torch.empty((bsz, blocks, parts, COUT, COUT),
+                          dtype=torch.float32, device=dev)
     g64 = torch.empty((bsz, COUT, COUT), dtype=torch.float32, device=dev)
-    fn = build.symbol("conv1_1_gram_wgmma", "st3d_conv1_1_gram_wgmma_bf16",
-                      6, 4)
+    fn = build.symbol(key, f"st3d_{key}_{suffix}", 6, 4)
     err = fn(x.data_ptr(), w27.data_ptr(), b.data_ptr(), z.data_ptr(),
              partial.data_ptr(), g64.data_ptr(), bsz, h, wd, blocks,
              build.stream_handle(dev))
-    build.check(err, "conv1_1_gram_wgmma")
-    LAUNCHES["conv1_1_gram_wgmma"] += 1
+    build.check(err, key)
+    LAUNCHES[key] += 1
     return z, g64
 
 
 def conv1_1_gram_cuda_core(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """E on the CUDA cores (``csrc/conv1_1_gram.cu``), float32's route,
-    callable in bf16 too as the tensor-core kernel's twin; CUDA tensors
-    only."""
+    """E on the CUDA cores (``csrc/conv1_1_gram.cu``), the tensor-core
+    kernels' twin in both dtypes, launched by no route that a dtype it
+    takes reaches; CUDA tensors only."""
     w27, b = _operands(x, w, b)
     build.check_operands("conv1_1_gram", x, w27, b)
     bsz, h, wd, _ = x.shape
@@ -174,15 +205,20 @@ def conv1_1_gram_cuda_core(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 
 def conv1_1_gram_bwd_plain(x: torch.Tensor, dz: torch.Tensor,
                            w: torch.Tensor, b: torch.Tensor,
-                           sym: torch.Tensor) -> torch.Tensor:
+                           sym: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Plain version of ``conv1_1_gram_bwd``: d = dz·[y > 0] + y_r·sym in
     float32, rounded once to ``x.dtype``, then K2's plain transpose conv
-    (float32 sum, one rounding)."""
+    (float32 sum, one rounding). ``mask`` (B,H,W,64) bool, if given, stands
+    for [y > 0]: a kernel's own forward's z > 0, which a check holds a
+    kernel's dx against where its y and the plain y straddle 0."""
     w27, b = _operands(x, w, b)
     bsz = x.shape[0]
     y = _pre_relu(x, w27, b)
     yr = y.to(x.dtype).float().reshape(bsz, -1, COUT)
-    d = (torch.where(y > 0, dz.float(), torch.zeros((), device=dz.device))
+    keep = y > 0 if mask is None else mask
+    d = (torch.where(keep, dz.float(), torch.zeros((), device=dz.device))
          + (yr @ sym.float()).reshape(y.shape)).to(x.dtype)
     zb = torch.zeros(3, dtype=x.dtype, device=x.device)
     return conv3x3_nhwc_plain(d, transpose_weights(w, x.dtype), zb)
@@ -203,10 +239,11 @@ def conv1_1_gram_bwd(x: torch.Tensor, dz: torch.Tensor, w: torch.Tensor,
                          f"{(bsz, COUT, COUT)}")
     if x.device.type == "cpu":
         return conv1_1_gram_bwd_plain(x, dz, w, b, sym)
+    route = v3_route(x.dtype)
+    if route == "cuda_core":
+        return conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
     _check_bwd_operands(x, dz, w27, b, sym)
-    if v3_route(x.dtype) == "wgmma":
-        return _conv1_1_gram_bwd_wgmma(x, dz, w27, b, sym)
-    return conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
+    return _conv1_1_gram_bwd_tensor_cores(x, dz, w27, b, sym, route)
 
 
 def _check_bwd_operands(x, dz, w27, b, sym) -> None:
@@ -216,34 +253,37 @@ def _check_bwd_operands(x, dz, w27, b, sym) -> None:
                          f"{x.device}, got {sym.dtype} on {sym.device}")
 
 
-def _conv1_1_gram_bwd_wgmma(x: torch.Tensor, dz: torch.Tensor,
-                            w27: torch.Tensor, b: torch.Tensor,
-                            sym: torch.Tensor) -> torch.Tensor:
-    """F on the tensor cores: tiles of ``C11_BWD_TILE``, ``c11_bwd_blocks``
-    persistent blocks; S goes in as Sᵀ split by ``split_bf16``, (B, 2, 64,
-    64), so that row o of each part is S[:, o], the K-major B tile of
-    y_r·S."""
+def _conv1_1_gram_bwd_tensor_cores(x: torch.Tensor, dz: torch.Tensor,
+                                   w27: torch.Tensor, b: torch.Tensor,
+                                   sym: torch.Tensor, route: str
+                                   ) -> torch.Tensor:
+    """F on the tensor cores of ``route``: tiles of ``C11_BWD_TILE``,
+    ``c11_bwd_blocks`` persistent blocks. In bf16 S goes in as Sᵀ split by
+    ``split_bf16``, (B, 2, 64, 64), so that row o of each part is S[:, o],
+    the K-major B tile of y_r·S; in float32 S goes in as it is, and the
+    kernel forms M = S·Wᵀ and splits it."""
+    _, key, suffix, _, _ = _V3_TENSOR_CORES[route]
     bsz, h, wd, _ = x.shape
     x, b = x.contiguous(), b.contiguous()
     dz, w27 = _tma_ready(dz), _tma_ready(w27)
-    s_parts = torch.stack(split_bf16(sym.transpose(1, 2)), dim=1)
+    s = (torch.stack(split_bf16(sym.transpose(1, 2)), dim=1)
+         if route == "wgmma" else _tma_ready(sym))
     dx = torch.empty_like(x)
-    fn = build.symbol("conv1_1_gram_bwd_wgmma",
-                      "st3d_conv1_1_gram_bwd_wgmma_bf16", 6, 4)
+    fn = build.symbol(key, f"st3d_{key}_{suffix}", 6, 4)
     err = fn(x.data_ptr(), dz.data_ptr(), w27.data_ptr(), b.data_ptr(),
-             s_parts.data_ptr(), dx.data_ptr(), bsz, h, wd,
+             s.data_ptr(), dx.data_ptr(), bsz, h, wd,
              c11_bwd_blocks(bsz, h, wd), build.stream_handle(x.device))
-    build.check(err, "conv1_1_gram_bwd_wgmma")
-    LAUNCHES["conv1_1_gram_bwd_wgmma"] += 1
+    build.check(err, key)
+    LAUNCHES[key] += 1
     return dx
 
 
 def conv1_1_gram_bwd_cuda_core(x: torch.Tensor, dz: torch.Tensor,
                                w: torch.Tensor, b: torch.Tensor,
                                sym: torch.Tensor) -> torch.Tensor:
-    """F on the CUDA cores (``csrc/conv1_1_gram_bwd.cu``), float32's route,
-    callable in bf16 too as the tensor-core kernel's twin; CUDA tensors
-    only."""
+    """F on the CUDA cores (``csrc/conv1_1_gram_bwd.cu``), the tensor-core
+    kernels' twin in both dtypes, launched by no route that a dtype it
+    takes reaches; CUDA tensors only."""
     w27, b = _operands(x, w, b)
     _check_bwd_operands(x, dz, w27, b, sym)
     bsz, h, wd, _ = x.shape

@@ -975,6 +975,7 @@ def test_render_gradients_match_plain_path(dev, mode):
 # ---------------------------------------------------------------------------
 
 V3_KEYS = {"wgmma": ("conv1_1_gram_wgmma", "conv1_1_gram_bwd_wgmma"),
+           "tf32x3": ("conv1_1_gram_tf32x3", "conv1_1_gram_bwd_tf32x3"),
            "cuda_core": ("conv1_1_gram", "conv1_1_gram_bwd")}
 
 
@@ -1116,6 +1117,126 @@ def test_conv1_1_gram_wgmma_matches_twin_and_plain(dev, shape):
         assert _rel_err(dx, dx_r) <= 1e-2
     assert torch.equal(ks3.conv1_1_gram(x, w, b)[1], g64)   # deterministic
     assert torch.equal(ks3.conv1_1_gram_bwd(x, dz, w, b, sym), dx)
+
+
+# E and F on their float32 tensor-core route (3xTF32) against their
+# CUDA-core twins and the plain versions, on the tile shapes above. On the
+# exact data of ``_v3_exact`` in float32 (every value exact in TF32, so
+# every lo part of x, W, b, dz and S is zero; y is exact in TF32 too, and
+# M = S Wᵀ, in units of 2^-9 below 2^-1, in float32; every sum exact in
+# float32 in any order, as above) z, g64 and dx equal the twins and the
+# plain versions bit for bit, ReLU boundary included. On random data: z
+# within 1e-4 of the largest value, g64 within 1e-4 relative Frobenius and
+# bit-identical on a second call, and dx within 1e-4 of the largest value
+# against the plain function masked by E's own z > 0 (F recomputes y by
+# E's instructions; a plain float32 y may straddle 0 elsewhere, only where
+# |y| <= 1e-5 max|y|).
+
+
+@pytest.mark.parametrize("shape", V3_TILE_SHAPES)
+def test_conv1_1_gram_tf32x3_bit_equal_on_exact_data(dev, shape):
+    from st3d_torch.kernels import stage1v3 as ks3
+
+    x, w, b, dz, sym = (t.float() for t in _v3_exact(dev, 41, shape))
+    assert ks3.v3_route(torch.float32) == "tf32x3"
+    n0 = dict(ks3.LAUNCHES)
+    z, g64 = ks3.conv1_1_gram(x, w, b)
+    dx = ks3.conv1_1_gram_bwd(x, dz, w, b, sym)
+    torch.cuda.synchronize()
+    assert _v3_launched(n0) == {"conv1_1_gram_tf32x3": 1,
+                                "conv1_1_gram_bwd_tf32x3": 1}
+    z_p, g_p = ks3.conv1_1_gram_plain(x, w, b)
+    dx_p = ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)
+    z_t, g_t = ks3.conv1_1_gram_cuda_core(x, w, b)
+    dx_t = ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
+    assert bool((z_p == 0).any()) and bool((z_p > 0).any())
+    for got, plain, twin in ((z, z_p, z_t), (g64, g_p, g_t),
+                             (dx, dx_p, dx_t)):
+        assert got.dtype == torch.float32
+        assert torch.equal(got, plain) and torch.equal(got, twin)
+    assert not torch.equal(
+        ks3.conv1_1_gram_bwd_plain(x, dz, w, b, torch.zeros_like(sym)), dx)
+    again = ks3.conv1_1_gram(x, w, b)
+    assert torch.equal(again[0], z) and torch.equal(again[1], g64)
+    assert torch.equal(ks3.conv1_1_gram_bwd(x, dz, w, b, sym), dx)
+
+
+@pytest.mark.parametrize("shape", V3_TILE_SHAPES + [(4, 128, 136)])
+def test_conv1_1_gram_tf32x3_within_1e4_on_random_data(dev, shape):
+    from st3d_torch.kernels import stage1v3 as ks3
+    from st3d_torch.kernels.stage1 import patches27
+
+    g = torch.Generator(device=dev).manual_seed(42)
+    x = torch.rand(shape + (3,), generator=g, device=dev)
+    w = torch.randn((3, 3, 3, 64), generator=g, device=dev) * (2 / 27) ** .5
+    b = 0.1 * torch.randn((64,), generator=g, device=dev)
+    dz = torch.randn(shape + (64,), generator=g, device=dev)
+    dg = 3e-2 * torch.randn((shape[0], 64, 64), generator=g, device=dev)
+    sym = dg + dg.transpose(1, 2)
+    n0 = dict(ks3.LAUNCHES)
+    z, g64 = ks3.conv1_1_gram(x, w, b)
+    dx = ks3.conv1_1_gram_bwd(x, dz, w, b, sym)
+    torch.cuda.synchronize()
+    assert _v3_launched(n0) == {"conv1_1_gram_tf32x3": 1,
+                                "conv1_1_gram_bwd_tf32x3": 1}
+    z_p, g_p = ks3.conv1_1_gram_plain(x, w, b)
+    assert _rel_err(z, z_p) <= 1e-4
+    assert torch.linalg.norm(g64 - g_p) <= 1e-4 * torch.linalg.norm(g_p)
+    dx_p = ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym, mask=z > 0)
+    assert _rel_err(dx, dx_p) <= 1e-4
+    y = patches27(x) @ w.reshape(27, 64) + b
+    flips = (z > 0) != (y > 0)
+    assert bool((y[flips].abs() <= 1e-5 * y.abs().max()).all())
+    # The twins on the same inputs, held as before.
+    z_t, g_t = ks3.conv1_1_gram_cuda_core(x, w, b)
+    assert _rel_err(z_t, z_p) <= 1e-4
+    assert torch.linalg.norm(g_t - g_p) <= 1e-4 * torch.linalg.norm(g_p)
+    dx_t = ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
+    assert _rel_err(dx_t, ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)) \
+        <= 1e-4
+    assert torch.equal(ks3.conv1_1_gram(x, w, b)[1], g64)   # deterministic
+    assert torch.equal(ks3.conv1_1_gram_bwd(x, dz, w, b, sym), dx)
+
+
+@pytest.mark.parametrize("shape", [(1, 37, 29), (4, 128, 136)])
+def test_conv1_1_gram_tf32x3_z_is_kernel_a_f32_z(dev, shape):
+    """E's y is kernel A f32's z product instruction for instruction
+    (hopper.cuh's conv1_1_y_tf32x3 and A's own copy of it): the two z are
+    equal bit for bit on random data."""
+    from st3d_torch.kernels import stage1 as ks1
+    from st3d_torch.kernels import stage1v3 as ks3
+
+    g = torch.Generator(device=dev).manual_seed(43)
+    x = torch.rand(shape + (3,), generator=g, device=dev)
+    w = torch.randn((3, 3, 3, 64), generator=g, device=dev) * (2 / 27) ** .5
+    b = 0.1 * torch.randn((64,), generator=g, device=dev)
+    n0, n1 = dict(ks1.LAUNCHES), dict(ks3.LAUNCHES)
+    z_a = ks1.conv1_1_stats(x, w, b)[0]
+    z_e = ks3.conv1_1_gram(x, w, b)[0]
+    torch.cuda.synchronize()
+    assert _s1_launched(n0) == {"conv1_1_stats_tf32x3": 1}
+    assert _v3_launched(n1) == {"conv1_1_gram_tf32x3": 1}
+    assert torch.equal(z_e, z_a)
+
+
+def test_conv1_1_relu_gram_float32_launches_tf32x3(dev):
+    """The autograd function in float32 on the card: forward and backward
+    launch E and F on 3xTF32 once each, and nothing else of E's or F's."""
+    from st3d_torch.kernels import stage1v3 as ks3
+
+    g = torch.Generator(device=dev).manual_seed(44)
+    x = torch.rand((2, 24, 40, 3), generator=g, device=dev,
+                   requires_grad=True)
+    w = torch.randn((3, 3, 3, 64), generator=g, device=dev) * (2 / 27) ** .5
+    b = 0.1 * torch.randn((64,), generator=g, device=dev)
+    n0 = dict(ks3.LAUNCHES)
+    z, g64 = ks3.conv1_1_relu_gram(x, w, b)
+    torch.autograd.backward((z, g64), (torch.ones_like(z),
+                                       1e-3 * torch.ones_like(g64)))
+    torch.cuda.synchronize()
+    assert _v3_launched(n0) == {"conv1_1_gram_tf32x3": 1,
+                                "conv1_1_gram_bwd_tf32x3": 1}
+    assert bool(torch.isfinite(x.grad).all())
 
 
 def test_stage1v3_gradient_matches_plain_path(dev):

@@ -221,8 +221,9 @@ def _rel_fro(got, ref):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"),
-                                        (torch.float32, "cuda_core"),
-                                        (torch.float16, "cuda_core")])
+                                        (torch.float32, "tf32x3"),
+                                        (torch.float16, "cuda_core"),
+                                        (torch.float64, "cuda_core")])
 def test_v3_route(dtype, want):
     assert ks3.v3_route(dtype) == want
 
