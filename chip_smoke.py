@@ -11,7 +11,10 @@ Phases; any failure raises and the script exits non-zero:
 2. Kernel checks at the main path's shapes, each kernel against its plain
    PyTorch version on the same inputs (TF32 off for the plain versions):
    K1 ``raster_hard`` (4 fixed views at 512², ico-sphere level 4):
-   pix_to_face exactly equal, zbuf within rtol 1e-6;
+   pix_to_face exactly equal, zbuf within rtol 1e-6, and p2f and zbuf
+   bit-equal to its every-face twin ``raster_hard_every_face`` (the
+   earlier walk, launched by no route), timed beside it with the pairs its
+   warps' face lists held (``tested``), the twin's and those needed;
    K1's soft mode ``raster_soft`` (the same faces, sigma 1 px):
    pix_to_face and nearest_face exactly equal, zbuf within rtol 1e-6;
    K7 ``raster_topk`` (the same faces, K=4 with a 3 px window as SoftRas
@@ -41,8 +44,13 @@ Phases; any failure raises and the script exits non-zero:
    K3 at the four style-Gram shapes, in bf16 on ``gram_wgmma`` (relative
    Frobenius error <= 1e-3) and in f32 on the 3xTF32 ``gram_tf32x3``
    (<= 1e-5; the CUDA-core ``gram_nhwc`` held and timed on the same f32
-   inputs), and conv1_1's 27-wide PᵀP in bf16 on ``gram_nhwc``; each Gram
-   bit-identical on a second call;
+   inputs), and conv1_1's 27-wide PᵀP (4 x 512² x 27) in both dtypes on
+   the narrow tensor-core kernel ``gram_narrow`` (bf16 <= 1e-3 of the
+   plain version; f32 <= 1e-5 of a float64 Gram, and of the plain version
+   within 1e-5 plus the plain float32 sum's own distance from float64),
+   held and timed beside its CUDA-core twin ``gram_nhwc`` and
+   ``torch.bmm`` in the same dtype; each Gram bit-identical on a second
+   call;
    stage 1 at 512² x 4 (conv1_1 3->64, conv1_2 64->64), bf16 and f32:
    A (``conv1_1_stats_wgmma`` on the tensor cores in bf16,
    ``conv1_1_stats_tf32x3`` by 3xTF32 in f32, its statistics bit-identical
@@ -90,7 +98,8 @@ Phases; any failure raises and the script exits non-zero:
    version (pix_to_face exactly equal, zbuf within rtol 1e-6), then at level
    7 (327,680 faces) against K1: zbuf bit-equal, ids different only at
    exact 1/z ties (both faces cover the pixel with bit-equal 1/z), counted.
-   Times are CUDA-event means after warm-up (bf16). Each kernel's bound is
+   Times are CUDA-event means after warm-up (bf16); K1 and the narrow K3
+   also print their device time under ``torch.profiler``. Each kernel's bound is
    the larger of the bytes it must move over 3.35 TB/s and its operations
    over the H100's peak for their type (989 TFLOP/s bf16 tensor, 67
    TFLOP/s float32). A raster kernel's operations are counted on the
@@ -114,11 +123,12 @@ Phases; any failure raises and the script exits non-zero:
    (K2, K3, A, B, C and D only on the tensor cores: no ``conv3x3_nhwc``,
    ``conv1_1_stats``, ``conv1_1_bwd``, ``conv3x3_relu_pool`` or
    ``pool_route_conv3x3_bwd`` launch on any bf16 route, no ``gram_nhwc``
-   on any but the two below).
+   on any route, no ``gram_narrow`` on any but the two below).
    Then 5 epochs each on PR 1's route (``ST3D_NO_STAGE1_V2=1
    ST3D_NO_PACKED1=1``: K1-K3 only) and on the K5 route
    (``ST3D_NO_STAGE1_V2=1``: C and D, not A and B), where conv1_1's
-   27-wide PᵀP takes ``gram_nhwc`` exactly once a step, and 20 epochs each on
+   27-wide PᵀP takes ``gram_narrow`` exactly once a step (PR 1's route
+   also in float32), and 20 epochs each on
    the v3 route (``ST3D_STAGE1=v3``: E and F on the tensor cores,
    ``conv1_1_gram_wgmma`` and ``conv1_1_gram_bwd_wgmma``, not A and B,
    and no CUDA-core E or F) and the
@@ -148,7 +158,14 @@ Phases; any failure raises and the script exits non-zero:
    moved, and the mode's raster kernel launched once per step plus once
    each for the content render and the final render (and, with the blur
    window, the two saturation checks), beside the VGG kernels; the median
-   step time of the last 5 epochs. Then K6 on the faces of the 327,680-face
+   step time of the last 5 epochs; the hard run four times more
+   (``hard_twin_runs``): with every K1 call held bit for bit against its
+   every-face twin on the same faces, then with PyTorch's deterministic
+   algorithms asked for, with K1, with the twin in K1's place (its losses
+   bit-equal to K1's wherever K1's run repeats bit for bit) and with K1
+   again. Then K1 on the faces of the hard run's ``final.obj``,
+   held, counted and timed as on the sphere.
+   Then K6 on the faces of the 327,680-face
    run as its ``final.obj`` holds them (``raster_stream_run_check``): hard
    and soft bit-equal to K1's outputs and to the every-chunk walk, ids (and
    nearest) bit-equal to the plain version at 64² to 128², the counts and
@@ -210,8 +227,8 @@ TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 # The VGG routes: the switches each sets, and the kernels it must launch.
 # In bf16 every K2, K3, A, B, C and D launch takes the tensor-core kernels;
-# the CUDA-core ones (float32, odd widths) run only conv1_1's 27-wide PᵀP
-# Gram, once a step, on the two routes with stage 1 off.
+# so does conv1_1's 27-wide PᵀP Gram (``gram_narrow``), once a step, on the
+# two routes with stage 1 off.
 KERNELS = ("raster_hard", "conv3x3_wgmma", "gram_wgmma",
            "conv1_1_stats_wgmma", "conv1_1_bwd_wgmma",
            "conv3x3_relu_pool_wgmma", "pool_route_wgmma")
@@ -262,12 +279,15 @@ ROUTES = {
            | set(V3_KEYS["bfloat16"])),
     "fused_pool": ({"ST3D_FUSED_POOL": "1"}, set(KERNELS)),
     "pr1": ({"ST3D_NO_STAGE1_V2": "1", "ST3D_NO_PACKED1": "1"},
-            {"raster_hard", "conv3x3_wgmma", "gram_wgmma", "gram_nhwc"}),
+            {"raster_hard", "conv3x3_wgmma", "gram_wgmma", "gram_narrow"}),
     "k5": ({"ST3D_NO_STAGE1_V2": "1"},
-           {"raster_hard", "conv3x3_wgmma", "gram_wgmma", "gram_nhwc",
+           {"raster_hard", "conv3x3_wgmma", "gram_wgmma", "gram_narrow",
             "conv3x3_relu_pool_wgmma", "pool_route_wgmma"}),
 }
-STAGE1_OFF = ("pr1", "k5")     # conv1_1's PᵀP: one gram_nhwc launch a step
+STAGE1_OFF = ("pr1", "k5")     # conv1_1's PᵀP: one gram_narrow launch a step
+# PR 1's route in float32: K2 and K3 on 3xTF32, the PᵀP on gram_narrow.
+PR1_F32_KERNELS = {"raster_hard", "conv3x3_tf32x3", "gram_tf32x3",
+                   "gram_narrow"}
 # (Cin, Cout, H) of the convs K2 runs at 512² (conv1_2 .. conv5_1).
 VGG_K2_CONVS = [
     (64, 64, 512), (64, 128, 256), (128, 128, 256), (128, 256, 128),
@@ -433,40 +453,98 @@ def raster_bytes(coeffs, rows, aux, out_bytes_per_px, size):
             + n * size * size * out_bytes_per_px)
 
 
-def raster_check(dev):
+def _hard_held(kr, coeffs, bounds, what):
+    """K1 (per-warp face lists) on faces at 512² against its every-face twin
+    (p2f and zbuf bit-equal) and its plain version (ids bit-equal, zbuf
+    within rtol 1e-6); its time and the twin's, and the pairs its lists
+    held (``tested``) beside the twin's and the function's."""
     import torch
-    from st3d_torch.kernels.raster import raster_hard, raster_hard_plain
+
+    cnt = torch.zeros(1, dtype=torch.int64, device=coeffs.device)
+    before = dict(kr.LAUNCHES)
+    got = kr.raster_hard(coeffs, bounds, SIZE, SIZE, cnt)
+    twin = kr.raster_hard_every_face(coeffs, bounds, SIZE, SIZE)
+    launched = {k: n - before[k] for k, n in kr.LAUNCHES.items()
+                if n != before[k]}
+    want = kr.raster_hard_plain(coeffs, bounds, SIZE, SIZE)
+    torch.cuda.synchronize()
+    same = torch.equal(got[0], twin[0]) and torch.equal(got[1], twin[1])
+    mismatch = int((got[0] != want[0]).sum())
+    hit = want[0] >= 0
+    zrel = float(((got[1] - want[1]).abs() / want[1].abs())[hit].max())
+    covered = float(hit.float().mean())
+    ms = cuda_ms(lambda: kr.raster_hard(coeffs, bounds, SIZE, SIZE))
+    twin_ms = cuda_ms(lambda: kr.raster_hard_every_face(coeffs, bounds, SIZE,
+                                                        SIZE))
+    dev_ms = profiled_ms(lambda: kr.raster_hard(coeffs, bounds, SIZE,
+                                                SIZE))[0]
+    twin_dev_ms = profiled_ms(lambda: kr.raster_hard_every_face(
+        coeffs, bounds, SIZE, SIZE))[0]
+    res = {"ms": ms, "every_face_ms": twin_ms, "device_ms": dev_ms,
+           "every_face_device_ms": twin_dev_ms, "tested": int(cnt),
+           "tested_every_face": tested_pairs(bounds, SIZE, 256, 0.0),
+           "needed": needed_pairs(coeffs, SIZE, 0.0),
+           "max_abs_err": float((got[1] - want[1]).abs().max()),
+           "every_face_max_abs_err": float((twin[1] - want[1]).abs().max())}
+    print(f"K1 raster_hard on {what}: coverage {covered:.4f}, pix_to_face "
+          f"mismatches {mismatch}, zbuf max rel err {zrel:.3g} against the "
+          f"plain version; p2f and zbuf bit-equal to the every-face twin "
+          f"{same}; kernel {ms:.3f} ms ({dev_ms:.4f} device), every-face "
+          f"twin {twin_ms:.3f} ms ({twin_dev_ms:.4f} device); "
+          f"pairs tested {res['tested']} (every-face walk "
+          f"{res['tested_every_face']}), {res['needed']} needed (bbox); "
+          f"launches {json.dumps(launched)}")
+    if mismatch:
+        fail(f"K1 pix_to_face on {what} differs from its plain version at "
+             f"{mismatch} px")
+    if zrel > 1e-6:
+        fail(f"K1 zbuf rel err on {what} {zrel} > 1e-6")
+    if not same:
+        fail(f"K1 on {what} differs from its every-face twin")
+    if launched != {"raster_hard": 1, "raster_hard_every_face": 1}:
+        fail(f"K1 on {what}: launched {launched}")
+    if not 0 < res["tested"] < res["tested_every_face"]:
+        fail(f"K1 on {what}: its lists held {res['tested']} pairs, the "
+             f"every-face walk tests {res['tested_every_face']}")
+    if covered < 0.05:
+        fail(f"K1 test scene {what} covers only {covered} of the pixels")
+    return res
+
+
+def raster_check(dev):
+    """K1 at the main path's shapes (the level-4 sphere at 512²), held by
+    ``_hard_held``; rows for the kernel and for its every-face twin."""
+    from st3d_torch.kernels import raster as kr
 
     fv, coeffs, bounds = sphere_faces(dev, ICO_LEVEL, SIZE)
-    p2f_k, z_k = raster_hard(coeffs, bounds, SIZE, SIZE)
-    p2f_p, z_p = raster_hard_plain(coeffs, bounds, SIZE, SIZE)
-    torch.cuda.synchronize()
-    mismatch = int((p2f_k != p2f_p).sum())
-    hit = p2f_p >= 0
-    zerr = float((z_k - z_p).abs().max())
-    zrel = float(((z_k - z_p).abs() / z_p.abs())[hit].max())
-    covered = float(hit.float().mean())
-    print(f"K1 raster_hard: {fv.shape[1]} faces, coverage {covered:.4f}, "
-          f"pix_to_face mismatches {mismatch}, zbuf max rel err {zrel:.3g}")
-    if mismatch:
-        fail(f"K1 pix_to_face differs from its plain version at {mismatch} px")
-    if zrel > 1e-6:
-        fail(f"K1 zbuf rel err {zrel} > 1e-6")
-    if covered < 0.05:
-        fail(f"K1 test scene covers only {covered} of the pixels")
-    ms = cuda_ms(lambda: raster_hard(coeffs, bounds, SIZE, SIZE))
-    plain_ms = cuda_ms(lambda: raster_hard_plain(coeffs, bounds, SIZE, SIZE),
-                       reps=3, warmup=1)
-    pairs = needed_pairs(coeffs, SIZE, 0.0)
-    print(f"K1 raster_hard: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"{pairs} pairs needed (bbox), "
-          f"{tested_pairs(bounds, SIZE, 256, 0.0)} tested")
-    return with_bound({"name": "raster_hard", "route": "cuda",
-                       "source": "st3d_torch/csrc/raster_hard.cu",
-                       "replaces": "st3d/kernels/raster_pallas.py:134",
-                       "max_abs_err": zerr, "ms": ms, "plain_ms": plain_ms},
-                      pairs * PAIR_OPS["hard"],
-                      raster_bytes(coeffs, 12, bounds, 8, SIZE), F32_FLOPS)
+    res = _hard_held(kr, coeffs, bounds,
+                     f"the level-{ICO_LEVEL} sphere ({fv.shape[1]} faces)")
+    plain_ms = cuda_ms(lambda: kr.raster_hard_plain(coeffs, bounds, SIZE,
+                                                    SIZE), reps=3, warmup=1)
+    print(f"K1 raster_hard: plain {plain_ms:.3f} ms")
+    flops = res["needed"] * PAIR_OPS["hard"]
+    nbytes = raster_bytes(coeffs, 12, bounds, 8, SIZE)
+    common = {"route": "cuda", "source": "st3d_torch/csrc/raster_hard.cu",
+              "replaces": "st3d/kernels/raster_pallas.py:134",
+              "plain_ms": plain_ms}
+    rec = with_bound(dict(common, name="raster_hard", **res), flops, nbytes,
+                     F32_FLOPS)
+    twin = with_bound(dict(common, name="raster_hard_every_face",
+                           ms=res["every_face_ms"],
+                           device_ms=res["every_face_device_ms"],
+                           max_abs_err=res["every_face_max_abs_err"],
+                           tested=res["tested_every_face"]),
+                      flops, nbytes, F32_FLOPS)
+    return [rec, twin]
+
+
+def raster_hard_run_check(dev, obj, rec):
+    """K1 on the faces of the hard vertex run, as its ``final.obj`` holds
+    them, held as on the sphere; adds the results to K1's row."""
+    from st3d_torch.kernels import raster as kr
+
+    coeffs, bounds = run_faces(dev, obj, SIZE)
+    rec["run"] = _hard_held(kr, coeffs, bounds, "the hard run's final.obj")
 
 
 def _soft_held(kr, coeffs, bounds, what):
@@ -1215,11 +1293,10 @@ def gram_check(dev):
     """K3 at the four style-Gram shapes of the main path: bf16 on the
     tensor-core kernel, float32 on the 3xTF32 one (each bit-identical on a
     second call), the CUDA-core kernel held and timed on the same float32
-    inputs, plus conv1_1's 27-wide PᵀP in bf16 (CUDA cores, beside one
-    ``torch.bmm`` in bf16). Times of the
-    four Grams: bf16 against ``torch.bmm`` in bf16 (its output rounded to
-    bf16, where K3 keeps float32), float32 against ``torch.bmm`` in float32
-    with TF32 off."""
+    inputs; then conv1_1's 27-wide PᵀP (``narrow_gram_check``). Times of
+    the four Grams: bf16 against ``torch.bmm`` in bf16 (its output rounded
+    to bf16, where K3 keeps float32), float32 against ``torch.bmm`` in
+    float32 with TF32 off."""
     import torch
     from st3d_torch.kernels.conv import (LAUNCHES, gram_cuda_core, gram_nhwc,
                                          gram_nhwc_plain)
@@ -1232,8 +1309,7 @@ def gram_check(dev):
              "gram_nhwc": (1, F32_FLOPS)}
     tot = {k: {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0,
                "bound": 0.0} for k in rates}
-    shapes = [(h * h, c, dtype) for h, c in GRAM_SHAPES
-              for dtype in keys] + [(SIZE * SIZE, 27, torch.bfloat16)]
+    shapes = [(h * h, c, dtype) for h, c in GRAM_SHAPES for dtype in keys]
 
     def held(key, fn, y, g_p, tol):
         """fn(y) twice: one launch of ``key`` each, bit-identical, within
@@ -1252,28 +1328,18 @@ def gram_check(dev):
                 f"{rel:.3g}, bit-identical on a second call")
         if rel > tol:
             fail(f"{text}: > {tol}")
-        tot[key]["err"] = max(tot[key]["err"], float((g_k - g_p).abs().max()))
-        return text
+        if key in tot:
+            tot[key]["err"] = max(tot[key]["err"],
+                                  float((g_k - g_p).abs().max()))
+        return g_k, text
 
-    t27 = None
     for pixels, c, dtype in shapes:
         tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
-        key = "gram_nhwc" if c == 27 else keys[dtype]
+        key = keys[dtype]
         y = torch.relu(torch.randn((VIEWS, pixels, c), generator=gen,
                                    device=dev)).to(dtype)
         g_p = gram_nhwc_plain(y)
-        line = held(key, gram_nhwc, y, g_p, tol)
-        if c == 27:
-            # conv1_1's PᵀP on the CUDA cores, beside one torch.bmm in bf16
-            # (bf16 out, as the bf16 Grams' yardstick).
-            t27 = cuda_ms(lambda: gram_nhwc(y))
-            t27_lib = cuda_ms(lambda: torch.bmm(y.transpose(1, 2), y))
-            t27_b = bound(2 * VIEWS * pixels * c * c,
-                          y.element_size() * VIEWS * pixels * c
-                          + 4 * VIEWS * c * c, F32_FLOPS)
-            print(f"{line}  kernel {t27:.3f} ms, bmm {t27_lib:.3f} ms, bound "
-                  f"{t27_b[0]:.4f} ms ({t27_b[1]})")
-            continue
+        line = held(key, gram_nhwc, y, g_p, tol)[1]
         flops = 2 * VIEWS * pixels * c * c
         nbytes = y.element_size() * VIEWS * pixels * c + 4 * VIEWS * c * c
         t_p = cuda_ms(lambda: gram_nhwc_plain(y))
@@ -1282,7 +1348,7 @@ def gram_check(dev):
         if dtype == torch.float32:
             # The CUDA-core kernel float32 took before, on the same inputs.
             print(line)
-            line = held("gram_nhwc", gram_cuda_core, y, g_p, tol)
+            line = held("gram_nhwc", gram_cuda_core, y, g_p, tol)[1]
             timed.append(("gram_nhwc", gram_cuda_core))
         print(line)
         for k, fn in timed:
@@ -1314,9 +1380,88 @@ def gram_check(dev):
         if key == "gram_nhwc":
             rec["shapes"] = ("the four f32 style Grams (the widths "
                              "gram_route now sends to gram_tf32x3)")
-            rec.update({"ms_27_wide_bf16": t27,
-                        "library_ms_27_wide_bf16": t27_lib,
-                        "bound_ms_27_wide_bf16": t27_b[0]})
+        recs.append(rec)
+    return recs + narrow_gram_check(dev, gen, held, recs[-1])
+
+
+def narrow_gram_check(dev, gen, held, twin_rec):
+    """conv1_1's 27-wide PᵀP at 4 x 512² x 27 in both dtypes on the narrow
+    tensor-core kernel ``gram_narrow``, held by ``held`` (one launch, a
+    second call bit-identical) against the plain version: bf16 within 1e-3;
+    float32 within 1e-5 of a float64 Gram, and of the plain version within
+    1e-5 plus the plain float32 sum's own distance from float64 (a sum over
+    2^18 pixels). Its CUDA-core twin ``gram_nhwc`` is held and timed on the
+    same inputs (its times go into ``twin_rec``), beside one ``torch.bmm``
+    in the same dtype. The bound is the byte bound: at ~27 operations a
+    byte the tensor cores' time (bf16, or three TF32 passes) is far
+    below it."""
+    import torch
+    from st3d_torch.kernels.conv import gram_cuda_core, gram_nhwc, \
+        gram_nhwc_plain
+
+    c, pixels = 27, SIZE * SIZE
+    rates = {torch.bfloat16: (1, BF16_FLOPS), torch.float32: (3, TF32_FLOPS)}
+    recs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        y = torch.relu(torch.randn((VIEWS, pixels, c), generator=gen,
+                                   device=dev)).to(dtype)
+        g_p = gram_nhwc_plain(y)
+        g64 = torch.matmul(y.double().transpose(1, 2), y.double())
+
+        def rel(g):
+            return float(torch.linalg.norm(g.double() - g64)
+                         / torch.linalg.norm(g64))
+
+        tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
+        slack = 0.0 if dtype == torch.bfloat16 else rel(g_p)
+        g_k, line = held("gram_narrow", gram_nhwc, y, g_p, tol + slack)
+        g_t, twin_line = held("gram_nhwc", gram_cuda_core, y, g_p,
+                              tol + slack)
+        e64 = {"kernel": rel(g_k), "plain": rel(g_p), "twin": rel(g_t)}
+        if dtype == torch.float32 and e64["kernel"] > tol:
+            fail(f"K3 gram_narrow f32 27-wide: rel fro err {e64['kernel']} "
+                 f"from float64 > {tol}")
+        t_k = cuda_ms(lambda: gram_nhwc(y))
+        t_t = cuda_ms(lambda: gram_cuda_core(y))
+        d_k, d_split = profiled_ms(lambda: gram_nhwc(y))
+        d_t = profiled_ms(lambda: gram_cuda_core(y))[0]
+        t_p = cuda_ms(lambda: gram_nhwc_plain(y))
+        t_l = cuda_ms(lambda: torch.bmm(y.transpose(1, 2), y))
+        flops = 2 * VIEWS * pixels * c * c
+        nbytes = y.element_size() * VIEWS * pixels * c + 4 * VIEWS * c * c
+        passes, rate = rates[dtype]
+        rec = with_bound({
+            "name": "gram_narrow", "route": "cuda",
+            "source": "st3d_torch/csrc/gram_narrow.cu",
+            "replaces": "st3d/kernels/conv_pallas.py:548", "dtype": name,
+            "shape": [VIEWS, pixels, c],
+            "max_abs_err": float((g_k - g_p).abs().max()), "ms": t_k,
+            "plain_ms": t_p, "cuda_core_ms": t_t, "device_ms": d_k,
+            "device_ms_by_kernel": d_split,
+            "cuda_core_device_ms": d_t,
+            "rel_fro_err_float64": e64["kernel"],
+            "plain_rel_fro_err_float64": e64["plain"],
+            "cuda_core_rel_fro_err_float64": e64["twin"]},
+            passes * flops, nbytes, rate, t_l)
+        twin_b = bound(flops, nbytes, F32_FLOPS)
+        twin_rec.update({f"ms_27_wide_{name}": t_t,
+                         f"device_ms_27_wide_{name}": d_t,
+                         f"library_ms_27_wide_{name}": t_l,
+                         f"bound_ms_27_wide_{name}": twin_b[0]})
+        print(line)
+        print(twin_line)
+        print(f"K3 gram_narrow ({VIEWS},{pixels},{c}) {name}: rel fro err "
+              f"from float64: kernel {e64['kernel']:.3g}, plain "
+              f"{e64['plain']:.3g}, CUDA-core twin {e64['twin']:.3g}; kernel "
+              f"{t_k:.4f} ms ({d_k:.4f} device: "
+              + ", ".join(f"{'second pass' if 'reduce' in n else 'pass 1'} "
+                          f"{v:.4f}" for n, v in d_split.items())
+              + f"), CUDA-core twin {t_t:.4f} "
+              f"ms ({d_t:.4f} device), plain {t_p:.3f} "
+              f"ms, bmm {t_l:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}); twin's bound {twin_b[0]:.4f} ms "
+              f"({twin_b[1]}, fp32 cores)")
         recs.append(rec)
     return recs
 
@@ -2207,9 +2352,9 @@ def second_approach_path(tmp, obj, style, route, epochs, dtype="bfloat16",
     launches = drive("second approach", route, lambda: second_approach(
         second_approach_argv(obj, style, epochs, dtype, out)), want=want)
     wall = time.perf_counter() - t0
-    if route in STAGE1_OFF and launches["gram_nhwc"] != epochs:
-        fail(f"route {route}: gram_nhwc (conv1_1's PᵀP) launched "
-             f"{launches['gram_nhwc']} times, want one a step ({epochs})")
+    if route in STAGE1_OFF and launches["gram_narrow"] != epochs:
+        fail(f"route {route}: gram_narrow (conv1_1's PᵀP) launched "
+             f"{launches['gram_narrow']} times, want one a step ({epochs})")
     losses = read_log(out)
     if len(losses) != epochs or not all(map(math.isfinite, losses)):
         fail(f"second approach losses not {epochs} finite values: {losses}")
@@ -2312,16 +2457,20 @@ def moved(obj, out):
     return float(abs(v1 - v0).max())
 
 
-def vertex_path(tmp, scenes, mode, card):
+def vertex_path(tmp, scenes, mode, card, kernel=None, tag="", also=()):
     """A vertex-optimisation run of the second approach in one raster mode
     (``VERTEX_RUNS``): finite falling losses, moved vertices, and the mode's
-    raster kernel once per step (plus the content and final renders, and
-    the hard-K saturation checks)."""
+    raster kernel (``kernel`` where a twin stands in for it) once per step
+    (plus the content and final renders, and the hard-K saturation
+    checks); ``also``: kernels this run may launch besides the route's.
+    Its outputs go to ``<target>_<mode><tag>``. Returns the launches and
+    the losses."""
     from st3d_torch.second_approach import main as second_approach
 
-    target, extra, level, kernel = VERTEX_RUNS[mode]
+    target, extra, level, kernel_of_mode = VERTEX_RUNS[mode]
     obj, style = scenes[level]
-    out = os.path.join(tmp, f"{target}_{mode}")
+    out = os.path.join(tmp, f"{target}_{mode}{tag}")
+    kernel = kernel or kernel_of_mode
     t0 = time.perf_counter()
     launches = drive(f"{target} target {mode}", "default",
                      lambda: second_approach([
@@ -2332,7 +2481,9 @@ def vertex_path(tmp, scenes, mode, card):
                          "--save_intermediate", "False",
                          "--randomize_views", "False",
                          "--optimization_target", target, "--device", "cuda",
-                         "--output_path", out] + extra), raster=kernel)
+                         "--output_path", out] + extra), raster=kernel,
+                     want=(set(ROUTES["default"][1]) | set(also)) if also
+                     else None)
     wall = time.perf_counter() - t0
     losses = read_log(out)
     what = f"{target}/{mode}"
@@ -2358,7 +2509,73 @@ def vertex_path(tmp, scenes, mode, card):
           f"{losses[-1]:.6g} over {BOTH_EPOCHS} epochs, max |dv| {dv:.4g}, "
           f"median step {step_ms:.2f} ms over the last 5, run {wall:.1f}s, "
           f"launches " + json.dumps(launches))
-    return launches
+    return launches, losses
+
+
+def hard_twin_runs(tmp, scenes, card):
+    """The hard vertex run four times more: with each K1 call also run
+    through its every-face twin on the same faces (p2f and zbuf compared
+    bit for bit, every call); then, with PyTorch's deterministic
+    algorithms asked for (``warn_only``: the ops that have none warn, and
+    are printed), with K1, with the twin in K1's place and with K1 again.
+    Every call must agree. The twin's losses must equal K1's wherever the
+    repeated K1 run shows that the run repeats bit for bit on this card;
+    where it does not, the losses say nothing about K1, and the per-call
+    check is the one that holds it."""
+    import warnings
+
+    import torch
+    from st3d_torch.kernels import raster as kr
+
+    real = kr.raster_hard
+    calls = []
+
+    def held(coeffs, bounds, h, w, tested=None):
+        got = real(coeffs, bounds, h, w, tested)
+        twin = kr.raster_hard_every_face(coeffs, bounds, h, w)
+        calls.append(torch.equal(got[0], twin[0])
+                     and torch.equal(got[1], twin[1]))
+        return got
+
+    def twin(coeffs, bounds, h, w, tested=None):
+        return kr.raster_hard_every_face(coeffs, bounds, h, w)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            kr.raster_hard = held
+            vertex_path(tmp, scenes, "hard", card, tag="_held",
+                        also={"raster_hard_every_face"})
+            kr.raster_hard = real
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            _, losses = vertex_path(tmp, scenes, "hard", card, tag="_det")
+            kr.raster_hard = twin
+            _, twin_losses = vertex_path(tmp, scenes, "hard", card,
+                                         kernel="raster_hard_every_face",
+                                         tag="_twin")
+            kr.raster_hard = real
+            _, again = vertex_path(tmp, scenes, "hard", card, tag="_again")
+        finally:
+            kr.raster_hard = real
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    repeats = again == losses
+    same = twin_losses == losses
+    print(f"both target hard, K1 against its every-face twin on each of "
+          f"the run's {len(calls)} raster calls: p2f and zbuf bit-equal "
+          f"{all(calls)}; with deterministic algorithms asked for, losses "
+          f"with the twin in K1's place bit-equal to K1's {same}, K1's run "
+          f"repeated bit-equal {repeats}; ops without a deterministic "
+          f"version: {nondet}")
+    if len(calls) != BOTH_EPOCHS + 2 or not all(calls):
+        fail(f"K1 and its twin differ on the hard run's faces: {calls}")
+    if repeats and not same:
+        fail(f"the hard run's losses differ with K1's twin: {losses} "
+             f"against {twin_losses}")
+    return {"calls_bit_equal": sum(calls), "losses_bit_equal": same,
+            "run_repeats_bit_for_bit": repeats,
+            "nondeterministic_ops": nondet}
 
 
 def first_approach_path(tmp, obj, style, target="texture",
@@ -2566,7 +2783,7 @@ def main(argv=None):
     card_phase()
     card = smi()
     lap("build")
-    kernels = [raster_check(dev)] + conv_check(dev) + narrow_check(dev)
+    kernels = raster_check(dev) + conv_check(dev) + narrow_check(dev)
     kernels += gram_check(dev)
     kernels += stage1_check(dev)
     lap("K1-K3, A-D checks")
@@ -2581,8 +2798,12 @@ def main(argv=None):
         obj, style = scenes[ICO_LEVEL]
         lap("scenes")
         texture = second_approach_path(tmp, obj, style, "default", EPOCHS)
-        for route in ("pr1", "k5"):
-            second_approach_path(tmp, obj, style, route, ROUTE_EPOCHS)
+        stage1_off = {route: second_approach_path(tmp, obj, style, route,
+                                                  ROUTE_EPOCHS)
+                      for route in STAGE1_OFF}
+        stage1_off["pr1 f32"] = second_approach_path(
+            tmp, obj, style, "pr1", ROUTE_EPOCHS, "float32",
+            want=PR1_F32_KERNELS)
         routes = {r: second_approach_path(tmp, obj, style, r, EPOCHS)
                   for r in ("v3", "fused_pool")}
         check_fused_pool_counts(texture, routes["fused_pool"])
@@ -2598,9 +2819,16 @@ def main(argv=None):
         lap("f32 texture target")
         vertex = {}
         for mode, (target, *_) in VERTEX_RUNS.items():
-            vertex[mode] = vertex_path(tmp, scenes, mode, card)
+            vertex[mode] = vertex_path(tmp, scenes, mode, card)[0]
             lap(f"{target} {mode}")
         by_name = {k["name"]: k for k in kernels}
+        by_name["raster_hard"]["hard_run_twin"] = hard_twin_runs(
+            tmp, scenes, card)
+        lap("both hard, K1's twin")
+        raster_hard_run_check(dev, os.path.join(tmp, "both_hard",
+                                                "final.obj"),
+                              by_name["raster_hard"])
+        lap("K1 on the run's faces")
         raster_stream_run_check(
             dev, os.path.join(tmp, "both_stream", "final.obj"),
             by_name["raster_stream"])
@@ -2638,6 +2866,14 @@ def main(argv=None):
             k["name"], 0)
         k["launches_texture_target"] = texture.get(k["name"], 0)
         k["launches_first_approach"] = first.get(k["name"], 0)
+    # conv1_1's PᵀP runs only where stage 1 is off: gram_narrow's launches
+    # are PR 1's route's (bf16, and float32 for the float32 row).
+    for k in kernels:
+        if k["name"] == "gram_narrow":
+            run = "pr1 f32" if k["dtype"] == "float32" else "pr1"
+            k["launches"] = stage1_off[run]["gram_narrow"]
+            k["launches_route"] = f"{run}, {ROUTE_EPOCHS} steps"
+            k["launches_k5"] = stage1_off["k5"]["gram_narrow"]
     kernels += route_entries(kernels, texture, routes)
     print(card)
     print(json.dumps({"kernels": kernels}))

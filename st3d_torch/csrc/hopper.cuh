@@ -3,8 +3,9 @@
 // pool_route_wgmma.cu, pool_route_tf32x3.cu, conv1_1_stats_wgmma.cu,
 // conv1_1_bwd_wgmma.cu, conv1_1_stats_tf32x3.cu, conv1_1_bwd_tf32x3.cu,
 // conv1_1_gram_wgmma.cu, conv1_1_gram_bwd_wgmma.cu,
-// conv1_1_gram_tf32x3.cu, conv1_1_gram_bwd_tf32x3.cu and, through
-// conv_narrow.cuh, conv3x3_narrow_wgmma.cu and conv3x3_narrow_tf32x3.cu),
+// conv1_1_gram_tf32x3.cu, conv1_1_gram_bwd_tf32x3.cu, gram_narrow.cu and,
+// through conv_narrow.cuh, conv3x3_narrow_wgmma.cu and
+// conv3x3_narrow_tf32x3.cu),
 // from raw PTX: mbarriers, cp.async, TMA tile loads and stores, named
 // barriers, the proxy fence, wgmma shared-memory descriptors and the wgmma
 // instructions; the Grams' second pass; conv1_1's patch rows and stage 1
@@ -76,6 +77,18 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
       "l"((uint64_t)map), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16) from global ``src`` to shared ``dst`` by one
+// bulk copy, both 16-byte aligned; completion is counted in bytes on the
+// mbarrier.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 

@@ -7,15 +7,40 @@
 // st3d_torch/kernels/raster.py::face_coeffs), faces are sorted by their top
 // row and cut into 128-face chunks whose [ymin, ymax] row band rides along.
 //
-// Work layout: one thread per pixel, one block per 256-pixel run of the
-// flat row-major pixel index (the TPU kernel's flat pixel tile). A block
-// walks the chunks in sorted order, skips chunks whose row band misses its
-// rows (uniform across the block), stages a chunk's 12 x 128 coefficients
-// in shared memory and tests every face against its pixel. Selection is a
-// strict '>' on 1/z over faces in sorted order starting from 0, which is the
-// TPU kernel's "first max within a chunk, strict '>' across chunks": the
-// lowest sorted id wins ties. Sorted ids are mapped back to mesh ids by the
-// wrapper.
+// Selection is a strict '>' on 1/z over faces in sorted order starting from
+// 0, which is the TPU kernel's "first max within a chunk, strict '>' across
+// chunks": the lowest sorted id wins ties. Sorted ids are mapped back to
+// mesh ids by the wrapper.
+//
+// Work layout (raster_walk.cuh): one thread per pixel, one block per 256
+// consecutive pixels of the flat row-major index. The chunks whose row band
+// meets the block's rows are found by a warp ballot over 32 bands; each is
+// staged face-major (rows 0-11, 12 floats a face) by cp.async into the free
+// one of two slots while the previous chunk is tested. Each warp then tests,
+// in sorted order, only the faces that can still change one of its 32
+// pixels. It drops a face when, over the warp's pixel rectangle
+// [col0, col1] x [row0, row1] (a warp that wraps a row takes [0, W-1] x its
+// rows), the corner value of b0, b1 or b2 is < 0, or the corner value of
+// 1/z is <= s_w, the least best 1/z over the warp's pixels at the chunk's
+// start. Both drops are exact, in the kernel's own arithmetic:
+//   - affine(px, py, a, b, c) = fl(fl(fl(px*a) + fl(py*b)) + c) is monotone
+//     in px and in py separately, since a product by a fixed factor and a
+//     sum with a fixed term are monotone and so is rounding. Its largest
+//     value over the rectangle is therefore the one at the corner
+//     (col1 if a >= 0 else col0, row1 if b >= 0 else row0), computed by
+//     the same rounded operations (corner_max);
+//   - a barycentric whose corner value is < 0 is < 0 at every pixel of the
+//     warp, so the face covers none of them;
+//   - if 1/z's corner value is <= s_w, then at every pixel 1/z <= s_w <=
+//     the pixel's best, and the strict '>' cannot pick the face, now or
+//     later (the best only rises; it starts at 0, so faces whose 1/z is
+//     never positive over the warp go too).
+// A NaN corner value compares false and keeps the face. So the kept faces,
+// tested in sorted order with the strict '>', select exactly what testing
+// every face selects.
+// st3d_raster_hard_every_face keeps the earlier walk (every face of every
+// chunk in band, 12 x 128 rows staged between two barriers): launched by no
+// route, the twin chip_smoke.py holds this kernel against.
 //
 // Exactness: b = px*A + py*B + C is evaluated as two rounded products and
 // two rounded sums in that order (__fmul_rn / __fadd_rn, which nvcc never
@@ -23,30 +48,140 @@
 // so pix_to_face equals it bit for bit. The file is also built with
 // -fmad=false.
 //
-// What bounds it on an H100: compute per covered (pixel, face) pair, 8
-// multiplies, 8 adds and 4 compares; chunk culling keeps the pairs to the
-// faces whose row band crosses the block's rows.
+// What bounds it on an H100: latency, not the card's rates. Its bytes (the
+// 12 coefficient rows once, the bounds, 8 bytes a pixel out) take some
+// 3 us and its needed pairs (each pixel against the faces whose bbox holds
+// it, 20 operations a pair) less. Per tested (pixel, face) pair the kernel
+// does 8 multiplies, 8 adds and 4 compares, and the lists cut those pairs
+// to a few per needed one; what is left is per chunk and warp: the ballot,
+// the staging of 6 KB by cp.async, two barriers and the list (16 corner
+// evaluations a lane). Five blocks an SM (__launch_bounds__, as K1-soft
+// and K7) keep the staging of one block under the tests of the others.
 
 #include <cuda_runtime.h>
 
+#include "raster_walk.cuh"
+
 namespace {
 
-constexpr int CHUNK = 128;     // faces per chunk (the wrapper pads to it)
-constexpr int TILE = 256;      // pixels per block
-constexpr int NROWS = 12;      // affine coefficient rows used in hard mode
+using namespace st3d_walk;
+
 constexpr float BIG_Z = 1e10f;
 
-__device__ __forceinline__ float affine(float px, float py, float a, float b,
-                                        float c) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(px, a), __fmul_rn(py, b)), c);
+// The largest value of affine(px, py, a, b, c) over the box, exactly as the
+// kernel would round it at that pixel (see the header's lemma).
+__device__ __forceinline__ float corner_max(const Box& bx, float a, float b,
+                                            float c) {
+  return affine(a >= 0.f ? bx.col1 : bx.col0, b >= 0.f ? bx.row1 : bx.row0,
+                a, b, c);
 }
 
-__global__ void __launch_bounds__(TILE)
+// The warp's list of the staged chunk: bit f % 32 of keep[f / 32] is set
+// unless the face covers no pixel of the box, or its 1/z is <= s_w over
+// the whole box. Faces stay in sorted order.
+__device__ __forceinline__ void hard_list(const float* slot, const Box& bx,
+                                          float s_w, unsigned keep[4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int w = 0; w < CHUNK / 32; ++w) {
+    const HardFace q = load_hard_face(slot, 32 * w + lane);
+    const bool drop = corner_max(bx, q.a.x, q.a.y, q.a.z) < 0.f ||
+                      corner_max(bx, q.a.w, q.b.x, q.b.y) < 0.f ||
+                      corner_max(bx, q.b.z, q.b.w, q.c.x) < 0.f ||
+                      corner_max(bx, q.c.y, q.c.z, q.c.w) <= s_w;
+    keep[w] = __ballot_sync(FULL, !drop);
+  }
+}
+
+__global__ void __launch_bounds__(TILE, 5)
 raster_hard_kernel(const float* __restrict__ coeffs,
                    const float* __restrict__ bounds, int* __restrict__ p2f,
-                   float* __restrict__ zbuf, int H, int W, int f_pad,
-                   int n_chunks) {
-  __shared__ float sc[NROWS][CHUNK];
+                   float* __restrict__ zbuf,
+                   unsigned long long* __restrict__ tested, int H, int W,
+                   int f_pad, int n_chunks) {
+  __shared__ __align__(16) float buf[2][CHUNK * HARD_REC];
+  const int v = blockIdx.y;
+  const long long hw = (long long)H * W;
+  const long long t0 = (long long)blockIdx.x * TILE;
+  const long long p = t0 + threadIdx.x;
+  const long long last = min(t0 + TILE - 1, hw - 1);
+  const float px = (float)(p % W);
+  const float py = (float)(p / W);
+  const bool live = p < hw;
+  const int n_live = __popc(__ballot_sync(FULL, live));
+  const Box box = warp_box(px, py, W);
+
+  const float* cv = coeffs + (long long)v * 20 * f_pad;
+  const float* bv = bounds + (long long)v * 2 * n_chunks;
+
+  float best = 0.f;   // background: 1/z <= 0
+  int fid = -1;
+  unsigned long long pairs = 0;
+  ChunkScan scan(bv, n_chunks, (float)(t0 / W), (float)(last / W));
+  int cur = scan.next(-1);
+  int nxt = n_chunks;
+  if (cur < n_chunks) {
+    stage_rows<HARD_ROWS, HARD_REC>(buf[0], cv, f_pad, cur);
+    nxt = scan.next(cur);
+  }
+  int slot = 0;
+  while (cur < n_chunks) {
+    if (nxt < n_chunks) {
+      stage_rows<HARD_ROWS, HARD_REC>(buf[slot ^ 1], cv, f_pad, nxt);
+      cp_async_wait<1>();   // chunk cur has landed, nxt may be in flight
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sc = buf[slot];
+    // s_w: the least best over the warp's pixels in the frame.
+    float s_w = live ? best : 3.0e38f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      s_w = fminf(s_w, __shfl_xor_sync(FULL, s_w, o));
+    unsigned keep[CHUNK / 32];
+    hard_list(sc, box, s_w, keep);
+#pragma unroll
+    for (int w = 0; w < CHUNK / 32; ++w)
+      pairs += (unsigned long long)(__popc(keep[w]) * n_live);
+    if (live) {
+#pragma unroll
+      for (int w = 0; w < CHUNK / 32; ++w) {
+        for (unsigned m = keep[w]; m; m &= m - 1) {
+          const int f = 32 * w + __ffs(m) - 1;
+          const HardFace q = load_hard_face(sc, f);
+          float b0, b1, b2;
+          planes(q, px, py, b0, b1, b2);
+          const float iz = inv_z(q, px, py);
+          if (b0 >= 0.f && b1 >= 0.f && b2 >= 0.f && iz > best) {
+            best = iz;
+            fid = cur * CHUNK + f;
+          }
+        }
+      }
+    }
+    __syncthreads();   // slot `slot` is refilled next
+    cur = nxt;
+    slot ^= 1;
+    if (cur < n_chunks) nxt = scan.next(cur);
+  }
+  add_tested(tested, pairs);
+  if (live) {
+    const bool hit = best > 0.f;
+    p2f[(long long)v * hw + p] = hit ? fid : -1;
+    zbuf[(long long)v * hw + p] =
+        hit ? __fdiv_rn(1.f, fmaxf(best, 1e-12f)) : BIG_Z;
+  }
+}
+
+// The earlier walk: every face of every chunk in band, the chunk's 12 x 128
+// rows staged between two barriers.
+__global__ void __launch_bounds__(TILE)
+raster_hard_every_face_kernel(const float* __restrict__ coeffs,
+                              const float* __restrict__ bounds,
+                              int* __restrict__ p2f, float* __restrict__ zbuf,
+                              int H, int W, int f_pad, int n_chunks) {
+  __shared__ float sc[HARD_ROWS][CHUNK];
   const int v = blockIdx.y;
   const long long hw = (long long)H * W;
   const long long t0 = (long long)blockIdx.x * TILE;
@@ -67,7 +202,7 @@ raster_hard_kernel(const float* __restrict__ coeffs,
     const float ymax = bv[n_chunks + c];
     if (!(ymax >= row0 && ymin <= row1)) continue;   // same for the block
     __syncthreads();   // the previous chunk's readers are done with sc
-    for (int i = threadIdx.x; i < NROWS * CHUNK; i += TILE) {
+    for (int i = threadIdx.x; i < HARD_ROWS * CHUNK; i += TILE) {
       const int r = i / CHUNK;
       const int f = i % CHUNK;
       sc[r][f] = cv[(long long)r * f_pad + (long long)c * CHUNK + f];
@@ -98,12 +233,29 @@ raster_hard_kernel(const float* __restrict__ coeffs,
 
 // coeffs (N, 20, f_pad) float32, rows 0..11 read; bounds (N, 2, n_chunks)
 // float32; p2f (N, H*W) int32 in sorted face order; zbuf (N, H*W) float32.
+// tested, if not null, a uint64 the (pixel, face) pairs of the warps'
+// lists are added to (one atomic a block).
 extern "C" int st3d_raster_hard(const void* coeffs, const void* bounds,
-                                void* p2f, void* zbuf, int N, int H, int W,
-                                int f_pad, int n_chunks, void* stream) {
+                                void* p2f, void* zbuf, void* tested, int N,
+                                int H, int W, int f_pad, int n_chunks,
+                                void* stream) {
   const long long hw = (long long)H * W;
   dim3 grid((unsigned)((hw + TILE - 1) / TILE), (unsigned)N);
   raster_hard_kernel<<<grid, TILE, 0, (cudaStream_t)stream>>>(
+      (const float*)coeffs, (const float*)bounds, (int*)p2f, (float*)zbuf,
+      (unsigned long long*)tested, H, W, f_pad, n_chunks);
+  return (int)cudaGetLastError();
+}
+
+// The same outputs by the earlier walk (every face of every chunk in band).
+extern "C" int st3d_raster_hard_every_face(const void* coeffs,
+                                           const void* bounds, void* p2f,
+                                           void* zbuf, int N, int H, int W,
+                                           int f_pad, int n_chunks,
+                                           void* stream) {
+  const long long hw = (long long)H * W;
+  dim3 grid((unsigned)((hw + TILE - 1) / TILE), (unsigned)N);
+  raster_hard_every_face_kernel<<<grid, TILE, 0, (cudaStream_t)stream>>>(
       (const float*)coeffs, (const float*)bounds, (int*)p2f, (float*)zbuf, H,
       W, f_pad, n_chunks);
   return (int)cudaGetLastError();

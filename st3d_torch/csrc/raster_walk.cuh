@@ -1,14 +1,16 @@
-// The chunk walk K1's soft mode (raster_soft.cu) and K7 (raster_topk.cu)
-// share: one thread per pixel, one block per 256 consecutive pixels of the
-// flat row-major index, faces in sorted 128-face chunks.
+// The chunk walk K1 (raster_hard.cu), K1's soft mode (raster_soft.cu) and
+// K7 (raster_topk.cu) share: one thread per pixel, one block per 256
+// consecutive pixels of the flat row-major index, faces in sorted 128-face
+// chunks.
 //
 // - The chunks the block tests are found by one warp ballot over 32 chunk
 //   bands at a time, kept in a register window (each warp computes the
 //   same answer on its own, so no barrier is needed).
-// - A chunk's coefficient rows 0-18 are copied face-major into shared memory
-//   (REC floats a face, so a face's planes are five 16-byte broadcast
-//   loads) by 4-byte cp.async into the free one of two slots while the
-//   previous chunk is tested.
+// - A chunk's coefficient rows are copied face-major into shared memory
+//   by 4-byte cp.async into the free one of two slots while the previous
+//   chunk is tested: rows 0-18 at REC floats a face for the soft mode and
+//   K7 (a face's planes are five 16-byte broadcast loads), rows 0-11 at
+//   HARD_REC floats for K1 (three).
 // - Each warp keeps, by four ballots, the faces whose bbox upper bound over
 //   the warp's pixel rectangle, ub, passes the caller's limit. For a pixel
 //   (px, py) of the rectangle [col0, col1] x [row0, row1] the bbox distance
@@ -33,6 +35,8 @@ constexpr int TILE = 256;      // pixels per block
 constexpr int WARPS = TILE / 32;
 constexpr int NROWS = 19;      // coefficient rows staged (row 19 pads)
 constexpr int REC = 20;        // floats a staged face: 16-byte aligned
+constexpr int HARD_ROWS = 12;  // K1's rows: the barycentric and 1/z planes
+constexpr int HARD_REC = 12;   // floats a face K1 stages: 16-byte aligned
 constexpr float NEG_INIT = -3.0e38f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -59,15 +63,28 @@ __device__ __forceinline__ float bbox_dist(const Face& q, float px,
                fminf(__fsub_rn(py, q.e.y), __fsub_rn(q.e.z, py)));
 }
 
-// Barycentrics b0, b1, b2 (rows 0-8) and 1/z (rows 9-11) at (px, py).
-__device__ __forceinline__ void planes(const Face& q, float px, float py,
+// K1's rows 0-11 as staged: a = rows 0-3, b = 4-7, c = 8-11.
+struct HardFace {
+  float4 a, b, c;
+};
+
+__device__ __forceinline__ HardFace load_hard_face(const float* slot, int f) {
+  const float4* q = reinterpret_cast<const float4*>(slot + f * HARD_REC);
+  return HardFace{q[0], q[1], q[2]};
+}
+
+// Barycentrics b0, b1, b2 (rows 0-8) and 1/z (rows 9-11) at (px, py), of a
+// Face or a HardFace.
+template <typename F>
+__device__ __forceinline__ void planes(const F& q, float px, float py,
                                        float& b0, float& b1, float& b2) {
   b0 = affine(px, py, q.a.x, q.a.y, q.a.z);
   b1 = affine(px, py, q.a.w, q.b.x, q.b.y);
   b2 = affine(px, py, q.b.z, q.b.w, q.c.x);
 }
 
-__device__ __forceinline__ float inv_z(const Face& q, float px, float py) {
+template <typename F>
+__device__ __forceinline__ float inv_z(const F& q, float px, float py) {
   return affine(px, py, q.c.y, q.c.z, q.c.w);
 }
 
@@ -93,18 +110,26 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Start the copy of chunk c's rows 0-18 into `slot`, face-major:
-// slot[f * REC + r] = row r of face f. Reads are coalesced along faces.
-__device__ __forceinline__ void stage(float* slot,
-                                      const float* __restrict__ cv,
-                                      int f_pad, int c) {
-  for (int i = threadIdx.x; i < NROWS * CHUNK; i += TILE) {
+// Start the copy of chunk c's rows 0 .. ROWS-1 into `slot`, face-major:
+// slot[f * RECN + r] = row r of face f. Reads are coalesced along faces.
+template <int ROWS, int RECN>
+__device__ __forceinline__ void stage_rows(float* slot,
+                                           const float* __restrict__ cv,
+                                           int f_pad, int c) {
+  for (int i = threadIdx.x; i < ROWS * CHUNK; i += TILE) {
     const int r = i / CHUNK;
     const int f = i % CHUNK;
-    cp_async4(slot + f * REC + r,
+    cp_async4(slot + f * RECN + r,
               cv + (long long)r * f_pad + (long long)c * CHUNK + f);
   }
   cp_async_commit();
+}
+
+// Rows 0-18 at REC floats a face (the soft mode and K7).
+__device__ __forceinline__ void stage(float* slot,
+                                      const float* __restrict__ cv,
+                                      int f_pad, int c) {
+  stage_rows<NROWS, REC>(slot, cv, f_pad, c);
 }
 
 // The chunks a block tests, found 32 bands a ballot: bit i of `hits` says

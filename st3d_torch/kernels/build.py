@@ -49,17 +49,22 @@ WGMMA_SOURCES = ("conv3x3_wgmma", "conv3x3_tf32x3", "gram_wgmma",
                  "conv3x3_narrow_wgmma", "conv3x3_narrow_tf32x3",
                  "conv1_1_gram_wgmma", "conv1_1_gram_bwd_wgmma",
                  "conv1_1_gram_tf32x3", "conv1_1_gram_bwd_tf32x3")
-# The two rasterizers with per-warp face lists report theirs too: their
+# The narrow K3 takes mma.sync, not wgmma, but shares hopper.cuh with them
+# (cp.async, the Grams' second pass), so it links and reports as they do.
+TENSOR_CORE_SOURCES = WGMMA_SOURCES + ("gram_narrow",)
+# The three rasterizers with per-warp face lists report theirs too: their
 # register cap trades spills for occupancy.
-REPORT_SOURCES = WGMMA_SOURCES + ("raster_soft", "raster_topk")
+REPORT_SOURCES = TENSOR_CORE_SOURCES + ("raster_hard", "raster_soft",
+                                        "raster_topk")
 EXTRA_FLAGS.update({n: EXTRA_FLAGS.get(n, []) + ["-Xptxas", "-v"]
                     for n in REPORT_SOURCES})
-LINK_FLAGS: Dict[str, List[str]] = {n: ["-lcuda"] for n in WGMMA_SOURCES}
+LINK_FLAGS: Dict[str, List[str]] = {n: ["-lcuda"]
+                                    for n in TENSOR_CORE_SOURCES}
 
 KERNEL_SOURCES = RASTER_SOURCES + (
     "conv3x3_nhwc", "gram_nhwc", "conv1_1_stats", "conv1_1_bwd",
     "conv3x3_relu_pool", "pool_route_conv3x3_bwd", "conv1_1_gram",
-    "conv1_1_gram_bwd") + WGMMA_SOURCES
+    "conv1_1_gram_bwd") + TENSOR_CORE_SOURCES
 DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -22,10 +22,13 @@ kernels:
   VGG); ``conv3x3_cuda_core`` calls it.
 - K3 ``gram_nhwc``: per-image unnormalised Gram ``yᵀy`` from y in its
   stored dtype, into float32, split over pixel slices by ``gram_split``.
-  Three kernels, chosen by ``gram_route``: ``csrc/gram_wgmma.cu`` (bf16,
+  Four kernels, chosen by ``gram_route``: ``csrc/gram_wgmma.cu`` (bf16,
   tensor cores), ``csrc/gram_tf32x3.cu`` (float32 on the tensor cores by
-  the 3xTF32 split, the K-major operand tiles built in shared memory) and
-  ``csrc/gram_nhwc.cu`` (CUDA cores: other widths).
+  the 3xTF32 split, the K-major operand tiles built in shared memory),
+  ``csrc/gram_narrow.cu`` (the widths TMA cannot stride up to 32, such as
+  conv1_1's 27-wide patch Gram: ``mma.sync`` on the tensor cores over the
+  flat pixel run staged by bulk copies, bf16 or 3xTF32) and ``csrc/gram_nhwc.cu`` (CUDA cores:
+  the odd widths past 32; ``gram_cuda_core`` calls it at any width).
 - ``conv3x3_relu_pool`` and its backward ``pool_route_conv3x3_bwd``:
   conv + bias + ReLU + 2x2 max-pool with the window index, and the input
   gradient routed by that index. The forward has three kernels, chosen by
@@ -70,7 +73,7 @@ LAUNCHES: Dict[str, int] = {"conv3x3_nhwc": 0, "conv3x3_wgmma": 0,
                             "conv3x3_narrow_wgmma": 0,
                             "conv3x3_narrow_tf32x3": 0,
                             "gram_nhwc": 0, "gram_wgmma": 0,
-                            "gram_tf32x3": 0,
+                            "gram_tf32x3": 0, "gram_narrow": 0,
                             "conv3x3_relu_pool": 0,
                             "conv3x3_relu_pool_wgmma": 0,
                             "conv3x3_relu_pool_tf32x3": 0,
@@ -85,10 +88,16 @@ POOL_TILE_WIDTH = 64            # widest tile that holds whole 2x2 windows
 # only, pixels per step, shortest slice, blocks wanted). The tensor-core
 # kernels' steps are TMA boxes (64 pixels in bf16, 32 in float32) and they
 # compute the tiles with row <= column; the CUDA-core kernel computes every
-# 64 x 64 tile.
+# 64 x 64 tile; the narrow kernel's one tile is the whole (at most 32-wide)
+# Gram, and it stages 256 pixels at a time whatever the slice's length (two
+# blocks an SM: one wave, and half the partials of four for its second
+# pass to add). Every step is a multiple of 8 pixels, so every slice starts
+# at one.
 GRAM_PLAN = {"wgmma": (128, True, 64, 256, 2 * SMS),
              "tf32x3": (128, True, 32, 256, 2 * SMS),
+             "narrow": (32, False, 8, 256, 2 * SMS),
              "cuda_core": (64, False, 16, 256, 4 * SMS)}
+NARROW_GRAM_C = 32              # the widest C csrc/gram_narrow.cu takes
 # The narrow K2 (csrc/conv_narrow.cuh): output channels a block (wgmma's n),
 # and a block's dynamic shared memory.
 NARROW_NB = (8, 16, 32, 64)
@@ -153,12 +162,17 @@ def gram_route(dtype: torch.dtype, c: int) -> str:
     """The K3 kernel a CUDA tensor takes: "wgmma" (``csrc/gram_wgmma.cu``)
     for bf16 with C a multiple of 8, "tf32x3" (``csrc/gram_tf32x3.cu``) for
     float32 with C a multiple of 4 (the pixel rows of y are C * 4 bytes
-    apart, and TMA strides are multiples of 16 bytes), else "cuda_core"
-    (``csrc/gram_nhwc.cu``: conv1_1's 27-wide patch Gram)."""
+    apart, and TMA strides are multiples of 16 bytes); the other widths up
+    to ``NARROW_GRAM_C`` in either dtype "narrow" (``csrc/gram_narrow.cu``:
+    conv1_1's 27-wide patch Gram); else "cuda_core" (``csrc/gram_nhwc.cu``:
+    odd widths past 32, and dtypes with no tensor-core route, which the
+    wrapper refuses)."""
     if dtype == torch.bfloat16 and c % 8 == 0:
         return "wgmma"
     if dtype == torch.float32 and c % 4 == 0:
         return "tf32x3"
+    if dtype in (torch.bfloat16, torch.float32) and c <= NARROW_GRAM_C:
+        return "narrow"
     return "cuda_core"
 
 
@@ -566,7 +580,7 @@ def gram_split(bsz: int, pixels: int, c: int,
 
 
 GRAM_LIBS = {"wgmma": "gram_wgmma", "tf32x3": "gram_tf32x3",
-             "cuda_core": "gram_nhwc"}
+             "narrow": "gram_narrow", "cuda_core": "gram_nhwc"}
 
 
 def gram_nhwc(y: torch.Tensor) -> torch.Tensor:
@@ -580,8 +594,9 @@ def gram_nhwc(y: torch.Tensor) -> torch.Tensor:
 
 
 def gram_cuda_core(y: torch.Tensor) -> torch.Tensor:
-    """K3 on the CUDA cores (``csrc/gram_nhwc.cu``), the route of the widths
-    ``gram_route`` keeps off the tensor cores; CUDA tensors only."""
+    """K3 on the CUDA cores (``csrc/gram_nhwc.cu``), the route of the odd
+    widths past ``NARROW_GRAM_C`` and the twin of the narrow kernel; CUDA
+    tensors only."""
     build.check_operands("gram_nhwc", y)
     return _gram(y, "cuda_core")
 

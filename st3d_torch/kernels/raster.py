@@ -15,7 +15,11 @@ Counterpart of ``st3d/kernels/raster_pallas.py``:
    culling and selection so both agree bit for bit:
 
    - ``raster_hard`` (K1, ``csrc/raster_hard.cu``): per pixel, the covering
-     face of largest 1/z, lowest sorted id on ties.
+     face of largest 1/z, lowest sorted id on ties; each warp tests only
+     the faces that can still cover one of its 32 pixels with a larger
+     1/z (``csrc/raster_walk.cuh``). ``raster_hard_every_face`` is the
+     earlier walk (every face of every chunk in band), launched by no
+     route.
    - ``raster_soft`` (K1's soft mode, ``csrc/raster_soft.cu``): the same,
      plus ``nearest``, the face of largest bbox-gated signed edge distance,
      with the row-band cull widened by ``soft_cull_margin``; each warp tests
@@ -75,7 +79,8 @@ MAX_TOPK = 16         # slots the top-K kernel is instantiated for
 # view's (20, F) float32 coefficients pass this many bytes.
 RESIDENT_COEFF_BUDGET = 7 * 1024 * 1024
 
-LAUNCHES: Dict[str, int] = {"raster_hard": 0, "raster_soft": 0,
+LAUNCHES: Dict[str, int] = {"raster_hard": 0, "raster_hard_every_face": 0,
+                            "raster_soft": 0,
                             "raster_soft_every_face": 0,
                             "raster_stream": 0,
                             "raster_stream_every_chunk": 0,
@@ -509,23 +514,45 @@ def _check_coeffs(name: str, coeffs: torch.Tensor, aux: torch.Tensor,
     return False
 
 
-def raster_hard(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int
+def raster_hard(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int,
+                tested: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 on preprocessed faces: coeffs (N, 20, F_pad) float32, bounds
-    (N, 2, n_chunks) -> (p2f (N, H*W) int32 sorted ids, zbuf (N, H*W))."""
+    (N, 2, n_chunks) -> (p2f (N, H*W) int32 sorted ids, zbuf (N, H*W)). A
+    CUDA kernel adds the (pixel, face) pairs of its warps' face lists to
+    ``tested`` (a one-element int64 CUDA tensor) if given."""
+    return _hard("raster_hard", coeffs, bounds, h, w, tested)
+
+
+def raster_hard_every_face(coeffs: torch.Tensor, bounds: torch.Tensor,
+                           h: int, w: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``raster_hard`` by the earlier walk: every face of every chunk in
+    band is tested at every pixel. Launched by no route; the twin the
+    per-warp face lists are held against."""
+    return _hard("raster_hard_every_face", coeffs, bounds, h, w, None)
+
+
+def _hard(name: str, coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
+          w: int, tested: Optional[torch.Tensor]
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
     n, _, f_pad = coeffs.shape
-    if _check_coeffs("raster_hard", coeffs, bounds,
-                     (n, 2, f_pad // FACE_CHUNK), torch.float32):
+    if _check_coeffs(name, coeffs, bounds, (n, 2, f_pad // FACE_CHUNK),
+                     torch.float32):
         return raster_hard_plain(coeffs, bounds, h, w)
     coeffs, bounds = coeffs.contiguous(), bounds.contiguous()
-    p2f = torch.empty((n, h * w), dtype=torch.int32, device=coeffs.device)
-    zbuf = torch.empty((n, h * w), dtype=torch.float32, device=coeffs.device)
-    fn = build.symbol("raster_hard", "st3d_raster_hard", 4, 5)
-    err = fn(coeffs.data_ptr(), bounds.data_ptr(), p2f.data_ptr(),
-             zbuf.data_ptr(), n, h, w, f_pad, f_pad // FACE_CHUNK,
-             build.stream_handle(coeffs.device))
-    build.check(err, "raster_hard")
-    LAUNCHES["raster_hard"] += 1
+    dev = coeffs.device
+    p2f = torch.empty((n, h * w), dtype=torch.int32, device=dev)
+    zbuf = torch.empty((n, h * w), dtype=torch.float32, device=dev)
+    args = [coeffs.data_ptr(), bounds.data_ptr(), p2f.data_ptr(),
+            zbuf.data_ptr()]
+    if name == "raster_hard":
+        args.append(_check_tested(name, tested, dev))
+    fn = build.symbol("raster_hard", "st3d_" + name, len(args), 5)
+    err = fn(*args, n, h, w, f_pad, f_pad // FACE_CHUNK,
+             build.stream_handle(dev))
+    build.check(err, name)
+    LAUNCHES[name] += 1
     return p2f, zbuf
 
 

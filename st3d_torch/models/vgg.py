@@ -316,7 +316,8 @@ def get_features(images: torch.Tensor, model: VGG19,
                  for dy in range(3) for dx in range(3)], dim=-1)
             x = patches @ w.reshape(27, -1) + b
             if gram1 and "conv1_1" in wanted:
-                # PᵀP is a Gram of the (B, H, W, 27) patches: K3 on CUDA.
+                # PᵀP is a Gram of the (B, H, W, 27) patches: K3's narrow
+                # route on CUDA (csrc/gram_narrow.cu).
                 s27 = patches.float().sum(dim=(1, 2))
                 feats["conv1_1:gram"] = gram1_closed_form(
                     gram_nhwc_diff(patches), s27, kernels[0], biases[0],

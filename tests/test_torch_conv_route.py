@@ -6,7 +6,8 @@ latter by 3xTF32; the other widths of both dtypes the narrow tensor-core
 kernels wherever ``narrow_nb`` finds a plan; anything else the CUDA
 cores), ``narrow_nb`` and ``narrow_smem`` (the narrow kernels' plan),
 ``gram_route`` (bf16, multiples of
-8; float32, multiples of 4, by 3xTF32), ``relu_pool_route`` (``conv_route``'s
+8; float32, multiples of 4, by 3xTF32; the other widths up to 32 of both
+dtypes the narrow tensor-core kernel), ``relu_pool_route`` (``conv_route``'s
 rules), ``pool_route`` (bf16
 with C a multiple of 16 and Cin of 8; float32 with C a multiple of 16 and
 Cin of 4, by 3xTF32), ``conv_tile`` (the 128-pixel output box per image
@@ -133,11 +134,12 @@ def test_pool_footprint_covers_every_tap(width):
 
 @pytest.mark.parametrize("dtype,c,route", [
     (BF16, 64, "wgmma"), (BF16, 128, "wgmma"), (BF16, 512, "wgmma"),
-    (BF16, 136, "wgmma"), (BF16, 27, "cuda_core"), (BF16, 4, "cuda_core"),
-    (F32, 128, "tf32x3"), (F32, 27, "cuda_core"), (F32, 64, "tf32x3"),
+    (BF16, 136, "wgmma"), (BF16, 27, "narrow"), (BF16, 4, "narrow"),
+    (F32, 128, "tf32x3"), (F32, 27, "narrow"), (F32, 64, "tf32x3"),
     (F32, 512, "tf32x3"), (F32, 4, "tf32x3"), (F32, 136, "tf32x3"),
-    (F32, 6, "cuda_core"), (F32, 30, "cuda_core"),
-    (torch.float16, 128, "cuda_core")])
+    (F32, 6, "narrow"), (F32, 30, "narrow"), (BF16, 33, "cuda_core"),
+    (F32, 33, "cuda_core"), (torch.float16, 128, "cuda_core"),
+    (torch.float16, 27, "cuda_core")])
 def test_gram_route(dtype, c, route):
     assert kconv.gram_route(dtype, c) == route
 
@@ -163,7 +165,8 @@ SPLITS = [(4, 256 * 256, 128), (4, 128 * 128, 256), (4, 64 * 64, 512),
           (4, 512 * 512, 27)]
 
 
-@pytest.mark.parametrize("route", ["wgmma", "cuda_core", "tf32x3"])
+@pytest.mark.parametrize("route", ["wgmma", "cuda_core", "tf32x3",
+                                   "narrow"])
 @pytest.mark.parametrize("bsz,pixels,c", SPLITS)
 def test_gram_split_covers_pixels(route, bsz, pixels, c):
     edge, triangle, step, min_slice, _ = kconv.GRAM_PLAN[route]

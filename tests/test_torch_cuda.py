@@ -52,7 +52,7 @@ RELU_POOL_KEYS = {"wgmma": "conv3x3_relu_pool_wgmma",
                   "tf32x3": "conv3x3_relu_pool_tf32x3",
                   "cuda_core": "conv3x3_relu_pool"}
 GRAM_KEYS = {"wgmma": "gram_wgmma", "tf32x3": "gram_tf32x3",
-             "cuda_core": "gram_nhwc"}
+             "narrow": "gram_narrow", "cuda_core": "gram_nhwc"}
 
 
 def _launched(n0):
@@ -1534,3 +1534,142 @@ def test_raster_topk_lists_equal_twin_and_plain(dev, size, kind, k, window):
     if size < 512:
         model = topk_walk(coeffs.cpu(), bounds.cpu(), size, size, k, window)
         assert int(tested) == model[1]
+
+
+# ---------------------------------------------------------------------------
+# K1 (hard): per-warp face lists against the earlier walk
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["pristine", "stretched"])
+@pytest.mark.parametrize("size", [48, 64, 512])
+def test_raster_hard_lists_equal_twin_and_plain(dev, size, kind):
+    """K1's per-warp lists: p2f and zbuf bit-equal to the every-face twin,
+    p2f bit-equal and zbuf within rtol 1e-6 of the plain version; one
+    launch each; ``tested`` equal to the CPU model's count (below 512²) and
+    below the twin's pairs."""
+    from test_torch_hard_walk import hard_walk
+    from test_torch_soft_walk import every_face_pairs
+
+    coeffs, bounds, _ = kraster.preprocess(_walk_faces(dev, kind, size))
+    tested = torch.zeros(1, dtype=torch.int64, device=dev)
+    n0 = dict(kraster.LAUNCHES)
+    got = kraster.raster_hard(coeffs, bounds, size, size, tested)
+    twin = kraster.raster_hard_every_face(coeffs, bounds, size, size)
+    torch.cuda.synchronize()
+    assert {k: v - n0[k] for k, v in kraster.LAUNCHES.items()
+            if v != n0[k]} == {"raster_hard": 1, "raster_hard_every_face": 1}
+    assert torch.equal(got[0], twin[0]) and torch.equal(got[1], twin[1])
+    want = kraster.raster_hard_plain(coeffs, bounds, size, size)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-6, atol=0)
+    assert (got[0] >= 0).any()
+    every = every_face_pairs(bounds.cpu(), size, size, kraster.TILE_PIXELS,
+                             0.0)
+    assert 0 < int(tested) < every
+    if size < 512:
+        model = hard_walk(coeffs.cpu(), bounds.cpu(), size, size)
+        assert int(tested) == model[2]
+
+
+def test_raster_hard_lists_on_adversarial_faces(dev):
+    """The CPU tests' adversarial scene (slivers just above AREA_EPS, edges
+    through pixel centres, exact 1/z ties): bit-equal to the twin and the
+    plain version, ``tested`` equal to the model's."""
+    from test_torch_hard_walk import _adversarial_faces, hard_walk
+
+    fv, size = _adversarial_faces()
+    coeffs, bounds, _ = kraster.preprocess(torch.tensor(fv, device=dev))
+    tested = torch.zeros(1, dtype=torch.int64, device=dev)
+    got = kraster.raster_hard(coeffs, bounds, size, size, tested)
+    twin = kraster.raster_hard_every_face(coeffs, bounds, size, size)
+    want = kraster.raster_hard_plain(coeffs, bounds, size, size)
+    torch.cuda.synchronize()
+    for ref in (twin, want):
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert int(tested) == hard_walk(coeffs.cpu(), bounds.cpu(), size,
+                                    size)[2]
+
+
+# ---------------------------------------------------------------------------
+# K3 at the narrow widths
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-3),
+                                       (torch.float32, 1e-5)])
+@pytest.mark.parametrize("c", [5, 27, 31])
+@pytest.mark.parametrize("bsz,pixels", [(4, 512 * 512), (3, 37 * 29),
+                                        (2, 36 * 36), (1, 7)])
+def test_gram_narrow_matches_plain(dev, dtype, tol, c, bsz, pixels):
+    """``gram_narrow`` within ``tol`` (relative Frobenius, 1e-3 bf16, 1e-5
+    float32) of a float64 Gram of the stored values and of
+    ``gram_nhwc_plain``, the latter plus the plain float32 sum's own
+    distance from float64 (at 2^18 pixels an image it is of the order of
+    1e-5); bit-identical on a second call, one launch a call and none of
+    another K3. Pixel counts off the multiples of 8 put the stages at every
+    16-byte shift, and 7 pixels leave a partial last chunk."""
+    g = torch.Generator(device=dev).manual_seed(c)
+    y = torch.relu(torch.randn((bsz, pixels, c), generator=g,
+                               device=dev)).to(dtype)
+    assert kconv.gram_route(dtype, c) == "narrow"
+    n0 = dict(kconv.LAUNCHES)
+    got = kconv.gram_nhwc(y)
+    again = kconv.gram_nhwc(y)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {"gram_narrow": 2}
+    assert torch.equal(got, again)
+    ref = kconv.gram_nhwc_plain(y)
+    g64 = torch.matmul(y.double().transpose(1, 2), y.double())
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a.double() - b.double())
+                     / torch.linalg.norm(b.double()))
+
+    assert rel(got, g64) <= tol
+    assert rel(got, ref) <= tol + rel(ref, g64)
+
+
+def test_gram_narrow_takes_an_unaligned_view(dev):
+    """A view that starts off a 16-byte boundary is copied to one before
+    the launch (``_tma_ready``), never read unaligned: the Gram equals the
+    plain version's of the same values."""
+    base = torch.randn((2, 1000 * 27 + 3), device=dev)
+    y = base[:, 3:].reshape(2, 1000, 27)
+    assert y.data_ptr() % 16
+    got = kconv.gram_nhwc(y)
+    ref = kconv.gram_nhwc_plain(y)
+    torch.cuda.synchronize()
+    assert torch.linalg.norm(got - ref) <= 1e-5 * torch.linalg.norm(ref)
+
+
+def test_gram_narrow_conv1_1_gradient_path(dev, monkeypatch):
+    """Stage 1 off (ST3D_NO_STAGE1_V2=1): conv1_1's Gram in ``get_features``
+    takes ``gram_narrow`` once in bf16 and in float32, and its float32
+    value and input gradient match the CPU's."""
+    from st3d_torch.models import vgg as tvgg
+
+    monkeypatch.setenv("ST3D_NO_STAGE1_V2", "1")
+    model, model_cpu = (tvgg.init_random_vgg19(0, device=d)
+                        for d in (dev, "cpu"))
+    img = torch.rand((2, 3, 40, 40),
+                     generator=torch.Generator().manual_seed(3))
+    for dtype in (torch.bfloat16, torch.float32):
+        n0 = dict(kconv.LAUNCHES)
+        x = img.to(dev).requires_grad_(True)
+        f = tvgg.get_features(x, model, dtype=dtype,
+                              layers={"conv1_1": "conv1_1"}, gram1=True)
+        f["conv1_1:gram"].sum().backward()
+        torch.cuda.synchronize()
+        assert _launched(n0).get("gram_narrow") == 1
+        assert "gram_nhwc" not in _launched(n0)
+        if dtype == torch.float32:
+            xc = img.clone().requires_grad_(True)
+            fc = tvgg.get_features(xc, model_cpu, dtype=dtype,
+                                   layers={"conv1_1": "conv1_1"},
+                                   gram1=True)
+            fc["conv1_1:gram"].sum().backward()
+            want = fc["conv1_1:gram"].detach()
+            got = f["conv1_1:gram"].detach().cpu()
+            assert torch.linalg.norm(got - want) <= 1e-5 * torch.linalg.norm(
+                want)
+            torch.testing.assert_close(x.grad.cpu(), xc.grad, rtol=1e-4,
+                                       atol=1e-4 * float(xc.grad.abs().max()))
