@@ -27,9 +27,11 @@ Phases; any failure raises and the script exits non-zero:
    K6 ``raster_stream``, forced, at 81,920 faces and 256² against its plain
    version (hard and soft: pix_to_face and nearest exactly equal, zbuf
    within rtol 1e-6), and at 327,680 faces x 512² x 4 against K1 (hard and
-   soft: pix_to_face and zbuf bit-equal), every call also against the TPU
-   kernel's walk ``raster_stream_every_chunk`` (launched by no route: all
-   outputs equal), with the chunks each tested and ``stream_counts``;
+   soft: pix_to_face and zbuf bit-equal; on a vertex run's faces apart
+   only where K6's face lies in a chunk whose band K1 does not test), every
+   call also against the TPU kernel's walk ``raster_stream_every_chunk``
+   (launched by no route: all outputs equal), with the (pixel, face) pairs
+   K6's lists held, the chunks the twin walked and ``stream_counts``;
    K2 at every VGG conv shape at batch 4, forward and input gradient, in
    bf16 on the tensor-core kernel ``conv3x3_wgmma`` (max-abs error <= 1e-2
    * max|plain|) and in f32 on the 3xTF32 tensor-core kernel
@@ -95,9 +97,13 @@ Phases; any failure raises and the script exits non-zero:
    4 x 128² x 256, 4 x 64² x 512), bf16 and f32, with C's and D's
    tolerances, routes and comparisons, each timed in both dtypes;
    K9, G ``raster_2d``, at 512² x 4, ico-sphere level 4, against its plain
-   version (pix_to_face exactly equal, zbuf within rtol 1e-6), then at level
-   7 (327,680 faces) against K1: zbuf bit-equal, ids different only at
-   exact 1/z ties (both faces cover the pixel with bit-equal 1/z), counted.
+   version and its every-face twin ``raster_2d_every_face`` (the earlier
+   kernel, launched by no route): p2f and zbuf bit-equal, timed beside the
+   twin and K1 with the pairs its warps' lists held (``tested``), the
+   twin's and those needed; at level 7 (327,680 faces) the same against the
+   twin; at both levels against K1: zbuf bit-equal, ids different only at
+   exact 1/z ties (both faces cover the pixel with bit-equal 1/z), counted;
+   it fails unless G is faster than its twin at both.
    Times are CUDA-event means after warm-up (bf16); K1 and the narrow K3
    also print their device time under ``torch.profiler``. Each kernel's bound is
    the larger of the bytes it must move over 3.35 TB/s and its operations
@@ -192,7 +198,8 @@ Phases; any failure raises and the script exits non-zero:
    as often as the f32 default run.
 6. The wall seconds of each phase, the card's name and power limit, one
    JSON line with the kernels' results (ptxas's registers and spills of
-   the tensor-core kernels, K1-soft and K7 are printed after the build),
+   the tensor-core kernels, K1, K1-soft, K7 and G are printed after the
+   build),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -746,11 +753,11 @@ def raster_lists_run_check(dev, soft_obj, softras_obj, soft_rec, topk_rec):
 
 def stream_counts(coeffs, bounds, ranges, size):
     """K6's work in hard mode on these faces, over the 256-pixel blocks (at
-    512² each lies in one image row): the chunks walked by the TPU kernel's
-    walk (the ranges' lengths), the chunks whose row band meets the block's
-    rows (the ones the redesigned kernel tests), the faces of those chunks
-    whose own y-extent meets the rows, the faces of the mesh that do, and
-    the (pixel, face) pairs needed."""
+    512² each lies in one image row): the chunks walked (the ranges'
+    lengths, every one of which K6 and the TPU kernel's walk test), the
+    chunks whose row band meets the block's rows (the ones K1 tests), the
+    faces of those chunks whose own y-extent meets the rows, the faces of
+    the mesh that do, and the (pixel, face) pairs needed."""
     import torch
     from st3d_torch.kernels.raster import FACE_CHUNK, _band_overlap
 
@@ -772,15 +779,17 @@ def stream_counts(coeffs, bounds, ranges, size):
     diff.view(n, -1).scatter_add_(1, chunk * (size + 1) + hi, -ones)
     rows = torch.cumsum(diff, dim=2)[:, :, :size]       # (N, chunks, rows)
     block_rows = rows.repeat_interleave(per_row, dim=2).transpose(1, 2)
-    return {"walked": int(spans.sum()), "tested": int(ov.sum()),
-            "faces_in_tested": int((block_rows * ov).sum()),
+    return {"walked": int(spans.sum()), "in_band": int(ov.sum()),
+            "faces_in_band": int((block_rows * ov).sum()),
             "faces_in_rows": int(rows.sum()) * per_row,
             "pairs": needed_pairs(coeffs, size, 0.0)}
 
 
 def _stream_pair(kr, coeffs, bounds, size, soft):
-    """K6 (redesigned) and its every-chunk twin on the same inputs, each
-    with its tested-chunk count: fails unless all outputs are equal."""
+    """K6 and its every-chunk twin on the same inputs: fails unless all
+    outputs are equal. Returns K6's outputs, the ranges, tile and margin,
+    the (pixel, face) pairs K6's lists held and the chunks the twin
+    walked."""
     import torch
 
     tile = kr.cull_tile(size, size, soft)
@@ -796,6 +805,31 @@ def _stream_pair(kr, coeffs, bounds, size, soft):
         if a is not None and not torch.equal(a, b):
             fail(f"K6 soft={soft} differs from its every-chunk walk")
     return got, ranges, tile, margin, int(cnt[0]), int(cnt[1])
+
+
+def _stream_vs_k1(kr, got, want, bounds, size, soft, tile, margin):
+    """K6's outputs ``got`` against K1's (soft: K1-soft's) ``want`` on the
+    same faces: fails unless they are equal at every pixel but those where
+    K6's face (covering, or nearest) lies in a chunk whose band misses the
+    pixel's cull band, so that K1 never tests it there, and where K6's
+    covering face is no farther than K1's. Every chunk K1 tests is in K6's
+    range, so K6 picks from a superset of K1's faces, in the same order:
+    where its pick is a face K1 tests, the two picks are one. Returns the
+    pixels where pix_to_face or zbuf differ, and where nearest does."""
+    import torch
+
+    apart = (got[0] != want[0]) | (got[1] != want[1])
+    past = kr.outside_band(bounds, got[0], size, size, tile, margin)
+    ok = (~apart | past) & (got[1] <= want[1])
+    near = torch.zeros_like(apart)
+    if soft:
+        near = got[2] != want[2]
+        ok &= ~near | kr.outside_band(bounds, got[2], size, size, tile,
+                                      margin)
+    if not bool(ok.all()):
+        fail(f"K6 soft={soft} differs from K1 at {int((~ok).sum())} pixels "
+             f"where K1 tests K6's face")
+    return int(apart.sum()), int(near.sum())
 
 
 def raster_stream_check(dev):
@@ -826,7 +860,7 @@ def raster_stream_check(dev):
         zerr = max(zerr, float((got[1] - want[1]).abs().max()))
         print(f"K6 raster_stream soft={soft} {coeffs.shape[2]} padded faces "
               f"{size}²: id mismatches {bad}, zbuf max rel err {zrel:.3g}, "
-              f"chunks tested {n_new} of {n_old} walked")
+              f"pairs tested {n_new}, chunks walked {n_old}")
         if bad or zrel > 1e-6:
             fail(f"K6 soft={soft} differs from its plain version")
 
@@ -846,12 +880,12 @@ def raster_stream_check(dev):
                 if soft else "")
         print(f"K6 vs K1 soft={soft} at {coeffs.shape[2]} padded faces x "
               f"{SIZE}² x {VIEWS}: pix_to_face and zbuf bit-equal {same}"
-              + near + f"; chunks tested {n_new} of {n_old} walked")
+              + near + f"; pairs tested {n_new}, chunks walked {n_old}")
         if not same:
             fail(f"K6 soft={soft} differs from K1 at 327,680 faces")
         if not soft:
-            hard = (tile, ranges)
-    tile, ranges = hard
+            hard = (tile, ranges, n_new)
+    tile, ranges, pairs = hard
     ms = cuda_ms(lambda: kr.raster_stream(coeffs, bounds, ranges, SIZE, SIZE,
                                           tile, False), reps=10)
     old_ms = cuda_ms(lambda: kr.raster_stream_every_chunk(
@@ -859,6 +893,7 @@ def raster_stream_check(dev):
     k1_ms = cuda_ms(lambda: kr.raster_hard(coeffs, bounds, SIZE, SIZE),
                     reps=3, warmup=1)
     cnt = stream_counts(coeffs, bounds, ranges, SIZE)
+    cnt["tested"] = pairs
     print(f"K6 raster_stream hard at 327,680 faces (pristine sphere): kernel "
           f"{ms:.3f} ms, every-chunk walk {old_ms:.3f} ms, K1 on the same "
           f"faces {k1_ms:.3f} ms, plain (81,920 faces, 256²) "
@@ -880,11 +915,12 @@ def raster_stream_run_check(dev, obj, rec):
     """K6 on the faces of the 327,680-face vertex run as they stand after
     its epochs (its ``final.obj`` under the run's fixed cameras), where one
     stretched face widens its chunk's band: the counts of
-    ``stream_counts``; hard and soft equal to the every-chunk walk, hard
-    outputs bit-equal to K1's (soft: to K1-soft's); ids and nearest
-    bit-equal to the plain version on the same faces at the largest of
-    128², 96² and 64² whose walk the plain version finishes in seconds;
-    times. Updates ``rec`` (the K6 row) with these faces' time and bound."""
+    ``stream_counts``; hard and soft equal to the every-chunk walk, and
+    to K1's outputs (soft: K1-soft's) but where ``_stream_vs_k1`` allows;
+    ids and nearest bit-equal to the plain version on the same faces at the
+    largest of 128², 96² and 64² whose walk the plain version finishes in
+    seconds; times. Updates ``rec`` (the K6 row) with these faces' time and
+    bound."""
     import torch
     from st3d_torch.kernels import raster as kr
 
@@ -895,15 +931,17 @@ def raster_stream_run_check(dev, obj, rec):
         want = (kr.raster_soft(coeffs, bounds, SIZE, SIZE, margin, tile)
                 if soft else kr.raster_hard(coeffs, bounds, SIZE, SIZE))
         torch.cuda.synchronize()
-        same = torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-        print(f"K6 on the vertex run's faces soft={soft}: pix_to_face and "
-              f"zbuf bit-equal to K1 {same}, equal to the every-chunk walk; "
-              f"chunks tested {n_new} of {n_old} walked")
-        if not same:
-            fail(f"K6 soft={soft} differs from K1 on the run's faces")
+        apart, near = _stream_vs_k1(kr, got, want, bounds, SIZE, soft, tile,
+                                    margin)
+        print(f"K6 on the vertex run's faces soft={soft}: equal to the "
+              f"every-chunk walk; apart from K1{'-soft' if soft else ''} in "
+              f"pix_to_face or zbuf at {apart} pixels"
+              + (f", in nearest at {near}" if soft else "")
+              + f", each where K1 does not test K6's face; pairs tested "
+              f"{n_new}, chunks walked {n_old}")
         if not soft:
-            hard = (tile, ranges)
-    tile, ranges = hard
+            hard = (tile, ranges, n_new, apart)
+    tile, ranges, pairs, apart = hard
     ms = cuda_ms(lambda: kr.raster_stream(coeffs, bounds, ranges, SIZE, SIZE,
                                           tile, False), reps=10)
     old_ms = cuda_ms(lambda: kr.raster_stream_every_chunk(
@@ -913,6 +951,8 @@ def raster_stream_run_check(dev, obj, rec):
     ranges_ms = cuda_ms(lambda: kr.stream_ranges(bounds, SIZE, SIZE, tile,
                                                  0.0), reps=3, warmup=1)
     cnt = stream_counts(coeffs, bounds, ranges, SIZE)
+    cnt["tested"] = pairs
+    cnt["apart_from_k1"] = apart
     print(f"K6 raster_stream hard on the vertex run's faces: kernel "
           f"{ms:.3f} ms, every-chunk walk {old_ms:.3f} ms, K1 {k1_ms:.3f} "
           f"ms, stream_ranges {ranges_ms:.3f} ms; counts " + json.dumps(cnt))
@@ -942,7 +982,7 @@ def raster_stream_run_check(dev, obj, rec):
             same = same and torch.equal(got[2], want[2])
         print(f"K6 on the run's faces at {size}² soft={soft}: ids, zbuf"
               f"{' and nearest' if soft else ''} bit-equal to the plain "
-              f"version {same}; chunks tested {n_new} of {n_old} walked")
+              f"version {same}; pairs tested {n_new}, chunks walked {n_old}")
         if not same:
             fail(f"K6 soft={soft} differs from its plain version on the "
                  f"run's faces at {size}²")
@@ -978,27 +1018,68 @@ def _tie_check(fv, p_a, p_b, z):
     return int(v.numel())
 
 
+def tested_pairs_2d(kr, bounds, size):
+    """(pixel, face) pairs G's every-face twin tests on this data: every
+    face of every chunk ``cull_2d`` leaves, at every pixel of the tile."""
+    return int(kr.cull_2d(bounds, size, size).sum()) * 256 * kr.FACE_CHUNK
+
+
+def _2d_held(kr, coeffs, bounds, what, plain=True):
+    """G (per-warp face lists on 2D tiles) on faces at 512² against its
+    every-face twin and, if ``plain``, its plain version: p2f and zbuf
+    bit-equal, one launch each; its pairs (``tested``) beside the twin's.
+    Returns (tested, the twin's, zbuf max abs err of G and of the twin
+    against the plain version, None without it)."""
+    import torch
+
+    cnt = torch.zeros(1, dtype=torch.int64, device=coeffs.device)
+    before = dict(kr.LAUNCHES)
+    got = kr.raster_2d(coeffs, bounds, SIZE, SIZE, cnt)
+    twin = kr.raster_2d_every_face(coeffs, bounds, SIZE, SIZE)
+    launched = {k: n - before[k] for k, n in kr.LAUNCHES.items()
+                if n != before[k]}
+    torch.cuda.synchronize()
+    tested, every = int(cnt), tested_pairs_2d(kr, bounds, SIZE)
+    refs = {"twin": twin}
+    if plain:
+        refs["plain version"] = kr.raster_2d_plain(coeffs, bounds, SIZE, SIZE)
+    same = {k: torch.equal(got[0], r[0]) and torch.equal(got[1], r[1])
+            for k, r in refs.items()}
+    errs = [float((z - refs["plain version"][1]).abs().max()) if plain
+            else None for z in (got[1], twin[1])]
+    print(f"K9 raster_2d on {what}: p2f and zbuf bit-equal to "
+          f"{json.dumps(same)}; pairs tested {tested} (every-face twin "
+          f"{every}); launches {json.dumps(launched)}")
+    if not all(same.values()):
+        fail(f"K9 on {what} differs from {same}")
+    if launched != {"raster_2d": 1, "raster_2d_every_face": 1}:
+        fail(f"K9 on {what}: launched {launched}")
+    if not 0 < tested < every:
+        fail(f"K9 on {what}: its lists held {tested} pairs, the every-face "
+             f"twin tests {every}")
+    return tested, every, errs
+
+
 def raster_2d_check(dev):
-    """K9 against its plain version at 512² x 4, ico level 4, and against K1
-    at level 7 (327,680 faces): zbuf bit-equal, ids apart only at ties."""
+    """K9's G at 512² x 4 on the ico-sphere at level 4 and at level 7
+    (327,680 faces), each against its every-face twin and (level 4) its
+    plain version by ``_2d_held``, timed beside the twin and K1, and
+    against K1 at both levels: zbuf bit-equal, ids apart only at exact
+    ties. Rows for G and its twin; no path launches either."""
     import torch
     from st3d_torch.kernels import raster as kr
 
     fv, coeffs1, bounds1 = sphere_faces(dev, ICO_LEVEL, SIZE)
     coeffs, bounds, _ = kr.preprocess_2d(fv, SIZE)
-    p2f, z = kr.raster_2d(coeffs, bounds, SIZE, SIZE)
-    p2f_p, z_p = kr.raster_2d_plain(coeffs, bounds, SIZE, SIZE)
-    torch.cuda.synchronize()
-    mismatch = int((p2f != p2f_p).sum())
-    hit = p2f_p >= 0
-    zerr = float((z - z_p).abs().max())
-    zrel = float(((z - z_p).abs() / z_p.abs())[hit].max())
-    print(f"K9 raster_2d level {ICO_LEVEL}: pix_to_face mismatches "
-          f"{mismatch}, zbuf max rel err {zrel:.3g}")
-    if mismatch or zrel > 1e-6:
-        fail(f"K9 differs from its plain version: {mismatch} ids, zbuf rel "
-             f"{zrel}")
+    tested, every, errs = _2d_held(kr, coeffs, bounds,
+                                   f"the level-{ICO_LEVEL} sphere")
     ms = cuda_ms(lambda: kr.raster_2d(coeffs, bounds, SIZE, SIZE))
+    twin_ms = cuda_ms(lambda: kr.raster_2d_every_face(coeffs, bounds, SIZE,
+                                                      SIZE))
+    dev_ms = profiled_ms(lambda: kr.raster_2d(coeffs, bounds, SIZE,
+                                              SIZE))[0]
+    twin_dev_ms = profiled_ms(lambda: kr.raster_2d_every_face(
+        coeffs, bounds, SIZE, SIZE))[0]
     plain_ms = cuda_ms(lambda: kr.raster_2d_plain(coeffs, bounds, SIZE,
                                                   SIZE), reps=3, warmup=1)
     k1_ms = cuda_ms(lambda: kr.raster_hard(coeffs1, bounds1, SIZE, SIZE))
@@ -1015,25 +1096,49 @@ def raster_2d_check(dev):
               f"bit-equal, ids differ at {ties[level]} px, each an exact "
               f"1/z tie")
     c7, b7, _ = kr.preprocess_2d(fv, SIZE)
+    # The plain version would take minutes on 1.8 M (tile, chunk) pairs.
+    tested7, every7, _ = _2d_held(kr, c7, b7, f"{fv.shape[1]} faces",
+                                  plain=False)
     ms7 = cuda_ms(lambda: kr.raster_2d(c7, b7, SIZE, SIZE), reps=3, warmup=1)
+    twin_ms7 = cuda_ms(lambda: kr.raster_2d_every_face(c7, b7, SIZE, SIZE),
+                       reps=3, warmup=1)
     k7 = kr.preprocess(fv)
     k1_ms7 = cuda_ms(lambda: kr.raster_hard(k7[0], k7[1], SIZE, SIZE),
                      reps=3, warmup=1)
     pairs = needed_pairs(coeffs, SIZE, 0.0)
-    print(f"K9 raster_2d level {ICO_LEVEL}: kernel {ms:.3f} ms (K1 "
-          f"{k1_ms:.3f}), plain {plain_ms:.3f} ms, {pairs} pairs needed "
-          f"(bbox); at 327,680 faces {ms7:.3f} ms (K1 {k1_ms7:.3f})")
-    rec = {"name": "raster_2d", "route": "cuda",
-           "source": "st3d_torch/csrc/raster_2d.cu",
-           "replaces": "st3d/kernels/raster_pallas.py:885",
-           "max_abs_err": zerr, "ms": ms, "plain_ms": plain_ms,
-           "k1_ms": k1_ms, "ms_327680_faces": ms7,
-           "k1_ms_327680_faces": k1_ms7,
-           "tie_pixels_vs_k1": {str(k): v for k, v in ties.items()},
-           "path": "none: no entry point calls K9, in the JAX package or "
-                   "the port"}
-    return with_bound(rec, pairs * PAIR_OPS["hard"],
-                      raster_bytes(coeffs, 12, bounds, 8, SIZE), F32_FLOPS)
+    print(f"K9 raster_2d level {ICO_LEVEL}: kernel {ms:.4f} ms "
+          f"({dev_ms:.4f} device), every-face twin {twin_ms:.4f} "
+          f"({twin_dev_ms:.4f} device), K1 {k1_ms:.4f}, plain "
+          f"{plain_ms:.3f} ms; pairs tested {tested} (twin {every}), "
+          f"{pairs} needed (bbox); at {fv.shape[1]} faces {ms7:.3f} ms "
+          f"(twin {twin_ms7:.3f}, K1 {k1_ms7:.3f}), pairs tested {tested7} "
+          f"(twin {every7})")
+    for what, new, old in (("level 4", ms, twin_ms),
+                           (f"{fv.shape[1]} faces", ms7, twin_ms7)):
+        if not new < old:
+            fail(f"K9 at {what}: {new:.4f} ms, its every-face twin {old:.4f}")
+    common = {"route": "cuda", "source": "st3d_torch/csrc/raster_2d.cu",
+              "replaces": "st3d/kernels/raster_pallas.py:885",
+              "plain_ms": plain_ms, "k1_ms": k1_ms,
+              "k1_ms_327680_faces": k1_ms7, "needed": pairs,
+              "path": "none: no entry point calls K9, in the JAX package or "
+                      "the port"}
+    flops = pairs * PAIR_OPS["hard"]
+    nbytes = raster_bytes(coeffs, 12, bounds, 8, SIZE)
+    rec = with_bound(dict(
+        common, name="raster_2d", max_abs_err=errs[0], ms=ms,
+        device_ms=dev_ms,
+        every_face_ms=twin_ms, every_face_device_ms=twin_dev_ms,
+        tested=tested, tested_every_face=every, ms_327680_faces=ms7,
+        every_face_ms_327680_faces=twin_ms7, tested_327680_faces=tested7,
+        tested_every_face_327680_faces=every7,
+        tie_pixels_vs_k1={str(k): v for k, v in ties.items()}),
+        flops, nbytes, F32_FLOPS)
+    twin = with_bound(dict(
+        common, name="raster_2d_every_face", max_abs_err=errs[1], ms=twin_ms,
+        device_ms=twin_dev_ms, tested=every, ms_327680_faces=twin_ms7,
+        tested_327680_faces=every7), flops, nbytes, F32_FLOPS)
+    return [rec, twin]
 
 
 def _launched(before):
@@ -2790,7 +2895,7 @@ def main(argv=None):
     kernels += [raster_soft_check(dev), raster_stream_check(dev),
                 raster_topk_check(dev)]
     lap("K1-soft, K6, K7 checks")
-    kernels += stage1v3_check(dev) + k8_check(dev) + [raster_2d_check(dev)]
+    kernels += stage1v3_check(dev) + k8_check(dev) + raster_2d_check(dev)
     lap("E, F, K8, K9 checks")
     with tempfile.TemporaryDirectory() as tmp:
         scenes = {level: write_scene(tmp, SIZE, seed=0, level=level)

@@ -68,31 +68,6 @@ using namespace st3d_walk;
 
 constexpr float BIG_Z = 1e10f;
 
-// The largest value of affine(px, py, a, b, c) over the box, exactly as the
-// kernel would round it at that pixel (see the header's lemma).
-__device__ __forceinline__ float corner_max(const Box& bx, float a, float b,
-                                            float c) {
-  return affine(a >= 0.f ? bx.col1 : bx.col0, b >= 0.f ? bx.row1 : bx.row0,
-                a, b, c);
-}
-
-// The warp's list of the staged chunk: bit f % 32 of keep[f / 32] is set
-// unless the face covers no pixel of the box, or its 1/z is <= s_w over
-// the whole box. Faces stay in sorted order.
-__device__ __forceinline__ void hard_list(const float* slot, const Box& bx,
-                                          float s_w, unsigned keep[4]) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int w = 0; w < CHUNK / 32; ++w) {
-    const HardFace q = load_hard_face(slot, 32 * w + lane);
-    const bool drop = corner_max(bx, q.a.x, q.a.y, q.a.z) < 0.f ||
-                      corner_max(bx, q.a.w, q.b.x, q.b.y) < 0.f ||
-                      corner_max(bx, q.b.z, q.b.w, q.c.x) < 0.f ||
-                      corner_max(bx, q.c.y, q.c.z, q.c.w) <= s_w;
-    keep[w] = __ballot_sync(FULL, !drop);
-  }
-}
-
 __global__ void __launch_bounds__(TILE, 5)
 raster_hard_kernel(const float* __restrict__ coeffs,
                    const float* __restrict__ bounds, int* __restrict__ p2f,
@@ -108,7 +83,6 @@ raster_hard_kernel(const float* __restrict__ coeffs,
   const float px = (float)(p % W);
   const float py = (float)(p / W);
   const bool live = p < hw;
-  const int n_live = __popc(__ballot_sync(FULL, live));
   const Box box = warp_box(px, py, W);
 
   const float* cv = coeffs + (long long)v * 20 * f_pad;
@@ -116,55 +90,9 @@ raster_hard_kernel(const float* __restrict__ coeffs,
 
   float best = 0.f;   // background: 1/z <= 0
   int fid = -1;
-  unsigned long long pairs = 0;
   ChunkScan scan(bv, n_chunks, (float)(t0 / W), (float)(last / W));
-  int cur = scan.next(-1);
-  int nxt = n_chunks;
-  if (cur < n_chunks) {
-    stage_rows<HARD_ROWS, HARD_REC>(buf[0], cv, f_pad, cur);
-    nxt = scan.next(cur);
-  }
-  int slot = 0;
-  while (cur < n_chunks) {
-    if (nxt < n_chunks) {
-      stage_rows<HARD_ROWS, HARD_REC>(buf[slot ^ 1], cv, f_pad, nxt);
-      cp_async_wait<1>();   // chunk cur has landed, nxt may be in flight
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* sc = buf[slot];
-    // s_w: the least best over the warp's pixels in the frame.
-    float s_w = live ? best : 3.0e38f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      s_w = fminf(s_w, __shfl_xor_sync(FULL, s_w, o));
-    unsigned keep[CHUNK / 32];
-    hard_list(sc, box, s_w, keep);
-#pragma unroll
-    for (int w = 0; w < CHUNK / 32; ++w)
-      pairs += (unsigned long long)(__popc(keep[w]) * n_live);
-    if (live) {
-#pragma unroll
-      for (int w = 0; w < CHUNK / 32; ++w) {
-        for (unsigned m = keep[w]; m; m &= m - 1) {
-          const int f = 32 * w + __ffs(m) - 1;
-          const HardFace q = load_hard_face(sc, f);
-          float b0, b1, b2;
-          planes(q, px, py, b0, b1, b2);
-          const float iz = inv_z(q, px, py);
-          if (b0 >= 0.f && b1 >= 0.f && b2 >= 0.f && iz > best) {
-            best = iz;
-            fid = cur * CHUNK + f;
-          }
-        }
-      }
-    }
-    __syncthreads();   // slot `slot` is refilled next
-    cur = nxt;
-    slot ^= 1;
-    if (cur < n_chunks) nxt = scan.next(cur);
-  }
+  const unsigned long long pairs = hard_walk(scan, buf, cv, f_pad, n_chunks,
+                                             box, px, py, live, best, fid);
   add_tested(tested, pairs);
   if (live) {
     const bool hit = best > 0.f;

@@ -17,22 +17,24 @@
 // it): for a pixel farther than the margin from every face, the nearest
 // face is whichever survives the cull, so the band is part of the result.
 //
-// Work layout (raster_walk.cuh): one thread per pixel, one block per 256
-// consecutive pixels (a block lies inside one cull tile, so the chunk test
-// is uniform across it); the next chunk to test is found by a warp ballot
-// over 32 bands and staged face-major by cp.async while the previous one
-// is tested. Each warp then tests only the faces that can still change one
-// of its 32 pixels: it drops a face when ub <= min(-1, s_w), where ub is the
-// face's bbox upper bound over the warp's pixel rectangle and s_w the least
-// nearest distance over the warp's pixels at the chunk's start. Exact:
-//   - ub <= -1: every pixel of the warp is 1 or more outside the face's
-//     bbox, so none is covered (a barycentric's rounding error is some
-//     1e-4 pixel here);
-//   - ub <= s_w: at every pixel d <= bbox distance <= ub <= s_w <= the
-//     pixel's best, so the strict '>' cannot pick the face, now or later
-//     (the best only rises).
-// Inside the list a pixel also skips a face whose own bbox distance is
-// <= -1 and <= its best so far, by the same argument.
+// Work layout (raster_walk.cuh, soft_walk): one thread per pixel, one block
+// per 256 consecutive pixels (a block lies inside one cull tile, so the
+// chunk test is uniform across it); the next chunk to test is found by a
+// warp ballot over 32 bands and staged face-major by cp.async while the
+// previous one is tested. Each warp then tests only the faces that can
+// still change one of its 32 pixels: it drops a face when K1's exact
+// corner rule rules it out as the covering face (over the warp's pixel
+// rectangle, no barycentric's corner value is >= 0, or 1/z's corner value
+// is <= the least best 1/z over the warp's pixels; raster_hard.cu) AND
+// ub <= s_w, where ub is the face's bbox upper bound over the rectangle
+// and s_w the least nearest distance over the warp's pixels at the chunk's
+// start: then at every pixel d <= bbox distance <= ub <= s_w <= the
+// pixel's best, so the strict '>' cannot pick the face, now or later (the
+// best only rises). Inside the list a pixel also skips a face that the
+// corner rule ruled out and whose own bbox distance is <= its best so far,
+// by the same argument. The bbox alone says nothing of covering: a
+// sliver's rounded barycentrics can all be >= 0 at pixels many pixels
+// outside its bbox, and such a face can win there.
 // st3d_raster_soft_every_face keeps the earlier walk (every face of every
 // chunk in band, 19 x 128 rows staged between two barriers): launched by no
 // route, the twin chip_smoke.py holds this kernel against.
@@ -78,7 +80,6 @@ raster_soft_kernel(const float* __restrict__ coeffs,
   const float px = (float)(p % W);
   const float py = (float)(p / W);
   const bool live = p < hw;
-  const int n_live = __popc(__ballot_sync(FULL, live));
   const Box box = warp_box(px, py, W);
 
   const float* cv = coeffs + (long long)v * 20 * f_pad;
@@ -88,62 +89,10 @@ raster_soft_kernel(const float* __restrict__ coeffs,
   int fid = -1;
   float sbest = NEG_INIT;
   int sid = 0;
-  unsigned long long pairs = 0;
   ChunkScan scan(bv, n_chunks, lo, hi);
-  int cur = scan.next(-1);
-  int nxt = n_chunks;
-  if (cur < n_chunks) {
-    stage(buf[0], cv, f_pad, cur);
-    nxt = scan.next(cur);
-  }
-  int slot = 0;
-  while (cur < n_chunks) {
-    if (nxt < n_chunks) {
-      stage(buf[slot ^ 1], cv, f_pad, nxt);
-      cp_async_wait<1>();   // chunk cur has landed, nxt may be in flight
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* sc = buf[slot];
-    // s_w: the least best over the warp's pixels in the frame.
-    float s_w = live ? sbest : 3.0e38f;
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      s_w = fminf(s_w, __shfl_xor_sync(FULL, s_w, o));
-    unsigned keep[CHUNK / 32];
-    face_list(sc, box, fminf(-1.f, s_w), keep);
-#pragma unroll
-    for (int w = 0; w < CHUNK / 32; ++w)
-      pairs += (unsigned long long)(__popc(keep[w]) * n_live);
-    if (live) {
-#pragma unroll
-      for (int w = 0; w < CHUNK / 32; ++w) {
-        for (unsigned m = keep[w]; m; m &= m - 1) {
-          const int f = 32 * w + __ffs(m) - 1;
-          const Face q = load_face(sc, f);
-          const float bb = bbox_dist(q, px, py);
-          if (bb <= -1.f && bb <= sbest) continue;
-          float b0, b1, b2;
-          planes(q, px, py, b0, b1, b2);
-          const float iz = inv_z(q, px, py);
-          if (b0 >= 0.f && b1 >= 0.f && b2 >= 0.f && iz > best) {
-            best = iz;
-            fid = cur * CHUNK + f;
-          }
-          const float d = fminf(edge_dist(q, b0, b1, b2), bb);
-          if (d > sbest) {
-            sbest = d;
-            sid = cur * CHUNK + f;
-          }
-        }
-      }
-    }
-    __syncthreads();   // slot `slot` is refilled next
-    cur = nxt;
-    slot ^= 1;
-    if (cur < n_chunks) nxt = scan.next(cur);
-  }
+  const unsigned long long pairs =
+      soft_walk(scan, buf, cv, f_pad, n_chunks, box, px, py, live, best, fid,
+                sbest, sid);
   add_tested(tested, pairs);
   if (live) {
     const bool hit = best > 0.f;

@@ -1,24 +1,35 @@
-// The chunk walk K1 (raster_hard.cu), K1's soft mode (raster_soft.cu) and
-// K7 (raster_topk.cu) share: one thread per pixel, one block per 256
-// consecutive pixels of the flat row-major index, faces in sorted 128-face
-// chunks.
+// The chunk walk K1 (raster_hard.cu), K1's soft mode (raster_soft.cu), K6
+// (raster_stream.cu), K7 (raster_topk.cu) and G (raster_2d.cu) share: one
+// thread per pixel, one block per 256 pixels (K1, K1-soft, K6, K7:
+// consecutive pixels of the flat row-major index; G: a 16 x 16 tile),
+// faces in sorted 128-face chunks.
 //
-// - The chunks the block tests are found by one warp ballot over 32 chunk
-//   bands at a time, kept in a register window (each warp computes the
-//   same answer on its own, so no barrier is needed).
+// - The chunks the block tests are found by one warp ballot over 32 chunks
+//   at a time, kept in a register window (each warp computes the same
+//   answer on its own, so no barrier is needed): by row band (ChunkScan)
+//   or, for G, by the chunk's x and y bounds against the tile
+//   (ChunkScan2D). K6 walks every chunk of its tile's range (RangeScan).
 // - A chunk's coefficient rows are copied face-major into shared memory
 //   by 4-byte cp.async into the free one of two slots while the previous
 //   chunk is tested: rows 0-18 at REC floats a face for the soft mode and
 //   K7 (a face's planes are five 16-byte broadcast loads), rows 0-11 at
-//   HARD_REC floats for K1 (three).
-// - Each warp keeps, by four ballots, the faces whose bbox upper bound over
-//   the warp's pixel rectangle, ub, passes the caller's limit. For a pixel
-//   (px, py) of the rectangle [col0, col1] x [row0, row1] the bbox distance
-//   min(fl(px - xmin), fl(xmax - px), fl(py - ymin), fl(ymax - py)) is at
-//   most ub = min(fl(col1 - xmin), fl(xmax - col0), fl(row1 - ymin),
-//   fl(ymax - row0)), since rounding is monotone. A warp that wraps a row
-//   takes the rectangle [0, W-1] x its rows; lanes past the frame only
-//   widen it.
+//   HARD_REC floats for K1 and G (three).
+// - The bbox bound: for a pixel (px, py) of the warp's rectangle
+//   [col0, col1] x [row0, row1] the bbox distance min(fl(px - xmin),
+//   fl(xmax - px), fl(py - ymin), fl(ymax - py)) is at most ub =
+//   min(fl(col1 - xmin), fl(xmax - col0), fl(row1 - ymin), fl(ymax - row0)),
+//   since rounding is monotone. A warp that wraps a row takes the rectangle
+//   [0, W-1] x its rows; lanes past the frame only widen it.
+// - K1, G and K6 hard (hard_walk): each warp keeps the faces that the exact
+//   corner rule cannot rule out over its rectangle (hard_list; the lemma is
+//   in raster_hard.cu's header).
+// - K1-soft and K6 soft (soft_walk): each warp keeps a face unless the
+//   corner rule rules it out as the covering face AND ub <= s_near, the
+//   least nearest distance over the warp's pixels (soft_list). The bbox
+//   alone never rules out covering: a sliver's rounded barycentrics can
+//   all be >= 0 at pixels many pixels outside its bbox.
+// - K7: each warp keeps the faces with ub > -window (face_list): the
+//   eligibility it selects on is a distance <= the bbox distance.
 //
 // Every affine value is two rounded products and two rounded sums
 // (__fmul_rn / __fadd_rn); the sources that include this are built with
@@ -168,6 +179,58 @@ struct ChunkScan {
   }
 };
 
+// The chunks a block of G (raster_2d.cu) tests, found as ChunkScan finds
+// them: bit i of `hits` says whether chunk base + i has bounds (ymin, ymax,
+// xmin, xmax) that meet the tile's rows [row0, row1] and columns
+// [col0, col1] (the reference's x-and-y rule).
+struct ChunkScan2D {
+  const float* bv;
+  int n_chunks;
+  float row0, row1, col0, col1;
+  int base;
+  unsigned hits;
+
+  __device__ __forceinline__ ChunkScan2D(const float* bv_, int n_chunks_,
+                                         float row0_, float row1_,
+                                         float col0_, float col1_)
+      : bv(bv_), n_chunks(n_chunks_), row0(row0_), row1(row1_), col0(col0_),
+        col1(col1_), base(0) {
+    load();
+  }
+
+  __device__ __forceinline__ void load() {
+    const int cc = base + (threadIdx.x & 31);
+    const int n = n_chunks;
+    hits = __ballot_sync(
+        FULL, cc < n && bv[n + cc] >= row0 && bv[cc] <= row1 &&
+                  bv[3 * n + cc] >= col0 && bv[2 * n + cc] <= col1);
+  }
+
+  __device__ __forceinline__ int next(int c) {
+    for (;;) {
+      const int from = max(c + 1 - base, 0);
+      const unsigned m = from >= 32 ? 0u : hits & (~0u << from);
+      if (m) return base + __ffs(m) - 1;
+      base += 32;
+      if (base >= n_chunks) return n_chunks;
+      load();
+    }
+  }
+};
+
+// The chunks of one range [c_lo, c_hi] in order, each of them (K6: the
+// range of the block's tile, as the TPU kernel walks it); none when
+// c_lo > c_hi.
+struct RangeScan {
+  int c_lo, c_hi, n_chunks;
+
+  // The chunk after c (n_chunks when none).
+  __device__ __forceinline__ int next(int c) const {
+    const int n = max(c + 1, c_lo);
+    return n <= c_hi ? n : n_chunks;
+  }
+};
+
 // The warp's pixel rectangle [col0, col1] x [row0, row1].
 struct Box {
   float col0, col1, row0, row1;
@@ -183,9 +246,17 @@ __device__ __forceinline__ Box warp_box(float px, float py, int W) {
   return b;
 }
 
-// The warp's list of the staged chunk: bit f % 32 of keep[f / 32] is set
-// unless ub <= lim (so every dropped face has bbox distance <= lim at every
-// pixel of the warp). Faces stay in sorted order.
+// ub: the upper bound of a face's bbox distance over the box (rows 15-18
+// are d.w = xmin, e.x = xmax, e.y = ymin, e.z = ymax).
+__device__ __forceinline__ float bbox_upper(const float4& d, const float4& e,
+                                            const Box& b) {
+  return fminf(fminf(__fsub_rn(b.col1, d.w), __fsub_rn(e.x, b.col0)),
+               fminf(__fsub_rn(b.row1, e.y), __fsub_rn(e.z, b.row0)));
+}
+
+// The warp's list of the staged chunk (K7): bit f % 32 of keep[f / 32] is
+// set unless ub <= lim (so every dropped face has bbox distance <= lim at
+// every pixel of the warp). Faces stay in sorted order.
 __device__ __forceinline__ void face_list(const float* slot, const Box& b,
                                           float lim, unsigned keep[4]) {
   const int lane = threadIdx.x & 31;
@@ -194,12 +265,194 @@ __device__ __forceinline__ void face_list(const float* slot, const Box& b,
     const float* q = slot + (32 * w + lane) * REC;
     const float4 d = *reinterpret_cast<const float4*>(q + 12);
     const float4 e = *reinterpret_cast<const float4*>(q + 16);
-    const float ub = fminf(fminf(__fsub_rn(b.col1, d.w),
-                                 __fsub_rn(e.x, b.col0)),
-                           fminf(__fsub_rn(b.row1, e.y),
-                                 __fsub_rn(e.z, b.row0)));
-    keep[w] = __ballot_sync(FULL, !(ub <= lim));
+    keep[w] = __ballot_sync(FULL, !(bbox_upper(d, e, b) <= lim));
   }
+}
+
+// The largest value of affine(px, py, a, b, c) over the box, exactly as the
+// kernel would round it at that pixel (the lemma in raster_hard.cu).
+__device__ __forceinline__ float corner_max(const Box& bx, float a, float b,
+                                            float c) {
+  return affine(a >= 0.f ? bx.col1 : bx.col0, b >= 0.f ? bx.row1 : bx.row0,
+                a, b, c);
+}
+
+// Whether the corner rule rules the face (a Face or a HardFace) out as the
+// covering face of every pixel of the box: it covers none of them, or its
+// 1/z is <= s_w over the whole box.
+template <typename F>
+__device__ __forceinline__ bool corner_drop(const F& q, const Box& bx,
+                                            float s_w) {
+  return corner_max(bx, q.a.x, q.a.y, q.a.z) < 0.f ||
+         corner_max(bx, q.a.w, q.b.x, q.b.y) < 0.f ||
+         corner_max(bx, q.b.z, q.b.w, q.c.x) < 0.f ||
+         corner_max(bx, q.c.y, q.c.z, q.c.w) <= s_w;
+}
+
+// The warp's hard list of the staged chunk (K1, G, K6 hard): bit f % 32 of
+// keep[f / 32] is set unless corner_drop. Faces stay in sorted order.
+__device__ __forceinline__ void hard_list(const float* slot, const Box& bx,
+                                          float s_w, unsigned keep[4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int w = 0; w < CHUNK / 32; ++w) {
+    const HardFace q = load_hard_face(slot, 32 * w + lane);
+    keep[w] = __ballot_sync(FULL, !corner_drop(q, bx, s_w));
+  }
+}
+
+// The warp's soft lists of the staged chunk (K1-soft, K6 soft): bit f % 32
+// of hard[f / 32] is set unless corner_drop against s_hard (the least best
+// 1/z over the warp's pixels), and of keep[f / 32] also where ub > s_near
+// (the least nearest distance): a face left out can change neither a
+// pixel's covering face nor its nearest one, whose distance is <= the bbox
+// distance <= ub. Faces stay in sorted order.
+__device__ __forceinline__ void soft_list(const float* slot, const Box& bx,
+                                          float s_hard, float s_near,
+                                          unsigned keep[4],
+                                          unsigned hard[4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int w = 0; w < CHUNK / 32; ++w) {
+    const Face q = load_face(slot, 32 * w + lane);
+    const bool cover = !corner_drop(q, bx, s_hard);
+    hard[w] = __ballot_sync(FULL, cover);
+    keep[w] = __ballot_sync(FULL, cover || !(bbox_upper(q.d, q.e, bx) <=
+                                             s_near));
+  }
+}
+
+// The least of v over the warp's pixels in the frame.
+__device__ __forceinline__ float warp_least(float v, bool live) {
+  float s = live ? v : 3.0e38f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) s = fminf(s, __shfl_xor_sync(FULL, s, o));
+  return s;
+}
+
+// The hard walk of one block (K1, G, K6 hard): the chunks `scan` yields, in
+// order, each staged (rows 0-11 face-major) into the free one of the two
+// slots of `buf` while the previous one is tested; each warp tests its hard
+// list of the chunk at its pixel (px, py), strict '>' on 1/z into best and
+// fid. `live`: the pixel is in the frame. Returns the warp's tested (pixel,
+// face) pairs (the same in every lane). Call from every thread.
+template <typename Scan>
+__device__ __forceinline__ unsigned long long hard_walk(
+    Scan& scan, float (*buf)[CHUNK * HARD_REC], const float* cv, int f_pad,
+    int n_chunks, const Box& box, float px, float py, bool live,
+    float& best, int& fid) {
+  const int n_live = __popc(__ballot_sync(FULL, live));
+  unsigned long long pairs = 0;
+  int cur = scan.next(-1);
+  int nxt = n_chunks;
+  if (cur < n_chunks) {
+    stage_rows<HARD_ROWS, HARD_REC>(buf[0], cv, f_pad, cur);
+    nxt = scan.next(cur);
+  }
+  int slot = 0;
+  while (cur < n_chunks) {
+    if (nxt < n_chunks) {
+      stage_rows<HARD_ROWS, HARD_REC>(buf[slot ^ 1], cv, f_pad, nxt);
+      cp_async_wait<1>();   // chunk cur has landed, nxt may be in flight
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sc = buf[slot];
+    unsigned keep[CHUNK / 32];
+    hard_list(sc, box, warp_least(best, live), keep);
+#pragma unroll
+    for (int w = 0; w < CHUNK / 32; ++w)
+      pairs += (unsigned long long)(__popc(keep[w]) * n_live);
+    if (live) {
+#pragma unroll
+      for (int w = 0; w < CHUNK / 32; ++w) {
+        for (unsigned m = keep[w]; m; m &= m - 1) {
+          const int f = 32 * w + __ffs(m) - 1;
+          const HardFace q = load_hard_face(sc, f);
+          float b0, b1, b2;
+          planes(q, px, py, b0, b1, b2);
+          const float iz = inv_z(q, px, py);
+          if (b0 >= 0.f && b1 >= 0.f && b2 >= 0.f && iz > best) {
+            best = iz;
+            fid = cur * CHUNK + f;
+          }
+        }
+      }
+    }
+    __syncthreads();   // slot `slot` is refilled next
+    cur = nxt;
+    slot ^= 1;
+    if (cur < n_chunks) nxt = scan.next(cur);
+  }
+  return pairs;
+}
+
+// The soft walk of one block (K1-soft, K6 soft), as hard_walk with rows
+// 0-18 staged and soft_list's lists: strict '>' on 1/z into best and fid,
+// and on the distance min(edge distance, bbox distance) into sbest and sid.
+// A pixel also skips a listed face outside hard's bits whose own bbox
+// distance is <= its best distance so far (the face cannot cover it past
+// its best 1/z, and its distance cannot pass sbest, now or later). Returns
+// the warp's tested (pixel, face) pairs. Call from every thread.
+template <typename Scan>
+__device__ __forceinline__ unsigned long long soft_walk(
+    Scan& scan, float (*buf)[CHUNK * REC], const float* cv, int f_pad,
+    int n_chunks, const Box& box, float px, float py, bool live,
+    float& best, int& fid, float& sbest, int& sid) {
+  const int n_live = __popc(__ballot_sync(FULL, live));
+  unsigned long long pairs = 0;
+  int cur = scan.next(-1);
+  int nxt = n_chunks;
+  if (cur < n_chunks) {
+    stage(buf[0], cv, f_pad, cur);
+    nxt = scan.next(cur);
+  }
+  int slot = 0;
+  while (cur < n_chunks) {
+    if (nxt < n_chunks) {
+      stage(buf[slot ^ 1], cv, f_pad, nxt);
+      cp_async_wait<1>();   // chunk cur has landed, nxt may be in flight
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sc = buf[slot];
+    unsigned keep[CHUNK / 32], hard[CHUNK / 32];
+    soft_list(sc, box, warp_least(best, live), warp_least(sbest, live), keep,
+              hard);
+#pragma unroll
+    for (int w = 0; w < CHUNK / 32; ++w)
+      pairs += (unsigned long long)(__popc(keep[w]) * n_live);
+    if (live) {
+#pragma unroll
+      for (int w = 0; w < CHUNK / 32; ++w) {
+        for (unsigned m = keep[w]; m; m &= m - 1) {
+          const int f = 32 * w + __ffs(m) - 1;
+          const Face q = load_face(sc, f);
+          const float bb = bbox_dist(q, px, py);
+          if (!((hard[w] >> (f & 31)) & 1u) && bb <= sbest) continue;
+          float b0, b1, b2;
+          planes(q, px, py, b0, b1, b2);
+          const float iz = inv_z(q, px, py);
+          if (b0 >= 0.f && b1 >= 0.f && b2 >= 0.f && iz > best) {
+            best = iz;
+            fid = cur * CHUNK + f;
+          }
+          const float d = fminf(edge_dist(q, b0, b1, b2), bb);
+          if (d > sbest) {
+            sbest = d;
+            sid = cur * CHUNK + f;
+          }
+        }
+      }
+    }
+    __syncthreads();   // slot `slot` is refilled next
+    cur = nxt;
+    slot ^= 1;
+    if (cur < n_chunks) nxt = scan.next(cur);
+  }
+  return pairs;
 }
 
 // Adds the block's (pixel, face) pairs to *tested: `pairs` is each warp's

@@ -52,10 +52,11 @@ WGMMA_SOURCES = ("conv3x3_wgmma", "conv3x3_tf32x3", "gram_wgmma",
 # The narrow K3 takes mma.sync, not wgmma, but shares hopper.cuh with them
 # (cp.async, the Grams' second pass), so it links and reports as they do.
 TENSOR_CORE_SOURCES = WGMMA_SOURCES + ("gram_narrow",)
-# The three rasterizers with per-warp face lists report theirs too: their
+# The five rasterizers with per-warp face lists report theirs too: their
 # register cap trades spills for occupancy.
 REPORT_SOURCES = TENSOR_CORE_SOURCES + ("raster_hard", "raster_soft",
-                                        "raster_topk")
+                                        "raster_stream", "raster_topk",
+                                        "raster_2d")
 EXTRA_FLAGS.update({n: EXTRA_FLAGS.get(n, []) + ["-Xptxas", "-v"]
                     for n in REPORT_SOURCES})
 LINK_FLAGS: Dict[str, List[str]] = {n: ["-lcuda"]

@@ -27,13 +27,13 @@ Counterpart of ``st3d/kernels/raster_pallas.py``:
      (``csrc/raster_walk.cuh``). ``raster_soft_every_face`` is the earlier
      walk (every face of every chunk in band), launched by no route.
    - ``raster_stream`` (K6, ``csrc/raster_stream.cu``): K1's outputs, hard
-     or soft, with each tile walking its own [c_lo, c_hi] chunk range
-     (``stream_ranges``), testing only the chunks whose band meets the
-     block's rows (soft: by the margin, once every pixel of the block is
-     within it of a face) and staging them through a double buffer; used
-     for meshes whose coefficients pass ``RESIDENT_COEFF_BUDGET``.
-     ``raster_stream_every_chunk`` is the TPU kernel's walk (every chunk
-     of the range), launched by no route.
+     or soft, with each tile walking every chunk of its own [c_lo, c_hi]
+     range (``stream_ranges``), as the TPU kernel does, through a double
+     buffer; each warp tests only the faces K1's and K1-soft's exact lists
+     keep. Used for meshes whose coefficients pass
+     ``RESIDENT_COEFF_BUDGET``. ``raster_stream_every_chunk`` is the TPU
+     kernel's walk (every face of every chunk of the range), launched by
+     no route.
    - ``raster_topk`` (K7, ``csrc/raster_topk.cu``): per pixel, the K
      nearest-by-raw-1/z faces with signed distance > -window, near to far;
      each warp tests only the faces within the window of its 32 pixels.
@@ -41,7 +41,10 @@ Counterpart of ``st3d/kernels/raster_pallas.py``:
    - ``raster_2d`` (K9, ``csrc/raster_2d.cu``): K1's hard outputs on
      16 x 16 pixel tiles over faces in Morton order (``preprocess_2d``),
      each chunk culled in x and y; exact 1/z ties go to the lowest
-     Morton-sorted id, not K1's lowest y-sorted one.
+     Morton-sorted id, not K1's lowest y-sorted one. Each warp tests only
+     the faces that can still cover one of its 8 x 4 pixels with a larger
+     1/z (K1's walk). ``raster_2d_every_face`` is the earlier kernel
+     (every face of every chunk the cull leaves), launched by no route.
 
 4. ``rasterize_batched``, ``rasterize_batched_soft``,
    ``rasterize_topk_batched`` and ``rasterize_2d_batched`` run
@@ -85,7 +88,7 @@ LAUNCHES: Dict[str, int] = {"raster_hard": 0, "raster_hard_every_face": 0,
                             "raster_stream": 0,
                             "raster_stream_every_chunk": 0,
                             "raster_topk": 0, "raster_topk_every_face": 0,
-                            "raster_2d": 0}
+                            "raster_2d": 0, "raster_2d_every_face": 0}
 TILE_2D = 16          # pixels per side of K9's tile (csrc/raster_2d.cu)
 
 
@@ -294,6 +297,22 @@ def stream_ranges(bounds: torch.Tensor, h: int, w: int, tile: int,
     c_lo = torch.where(hit, first, torch.ones_like(first))
     c_hi = torch.where(hit, last, torch.zeros_like(last))
     return torch.stack([c_lo, c_hi], dim=2).int().contiguous()
+
+
+def outside_band(bounds: torch.Tensor, ids: torch.Tensor, h: int, w: int,
+                 tile: int = TILE_PIXELS, margin: float = 0.0
+                 ) -> torch.Tensor:
+    """(N, H*W) bool: the sorted face id ``ids`` (N, H*W) of each pixel lies
+    in a chunk whose row band misses the rows of the pixel's ``tile``-pixel
+    band widened by ``margin``. K1 never tests such a face there; K6 does
+    when the chunk is in the tile's range, and a sliver whose rounded
+    barycentrics cover the pixel can win it, so only at such pixels may
+    K6's outputs differ from K1's."""
+    ov = _band_overlap(bounds, h, w, tile, margin)   # (N, tiles, chunks)
+    t = (torch.arange(h * w, device=ids.device) // tile).expand_as(ids)
+    chunk = ids.long().clamp(min=0) // FACE_CHUNK
+    inside = ov.flatten(1).gather(1, t * ov.shape[2] + chunk)
+    return (ids >= 0) & ~inside
 
 
 # ---------------------------------------------------------------------------
@@ -521,7 +540,8 @@ def raster_hard(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int,
     (N, 2, n_chunks) -> (p2f (N, H*W) int32 sorted ids, zbuf (N, H*W)). A
     CUDA kernel adds the (pixel, face) pairs of its warps' face lists to
     ``tested`` (a one-element int64 CUDA tensor) if given."""
-    return _hard("raster_hard", coeffs, bounds, h, w, tested)
+    return _hard("raster_hard", 2, raster_hard_plain, coeffs, bounds, h, w,
+                 tested)
 
 
 def raster_hard_every_face(coeffs: torch.Tensor, bounds: torch.Tensor,
@@ -530,25 +550,31 @@ def raster_hard_every_face(coeffs: torch.Tensor, bounds: torch.Tensor,
     """``raster_hard`` by the earlier walk: every face of every chunk in
     band is tested at every pixel. Launched by no route; the twin the
     per-warp face lists are held against."""
-    return _hard("raster_hard_every_face", coeffs, bounds, h, w, None)
+    return _hard("raster_hard_every_face", 2, raster_hard_plain, coeffs,
+                 bounds, h, w, None)
 
 
-def _hard(name: str, coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
-          w: int, tested: Optional[torch.Tensor]
+def _hard(name: str, bound_rows: int, plain, coeffs: torch.Tensor,
+          bounds: torch.Tensor, h: int, w: int,
+          tested: Optional[torch.Tensor]
           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The launch of K1 or G (``name``, in ``csrc/<name>.cu``) or of its
+    twin (``<name>_every_face``, in the same source, with no counter) on
+    bounds (N, ``bound_rows``, n_chunks); ``plain`` for CPU tensors."""
     n, _, f_pad = coeffs.shape
-    if _check_coeffs(name, coeffs, bounds, (n, 2, f_pad // FACE_CHUNK),
-                     torch.float32):
-        return raster_hard_plain(coeffs, bounds, h, w)
+    if _check_coeffs(name, coeffs, bounds,
+                     (n, bound_rows, f_pad // FACE_CHUNK), torch.float32):
+        return plain(coeffs, bounds, h, w)
     coeffs, bounds = coeffs.contiguous(), bounds.contiguous()
     dev = coeffs.device
     p2f = torch.empty((n, h * w), dtype=torch.int32, device=dev)
     zbuf = torch.empty((n, h * w), dtype=torch.float32, device=dev)
     args = [coeffs.data_ptr(), bounds.data_ptr(), p2f.data_ptr(),
             zbuf.data_ptr()]
-    if name == "raster_hard":
+    lib = name.removesuffix("_every_face")
+    if name == lib:
         args.append(_check_tested(name, tested, dev))
-    fn = build.symbol("raster_hard", "st3d_" + name, len(args), 5)
+    fn = build.symbol(lib, "st3d_" + name, len(args), 5)
     err = fn(*args, n, h, w, f_pad, f_pad // FACE_CHUNK,
              build.stream_handle(dev))
     build.check(err, name)
@@ -615,8 +641,9 @@ def raster_stream(coeffs: torch.Tensor, bounds: torch.Tensor,
     """K6 on preprocessed faces, their chunk bounds (N, 2, n_chunks) and
     per-tile chunk ranges (N, n_tiles, 2) int32 (``stream_ranges`` with the
     same ``tile`` and ``margin``): (p2f, zbuf, nearest) (N, H*W) in sorted
-    ids; nearest is None in hard mode. A CUDA kernel adds the chunks it
-    tested to ``tested`` (a one-element int64 CUDA tensor) if given."""
+    ids; nearest is None in hard mode. A CUDA kernel adds the (pixel, face)
+    pairs of its warps' face lists to ``tested`` (a one-element int64 CUDA
+    tensor) if given."""
     return _stream("raster_stream", coeffs, bounds, ranges, h, w, tile, soft,
                    margin, tested)
 
@@ -625,9 +652,10 @@ def raster_stream_every_chunk(coeffs: torch.Tensor, bounds: torch.Tensor,
                               ranges: torch.Tensor, h: int, w: int,
                               tile: int, soft: bool, margin: float = 0.0,
                               tested: Optional[torch.Tensor] = None):
-    """``raster_stream`` by the TPU kernel's walk: every chunk of each
-    range is staged and tested. Launched by no route; the twin the
-    redesigned walk is held against."""
+    """``raster_stream`` by the TPU kernel's walk: every face of every
+    chunk of each range is tested at every pixel of the tile. Launched by
+    no route; the twin the redesigned walk is held against. A CUDA kernel
+    adds the chunks its blocks walked to ``tested`` if given."""
     return _stream("raster_stream_every_chunk", coeffs, bounds, ranges, h, w,
                    tile, soft, margin, tested)
 
@@ -644,8 +672,7 @@ def _stream(name: str, coeffs: torch.Tensor, bounds: torch.Tensor,
     if tile % TILE_PIXELS and tile < h * w:
         raise ValueError(f"{name}: tile {tile} must be a multiple of "
                          f"{TILE_PIXELS} or cover the frame")
-    coeffs, bounds = coeffs.contiguous(), bounds.contiguous()
-    ranges = ranges.contiguous()
+    coeffs, ranges = coeffs.contiguous(), ranges.contiguous()
     if coeffs.data_ptr() % 16:
         raise ValueError(f"{name}: coeffs must be 16-byte aligned")
     dev = coeffs.device
@@ -654,11 +681,12 @@ def _stream(name: str, coeffs: torch.Tensor, bounds: torch.Tensor,
     zbuf = torch.empty((n, h * w), dtype=torch.float32, device=dev)
     near = torch.empty((n, h * w) if soft else (1,), dtype=torch.int32,
                        device=dev)
-    fn = build.symbol("raster_stream", "st3d_" + name, 7, 7, 1)
-    err = fn(coeffs.data_ptr(), bounds.data_ptr(), ranges.data_ptr(),
-             p2f.data_ptr(), zbuf.data_ptr(), near.data_ptr(),
-             counter, n, h, w, f_pad,
-             n_tiles, tile, int(soft), margin, build.stream_handle(dev))
+    # The kernels read the ranges, not the bounds or the margin they were
+    # made with.
+    fn = build.symbol("raster_stream", "st3d_" + name, 6, 7)
+    err = fn(coeffs.data_ptr(), ranges.data_ptr(), p2f.data_ptr(),
+             zbuf.data_ptr(), near.data_ptr(), counter, n, h, w, f_pad,
+             n_tiles, tile, int(soft), build.stream_handle(dev))
     build.check(err, name)
     LAUNCHES[name] += 1
     return p2f, zbuf, (near if soft else None)
@@ -709,25 +737,24 @@ def _topk(name: str, coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
     return ids
 
 
-def raster_2d(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int
+def raster_2d(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int,
+              tested: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K9 on faces from ``preprocess_2d``: coeffs (N, 20, F_pad) float32,
     bounds (N, 4, n_chunks) -> (p2f (N, H*W) int32 Morton-sorted ids, zbuf
-    (N, H*W))."""
-    n, _, f_pad = coeffs.shape
-    if _check_coeffs("raster_2d", coeffs, bounds,
-                     (n, 4, f_pad // FACE_CHUNK), torch.float32):
-        return raster_2d_plain(coeffs, bounds, h, w)
-    coeffs, bounds = coeffs.contiguous(), bounds.contiguous()
-    p2f = torch.empty((n, h * w), dtype=torch.int32, device=coeffs.device)
-    zbuf = torch.empty((n, h * w), dtype=torch.float32, device=coeffs.device)
-    fn = build.symbol("raster_2d", "st3d_raster_2d", 4, 5)
-    err = fn(coeffs.data_ptr(), bounds.data_ptr(), p2f.data_ptr(),
-             zbuf.data_ptr(), n, h, w, f_pad, f_pad // FACE_CHUNK,
-             build.stream_handle(coeffs.device))
-    build.check(err, "raster_2d")
-    LAUNCHES["raster_2d"] += 1
-    return p2f, zbuf
+    (N, H*W)). A CUDA kernel adds the (pixel, face) pairs of its warps'
+    face lists to ``tested`` (a one-element int64 CUDA tensor) if given."""
+    return _hard("raster_2d", 4, raster_2d_plain, coeffs, bounds, h, w,
+                 tested)
+
+
+def raster_2d_every_face(coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
+                         w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``raster_2d`` by the earlier kernel: every face of every chunk the
+    2D cull leaves is tested at every pixel of the tile. Launched by no
+    route; the twin the per-warp face lists are held against."""
+    return _hard("raster_2d_every_face", 4, raster_2d_plain, coeffs, bounds,
+                 h, w, None)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ its masks spread only the low 8, so its order repeats every 256 quantised
 units and a 128-face chunk gathers faces from all over the mesh. For an
 ico-sphere at each level under the fixed cameras this sorts the faces both
 ways and prints, per order, the (tile, chunk) pairs K9's 2D cull keeps,
+the (pixel, face) pairs G's warps' lists hold (its ``tested`` counter),
 kernel G's time (CUDA events) and whether its zbuf equals K1's; beside them
 K1's (tile, chunk) pairs and time on the same faces. Then one JSON line.
 Raises without a GPU. The order changes only which face wins an exact 1/z
@@ -74,7 +75,8 @@ def _cuda_ms(fn: Callable[[], object], reps: int = 5, warmup: int = 1
 
 def measure(level: int, size: int, views: int) -> Dict[str, object]:
     """The numbers of one level: faces, K1's pairs and ms, and per order
-    (``reference``, ``full_spread``) G's pairs, ms and zbuf check."""
+    (``reference``, ``full_spread``) G's pairs (tile and chunk; pixel and
+    face), ms and zbuf check."""
     mesh = ico_sphere(level=level).to("cuda")
     cams = build_fixed_cameras(views, seed=0).to("cuda")
     fv = face_verts_screen(mesh.verts, mesh.faces, cams, size)
@@ -88,9 +90,11 @@ def measure(level: int, size: int, views: int) -> Dict[str, object]:
     for name, prep in (("reference", kr.preprocess_2d),
                        ("full_spread", preprocess_full_spread)):
         coeffs, bounds, _ = prep(fv, size)
-        _, z = kr.raster_2d(coeffs, bounds, size, size)
+        tested = torch.zeros(1, dtype=torch.int64, device="cuda")
+        _, z = kr.raster_2d(coeffs, bounds, size, size, tested)
         out[name] = {
             "tile_chunk_pairs": int(kr.cull_2d(bounds, size, size).sum()),
+            "tested": int(tested),
             "ms": _cuda_ms(lambda: kr.raster_2d(coeffs, bounds, size, size)),
             "zbuf_equals_k1": bool(torch.equal(z, z1))}
     return out
@@ -113,8 +117,9 @@ def main(argv=None) -> None:
               f"pairs {r['k1_ms']:.3f} ms")
         for name in ("reference", "full_spread"):
             o = r[name]
-            print(f"  G on the {name} order: {o['tile_chunk_pairs']} pairs "
-                  f"{o['ms']:.3f} ms, zbuf equals K1's {o['zbuf_equals_k1']}")
+            print(f"  G on the {name} order: {o['tile_chunk_pairs']} pairs, "
+                  f"{o['tested']} (pixel, face) pairs tested, {o['ms']:.3f} "
+                  f"ms, zbuf equals K1's {o['zbuf_equals_k1']}")
     print(json.dumps({"device": torch.cuda.get_device_name(0),
                       "size": args.size, "views": args.views,
                       "levels": rows}))

@@ -892,9 +892,9 @@ def test_raster_stream_kernel_equals_plain_and_k1(dev, soft):
                                       tile, soft, margin, counts[1:2])
     torch.cuda.synchronize()
     assert kraster.LAUNCHES["raster_stream"] == n0 + 1
-    # The walk tests no chunk outside the ranges (on the pristine sphere
-    # every chunk of a range meets the rows: nothing to skip).
-    assert 0 < int(counts[0]) <= int(counts[1])
+    # The lists hold fewer (pixel, face) pairs than the TPU kernel's walk
+    # tests: every face of each chunk it walked at each of 256 pixels.
+    assert 0 < int(counts[0]) < int(counts[1]) * kraster.FACE_CHUNK * 256
     want = kraster.raster_stream_plain(coeffs, ranges, size, size, tile,
                                        soft)
     assert torch.equal(got[0], want[0])
@@ -1417,13 +1417,12 @@ def _stretched_faces(dev, level, size, views=2, seed=0):
                              build_fixed_cameras(views, seed=1).to(dev), size)
 
 
-@pytest.mark.parametrize("soft", [False, True])
-def test_raster_stream_walk_on_stretched_faces(dev, soft):
-    """K6's band-skipping walk on stretched faces: ids, zbuf (and nearest)
-    equal to its plain version and to the every-chunk walk, hard outputs
-    equal to K1's; it tests fewer chunks than the ranges hold."""
-    size = 128
-    fv = _stretched_faces(dev, 4, size)
+def _stream_held(fv, size, soft):
+    """K6 and its every-chunk twin on faces ``fv``: ids, zbuf (and nearest)
+    bit-equal to each other and to the plain version, one launch each;
+    returns (outputs, coeffs, bounds, ranges, tile, margin, K6's
+    ``tested``, the twin's chunks)."""
+    dev = fv.device
     coeffs, bounds, _ = kraster.preprocess(fv)
     tile = kraster.cull_tile(size, size, soft)
     margin = kraster.soft_cull_margin(1.0) if soft else 0.0
@@ -1445,10 +1444,74 @@ def test_raster_stream_walk_on_stretched_faces(dev, soft):
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
         if soft:
             assert torch.equal(got[2], ref[2])
+    return (got, coeffs, bounds, ranges, tile, margin, int(counts[0]),
+            int(counts[1]))
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_raster_stream_walk_on_stretched_faces(dev, soft):
+    """K6's walk on stretched faces: ids, zbuf (and nearest) equal to its
+    plain version and to the every-chunk walk, hard outputs equal to K1's;
+    its lists hold fewer pairs than the every-chunk walk tests, as many as
+    the CPU model's."""
+    from test_torch_stream_walk import walk_plain, walked_pairs
+
+    size = 128
+    got, coeffs, bounds, ranges, tile, margin, tested, walked = _stream_held(
+        _stretched_faces(dev, 4, size), size, soft)
     p2f, zbuf = kraster.raster_hard(coeffs, bounds, size, size)
     assert torch.equal(got[0], p2f) and torch.equal(got[1], zbuf)
-    walked, tested = int(counts[1]), int(counts[0])
-    assert 0 < tested <= walked and (soft or tested < walked)
+    assert walked > 0
+    assert 0 < tested < walked_pairs(ranges.cpu(), size, size, tile)
+    model = walk_plain(coeffs.cpu(), bounds.cpu(), ranges.cpu(), size, size,
+                       tile, soft, margin)
+    assert tested == model[3]
+
+
+@pytest.mark.parametrize("soft", [False, True])
+def test_raster_stream_on_slivers(dev, soft):
+    """K6 on slivers whose rounded barycentrics cover pixels outside their
+    bbox and their chunk's band: bit-equal to its plain version and to the
+    every-chunk walk, ``tested`` equal to the CPU model's; hard, K1 differs
+    from it exactly where K6's face lies in a chunk whose band misses the
+    block's rows."""
+    from test_torch_soft_walk import sliver_faces
+    from test_torch_stream_walk import walk_plain
+
+    fv, size = sliver_faces()
+    got, coeffs, bounds, ranges, tile, margin, tested, _ = _stream_held(
+        torch.tensor(fv, device=dev), size, soft)
+    model = walk_plain(coeffs.cpu(), bounds.cpu(), ranges.cpu(), size, size,
+                       tile, soft, margin)
+    assert tested == model[3]
+    if not soft:
+        p2f, zbuf = kraster.raster_hard(coeffs, bounds, size, size)
+        diff = (got[0] != p2f) | (got[1] != zbuf)
+        assert diff.any()
+        assert torch.equal(diff, kraster.outside_band(bounds, got[0], size,
+                                                      size))
+
+
+def test_raster_soft_on_slivers(dev):
+    """K1-soft on the slivers: all outputs bit-equal to its every-face twin
+    and its plain version, ``tested`` equal to the CPU model's."""
+    from test_torch_soft_walk import sliver_faces, soft_walk
+
+    fv, size = sliver_faces()
+    coeffs, bounds, _ = kraster.preprocess(torch.tensor(fv, device=dev))
+    tile = kraster.cull_tile(size, size, True)
+    margin = kraster.soft_cull_margin(1.0)
+    tested = torch.zeros(1, dtype=torch.int64, device=dev)
+    got = kraster.raster_soft(coeffs, bounds, size, size, margin, tile,
+                              tested)
+    twin = kraster.raster_soft_every_face(coeffs, bounds, size, size, margin,
+                                          tile)
+    want = kraster.raster_soft_plain(coeffs, bounds, size, size, margin,
+                                     tile)
+    for a, b, c in zip(got, twin, want):
+        assert torch.equal(a, b) and torch.equal(a, c.to(dev))
+    model = soft_walk(coeffs.cpu(), bounds.cpu(), size, size, margin, tile)
+    assert int(tested) == model[3]
 
 
 # ---------------------------------------------------------------------------
@@ -1588,6 +1651,75 @@ def test_raster_hard_lists_on_adversarial_faces(dev):
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
     assert int(tested) == hard_walk(coeffs.cpu(), bounds.cpu(), size,
                                     size)[2]
+
+
+# ---------------------------------------------------------------------------
+# G (K9): per-warp face lists on 2D tiles against the earlier kernel
+# ---------------------------------------------------------------------------
+
+def _held_2d(coeffs, bounds, size):
+    """G, its every-face twin and its plain version on the same faces: p2f
+    and zbuf bit-equal, one launch each; returns G's ``tested``."""
+    tested = torch.zeros(1, dtype=torch.int64, device=coeffs.device)
+    n0 = dict(kraster.LAUNCHES)
+    got = kraster.raster_2d(coeffs, bounds, size, size, tested)
+    twin = kraster.raster_2d_every_face(coeffs, bounds, size, size)
+    torch.cuda.synchronize()
+    assert {k: v - n0[k] for k, v in kraster.LAUNCHES.items()
+            if v != n0[k]} == {"raster_2d": 1, "raster_2d_every_face": 1}
+    want = kraster.raster_2d_plain(coeffs, bounds, size, size)
+    for ref in (twin, want):
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    assert (got[0] >= 0).any()
+    return int(tested)
+
+
+@pytest.mark.parametrize("kind", ["pristine", "stretched"])
+@pytest.mark.parametrize("size", [40, 48, 64, 512])
+def test_raster_2d_lists_equal_twin_and_plain(dev, size, kind):
+    """G's per-warp lists: p2f and zbuf bit-equal to the every-face twin
+    and to the plain version; one launch each; ``tested`` equal to the CPU
+    model's count (below 512²) and below the twin's pairs. At 40² tiles run
+    past the frame; at 40² and 48² the last chunk holds padding faces."""
+    from test_torch_2d_walk import every_face_pairs_2d, walk_2d
+
+    fv = _walk_faces(dev, kind, size)
+    coeffs, bounds, _ = kraster.preprocess_2d(
+        fv[:, :1203] if size == 40 else fv, size)
+    tested = _held_2d(coeffs, bounds, size)
+    assert 0 < tested < every_face_pairs_2d(bounds.cpu(), size, size)
+    if size < 512:
+        assert tested == walk_2d(coeffs.cpu(), bounds.cpu(), size, size)[2]
+
+
+def test_raster_2d_lists_on_adversarial_faces(dev):
+    """The CPU tests' adversarial scene (slivers just above AREA_EPS, edges
+    through pixel centres, exact 1/z ties): bit-equal to the twin and the
+    plain version, ``tested`` equal to the model's."""
+    from test_torch_2d_walk import walk_2d
+    from test_torch_hard_walk import _adversarial_faces
+
+    fv, size = _adversarial_faces()
+    coeffs, bounds, _ = kraster.preprocess_2d(torch.tensor(fv, device=dev),
+                                              size)
+    tested = _held_2d(coeffs, bounds, size)
+    assert tested == walk_2d(coeffs.cpu(), bounds.cpu(), size, size)[2]
+
+
+def test_raster_2d_rejects_malformed_operands(dev):
+    """K1's (N, 2, n_chunks) bounds, bounds on another device and a counter
+    that is not one int64 raise before any launch."""
+    coeffs = torch.zeros(1, 20, 128, device=dev)
+    n0 = dict(kraster.LAUNCHES)
+    for fn in (kraster.raster_2d, kraster.raster_2d_every_face):
+        with pytest.raises(ValueError):
+            fn(coeffs, torch.zeros(1, 2, 1, device=dev), 8, 8)
+        with pytest.raises(ValueError):
+            fn(coeffs, torch.zeros(1, 4, 1), 8, 8)
+    with pytest.raises(ValueError):
+        kraster.raster_2d(coeffs, torch.zeros(1, 4, 1, device=dev), 8, 8,
+                          torch.zeros(1, dtype=torch.int32, device=dev))
+    assert kraster.LAUNCHES == n0
 
 
 # ---------------------------------------------------------------------------

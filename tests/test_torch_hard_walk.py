@@ -29,8 +29,9 @@ import pytest
 import torch
 
 from st3d_torch.kernels import raster as kr
-from test_torch_soft_walk import (BLOCK, WARP, _pixels, _scene_faces, _walk,
-                                  _warps, every_face_pairs)
+from test_torch_soft_walk import (BLOCK, _pixels, _scene_faces, _walk, _warps,
+                                  corner_keep, corner_max, every_face_pairs,
+                                  warp_least)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -41,41 +42,29 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def corner_max(a, b, c, box):
-    """The largest value of affine(px, py, a, b, c) over each warp's
-    rectangle, (warps, faces), rounded as the kernel rounds it: the value at
-    the corner the signs of a and b pick."""
-    col0, col1, row0, row1 = (t[:, None] for t in box)
-    cx = torch.where(a >= 0, col1, col0)
-    cy = torch.where(b >= 0, row1, row0)
-    return cx * a + cy * b + c
-
-
-def hard_walk(coeffs, bounds, h, w, depth=True):
+def hard_walk(coeffs, bounds, h, w, depth=True, active=None):
     """K1's walk: (p2f, zbuf) (N, H*W) as ``raster_hard`` returns them, and
     the (pixel, face) pairs of the warps' lists (``depth=False``: without
-    the 1/z drop, to count what it saves)."""
+    the 1/z drop, to count what it saves). ``active`` (N, blocks, chunks):
+    the blocks' chunk test, by default the row band."""
     n = coeffs.shape[0]
     hw = h * w
     flat = torch.arange(hw)
     px, py = (flat % w).float(), (flat // w).float()
-    band = kr._band_overlap(bounds, h, w, BLOCK, 0.0)
+    if active is None:
+        active = kr._band_overlap(bounds, h, w, BLOCK, 0.0)
     n_warps = len(_warps(h, w)[4])
     best = torch.zeros((n, hw))
     fid = torch.full((n, hw), -1, dtype=torch.int64)
     tested = [0]
 
     def visit(v, c, warps, chunk, box, live):
-        pad = torch.full((n_warps * WARP - hw,), 3.0e38)
-        s_w = torch.cat([best[v], pad]).reshape(n_warps, WARP).amin(1)
+        s_w = warp_least(best[v], n_warps, hw)[warps]
         m0 = corner_max(chunk[0], chunk[1], chunk[2], box)
         m1 = corner_max(chunk[3], chunk[4], chunk[5], box)
         m2 = corner_max(chunk[6], chunk[7], chunk[8], box)
         mz = corner_max(chunk[9], chunk[10], chunk[11], box)
-        drop = (m0 < 0) | (m1 < 0) | (m2 < 0)
-        if depth:
-            drop |= mz <= s_w[warps][:, None]
-        keep = ~drop
+        keep = corner_keep(chunk, box, s_w, depth)
         tested[0] += int((keep.sum(1) * live).sum())
         pix, kp = _pixels(warps, keep, hw)
         b0, b1, b2, iz, _ = kr._chunk_planes(chunk, px[pix, None],
@@ -94,7 +83,7 @@ def hard_walk(coeffs, bounds, h, w, depth=True):
                                   fid[v, pix])
         best[v, pix] = torch.maximum(best[v, pix], cmax)
 
-    _walk(coeffs, lambda v, c: band[v, :, c], h, w, visit)
+    _walk(coeffs, lambda v, c: active[v, :, c], h, w, visit)
     hit = best > 0.0
     p2f = torch.where(hit, fid, torch.full_like(fid, -1)).int()
     zbuf = torch.where(hit, 1.0 / torch.clamp(best, min=1e-12),

@@ -7,20 +7,28 @@ mode.
 Both kernels walk the chunks in sorted order, one block of 256 pixels at a
 time (a chunk is tested where its row band meets the block's cull band),
 and split each block into warps of 32 consecutive pixels. For each tested
-chunk a warp keeps the faces whose bbox upper bound over its pixel
-rectangle, ub = min(fl(col1 - xmin), fl(xmax - col0), fl(row1 - ymin),
-fl(ymax - row0)), passes a limit; a warp that wraps a row takes the
-columns [0, W-1]. K1-soft drops a face when ub <= min(-1, s_w), s_w being
-the least nearest distance over the warp's pixels at the chunk's start;
-K7 drops it when ub <= -window. The models count the (pixel, face) pairs
-of the lists, as the kernels' ``tested`` counters do, and assert on the
-data that no dropped pair could have changed a result.
+chunk a warp bounds each face over its pixel rectangle (a warp that wraps
+a row takes the columns [0, W-1]): ub = min(fl(col1 - xmin),
+fl(xmax - col0), fl(row1 - ymin), fl(ymax - row0)) bounds the bbox
+distance, and the corner values of K1's rule (``corner_max``) bound the
+barycentrics and 1/z. K1-soft drops a face when the corner rule rules it
+out as the covering face (a barycentric's corner value < 0, or 1/z's <=
+the least best 1/z over the warp's pixels) and ub <= s_w, the least
+nearest distance over the warp's pixels at the chunk's start; a pixel also
+skips such a corner-dropped face where its own bbox distance is <= its
+best distance. K7 drops a face when ub <= -window. The models count the
+(pixel, face) pairs of the lists, as the kernels' ``tested`` counters do,
+and assert on the data that no dropped pair could have changed a result.
+K6 (``csrc/raster_stream.cu``) walks every chunk of its tile's range with
+the same lists: ``soft_walk`` and ``test_torch_hard_walk.hard_walk`` take
+the blocks' chunk test as ``active``.
 
 Scenes: the pristine level-3 ico-sphere and one stretched by seeded vertex
 noise at 64² (two views), and at 48² (warps wrap rows) a face count that
-is not a multiple of 128 (padding faces). The JAX package is imported
-inside the tests that compare with it, so the CUDA tests can import the
-models on a machine without JAX.
+is not a multiple of 128 (padding faces); ``sliver_faces``: slivers whose
+rounded barycentrics cover pixels well outside their bbox. The JAX package
+is imported inside the tests that compare with it, so the CUDA tests can
+import the models on a machine without JAX.
 """
 
 import numpy as np
@@ -86,6 +94,37 @@ def _walk(coeffs, active_blocks, h, w, visit):
             visit(v, c, warps, chunk, box, live[warps])
 
 
+def corner_max(a, b, c, box):
+    """The largest value of affine(px, py, a, b, c) over each warp's
+    rectangle, (warps, faces), rounded as the kernel rounds it: the value at
+    the corner the signs of a and b pick."""
+    col0, col1, row0, row1 = (t[:, None] for t in box)
+    cx = torch.where(a >= 0, col1, col0)
+    cy = torch.where(b >= 0, row1, row0)
+    return cx * a + cy * b + c
+
+
+def corner_keep(chunk, box, s_w, depth=True):
+    """(warps, 128): the faces the corner rule keeps as candidates for the
+    covering face, rows 0-11 of ``chunk`` over each warp's rectangle with
+    s_w (warps,) its least best 1/z (``depth=False``: the barycentrics'
+    corners only)."""
+    drop = ((corner_max(chunk[0], chunk[1], chunk[2], box) < 0)
+            | (corner_max(chunk[3], chunk[4], chunk[5], box) < 0)
+            | (corner_max(chunk[6], chunk[7], chunk[8], box) < 0))
+    if depth:
+        drop |= corner_max(chunk[9], chunk[10], chunk[11], box) <= s_w[:,
+                                                                       None]
+    return ~drop
+
+
+def warp_least(vals, n_warps, hw):
+    """(n_warps,): the least of the per-pixel ``vals`` (H*W,) over each
+    warp's pixels in the frame."""
+    pad = torch.full((n_warps * WARP - hw,), 3.0e38)
+    return torch.cat([vals, pad]).reshape(n_warps, WARP).amin(1)
+
+
 def _pixels(warps, keep, hw):
     """Flat pixels (in the frame) of ``warps`` and each one's row of the
     warp's keep mask."""
@@ -95,15 +134,18 @@ def _pixels(warps, keep, hw):
     return pix[inside], kp[inside]
 
 
-def soft_walk(coeffs, bounds, h, w, margin, tile):
+def soft_walk(coeffs, bounds, h, w, margin, tile, active=None):
     """K1-soft's walk: (p2f, zbuf, nearest) (N, H*W) as ``raster_soft``
-    returns them, and the (pixel, face) pairs of the warps' lists."""
+    returns them, and the (pixel, face) pairs of the warps' lists.
+    ``active`` (N, blocks, chunks): the blocks' chunk test, by default the
+    row band widened by ``margin`` on ``tile``-pixel bands."""
     n = coeffs.shape[0]
     hw = h * w
     flat = torch.arange(hw)
     px, py = (flat % w).float(), (flat // w).float()
-    band = kr._band_overlap(bounds, h, w, tile, margin)
-    block_tile = torch.arange(0, hw, BLOCK) // tile
+    if active is None:
+        band = kr._band_overlap(bounds, h, w, tile, margin)
+        active = band[:, torch.arange(0, hw, BLOCK) // tile]
     n_warps = len(_warps(h, w)[4])
     best = torch.zeros((n, hw))
     fid = torch.full((n, hw), -1, dtype=torch.int64)
@@ -112,33 +154,40 @@ def soft_walk(coeffs, bounds, h, w, margin, tile):
     tested = [0]
 
     def visit(v, c, warps, chunk, box, live):
-        pad = torch.full((n_warps * WARP - hw,), 3.0e38)
-        s_w = torch.cat([sbest[v], pad]).reshape(n_warps, WARP).amin(1)
-        lim = torch.minimum(torch.tensor(-1.0), s_w[warps])
-        keep = ~(_upper_bound(chunk, box) <= lim[:, None])
+        s_hard = warp_least(best[v], n_warps, hw)[warps]
+        s_near = warp_least(sbest[v], n_warps, hw)[warps]
+        cover = corner_keep(chunk, box, s_hard)
+        keep = cover | ~(_upper_bound(chunk, box) <= s_near[:, None])
         tested[0] += int((keep.sum(1) * live).sum())
         pix, kp = _pixels(warps, keep, hw)
-        b0, b1, b2, iz, d = kr._chunk_planes(chunk, px[pix, None],
-                                             py[pix, None], soft=True)
+        hp = _pixels(warps, cover, hw)[1]
+        x, y = px[pix, None], py[pix, None]
+        b0, b1, b2, iz, d = kr._chunk_planes(chunk, x, y, soft=True)
+        bb = torch.minimum(torch.minimum(x - chunk[15], chunk[16] - x),
+                           torch.minimum(y - chunk[17], chunk[18] - y))
+        # A listed face the corner rule dropped is skipped where its bbox
+        # distance is <= the pixel's best (the kernel compares with the
+        # running best, which skips more).
+        use = kp & ~(~hp & (bb <= sbest[v, pix, None]))
         covered = (b0 >= 0.0) & (b1 >= 0.0) & (b2 >= 0.0)
-        # What the proof says of a dropped pair, on this data: not covered,
-        # and no nearer than the pixel's best at the chunk's start.
-        assert not (covered & ~kp).any()
-        assert not ((d > sbest[v, pix, None]) & ~kp).any()
-        mz = torch.where(covered & kp, iz, torch.full_like(iz, -1.0))
+        # What the proof says of a pair left out, on this data: it cannot
+        # win the covering face, and is no nearer than the pixel's best.
+        assert not (covered & (iz > best[v, pix, None]) & ~use).any()
+        assert not ((d > sbest[v, pix, None]) & ~use).any()
+        mz = torch.where(covered & use, iz, torch.full_like(iz, -1.0))
         cmax, carg = torch.max(mz, dim=1)
         better = cmax > best[v, pix]
         fid[v, pix] = torch.where(better, c * kr.FACE_CHUNK + carg,
                                   fid[v, pix])
         best[v, pix] = torch.maximum(best[v, pix], cmax)
-        smax, sarg = torch.max(torch.where(kp, d, torch.full_like(
+        smax, sarg = torch.max(torch.where(use, d, torch.full_like(
             d, kr.NEG_INIT)), dim=1)
         sbetter = smax > sbest[v, pix]
         sid[v, pix] = torch.where(sbetter, c * kr.FACE_CHUNK + sarg,
                                   sid[v, pix])
         sbest[v, pix] = torch.maximum(sbest[v, pix], smax)
 
-    _walk(coeffs, lambda v, c: band[v, block_tile, c], h, w, visit)
+    _walk(coeffs, lambda v, c: active[v, :, c], h, w, visit)
     hit = best > 0.0
     p2f = torch.where(hit, fid, torch.full_like(fid, -1)).int()
     zbuf = torch.where(hit, 1.0 / torch.clamp(best, min=1e-12),
@@ -222,9 +271,55 @@ def _scene_faces(name):
     return np.asarray(fv), size
 
 
+# Slivers just above AREA_EPS along pixel rows (x, y) and columns (y, x),
+# in front of everything, whose rounded barycentrics are all >= 0 at pixels
+# well outside their bbox: the row ones 10 or more columns past it, in the
+# next warp's columns; the column ones at rows past their chunk's row band.
+SLIVERS = (
+    ((22.77745819091797, 15.0), (12.909951210021973, 15.0),
+     (12.909951210021973, 15.000000953674316)),
+    ((15.191388130187988, 31.0), (24.932754516601562, 31.0),
+     (15.980325698852539, 31.000001907348633)),
+    ((56.0, 22.443363189697266), (56.0, 12.700395584106445),
+     (55.999996185302734, 13.138782501220703)),
+    ((30.0, 20.952367782592773), (30.0, 11.357259750366211),
+     (29.999998092651367, 11.357259750366211)),
+    ((48.0, 44.425384521484375), (48.0, 36.46713638305664),
+     (48.000003814697266, 36.46713638305664)),
+    ((50.0, 46.67629623413086), (50.0, 39.57001495361328),
+     (49.999996185302734, 40.174949645996094)),
+    ((5.0, 45.613494873046875), (5.0, 37.85993576049805),
+     (5.000000476837158, 37.85993576049805)),
+)
+
+
+def sliver_faces():
+    """(faces (2, F, 3, 3) float32 numpy, 64): the level-3 sphere's two
+    views, behind them two faces that fill the frame (so every tile's chunk
+    range starts at chunk 0), and ``SLIVERS`` at depth 0.5. The port
+    projects the sphere, so the CUDA tests can build the scene on a machine
+    without JAX."""
+    from st3d_torch.core.cameras import build_fixed_cameras
+    from st3d_torch.core.primitives import ico_sphere
+    from st3d_torch.render.rasterize import face_verts_screen
+
+    mesh = ico_sphere(level=3)
+    size = 64
+    fv = face_verts_screen(mesh.verts, mesh.faces,
+                           build_fixed_cameras(2, seed=0), size).numpy()
+    rows = [[[0.0, 0.0, 40.0], [63.0, 0.0, 40.0], [0.0, 63.0, 40.0]],
+            [[63.0, 0.0, 40.0], [63.0, 63.0, 40.0], [0.0, 63.0, 40.0]]]
+    rows += [[[x, y, 0.5] for x, y in sliver] for sliver in SLIVERS]
+    extra = np.asarray(rows, dtype=np.float32)[None]
+    return (np.concatenate([fv, np.repeat(extra, fv.shape[0], 0)], axis=1),
+            size)
+
+
 @pytest.fixture(scope="module")
 def scenes():
-    return {name: _scene_faces(name) for name in SCENES}
+    out = {name: _scene_faces(name) for name in SCENES}
+    out["slivers"] = sliver_faces()
+    return out
 
 
 def _prep(fv):
@@ -250,7 +345,7 @@ def _soft_scores(fv, ids, size):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("sigma", [1.0, 1.5])
-@pytest.mark.parametrize("scene", SCENES)
+@pytest.mark.parametrize("scene", SCENES + ("slivers",))
 def test_soft_walk_equals_the_plain_version(scenes, scene, sigma):
     """Bit for bit, p2f, zbuf and nearest; on the pristine sphere the lists
     hold fewer pairs than the earlier walk tests."""
@@ -313,7 +408,7 @@ WINDOWS = {"softras": 3.0, "blur": blur_window_px(1e-4, 64)}
 
 @pytest.mark.parametrize("window", sorted(WINDOWS))
 @pytest.mark.parametrize("k", [1, 4, 5])
-@pytest.mark.parametrize("scene", SCENES)
+@pytest.mark.parametrize("scene", SCENES + ("slivers",))
 def test_topk_walk_equals_the_plain_version(scenes, scene, k, window):
     """Bit for bit; on the pristine sphere the lists hold fewer pairs than
     the earlier walk tests."""
