@@ -196,8 +196,45 @@ Phases; any failure raises and the script exits non-zero:
    dtype's route, A and B on theirs (none on v3), E and F on theirs on v3
    only (by 3xTF32 in f32), and the f32 fused-pool run C and D four times
    as often as the f32 default run.
-6. The wall seconds of each phase, the card's name and power limit, one
-   JSON line with the kernels' results (ptxas's registers and spills of
+6. The multi-style engine (``st3d_torch.multi_style.main``) with 3 seeded
+   styles at 512², 4 views (a VGG batch of 12), bf16, 10 epochs: every
+   style's loss falling, the step's K2, K3 and A-D launches those of the
+   single-style texture step (22, 4, 1, 1, 1, 1 a step, beside the same
+   set-up launches) and K1 only for the visibility, the content render and
+   the final renders; the median step and peak memory
+   (``torch.cuda.max_memory_allocated``); then float32, 5 epochs, each
+   style's texture within 2e-4 max-abs of a single-style
+   ``second_approach`` run of it (the JAX package's batched-vs-sequential
+   tolerance).
+7. The batched fleet (``st3d_torch.fleet.main``): the level-4 sphere and a
+   UV-less level-3 sphere (1,280 faces padded to 5,120, auto-UV) x 2
+   styles (16 images a step), bf16, 10 epochs: every cell's loss falling,
+   the visibility one K1 launch over 8 views, each mesh's p2f (ids below
+   its face count) and zbuf from ``fleet_visibility`` bit-equal to the
+   mesh's own unpadded launch; the median step and peak memory; then
+   float32, 5 epochs, every cell within 2e-4 of ``--fleet_mode
+   sequential``, every ``<mesh>/<style>/final.obj`` written by both.
+8. Padding: the level-4 sphere padded by +301 faces, +37 vertices and +11
+   UVs through K1, K1-soft, K6 (forced, hard and soft) and K7 (K = 4, 3
+   px): every output bit-equal to the unpadded faces'.
+9. Checkpoint and resume, under PyTorch's deterministic algorithms. The
+   first approach (bf16, 3 + 6 steps, ``--checkpoint_every 4``): whole
+   with ``--profile`` (its trace naming K2's kernel), and cut right after
+   the mid-batch checkpoint, then resumed with ``--debug_nan``: the log
+   resumes at step 4, bit-equal to the whole run where its first four
+   steps repeat, else within rtol 1e-3. Then the bf16 texture target (the
+   ops without a deterministic version printed): 3 epochs with
+   ``--checkpoint_every 3`` resumed to 6, against 6 uninterrupted epochs
+   run twice; the resumed log starts at epoch 3; bit-equal where the two
+   uninterrupted runs repeat bit for bit, else within rtol 1e-3; and
+   whether two runs repeat without the flag (printed, not held).
+10. ``--debug_nan`` on the bf16 texture run (no alarm, the unguarded
+   losses); ``--profile`` on the multi-style and fleet runs in bf16 and
+   float32, each trace naming the hand-written K2 and K3 kernels, and
+   the device ms per step of each from ``profile/device_ms.json``.
+11. The wall seconds of each phase, the card's name and power limit, one
+   JSON line with the kernels' results (each kernel also with its
+   launches on the multi-style and fleet paths) (ptxas's registers and spills of
    the tensor-core kernels, K1, K1-soft, K7 and G are printed after the
    build),
    then the last line
@@ -1148,15 +1185,15 @@ def _launched(before):
     return {k: n - before[k] for k, n in LAUNCHES.items() if n != before[k]}
 
 
-def _conv_operands(gen, dev, cin, cout, h, dtype):
-    """x, w (He-scaled), b and a cotangent at batch VIEWS, h x h."""
+def _conv_operands(gen, dev, cin, cout, h, dtype, batch=VIEWS):
+    """x, w (He-scaled), b and a cotangent at ``batch``, h x h."""
     import torch
 
-    x = torch.randn((VIEWS, h, h, cin), generator=gen, device=dev).to(dtype)
+    x = torch.randn((batch, h, h, cin), generator=gen, device=dev).to(dtype)
     w = (torch.randn((3, 3, cin, cout), generator=gen, device=dev)
          * (2.0 / (9 * cin)) ** 0.5).to(dtype)
     b = (0.1 * torch.randn((cout,), generator=gen, device=dev)).to(dtype)
-    ct = torch.randn((VIEWS, h, h, cout), generator=gen, device=dev).to(dtype)
+    ct = torch.randn((batch, h, h, cout), generator=gen, device=dev).to(dtype)
     return x, w, b, ct
 
 
@@ -2854,6 +2891,658 @@ def small_parity(tmp):
              f"the default route's {base}")
 
 
+# ---------------------------------------------------------------------------
+# Checkpoints, --debug_nan, --profile, pad_mesh, multi-style and the fleet
+# ---------------------------------------------------------------------------
+
+MS_STYLES = 3                    # multi-style: a VGG batch of 12
+MS_EPOCHS = 10
+FLEET_LEVELS = (ICO_LEVEL, 3)    # textured 5,120 faces; UV-less 1,280
+FLEET_STYLES = 2                 # 2 meshes x 2 styles: 16 images a step
+CELL_F32_EPOCHS = 5
+CELL_TOL = 2e-4                  # tests/test_fleetbatch.py: batched vs sequential
+RESUME_EPOCHS = (3, 6)
+PAD = (37, 301, 11)              # extra vertices, faces, UVs
+# The texture step's VGG launches on the default route in bf16, per step.
+STEP_LAUNCHES = {"conv3x3_wgmma": 22, "gram_wgmma": 4,
+                 "conv1_1_stats_wgmma": 1, "conv1_1_bwd_wgmma": 1,
+                 "conv3x3_relu_pool_wgmma": 1, "pool_route_wgmma": 1}
+
+
+# The bf16 VGG batches of the new paths: the sequential fleet's per-mesh
+# multi-style run (2 styles x 4 views), the multi-style run (3 x 4) and the
+# batched fleet (2 meshes x 2 styles x 4).
+CELL_BATCHES = (FLEET_STYLES * VIEWS, MS_STYLES * VIEWS,
+                len(FLEET_LEVELS) * FLEET_STYLES * VIEWS)
+# bf16 runs of a batched path against the runs of one cell each: each
+# cell's first and last loss within 1e-2 relative (the bf16 kernel
+# tolerance), and its texture's distance from the single run's within
+# 5e-2 of how far the single run moved it.
+BF16_LOSS_RTOL = 1e-2
+BF16_MOVE_TOL = 5e-2
+
+
+def cell_batch_check(dev):
+    """The bf16 VGG kernels of the step at the VGG batches of the new paths
+    (``CELL_BATCHES``, images of 512²), each wrapper on the card against
+    its plain version at the batch-4 checks' tolerances (``conv_check``,
+    ``gram_check``, ``stage1_check``), one launch of its key per call: K2's
+    forward and dx at every VGG conv, K3 at the four style-Gram shapes, A's
+    z and statistics, B's dx, C's pooled output and indices, D's dz.
+    Returns {key: {batch: max abs err}}."""
+    import torch
+    from st3d_torch.kernels import conv as kconv
+    from st3d_torch.kernels import stage1 as ks1
+
+    plain_in_float32()
+    gen = torch.Generator(device=dev).manual_seed(3)
+    bf, tol = torch.bfloat16, 1e-2
+    errs = {k: {} for k in KERNELS[1:]}
+
+    def once(counts, fn, key, what):
+        before = dict(counts)
+        out = fn()
+        torch.cuda.synchronize()
+        moved = {k: n - before[k] for k, n in counts.items()
+                 if n != before[k]}
+        if moved != {key: 1}:
+            fail(f"{what}: launched {moved}, want {{{key}: 1}}")
+        return out
+
+    def keep(key, n, err):
+        errs[key][str(n)] = max(errs[key].get(str(n), 0.0), err)
+
+    for n in CELL_BATCHES:
+        for cin, cout, h in VGG_K2_CONVS:
+            x, w, b, ct = _conv_operands(gen, dev, cin, cout, h, bf, n)
+            what = f"{cin}->{cout} {h}² bfloat16 batch {n}"
+            keep("conv3x3_wgmma", n, _conv_fwd_dx(
+                x, w, b, ct, cin == cout and h != 32, tol, "conv3x3_wgmma",
+                what)[0])
+        for h, c in GRAM_SHAPES:
+            y = torch.relu(torch.randn((n, h * h, c), generator=gen,
+                                       device=dev)).to(bf)
+            g_k = once(kconv.LAUNCHES, lambda: kconv.gram_nhwc(y),
+                       "gram_wgmma", f"K3 ({n},{h * h},{c})")
+            g_p = kconv.gram_nhwc_plain(y)
+            rel = float(torch.linalg.norm(g_k - g_p) / torch.linalg.norm(g_p))
+            if rel > 1e-3:
+                fail(f"K3 gram_wgmma ({n},{h * h},{c}): rel fro err {rel} > "
+                     "1e-3")
+            keep("gram_wgmma", n, float((g_k - g_p).abs().max()))
+        shape = (n, SIZE, SIZE)
+        x = torch.rand(shape + (3,), generator=gen, device=dev).to(bf)
+        w1 = (torch.randn((3, 3, 3, 64), generator=gen, device=dev)
+              * (2.0 / 27) ** 0.5).to(bf)
+        b1 = (0.1 * torch.randn((64,), generator=gen, device=dev)).to(bf)
+        w2 = (torch.randn((3, 3, 64, 64), generator=gen, device=dev)
+              * (2.0 / 576) ** 0.5).to(bf)
+        b2 = (0.1 * torch.randn((64,), generator=gen, device=dev)).to(bf)
+        dz = torch.randn(shape + (64,), generator=gen, device=dev).to(bf)
+        dg = 0.1 * torch.randn((n, 27, 27), generator=gen, device=dev)
+        sym = dg + dg.transpose(1, 2)
+        ds = torch.randn((n, 27), generator=gen, device=dev)
+        ct = torch.randn((n, SIZE // 2, SIZE // 2, 64), generator=gen,
+                         device=dev).to(bf)
+        a, b_, c_, d = (A_KEYS["bfloat16"], B_KEYS["bfloat16"],
+                        C_KEYS["bfloat16"], D_KEYS["bfloat16"])
+        z, ptp, s27 = once(ks1.LAUNCHES,
+                           lambda: ks1.conv1_1_stats(x, w1, b1), a,
+                           f"A batch {n}")
+        z_p, ptp_p, s27_p = ks1.conv1_1_stats_plain(x, w1, b1)
+        keep(a, n, _max_err(z, z_p, tol, f"A z batch {n}")[0])
+        _stats_err(ptp, s27, ptp_p, s27_p, f"A {a} batch {n}", x)
+        dx = once(ks1.LAUNCHES,
+                  lambda: ks1.conv1_1_bwd(x, dz, z_p, w1, sym, ds), b_,
+                  f"B batch {n}")
+        keep(b_, n, _max_err(dx, ks1.conv1_1_bwd_plain(
+            x, dz, z_p, w1, sym, ds), tol, f"B dx batch {n}")[0])
+        pooled, idx = once(kconv.LAUNCHES,
+                           lambda: kconv.conv3x3_relu_pool(z_p, w2, b2), c_,
+                           f"C batch {n}")
+        pooled_p, idx_p = kconv.conv3x3_relu_pool_plain(z_p, w2, b2)
+        err, scale = _max_err(pooled, pooled_p, tol, f"C pooled batch {n}")
+        keep(c_, n, err)
+        bad, _ = _idx_mismatches(idx, idx_p, kconv.conv3x3_nhwc_plain(
+            z_p, w2, b2, True), tol * scale)
+        if bad:
+            fail(f"C idx batch {n}: {bad} mismatches where separated")
+        dz2 = once(kconv.LAUNCHES, lambda: kconv.pool_route_conv3x3_bwd(
+            ct, pooled_p, idx_p, w2), d, f"D batch {n}")
+        keep(d, n, _max_err(dz2, kconv.pool_route_conv3x3_bwd_plain(
+            ct, pooled_p, idx_p, w2), tol, f"D dz batch {n}")[0])
+        del x, z, z_p, dz, dx, dz2, pooled, pooled_p, idx, idx_p, ct
+        torch.cuda.empty_cache()
+        print(f"bf16 VGG kernels at batch {n} x {SIZE}², each within its "
+              "tolerance of its plain version, one launch a call; max abs "
+              "err " + json.dumps({k: v[str(n)] for k, v in errs.items()}))
+    return errs
+
+
+def moved_gap(a, b, init):
+    """||a - b|| / ||b - init|| of two textures: the distance between two
+    runs' textures as a share of how far the reference run ``b`` moved its
+    texture from ``init``."""
+    import torch
+
+    a, b, init = (t.detach().float().cpu() for t in (a, b, init))
+    return float(torch.linalg.norm(a - b) / torch.linalg.norm(b - init))
+
+
+def bf16_cells_agree(what, cells, refs):
+    """Each cell's (first, last) bf16 loss and moved-texture gap against
+    its reference run's: ``cells`` {cell: ((first, last), texture)},
+    ``refs`` {cell: ((first, last), texture, initial texture)}. Prints and
+    holds them to ``BF16_LOSS_RTOL`` and ``BF16_MOVE_TOL``; returns the
+    worst of each."""
+    worst = {"loss_rel": 0.0, "moved_gap": 0.0}
+    for cell, (losses, tex) in cells.items():
+        ref_losses, ref_tex, init = refs[cell]
+        rel = max(abs(x - y) / abs(y) for x, y in zip(losses, ref_losses))
+        gap = moved_gap(tex, ref_tex, init)
+        print(f"{what} bf16 cell {cell}: first, last loss {losses} against "
+              f"{ref_losses} (worst rel {rel:.3g}), texture gap {gap:.3g} "
+              "of the reference run's move")
+        if not (rel <= BF16_LOSS_RTOL and gap <= BF16_MOVE_TOL):
+            fail(f"{what} bf16 cell {cell}: loss rel {rel} (tolerance "
+                 f"{BF16_LOSS_RTOL}) or texture gap {gap} (tolerance "
+                 f"{BF16_MOVE_TOL}) from its reference run")
+        worst = {"loss_rel": max(worst["loss_rel"], rel),
+                 "moved_gap": max(worst["moved_gap"], gap)}
+    return worst
+
+
+def style_pngs(root, n):
+    """``style.png`` (``write_scene``'s) and n - 1 more seeded styles."""
+    import numpy as np
+    from st3d_torch.io.image import write_png
+
+    paths = [os.path.join(root, "style.png")]
+    for k in range(1, n):
+        paths.append(os.path.join(root, f"style_{k}.png"))
+        write_png(paths[-1], (np.random.RandomState(10 + k).rand(
+            SIZE, SIZE, 3) * 255).astype(np.uint8))
+    return paths
+
+
+def bare_sphere(root, level):
+    """A UV-less ico-sphere OBJ (no MTL, no texture): auto-UV'd on load."""
+    from st3d_torch.io.obj import save_obj
+
+    mesh = sphere(level)
+    path = os.path.join(root, f"bare{level}", "bare.obj")
+    save_obj(path, verts=mesh.verts.numpy(), faces=mesh.faces.numpy())
+    return path
+
+
+def cell_argv(epochs, dtype, out, *extra):
+    return ["--size", str(SIZE), "--n_views", str(VIEWS), "--batch_size",
+            str(VIEWS), "--compute_dtype", dtype, "--epochs", str(epochs),
+            "--randomize_views", "False", "--device", "cuda",
+            "--output_path", out] + list(extra)
+
+
+def with_peak(run):
+    """(run's result, peak device memory in MiB over the run)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = run()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def cells_fell(out, key, epochs, what):
+    """Each cell's loss (``metrics.jsonl`` ``key``) over the epochs: finite,
+    the last below the first."""
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rows = [json.loads(l)[key] for l in f]
+    if len(rows) != epochs:
+        fail(f"{what}: {len(rows)} epochs logged, want {epochs}")
+    for cell in rows[0]:
+        vals = [r[cell] for r in rows]
+        if not all(map(math.isfinite, vals)) or not vals[-1] < vals[0]:
+            fail(f"{what}: cell {cell} losses {vals}")
+    return {c: (rows[0][c], rows[-1][c]) for c in rows[0]}
+
+
+def max_texture_gap(a, b):
+    return max(float((a[k].texture - b[k].texture).abs().max()) for k in a)
+
+
+def multistyle_phase(tmp, obj, styles, texture):
+    """The multi-style engine, S = 3 (a VGG batch of 12): bf16, 10 epochs,
+    each style's loss falling and the step's VGG launches those of the
+    single-style texture step (``STEP_LAUNCHES``, with the same set-up
+    launches), K1 only for the visibility, the content render and the
+    final renders, and each style's losses and texture held against a bf16
+    single-style ``second_approach`` run of it (``bf16_cells_agree``);
+    then float32, 5 epochs, each style's texture within 2e-4
+    of a single-style ``second_approach`` run of it."""
+    from st3d_torch.engine.config import parse_second_approach
+    from st3d_torch.engine.pipelines import load_scene
+    from st3d_torch.multi_style import main as multi_style
+    from st3d_torch.second_approach import main as second_approach
+
+    spec = ",".join(styles)
+    out = os.path.join(tmp, "multistyle_bf16")
+    (got, launches), peak = with_peak(lambda: drive_result(
+        "multi-style", "default", lambda: multi_style(cell_argv(
+            MS_EPOCHS, "bfloat16", out, "--obj_path", obj, "--style_paths",
+            spec))))
+    falls = cells_fell(out, "per_style", MS_EPOCHS, "multi-style bf16")
+    for k, per in STEP_LAUNCHES.items():
+        setup = texture[k] - EPOCHS * per
+        if setup < 0 or launches[k] != setup + MS_EPOCHS * per:
+            fail(f"multi-style: {k} launched {launches[k]}, want "
+                 f"{setup} + {MS_EPOCHS} x {per} (the texture step's)")
+    if launches["raster_hard"] != 2 + len(styles):
+        fail(f"multi-style: K1 launched {launches['raster_hard']} times, "
+             f"want {2 + len(styles)} (visibility, content, final renders)")
+    step_ms, n = median_step_ms(out, MS_EPOCHS)
+    rec = {"bf16_step_ms": step_ms, "bf16_peak_mib": peak,
+           "losses": falls}
+    print(f"multi-style {len(styles)} styles x {VIEWS} views {SIZE}² bf16: "
+          f"median step {step_ms:.2f} ms over the last {n}, peak "
+          f"{peak:.0f} MiB, per-style loss first -> last "
+          + json.dumps(falls) + ", launches " + json.dumps(launches))
+    init = load_scene(parse_second_approach(cell_argv(
+        1, "bfloat16", out, "--obj_path", obj))).texture
+    refs = {}
+    for path, name in zip(styles, got):
+        one = os.path.join(tmp, f"single_bf16_{name}")
+        mesh = second_approach(cell_argv(
+            MS_EPOCHS, "bfloat16", one, "--obj_path", obj, "--style_path",
+            path, "--save_intermediate", "False"))
+        losses = read_log(one)
+        refs[name] = ((losses[0], losses[-1]), mesh.texture, init)
+    rec["bf16_vs_single"] = bf16_cells_agree(
+        "multi-style", {k: (falls[k], got[k].texture) for k in got}, refs)
+
+    out = os.path.join(tmp, "multistyle_f32")
+    f32 = {}
+    (got, f32["launches"]), peak = with_peak(lambda: drive_result(
+        "multi-style f32", "default", lambda: multi_style(cell_argv(
+            CELL_F32_EPOCHS, "float32", out, "--obj_path", obj,
+            "--style_paths", spec)), want=F32_KERNELS))
+    single = {}
+    for path, name in zip(styles, got):
+        single[name] = second_approach(cell_argv(
+            CELL_F32_EPOCHS, "float32", os.path.join(tmp, f"single_{name}"),
+            "--obj_path", obj, "--style_path", path, "--save_intermediate",
+            "False"))
+    gap = max_texture_gap(got, single)
+    step_ms, n = median_step_ms(out, CELL_F32_EPOCHS)
+    rec.update(f32_step_ms=step_ms, f32_peak_mib=peak, f32_gap=gap)
+    print(f"multi-style f32, {CELL_F32_EPOCHS} epochs: median step "
+          f"{step_ms:.2f} ms over the last {n}, peak {peak:.0f} MiB; max "
+          f"|texture - its single-style run| {gap:.3g} (tolerance "
+          f"{CELL_TOL})")
+    if not gap <= CELL_TOL:
+        fail(f"multi-style f32 textures {gap} from the single-style runs")
+    return launches, f32["launches"], rec
+
+
+def drive_result(path, route, run, raster="raster_hard", want=None):
+    """``drive``, keeping ``run()``'s result: (result, launches)."""
+    box = []
+    launches = drive(path, route, lambda: box.append(run()), raster, want)
+    return box[0], launches
+
+
+def fleet_phase(tmp, scenes, styles, dev):
+    """The batched fleet, the textured level-4 sphere and a UV-less level-3
+    one (1,280 faces padded to 5,120, auto-UV) x 2 styles (16 images a
+    step): bf16, 10 epochs, every cell's loss falling, the visibility one
+    K1 launch over 8 views (then K1 once per mesh for the content renders
+    and once per cell for the final renders), each mesh's p2f (ids below
+    its face count) and zbuf of ``fleet_visibility`` bit-equal to the
+    mesh's own unpadded launch, and each cell's losses and texture held
+    against a bf16 ``--fleet_mode sequential`` run (``bf16_cells_agree``);
+    then float32, 5 epochs, every cell within
+    2e-4 of ``--fleet_mode sequential``, and every
+    ``<mesh>/<style>/final.obj`` written by both."""
+    import torch
+    from st3d_torch.core.uv import pad_mesh
+    from st3d_torch.engine.config import parse_second_approach
+    from st3d_torch.engine.fleetbatch import (_load_fleet_meshes,
+                                              fleet_visibility)
+    from st3d_torch.engine.pipelines import build_cameras
+    from st3d_torch.fleet import main as fleet
+    from st3d_torch.kernels import raster as kr
+    from st3d_torch.render.rasterize import (RasterizationSettings,
+                                             face_verts_screen,
+                                             rasterize_batch)
+
+    objs = [scenes[FLEET_LEVELS[0]][0], bare_sphere(tmp, FLEET_LEVELS[1])]
+    spec = ["--obj_paths", ",".join(objs), "--style_paths",
+            ",".join(styles)]
+    m, s = len(objs), len(styles)
+    out = os.path.join(tmp, "fleet_bf16")
+    calls, real = [], kr.raster_hard
+
+    def counted(coeffs, *a, **kw):
+        calls.append(coeffs.shape[0])
+        return real(coeffs, *a, **kw)
+
+    kr.raster_hard = counted
+    try:
+        (got, launches), peak = with_peak(lambda: drive_result(
+            "fleet", "default", lambda: fleet(cell_argv(
+                MS_EPOCHS, "bfloat16", out, *spec))))
+    finally:
+        kr.raster_hard = real
+    falls = cells_fell(out, "per_cell", MS_EPOCHS, "fleet bf16")
+    want = [m * VIEWS] + [VIEWS] * m + [12] * (m * s)
+    if calls != want or launches["raster_hard"] != len(want):
+        fail(f"fleet: K1 calls covered {calls} views, want {want}")
+    step_ms, n = median_step_ms(out, MS_EPOCHS)
+    rec = {"bf16_step_ms": step_ms, "bf16_peak_mib": peak, "losses": falls}
+    print(f"fleet {m} meshes x {s} styles x {VIEWS} views {SIZE}² bf16: "
+          f"median step {step_ms:.2f} ms over the last {n}, peak "
+          f"{peak:.0f} MiB, K1 calls over {calls} views, per-cell loss "
+          "first -> last " + json.dumps(falls) + ", launches "
+          + json.dumps(launches))
+
+    cfg = parse_second_approach(cell_argv(1, "bfloat16", out))
+    meshes = [x.to(dev) for x in _load_fleet_meshes(cfg, objs)]
+    seq_out = os.path.join(tmp, "fleet_seq_bf16")
+    seq = fleet(cell_argv(MS_EPOCHS, "bfloat16", seq_out, *spec,
+                          "--fleet_mode", "sequential"))
+    cells, refs = {}, {}
+    for mesh, init in zip(got, meshes):
+        seq_falls = cells_fell(os.path.join(seq_out, mesh), "per_style",
+                               MS_EPOCHS, f"fleet sequential bf16 {mesh}")
+        for style in got[mesh]:
+            cell = f"{mesh}/{style}"
+            cells[cell] = (falls[cell], got[mesh][style].texture)
+            refs[cell] = (seq_falls[style], seq[mesh][style].texture,
+                          init.texture)
+    rec["bf16_vs_sequential"] = bf16_cells_agree("fleet", cells, refs)
+    padded = [pad_mesh(x, max(y.verts.shape[0] for y in meshes),
+                       max(y.faces.shape[0] for y in meshes),
+                       num_uvs=max(y.verts_uvs.shape[0] for y in meshes))
+              for x in meshes]
+    cams = build_cameras(cfg)[0:VIEWS].to(dev)
+    settings = RasterizationSettings(image_size=SIZE)
+    n0 = kr.LAUNCHES["raster_hard"]
+    vis = fleet_visibility(meshes, padded, cams, settings)
+    torch.cuda.synchronize()
+    if kr.LAUNCHES["raster_hard"] != n0 + 1:
+        fail("fleet_visibility took more than one K1 launch")
+    for g, x in enumerate(meshes):
+        own = rasterize_batch(face_verts_screen(x.verts, x.faces, cams,
+                                                SIZE), settings)
+        if not (torch.equal(vis["p2f"][g], own.pix_to_face)
+                and torch.equal(vis["zbuf"][g], own.zbuf)
+                and int(vis["p2f"][g].max()) < x.faces.shape[0]):
+            fail(f"fleet visibility of mesh {g} differs from its own launch")
+    print(f"fleet visibility: one K1 launch over {m * VIEWS} views "
+          f"({[x.faces.shape[0] for x in meshes]} faces padded to "
+          f"{padded[0].faces.shape[0]}); each mesh's p2f and zbuf bit-equal "
+          "to its own unpadded launch")
+
+    out = os.path.join(tmp, "fleet_f32")
+    (got, f32), peak = with_peak(lambda: drive_result(
+        "fleet f32", "default", lambda: fleet(cell_argv(
+            CELL_F32_EPOCHS, "float32", out, *spec)), want=F32_KERNELS))
+    seq_out = os.path.join(tmp, "fleet_seq_f32")
+    seq = fleet(cell_argv(CELL_F32_EPOCHS, "float32", seq_out, *spec,
+                          "--fleet_mode", "sequential"))
+    gap = max(max_texture_gap(got[k], seq[k]) for k in got)
+    for root in (out, seq_out):
+        for mesh in got:
+            for style in got[mesh]:
+                if not os.path.isfile(os.path.join(root, mesh, style,
+                                                   "final.obj")):
+                    fail(f"{root}/{mesh}/{style}/final.obj missing")
+    step_ms, n = median_step_ms(out, CELL_F32_EPOCHS)
+    rec.update(f32_step_ms=step_ms, f32_peak_mib=peak, f32_gap=gap)
+    print(f"fleet f32, {CELL_F32_EPOCHS} epochs: median step {step_ms:.2f} "
+          f"ms over the last {n}, peak {peak:.0f} MiB; max |batched - "
+          f"sequential texture| {gap:.3g} (tolerance {CELL_TOL}); every "
+          "<mesh>/<style>/final.obj written")
+    if not gap <= CELL_TOL:
+        fail(f"fleet f32: batched textures {gap} from sequential")
+    return launches, f32, rec, objs
+
+
+def padding_check(dev):
+    """The level-4 sphere padded by +301 faces, +37 vertices and +11 UVs
+    through K1, K1-soft, K6 (forced, hard and soft) and K7 (K = 4, 3 px):
+    every output bit-equal to the unpadded faces'."""
+    import torch
+    from st3d_torch.core.cameras import (build_fixed_cameras,
+                                         transform_points_screen)
+    from st3d_torch.core.uv import pad_mesh
+    from st3d_torch.kernels import raster as kr
+
+    mesh = sphere(ICO_LEVEL).to(dev)
+    padded = pad_mesh(mesh, mesh.verts.shape[0] + PAD[0],
+                      mesh.faces.shape[0] + PAD[1],
+                      num_uvs=mesh.verts_uvs.shape[0] + PAD[2])
+    scr = transform_points_screen(build_fixed_cameras(VIEWS, seed=0).to(dev),
+                                  mesh.verts, (SIZE, SIZE))
+    faces = {"unpadded": scr[:, mesh.faces], "padded": scr[:, padded.faces]}
+    runs = {
+        "raster_hard": lambda f: kr.rasterize_batched(f, SIZE, stream=False),
+        "raster_soft": lambda f: kr.rasterize_batched_soft(f, SIZE,
+                                                           stream=False),
+        "raster_stream hard": lambda f: kr.rasterize_batched(f, SIZE,
+                                                             stream=True),
+        "raster_stream soft": lambda f: kr.rasterize_batched_soft(
+            f, SIZE, stream=True),
+        "raster_topk": lambda f: (kr.rasterize_topk_batched(f, SIZE, 4,
+                                                            3.0),)}
+    for name, run in runs.items():
+        key = name.split()[0]
+        n0 = kr.LAUNCHES[key]
+        a, b = (run(faces[k]) for k in ("unpadded", "padded"))
+        torch.cuda.synchronize()
+        if kr.LAUNCHES[key] != n0 + 2:
+            fail(f"padding: {name} did not launch its kernel")
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            fail(f"padding: {name} outputs differ on padded faces")
+    print(f"padding (+{PAD[1]} faces, +{PAD[0]} vertices, +{PAD[2]} UVs on "
+          f"{mesh.faces.shape[0]} faces, {SIZE}² x {VIEWS}): K1, K1-soft, K6 "
+          "hard and soft, K7 (K=4, 3 px) bit-equal to the unpadded faces")
+
+
+def resume_check(tmp, obj, style):
+    """Checkpoint and resume on the bf16 texture target, with PyTorch's
+    deterministic algorithms asked for (``warn_only``: the ops that have
+    none are printed): 3 epochs with ``--checkpoint_every 3``, resumed to
+    6, and 6 uninterrupted epochs twice; before that, for ROADMAP H2, 6
+    epochs twice without the flag, printing whether they repeat. The resumed log starts at epoch 3.
+    Where the two uninterrupted runs repeat bit for bit, the resumed run's
+    epochs 3-5 and final texture equal them bit for bit; where they do not
+    (ROADMAP H2), within rtol 1e-3."""
+    import warnings
+
+    import torch
+    from st3d_torch.second_approach import main as second_approach
+
+    cut, end = RESUME_EPOCHS
+
+    def run(name, epochs, *extra):
+        out = os.path.join(tmp, f"resume_{name}")
+        final = second_approach(second_approach_argv(
+            obj, style, epochs, "bfloat16", out) + list(extra))
+        return out, final
+
+    free = [run(k, end) for k in ("free_a", "free_b")]
+    free_repeats = (read_log(free[0][0]) == read_log(free[1][0])
+                    and torch.equal(free[0][1].texture, free[1][1].texture))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            out, _ = run("cut", cut, "--checkpoint_every", str(cut))
+            _, resumed = run("cut", end, "--checkpoint_every", str(cut),
+                             "--resume", "True")
+            a_out, a = run("a", end)
+            b_out, b = run("b", end)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split(" does not have")[0]
+                     for w in caught if "deterministic" in str(w.message)})
+    with open(os.path.join(out, "log.txt")) as f:
+        first = f.read().splitlines()[1]
+    if not first.startswith(f"Epoch {cut},"):
+        fail(f"resumed log starts {first!r}")
+    got, la, lb = read_log(out), read_log(a_out), read_log(b_out)
+    repeats = la == lb and torch.equal(a.texture, b.texture)
+    bit_equal = got == la[cut:] and torch.equal(resumed.texture, a.texture)
+    rel = max(abs(x - y) / abs(y) for x, y in zip(got, la[cut:]))
+    print(f"resume bf16 texture {SIZE}² x {VIEWS}: without deterministic "
+          f"algorithms two runs repeat bit for bit {free_repeats}; {cut} "
+          f"epochs, resumed to {end}; uninterrupted runs repeat bit for bit "
+          f"{repeats}; resumed "
+          f"epochs {cut}-{end - 1} and texture bit-equal {bit_equal}, max "
+          f"rel loss diff {rel:.3g}; ops without a deterministic version: "
+          f"{nondet}")
+    if len(got) != end - cut or (repeats and not bit_equal) or rel > 1e-3:
+        fail(f"resumed losses {got} against {la[cut:]}")
+    return {"runs_repeat_without_the_flag": free_repeats,
+            "runs_repeat": repeats, "resumed_bit_equal": bit_equal,
+            "max_rel": rel, "nondeterministic_ops": nondet}
+
+
+def first_resume_check(tmp, obj, style):
+    """The first approach (bf16 texture, 3 style-transfer and 6 MSE steps,
+    ``--checkpoint_every 4``) under deterministic algorithms: once whole
+    with ``--profile`` (its trace must name K2's kernel), once cut right
+    after the mid-batch checkpoint at step 4 and resumed with
+    ``--debug_nan``: the resumed log starts at step 4, and its steps and
+    final texture equal the whole run's bit for bit where the two runs'
+    shared steps 0-3 do, else within rtol 1e-3."""
+    import warnings
+
+    import torch
+    from st3d_torch.engine import pipelines
+    from st3d_torch.first_approach import main as first_approach
+
+    def run(name, *extra):
+        out = os.path.join(tmp, f"first_resume_{name}")
+        final = first_approach([
+            "--obj_path", obj, "--style_path", style, "--size", str(SIZE),
+            "--n_views", str(VIEWS), "--batch_size", str(VIEWS),
+            "--compute_dtype", "bfloat16", "--n_style_transfer_steps", "3",
+            "--n_mse_steps", "6", "--checkpoint_every", "4",
+            "--randomize_views", "False", "--device", "cuda",
+            "--output_path", out] + list(extra))
+        return out, final
+
+    real = pipelines.save_checkpoint
+
+    class Cut(Exception):
+        """The run stopped right after its mid-batch checkpoint."""
+
+    def cut_mid_batch(path, step, *a, extras=None, **kw):
+        real(path, step, *a, extras=extras, **kw)
+        if extras is not None:
+            raise Cut
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            whole_out, whole = run("whole", "--profile", "True")
+            pipelines.save_checkpoint = cut_mid_batch
+            try:
+                run("cut")
+                fail("the cut first-approach run did not stop")
+            except Cut:
+                pass
+            finally:
+                pipelines.save_checkpoint = real
+            cut_log = read_log(os.path.join(tmp, "first_resume_cut"))
+            out, resumed = run("cut", "--resume", "True", "--debug_nan",
+                               "True")
+        finally:
+            torch.use_deterministic_algorithms(False)
+    kernels, _ = trace_kernels(whole_out)
+    if not any("conv3x3_wgmma" in k for k in kernels):
+        fail("first approach --profile: no conv3x3_wgmma kernel in the trace")
+    with open(os.path.join(out, "log.txt")) as f:
+        first = f.read().splitlines()[1]
+    whole_log, got = read_log(whole_out), read_log(out)
+    repeats = cut_log == whole_log[:4]
+    bit_equal = (got == whole_log[4:]
+                 and torch.equal(resumed.texture, whole.texture))
+    rel = max(abs(x - y) / abs(y) for x, y in zip(got, whole_log[4:]))
+    print(f"first approach resume bf16 {SIZE}² x {VIEWS}: cut after the "
+          f"mid-batch checkpoint at step 4 of 6, resumed with --debug_nan "
+          f"(no alarm): steps 0-3 repeat bit for bit {repeats}; steps 4-5 "
+          f"and texture bit-equal {bit_equal}, max rel loss diff {rel:.3g}; "
+          f"--profile trace names {len(kernels)} kernels, conv3x3_wgmma "
+          "among them")
+    if (not first.startswith("Batch 0, Step 4,") or len(got) != 2
+            or (repeats and not bit_equal) or rel > 1e-3):
+        fail(f"first approach resume: log {first!r}, losses {got} against "
+             f"{whole_log[4:]}")
+    return {"runs_repeat": repeats, "resumed_bit_equal": bit_equal,
+            "max_rel": rel}
+
+
+def trace_kernels(out):
+    """The card's kernels named in ``out/profile/trace.json``, and the
+    device ms of each kernel over the traced loop (``device_ms.json``)."""
+    with open(os.path.join(out, "profile", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    with open(os.path.join(out, "profile", "device_ms.json")) as f:
+        device = json.load(f)
+    return {e["name"] for e in events if e.get("cat") == "kernel"}, device
+
+
+def debug_profile_phase(tmp, obj, styles, objs):
+    """``--debug_nan`` on the bf16 texture run finishes with no false
+    alarm and the unguarded run's losses; ``--profile`` on the multi-style
+    and fleet runs (bf16 and float32, 5 epochs) writes a trace naming the
+    hand-written kernels (``conv3x3_wgmma``/``conv3x3_tf32x3``,
+    ``gram_wgmma``/``gram_tf32x3``), and its device ms per step."""
+    from st3d_torch.fleet import main as fleet
+    from st3d_torch.multi_style import main as multi_style
+    from st3d_torch.second_approach import main as second_approach
+
+    outs = [os.path.join(tmp, f"debug_{k}") for k in ("on", "off")]
+    for out, flag in zip(outs, ("True", "False")):
+        second_approach(second_approach_argv(obj, styles[0], 5, "bfloat16",
+                                             out) + ["--debug_nan", flag])
+    guarded, plain = (read_log(out) for out in outs)
+    print(f"--debug_nan bf16 texture, 5 epochs: no alarm, losses {guarded} "
+          f"(unguarded {plain})")
+    if len(guarded) != 5 or not all(map(math.isfinite, guarded)):
+        fail(f"--debug_nan run losses {guarded}")
+    device = {}
+    for what, run, flags in (
+            ("multistyle", multi_style, ["--obj_path", obj, "--style_paths",
+                                         ",".join(styles)]),
+            ("fleet", fleet, ["--obj_paths", ",".join(objs),
+                              "--style_paths",
+                              ",".join(styles[:FLEET_STYLES])])):
+        for dtype, names in (("bfloat16", ("conv3x3_wgmma", "gram_wgmma")),
+                             ("float32", ("conv3x3_tf32x3", "gram_tf32x3"))):
+            out = os.path.join(tmp, f"profile_{what}_{dtype}")
+            run(cell_argv(CELL_F32_EPOCHS, dtype, out, "--profile", "True",
+                          *flags))
+            kernels, ms = trace_kernels(out)
+            missing = [n for n in names
+                       if not any(n in k for k in kernels)]
+            if missing:
+                fail(f"--profile {what} {dtype}: no {missing} kernel in the "
+                     f"trace ({len(kernels)} kernel names)")
+            device[f"{what} {dtype}"] = sum(ms.values()) / CELL_F32_EPOCHS
+            top = sorted(ms.items(), key=lambda kv: -kv[1])[:6]
+            print(f"--profile {what} {dtype}: trace of {len(kernels)} kernel "
+                  f"names, {names} among them; device "
+                  f"{device[f'{what} {dtype}']:.2f} ms a step; largest "
+                  "(ms a step): " + "; ".join(
+                      f"{n[:60]} {t / CELL_F32_EPOCHS:.3f}" for n, t in top))
+    return device
+
+
 def main(argv=None):
     import torch
 
@@ -2951,7 +3640,25 @@ def main(argv=None):
         lap("first approach")
         small_parity(tmp)
         lap("64² parity")
+        batch_errs = cell_batch_check(dev)
+        lap("bf16 VGG kernels at the cell batches")
+        styles = style_pngs(tmp, MS_STYLES)
+        ms_bf16, ms_f32, ms_rec = multistyle_phase(tmp, obj, styles, texture)
+        lap("multi-style")
+        fl_bf16, fl_f32, fl_rec, fleet_objs = fleet_phase(
+            tmp, scenes, styles[:FLEET_STYLES], dev)
+        lap("fleet")
+        padding_check(dev)
+        lap("padding")
+        resume = resume_check(tmp, obj, style)
+        resume["first_approach"] = first_resume_check(tmp, obj, style)
+        lap("resume")
+        device_ms = debug_profile_phase(tmp, obj, styles, fleet_objs)
+        lap("debug_nan, profile")
     print("phase seconds " + json.dumps(seconds))
+    print("multi-style and fleet " + json.dumps({
+        "multistyle": ms_rec, "fleet": fl_rec, "resume": resume,
+        "device_ms_per_step": device_ms}))
     # Launches on this slice's path: each raster kernel from the first
     # vertex run of its mode (K7: SoftRas), the VGG kernels from the hard
     # run, the float32 route's kernels from the f32 texture run, the
@@ -2980,6 +3687,15 @@ def main(argv=None):
             k["launches_route"] = f"{run}, {ROUTE_EPOCHS} steps"
             k["launches_k5"] = stage1_off["k5"]["gram_narrow"]
     kernels += route_entries(kernels, texture, routes)
+    # Launches on the multi-style and fleet paths (bf16 runs; the float32
+    # kernels from the float32 runs).
+    for k in kernels:
+        key, f32_row = k["name"].split(" (")[0], k.get("dtype") == "float32"
+        k["launches_multistyle"] = (ms_f32 if f32_row else ms_bf16).get(key,
+                                                                        0)
+        k["launches_fleet"] = (fl_f32 if f32_row else fl_bf16).get(key, 0)
+        if k["name"] in batch_errs and not f32_row:
+            k["max_abs_err_cell_batches"] = batch_errs[k["name"]]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

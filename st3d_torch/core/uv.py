@@ -1,4 +1,5 @@
-"""UV generation for UV-less meshes (counterpart of ``st3d/core/uv.py``)."""
+"""UV generation for UV-less meshes and padding to static budgets
+(counterpart of ``st3d/core/uv.py``)."""
 
 from __future__ import annotations
 
@@ -8,6 +9,7 @@ import numpy as np
 import torch
 
 from st3d_torch.core.mesh import Mesh
+from st3d_torch.io.image import resize_bilinear_chw
 
 
 def generate_uvs(mesh: Mesh, mode: str = "sphere",
@@ -68,3 +70,43 @@ def generate_uvs(mesh: Mesh, mode: str = "sphere",
         texture=torch.full((texture_size, texture_size, 3), 0.5,
                            dtype=torch.float32, device=dev),
     )
+
+
+def pad_mesh(mesh: Mesh, num_verts: int, num_faces: int,
+             num_uvs: int = None, texture_size: int = None) -> Mesh:
+    """Pad to static budgets for multi-mesh stacking (the fleet).
+
+    Padding faces and face UVs are (0, 0, 0): zero screen area, so every
+    rasterizer drops them through ``AREA_EPS`` and they sort after every
+    face of the mesh; padding vertices sit at vertex 0's position, so they
+    never extend the silhouette; padding UVs are zero. With
+    ``texture_size``, a texture of another size in either dimension is
+    resized (``resize_bilinear_chw``, which equals ``jax.image.resize``).
+    The topology is kept (the regularizers see only real geometry).
+    """
+    v, f = mesh.verts.shape[0], mesh.faces.shape[0]
+    t = mesh.verts_uvs.shape[0]
+    if num_verts < v or num_faces < f:
+        raise ValueError(
+            f"budgets ({num_verts} verts, {num_faces} faces) below actual "
+            f"({v}, {f})")
+    num_uvs = num_uvs if num_uvs is not None else t
+    if num_uvs < t:
+        raise ValueError(f"uv budget {num_uvs} below actual {t}")
+
+    def grow(x, n, fill):
+        return torch.cat([x, fill.expand((n - x.shape[0],) + x.shape[1:])])
+
+    zero_f = mesh.faces.new_zeros((1, 3))
+    texture = mesh.texture
+    if texture_size is not None and tuple(texture.shape[:2]) != (
+            texture_size, texture_size):
+        texture = resize_bilinear_chw(texture.permute(2, 0, 1),
+                                      texture_size).permute(1, 2, 0)
+    return mesh.replace(
+        verts=grow(mesh.verts, num_verts, mesh.verts[:1]),
+        faces=grow(mesh.faces, num_faces, zero_f),
+        verts_uvs=grow(mesh.verts_uvs, num_uvs, mesh.verts_uvs.new_zeros(
+            (1, 2))),
+        faces_uvs=grow(mesh.faces_uvs, num_faces, zero_f),
+        texture=texture.contiguous())

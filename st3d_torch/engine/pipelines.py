@@ -27,6 +27,18 @@ Second-approach outputs follow the reference layout: ``log.txt``
 device synchronisation and a host fetch of its loss), ``current_images/``,
 ``final_render/view_i.png`` (12 fixed views) and ``final.obj`` (+ .mtl +
 texture PNG).
+
+As in the JAX package, both pipelines write ``checkpoint.npz``
+(``utils/checkpoint.py``): the second approach every ``checkpoint_every``
+epochs, the first approach after every view batch and, with
+``checkpoint_every``, every that many MSE steps within a batch (with the
+step reached and the batch's stylised targets, so that a resume neither
+re-runs the style transfer nor over-optimises the batch). ``--resume``
+continues from it, the generator state included, with a fresh ``log.txt``
+that holds only the resumed steps. ``--debug_nan`` checks each step's loss,
+gradients and updated leaves (``utils/debug.py``), and ``--profile``
+traces the optimisation loop with ``torch.profiler`` into
+``output_path/profile/``.
 """
 
 from __future__ import annotations
@@ -67,7 +79,11 @@ from st3d_torch.render.renderer import (
     warn_if_hard_k_saturated,
 )
 from st3d_torch.utils.assets import resolve_asset
+from st3d_torch.utils.checkpoint import restore, save_checkpoint
+from st3d_torch.utils.debug import check_finite
 from st3d_torch.utils.logging import RunLogger
+
+CHECKPOINT = "checkpoint.npz"
 
 
 def resolve_device(name: str) -> torch.device:
@@ -85,7 +101,7 @@ def _check_config(cfg: PipelineConfig) -> None:
     """Raise before any work on a config the port cannot run: ValueError
     for an unknown ``raster_backend`` (every known one takes the port's one
     rasterizer, as st3d/render/rasterize.py::resolve_backend accepts them),
-    NotImplementedError for the parts not ported yet."""
+    NotImplementedError for the part not ported yet."""
     if cfg.raster_backend not in RASTER_BACKENDS:
         raise ValueError(f"unknown rasterizer backend {cfg.raster_backend!r}")
     why = _unsupported(cfg)
@@ -95,12 +111,8 @@ def _check_config(cfg: PipelineConfig) -> None:
 
 def _unsupported(cfg: PipelineConfig) -> str:
     """Why ``cfg`` is outside what the port runs yet ('' when it is not)."""
-    if cfg.checkpoint_every or cfg.resume:
-        return "checkpoints and --resume (not yet ported)"
     if cfg.data_parallel or cfg.tile_parallel:
         return "data/tile parallelism (not yet ported)"
-    if cfg.profile or cfg.debug_nan:
-        return "--profile and --debug_nan (not yet ported)"
     return ""
 
 
@@ -156,6 +168,53 @@ def _compute_dtype(cfg: PipelineConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
+def maybe_profile(cfg: PipelineConfig, device: torch.device):
+    """With ``--profile``, start a ``torch.profiler`` trace (CPU, and CUDA
+    on a GPU) and return the function that stops it and writes
+    ``output_path/profile/trace.json`` (Chrome trace format) and
+    ``device_ms.json``, the device milliseconds of each kernel over the
+    traced span (``profile_step.kernel_ms``); without it, a no-op."""
+    if not cfg.profile:
+        return lambda: None
+    act = torch.profiler.ProfilerActivity
+    prof = torch.profiler.profile(
+        activities=[act.CPU] + ([act.CUDA] if device.type == "cuda" else []))
+    prof.start()
+
+    def stop():
+        import json
+
+        from st3d_torch.profile_step import kernel_ms
+
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        prof.stop()
+        out = os.path.join(cfg.output_path, "profile")
+        os.makedirs(out, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out, "trace.json"))
+        with open(os.path.join(out, "device_ms.json"), "w") as f:
+            json.dump(kernel_ms(prof.events(), 1), f, indent=1)
+
+    return stop
+
+
+def take_step(cfg: PipelineConfig, optimizer: torch.optim.Optimizer,
+              params, loss: torch.Tensor, label: str) -> None:
+    """Backpropagate ``loss`` and let ``optimizer`` update ``params``. With
+    ``--debug_nan`` the loss, every gradient of the leaves and the updated
+    leaves are each checked finite (``check_finite``, one host
+    synchronisation each), naming ``label``."""
+    if cfg.debug_nan:
+        check_finite(loss, f"{label} loss")
+    loss.backward()
+    if cfg.debug_nan:
+        check_finite({k: p.grad for k, p in params.items()},
+                     f"{label} gradient")
+    optimizer.step()
+    if cfg.debug_nan:
+        check_finite(params, f"{label} parameter")
+
+
 def _finish(cfg: PipelineConfig, content_mesh: Mesh, params,
             settings: RasterizationSettings, device) -> Mesh:
     """Write ``final_render/`` (12 fixed views) and ``final.obj``; returns
@@ -165,6 +224,36 @@ def _finish(cfg: PipelineConfig, content_mesh: Mesh, params,
                 settings, os.path.join(cfg.output_path, "final_render"))
     save_mesh(final, os.path.join(cfg.output_path, "final.obj"))
     return final
+
+
+def _stylise(cfg: PipelineConfig, content_mesh: Mesh, params, cams_b,
+             style_b: torch.Tensor, settings: RasterizationSettings,
+             vgg, gen: torch.Generator, dtype: torch.dtype) -> torch.Tensor:
+    """The first approach's 2D targets of a view batch: render the content,
+    composite its background, pick the init and run hot loop A; (B, 3, H,
+    W) in [0, 1]."""
+    device = style_b.device
+    with torch.no_grad():
+        cimgs, cmasks = render_meshes(content_mesh, cams_b, settings)
+        content_b = apply_background(cimgs, cmasks,
+                                     cfg.content_background, style_b, gen)
+        if cfg.style_transfer_init == "noise":
+            init = torch.rand(content_b.shape, generator=gen,
+                              dtype=content_b.dtype, device=device)
+        elif cfg.style_transfer_init == "content":
+            init = content_b
+        elif cfg.style_transfer_init == "current":
+            cur_imgs, cur_masks = render_meshes(
+                apply_params(content_mesh, params), cams_b, settings)
+            init = apply_background(cur_imgs, cur_masks,
+                                    cfg.current_background, style_b, gen)
+        else:
+            raise ValueError(
+                f"unknown style_transfer_init {cfg.style_transfer_init!r}")
+    return style_transfer(
+        init, content_b, style_b, vgg, steps=cfg.n_style_transfer_steps,
+        style_weight=cfg.style_weight, content_weight=cfg.content_weight,
+        lr=cfg.style_transfer_lr, dtype=dtype).clamp(0.0, 1.0)
 
 
 def run_first_approach(cfg: PipelineConfig) -> Mesh:
@@ -189,44 +278,37 @@ def run_first_approach(cfg: PipelineConfig) -> Mesh:
     dtype = _compute_dtype(cfg)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     style = load_as_tensor(resolve_asset(cfg.style_path), size=cfg.size)
+    ckpt = os.path.join(cfg.output_path, CHECKPOINT)
+    start_batch, extras = restore(cfg.resume, ckpt, params, optimizer, gen)
     logger = RunLogger(cfg.output_path)
+    stop_profile = maybe_profile(cfg, device)
 
     for i, b0, b1 in _batches(cfg.n_views, cfg.batch_size):
+        if i < start_batch:
+            continue
         cams_b = cameras[b0:b1]
         style_b = style[None].expand(b1 - b0, -1, -1, -1).to(device)
         with torch.no_grad():
             vis = (compact_visibility(
                 precompute_visibility(content_mesh, cams_b, settings))
                 if static_vis else None)
-            cimgs, cmasks = render_meshes(content_mesh, cams_b, settings)
-            content_b = apply_background(cimgs, cmasks,
-                                         cfg.content_background, style_b, gen)
-            if cfg.style_transfer_init == "noise":
-                init = torch.rand(content_b.shape, generator=gen,
-                                  dtype=content_b.dtype, device=device)
-            elif cfg.style_transfer_init == "content":
-                init = content_b
-            elif cfg.style_transfer_init == "current":
-                cur_imgs, cur_masks = render_meshes(
-                    apply_params(content_mesh, params), cams_b, settings)
-                init = apply_background(cur_imgs, cur_masks,
-                                        cfg.current_background, style_b, gen)
-            else:
-                raise ValueError(
-                    f"unknown style_transfer_init {cfg.style_transfer_init!r}")
-
-        applied = style_transfer(
-            init, content_b, style_b, vgg, steps=cfg.n_style_transfer_steps,
-            style_weight=cfg.style_weight, content_weight=cfg.content_weight,
-            lr=cfg.style_transfer_lr, dtype=dtype).clamp(0.0, 1.0)
-        for j in range(b1 - b0):
-            save_image(applied[j], os.path.join(
-                st_dir, f"view_{i * cfg.batch_size + j}.png"))
+        if i == start_batch and "mse_done" in extras:
+            # A mid-batch checkpoint: continue the MSE steps against the
+            # stored stylised targets.
+            done = int(extras["mse_done"])
+            applied = torch.from_numpy(extras["applied"]).to(device)
+        else:
+            applied = _stylise(cfg, content_mesh, params, cams_b, style_b,
+                               settings, vgg, gen, dtype)
+            for j in range(b1 - b0):
+                save_image(applied[j], os.path.join(
+                    st_dir, f"view_{i * cfg.batch_size + j}.png"))
+            done = 0
 
         # Hot loop B: the trainable leaves against the stylised views, NHWC.
         target = applied.permute(0, 2, 3, 1)
-        losses = []
-        for _ in range(cfg.n_mse_steps):
+        pending = []
+        while done < cfg.n_mse_steps:
             optimizer.zero_grad(set_to_none=True)
             mesh = apply_params(content_mesh, params)
             rgba = (render_rgba_static(mesh, vis, settings) if static_vis
@@ -236,14 +318,25 @@ def run_first_approach(cfg: PipelineConfig) -> Mesh:
             loss = compute_first_approach_loss(
                 imgs, masks, target, mesh.verts, content_mesh.verts, mesh,
                 weights, cfg.optimization_target)
-            loss.backward()
-            optimizer.step()
-            losses.append(loss.detach())
-        # One host fetch per batch, not one per step.
-        for s, value in enumerate(torch.stack(losses).tolist()
-                                  if losses else []):
-            logger.log_step(i, s, value)
+            take_step(cfg, optimizer, params, loss,
+                      f"batch {i}, step {done}")
+            pending.append(loss.detach())
+            done += 1
+            mid_batch = (cfg.checkpoint_every and done < cfg.n_mse_steps
+                         and done % cfg.checkpoint_every == 0)
+            if mid_batch or done == cfg.n_mse_steps:
+                # One host fetch per checkpoint or batch, not one per step;
+                # log.txt covers every step up to the checkpoint a resume
+                # would continue from.
+                for s, value in enumerate(torch.stack(pending).tolist()):
+                    logger.log_step(i, done - len(pending) + s, value)
+                pending.clear()
+            if mid_batch:
+                save_checkpoint(ckpt, i, params, optimizer, gen,
+                                extras={"mse_done": done, "applied": applied})
+        save_checkpoint(ckpt, i + 1, params, optimizer, gen)
 
+    stop_profile()
     final = _finish(cfg, content_mesh, params, settings, device)
     logger.close()
     return final
@@ -292,8 +385,11 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
             batch_const.append((cams_b, style_b, cimgs, cmasks, targets,
                                 vis))
 
+    ckpt = os.path.join(cfg.output_path, CHECKPOINT)
+    start_epoch, _ = restore(cfg.resume, ckpt, params, optimizer, gen)
     logger = RunLogger(cfg.output_path)
-    for epoch in range(cfg.epochs):
+    stop_profile = maybe_profile(cfg, device)
+    for epoch in range(start_epoch, cfg.epochs):
         t0 = time.perf_counter()
         total = torch.zeros((), device=device)
         for bi, (cams_b, style_b, cimgs, cmasks, targets, vis) in enumerate(
@@ -323,8 +419,8 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
                 loss = weights["main_loss_weight"] * loss + (
                     mesh_regularizer_loss(mesh, mesh.verts,
                                           content_mesh.verts, weights))
-            loss.backward()
-            optimizer.step()
+            take_step(cfg, optimizer, params, loss,
+                      f"epoch {epoch}, batch {bi}")
             total = total + loss.detach()
             if cfg.save_intermediate:
                 frames = cur.detach().clamp(0.0, 1.0).permute(0, 3, 1, 2)
@@ -337,7 +433,10 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
             torch.cuda.synchronize(device)
         logger.log_epoch(epoch, loss_value,
                          step_s=time.perf_counter() - t0)
+        if cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
+            save_checkpoint(ckpt, epoch + 1, params, optimizer, gen)
 
+    stop_profile()
     final = _finish(cfg, content_mesh, params, settings, device)
     logger.close()
     return final

@@ -133,18 +133,17 @@ def sample_coords(texture_hw, uv: torch.Tensor):
     return x0.long(), y0.long(), x - x0, y - y0
 
 
-def sample_texture(texture: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
-    """Differentiable bilinear sampling of texture (Ht, Wt, 3) at uv
-    (..., 2) -> (..., 3). The lerp association (top/bottom, then vertical)
-    is the JAX package's."""
-    ht, wt, ch = texture.shape
-    x0, y0, fx, fy = sample_coords((ht, wt), uv)
-    flat = texture.reshape(ht * wt, ch)
-    idx = (y0 * wt + x0).reshape(-1)
+def _bilerp(flat: torch.Tensor, idx: torch.Tensor, wt: int,
+            fx: torch.Tensor, fy: torch.Tensor) -> torch.Tensor:
+    """Bilinear lerp of a flat atlas ``flat`` (rows of ``wt`` texels, C
+    channels) from the top-left texels ``idx`` -> idx.shape + (C,); ``fx``
+    and ``fy`` broadcast against ``idx``. The lerp association
+    (top/bottom, then vertical) is the JAX package's."""
+    ch = flat.shape[-1]
 
     def tap(i):
         # index_select's backward is an index-add into the atlas.
-        return flat.index_select(0, i).reshape(uv.shape[:-1] + (ch,))
+        return flat.index_select(0, i.reshape(-1)).reshape(idx.shape + (ch,))
 
     g00, g01 = tap(idx), tap(idx + 1)
     g10, g11 = tap(idx + wt), tap(idx + wt + 1)
@@ -152,6 +151,14 @@ def sample_texture(texture: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     top = g00 * (1 - fx) + g01 * fx
     bot = g10 * (1 - fx) + g11 * fx
     return top * (1 - fy) + bot * fy
+
+
+def sample_texture(texture: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Differentiable bilinear sampling of texture (Ht, Wt, 3) at uv
+    (..., 2) -> (..., 3)."""
+    ht, wt, ch = texture.shape
+    x0, y0, fx, fy = sample_coords((ht, wt), uv)
+    return _bilerp(texture.reshape(ht * wt, ch), y0 * wt + x0, wt, fx, fy)
 
 
 def shade_from_uvs(texture: torch.Tensor, uv: torch.Tensor,
@@ -174,14 +181,39 @@ def shade_compact(texture: torch.Tensor, cov_idx: torch.Tensor,
     (P,) flat indices into the (N*H*W) frame and ``uv_cov`` (P, 2) their
     UVs. The sampled colors land in a background-filled frame, so the
     values equal ``shade_from_uvs`` exactly, and the texture gradient never
-    sees the uncovered pixels (whose UVs pile onto the texture border)."""
-    rgb_cov = sample_texture(texture, uv_cov)
-    bg = torch.tensor(background_color, dtype=rgb_cov.dtype,
-                      device=rgb_cov.device)
-    frame = bg.expand(mask.numel(), 3).contiguous().index_put(
-        (cov_idx,), rgb_cov)
-    rgb = frame.reshape(mask.shape + (3,))
+    sees the uncovered pixels (whose UVs pile onto the texture border).
+    ``shade_compact_styles`` at one mesh and one texture."""
+    rgb = shade_compact_styles(texture[None, None], cov_idx, uv_cov,
+                               mask[None], None, background_color)[0, 0]
     return torch.cat([rgb, mask[..., None].to(rgb.dtype)], dim=-1)
+
+
+def shade_compact_styles(textures: torch.Tensor, cov_idx: torch.Tensor,
+                         uv_cov: torch.Tensor, mask: torch.Tensor,
+                         group: torch.Tensor = None,
+                         background_color: Tuple[float, float, float] = (
+                             1.0, 1.0, 1.0)) -> torch.Tensor:
+    """Compact shading's RGB for S textures of each of G meshes at once:
+    ``textures`` (G, S, Ht, Wt, 3), ``mask`` (G, N, H, W), the covered
+    pixels' ``cov_idx`` (P,) flat indices into their mesh's (N*H*W) frame
+    and ``uv_cov`` (P, 2), and ``group`` (P,) the mesh of each (None: G =
+    1). Returns (G, S, N, H, W, 3); the uncovered pixels hold the
+    background, so each image equals ``shade_from_uvs``'s RGB of its
+    texture. One gather (``index_select``, whose backward is an
+    index-add into the stacked atlas) and one scatter into the stacked
+    frame serve every texture."""
+    g, s, ht, wt, ch = textures.shape
+    frame = mask[0].numel()
+    x0, y0, fx, fy = sample_coords((ht, wt), uv_cov)
+    cell = torch.arange(s, device=cov_idx.device)[:, None]
+    if group is not None:
+        cell = cell + group[None, :] * s                  # (S, P)
+    idx = cell * (ht * wt) + (y0 * wt + x0)[None, :]
+    rgb = _bilerp(textures.reshape(-1, ch), idx, wt, fx, fy)
+    bg = torch.tensor(background_color, dtype=rgb.dtype, device=rgb.device)
+    out = bg.expand(g * s * frame, ch).contiguous().index_put(
+        ((cell * frame + cov_idx[None, :]).reshape(-1),), rgb.reshape(-1, ch))
+    return out.reshape((g, s) + tuple(mask.shape[1:]) + (ch,))
 
 
 def shade_textured(face_verts: torch.Tensor, pix_to_face: torch.Tensor,

@@ -1805,3 +1805,83 @@ def test_gram_narrow_conv1_1_gradient_path(dev, monkeypatch):
                 want)
             torch.testing.assert_close(x.grad.cpu(), xc.grad, rtol=1e-4,
                                        atol=1e-4 * float(xc.grad.abs().max()))
+
+
+def _padded_sphere_faces(dev, size):
+    """Screen faces (2, F, 3, 3) on the card of 1,203 faces of the level-3
+    ico-sphere (the last chunk mixes 51 faces with padding), unpadded and
+    padded by +301 faces, +37 vertices and +11 UVs (the padded faces are
+    the unpadded ones' own projection, gathered by the padded faces, as
+    ``fleetbatch.fleet_visibility`` does)."""
+    from st3d_torch.core.cameras import (build_fixed_cameras,
+                                         transform_points_screen)
+    from st3d_torch.core.primitives import ico_sphere
+    from st3d_torch.core.uv import pad_mesh
+
+    mesh = ico_sphere(level=3)
+    mesh = mesh.replace(faces=mesh.faces[:1203],
+                        faces_uvs=mesh.faces_uvs[:1203]).to(dev)
+    padded = pad_mesh(mesh, mesh.verts.shape[0] + 37, 1203 + 301,
+                      num_uvs=mesh.verts_uvs.shape[0] + 11)
+    scr = transform_points_screen(build_fixed_cameras(2, seed=1).to(dev),
+                                  mesh.verts, (size, size))
+    return scr[:, mesh.faces], scr[:, padded.faces]
+
+
+@pytest.mark.parametrize("kernel", ["raster_hard", "raster_soft",
+                                    "raster_stream_hard",
+                                    "raster_stream_soft", "raster_topk"])
+def test_padded_faces_change_no_raster_kernel(dev, kernel):
+    """K1, K1-soft, K6 (forced) and K7 (K = 4, 3 px) give padded faces the
+    unpadded faces' outputs bit for bit: the per-warp culls drop padding
+    faces (zero area) as they dropped the pad columns."""
+    fv, fv_pad = _padded_sphere_faces(dev, 96)
+    key = "raster_stream" if kernel.startswith("raster_stream") else kernel
+    outs = []
+    for f in (fv, fv_pad):
+        n0 = kraster.LAUNCHES[key]
+        if kernel == "raster_hard":
+            out = kraster.rasterize_batched(f, 96, stream=False)
+        elif kernel == "raster_soft":
+            out = kraster.rasterize_batched_soft(f, 96, stream=False)
+        elif kernel == "raster_stream_hard":
+            out = kraster.rasterize_batched(f, 96, stream=True)
+        elif kernel == "raster_stream_soft":
+            out = kraster.rasterize_batched_soft(f, 96, stream=True)
+        else:
+            out = (kraster.rasterize_topk_batched(f, 96, 4, 3.0),)
+        torch.cuda.synchronize()
+        assert kraster.LAUNCHES[key] == n0 + 1
+        outs.append(out)
+    assert (outs[0][0] >= 0).any() and int(outs[1][0].max()) < 1203
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_fleet_visibility_is_one_launch_equal_to_each_mesh(dev):
+    """``fleet_visibility``: one K1 launch over 2 meshes x 2 views, each
+    mesh's ids and depths bit-equal to its own unpadded launch."""
+    from st3d_torch.core.cameras import build_fixed_cameras
+    from st3d_torch.core.primitives import ico_sphere
+    from st3d_torch.core.uv import generate_uvs, pad_mesh
+    from st3d_torch.engine.fleetbatch import fleet_visibility
+    from st3d_torch.render.rasterize import (RasterizationSettings,
+                                             face_verts_screen,
+                                             rasterize_batch)
+
+    meshes = [generate_uvs(ico_sphere(level=lv), texture_size=16).to(dev)
+              for lv in (3, 2)]
+    padded = [pad_mesh(m, 642, 1280, num_uvs=max(
+        x.verts_uvs.shape[0] for x in meshes)) for m in meshes]
+    cams = build_fixed_cameras(2, seed=0).to(dev)
+    settings = RasterizationSettings(image_size=96)
+    n0 = kraster.LAUNCHES["raster_hard"]
+    vis = fleet_visibility(meshes, padded, cams, settings)
+    torch.cuda.synchronize()
+    assert kraster.LAUNCHES["raster_hard"] == n0 + 1
+    for g, m in enumerate(meshes):
+        own = rasterize_batch(face_verts_screen(m.verts, m.faces, cams, 96),
+                              settings)
+        assert torch.equal(vis["p2f"][g], own.pix_to_face)
+        assert torch.equal(vis["zbuf"][g], own.zbuf)
+        assert int(vis["p2f"][g].max()) < m.faces.shape[0]

@@ -114,8 +114,7 @@ def jax_first(scene):
 def test_first_approach_matches_jax(scene, jax_first, monkeypatch, route):
     """Losses within rel 1e-3 (the first within 1e-4), the final texture
     within atol 1e-4, the stylised views within one PNG level, and the same
-    files as the JAX package writes, less its ``checkpoint.npz`` (checkpoints
-    are not ported)."""
+    files as the JAX package writes, ``checkpoint.npz`` included."""
     root, argv = scene
     jax_out, tex_j = jax_first
     _set_route(monkeypatch, route)
@@ -132,7 +131,7 @@ def test_first_approach_matches_jax(scene, jax_first, monkeypatch, route):
     assert lt[-1][2] < lt[0][2]
     np.testing.assert_allclose(final.texture.numpy(), tex_j, atol=1e-4)
 
-    assert _tree(out) == [f for f in _tree(jax_out) if f != "checkpoint.npz"]
+    assert _tree(out) == _tree(jax_out)
     assert len(os.listdir(os.path.join(out, "final_render"))) == 12
     for j in range(2):
         name = os.path.join("2d_style_transfer", f"view_{j}.png")
@@ -322,12 +321,9 @@ def test_flags_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--optimization_target", "mesh", "--checkpoint_every", "2"],
-    ["--optimization_target", "both", "--debug_nan", "True"],
-    ["--checkpoint_every", "5"], ["--resume", "True"],
     ["--soft_raster", "True", "--tile_parallel", "True"],
     ["--data_parallel", "True"],
-    ["--tile_parallel", "True"], ["--profile", "True"]])
+    ["--tile_parallel", "True"]])
 def test_unported_options_raise(scene, flag):
     root, argv = scene
     with pytest.raises(NotImplementedError):

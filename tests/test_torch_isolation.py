@@ -34,6 +34,10 @@ def test_port_imports_no_jax_and_no_st3d():
         "import st3d_torch.render.renderer, st3d_torch.ops.losses\n"
         "import st3d_torch.core.mesh, st3d_torch.kernels.stage1v3\n"
         "import st3d_torch.morton_order\n"
+        "import st3d_torch.utils.checkpoint, st3d_torch.utils.debug\n"
+        "import st3d_torch.core.uv, st3d_torch.engine.multistyle\n"
+        "import st3d_torch.engine.fleetbatch\n"
+        "import st3d_torch.multi_style, st3d_torch.fleet\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'st3d' not in sys.modules, 'st3d imported'\n"
         "print('clean')\n")

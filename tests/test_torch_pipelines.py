@@ -1,7 +1,9 @@
-"""What ``st3d_torch.engine.pipelines`` refuses before any work: each
-option the port does not run yet is named in the NotImplementedError, by
-what it is and never by a ROADMAP item number (those numbers move whenever
-the queues are re-anchored)."""
+"""What ``st3d_torch.engine.pipelines`` refuses before any work: the one
+option the port does not run yet (data and tile parallelism) is named in
+the NotImplementedError, by what it is and never by a ROADMAP item number
+(those numbers move whenever the queues are re-anchored); checkpoints,
+``--resume``, ``--profile`` and ``--debug_nan`` run
+(``tests/test_torch_checkpoint.py``)."""
 
 import pytest
 
@@ -10,12 +12,8 @@ from st3d_torch.engine.config import PipelineConfig
 
 
 @pytest.mark.parametrize("overrides,feature", [
-    ({"checkpoint_every": 10}, "checkpoints"),
-    ({"resume": True}, "--resume"),
     ({"data_parallel": True}, "parallelism"),
-    ({"tile_parallel": True}, "parallelism"),
-    ({"profile": True}, "--profile"),
-    ({"debug_nan": True}, "--debug_nan")])
+    ({"tile_parallel": True}, "parallelism")])
 def test_unported_option_is_named_without_an_item_number(overrides, feature):
     cfg = PipelineConfig(**overrides)
     why = pipelines._unsupported(cfg)
@@ -25,6 +23,9 @@ def test_unported_option_is_named_without_an_item_number(overrides, feature):
         pipelines._check_config(cfg)
 
 
-def test_default_config_runs():
-    assert pipelines._unsupported(PipelineConfig()) == ""
-    pipelines._check_config(PipelineConfig())
+@pytest.mark.parametrize("overrides", [
+    {}, {"checkpoint_every": 10, "resume": True},
+    {"profile": True, "debug_nan": True}])
+def test_default_config_runs(overrides):
+    assert pipelines._unsupported(PipelineConfig(**overrides)) == ""
+    pipelines._check_config(PipelineConfig(**overrides))

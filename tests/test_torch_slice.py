@@ -152,10 +152,8 @@ def test_flags_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--optimization_target", "mesh", "--resume", "True"],
-    ["--checkpoint_every", "5"],
-    ["--soft_raster", "True", "--profile", "True"],
-    ["--data_parallel", "True"]])
+    ["--data_parallel", "True"],
+    ["--optimization_target", "mesh", "--tile_parallel", "True"]])
 def test_unported_options_raise(scene, flag):
     root, argv = scene
     with pytest.raises(NotImplementedError):
