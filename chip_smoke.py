@@ -232,7 +232,27 @@ Phases; any failure raises and the script exits non-zero:
    losses); ``--profile`` on the multi-style and fleet runs in bf16 and
    float32, each trace naming the hand-written K2 and K3 kernels, and
    the device ms per step of each from ``profile/device_ms.json``.
-11. The wall seconds of each phase, the card's name and power limit, one
+11. Data and tile parallelism (``parallel_phase``): a 1-rank NCCL group on
+   cuda:0 (``all_reduce``, ``broadcast``, ``all_gather``); K1 on every
+   band of 256 and 128 rows at 512² x 4 with the band's first row
+   (``row0``) against its plain version and its whole frame's rows, K6
+   forced on the same bands at 327,680 faces against K1 and its whole
+   frame, and at 81,920 faces x 256² against its plain version; the
+   pixels the JAX package's ``y -= r0`` band form flips at 1024² x 12
+   views (printed). Then worlds of ranks sharing cuda:0 over gloo, each
+   rank a process of this script (``--rank SPEC``): on 2 ranks the three
+   collectives on CUDA tensors, the second approach with
+   ``--data_parallel`` (bf16 20 epochs, f32 10: every rank's texture
+   hash equal, losses within 1e-2 and 2e-4 relative of phase 3's runs,
+   the step's VGG launches on rank 0), the first approach (30 + 20 steps,
+   within 1e-3 of phase 4's) and two 1024² runs (2 epochs, deterministic
+   algorithms), one with ``--tile_parallel``, whose 12 ``final_render``
+   PNGs equal a world of 1's pixel for pixel; on 3 ranks multi-style (3
+   styles) and the fleet (2 x 2 over a 1 x 3 grid of ranks, padded to 2 x
+   3) in bf16 (cells held as in phases 6 and 7) and f32 (within 2e-4 of
+   them). Each run prints its median step labelled by the ranks sharing
+   the card and each rank's peak memory.
+12. The wall seconds of each phase, the card's name and power limit, one
    JSON line with the kernels' results (each kernel also with its
    launches on the multi-style and fleet paths) (ptxas's registers and spills of
    the tensor-core kernels, K1, K1-soft, K7 and G are printed after the
@@ -2672,14 +2692,16 @@ def hard_twin_runs(tmp, scenes, card):
     real = kr.raster_hard
     calls = []
 
-    def held(coeffs, bounds, h, w, tested=None):
-        got = real(coeffs, bounds, h, w, tested)
+    def held(coeffs, bounds, h, w, tested=None, row0=0):
+        got = real(coeffs, bounds, h, w, tested, row0)
         twin = kr.raster_hard_every_face(coeffs, bounds, h, w)
-        calls.append(torch.equal(got[0], twin[0])
+        calls.append(row0 == 0 and torch.equal(got[0], twin[0])
                      and torch.equal(got[1], twin[1]))
         return got
 
-    def twin(coeffs, bounds, h, w, tested=None):
+    def twin(coeffs, bounds, h, w, tested=None, row0=0):
+        if row0:
+            fail("K1's twin takes no row offset")
         return kr.raster_hard_every_face(coeffs, bounds, h, w)
 
     with warnings.catch_warnings(record=True) as caught:
@@ -3159,6 +3181,9 @@ def multistyle_phase(tmp, obj, styles, texture):
         refs[name] = ((losses[0], losses[-1]), mesh.texture, init)
     rec["bf16_vs_single"] = bf16_cells_agree(
         "multi-style", {k: (falls[k], got[k].texture) for k in got}, refs)
+    # The runs the parallel phase holds its multi-style runs against.
+    cells = {"ms_bf16": (out, {k: m.texture for k, m in got.items()},
+                         {k: init for k in got})}
 
     out = os.path.join(tmp, "multistyle_f32")
     f32 = {}
@@ -3181,7 +3206,8 @@ def multistyle_phase(tmp, obj, styles, texture):
           f"{CELL_TOL})")
     if not gap <= CELL_TOL:
         fail(f"multi-style f32 textures {gap} from the single-style runs")
-    return launches, f32["launches"], rec
+    cells["ms_f32"] = (out, {k: m.texture for k, m in got.items()}, None)
+    return launches, f32["launches"], rec, cells
 
 
 def drive_result(path, route, run, raster="raster_hard", want=None):
@@ -3260,6 +3286,9 @@ def fleet_phase(tmp, scenes, styles, dev):
             refs[cell] = (seq_falls[style], seq[mesh][style].texture,
                           init.texture)
     rec["bf16_vs_sequential"] = bf16_cells_agree("fleet", cells, refs)
+    # The runs the parallel phase holds its fleet runs against.
+    par_cells = {"fl_bf16": (out, {k: t for k, (_, t) in cells.items()},
+                             {k: r[2] for k, r in refs.items()})}
     padded = [pad_mesh(x, max(y.verts.shape[0] for y in meshes),
                        max(y.faces.shape[0] for y in meshes),
                        num_uvs=max(y.verts_uvs.shape[0] for y in meshes))
@@ -3305,7 +3334,10 @@ def fleet_phase(tmp, scenes, styles, dev):
           "<mesh>/<style>/final.obj written")
     if not gap <= CELL_TOL:
         fail(f"fleet f32: batched textures {gap} from sequential")
-    return launches, f32, rec, objs
+    par_cells["fl_f32"] = (out, {f"{mesh}/{style}": got[mesh][style].texture
+                                 for mesh in got for style in got[mesh]},
+                           None)
+    return launches, f32, rec, objs, par_cells
 
 
 def padding_check(dev):
@@ -3543,16 +3575,533 @@ def debug_profile_phase(tmp, obj, styles, objs):
     return device
 
 
+# ---------------------------------------------------------------------------
+# Data and tile parallelism (st3d_torch/parallel) on one card
+# ---------------------------------------------------------------------------
+
+PAR_TIMEOUT = 300                # seconds a world of ranks may take
+TILE_SIZE = 1024
+TILE_EPOCHS = 2
+BAND_ROWS = (256, 128)           # K1's and K6's row bands at 512²
+PAR_LOSS_RTOL = {"bfloat16": 1e-2, "float32": 2e-4}
+FA_PAR_RTOL = 1e-3               # small_parity's float32 tolerance
+
+
+def nccl_check():
+    """A 1-rank NCCL group on cuda:0, the only NCCL group one card allows:
+    ``all_reduce`` SUM, ``broadcast`` and a row ``all_gather`` give the
+    expected tensors."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as store:
+        dist.init_process_group("nccl", init_method="file://" + os.path.join(
+            store, "nccl"), rank=0, world_size=1)
+        try:
+            x = torch.arange(12, dtype=torch.float32, device=dev).reshape(3, 4)
+            y = x.clone()
+            dist.all_reduce(y, op=dist.ReduceOp.SUM)
+            b = x.clone()
+            dist.broadcast(b, 0)
+            parts = [torch.empty_like(x[:1])]
+            dist.all_gather(parts, x[1:2].contiguous())
+            torch.cuda.synchronize()
+            ok = (torch.equal(y, x) and torch.equal(b, x)
+                  and torch.equal(parts[0], x[1:2]))
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    print(f"parallel: a 1-rank {backend} group on cuda:0: all_reduce, "
+          f"broadcast and all_gather as expected {ok}")
+    if not ok:
+        fail("NCCL's collectives on one rank gave other tensors")
+
+
+def band_check(dev):
+    """K1 on row bands, as the tiled render calls it (``row0``, the band's
+    first image row; the planes are the whole frame's): at 512² x 4 on the
+    level-4 sphere, every band of h = 256 and h = 128 rows against its
+    plain version on the same inputs (ids equal, zbuf within rtol 1e-6)
+    and against those rows of K1's whole frame (bit-equal); K6 forced at
+    327,680 faces on the same bands against K1 on them and those rows of
+    its own whole frame (bit-equal), and at 81,920 faces x 256² on bands of
+    128 and 64 rows against its plain version. Returns the largest zbuf
+    error against the plain versions."""
+    import torch
+    from st3d_torch.kernels import raster as kr
+
+    def held(got, want, what):
+        bad = int((got[0] != want[0]).sum())
+        hit = want[0] >= 0
+        zrel = (float(((got[1] - want[1]).abs() / want[1].abs())[hit].max())
+                if bool(hit.any()) else 0.0)
+        if bad or zrel > 1e-6:
+            fail(f"{what}: {bad} ids differ, zbuf rel err {zrel}")
+        return float((got[1] - want[1]).abs().max()), float(
+            hit.float().mean())
+
+    def same(got, whole, r0, rows, size, what):
+        lo, hi = r0 * size, (r0 + rows) * size
+        if not (torch.equal(got[0], whole[0][:, lo:hi])
+                and torch.equal(got[1], whole[1][:, lo:hi])):
+            fail(f"{what} differs from those rows of the whole frame")
+
+    err, lines = 0.0, []
+    _, coeffs, bounds = sphere_faces(dev, ICO_LEVEL, SIZE)
+    _, c7, b7 = sphere_faces(dev, STREAM_LEVEL, SIZE)
+    whole = kr.raster_hard(coeffs, bounds, SIZE, SIZE)
+    tile = kr.cull_tile(SIZE, SIZE, False)
+    whole7 = kr.raster_stream(c7, b7, kr.stream_ranges(b7, SIZE, SIZE, tile,
+                                                       0.0), SIZE, SIZE,
+                              tile, False)
+    for rows in BAND_ROWS:
+        for r0 in range(0, SIZE, rows):
+            what = f"K1 on rows {r0}-{r0 + rows}"
+            got = kr.raster_hard(coeffs, bounds, rows, SIZE, row0=r0)
+            want = kr.raster_hard_plain(coeffs, bounds, rows, SIZE, r0)
+            torch.cuda.synchronize()
+            e, cov = held(got, want, what)
+            same(got, whole, r0, rows, SIZE, what)
+            err = max(err, e)
+            lines.append(f"{r0}+{rows} cov {cov:.3f}")
+            what = f"K6 on rows {r0}-{r0 + rows} at 327,680 faces"
+            tile = kr.cull_tile(rows, SIZE, False)
+            ranges = kr.stream_ranges(b7, rows, SIZE, tile, 0.0, r0)
+            k6 = kr.raster_stream(c7, b7, ranges, rows, SIZE, tile, False,
+                                  row0=r0)
+            k1 = kr.raster_hard(c7, b7, rows, SIZE, row0=r0)
+            torch.cuda.synchronize()
+            if not (torch.equal(k6[0], k1[0]) and torch.equal(k6[1], k1[1])):
+                fail(f"{what} differs from K1 on them")
+            same(k6, whole7, r0, rows, SIZE, what)
+    size = 256
+    _, c6, b6 = sphere_faces(dev, 6, size)
+    for rows in (128, 64):
+        for r0 in range(0, size, rows):
+            tile = kr.cull_tile(rows, size, False)
+            ranges = kr.stream_ranges(b6, rows, size, tile, 0.0, r0)
+            got = kr.raster_stream(c6, b6, ranges, rows, size, tile, False,
+                                   row0=r0)
+            want = kr.raster_stream_plain(c6, ranges, rows, size, tile,
+                                          False, r0)
+            torch.cuda.synchronize()
+            err = max(err, held(got, want, f"K6 on rows {r0}-{r0 + rows} "
+                                "at 81,920 faces")[0])
+    print(f"parallel: K1 on every band of {BAND_ROWS} rows at {SIZE}² x "
+          f"{VIEWS} (row0 the band's first row) held to its plain version "
+          f"(ids equal, zbuf rtol 1e-6) and bit-equal to those rows of its "
+          f"whole frame; K6 forced on the same bands at 327,680 faces "
+          f"bit-equal to K1 on them and to its whole frame's rows; K6 on "
+          f"bands of 128 and 64 rows at 81,920 faces x 256² held to its "
+          f"plain version; max zbuf abs err {err:.3g}; coverage "
+          + ", ".join(lines))
+    return err
+
+
+def shift_flips(dev):
+    """The JAX package's band form (subtract r0 from the projected y and
+    rasterize an H/2-row image) against the port's (the whole frame's
+    planes, K1 told the band's first row) on the final render's 12 fixed
+    views at ``TILE_SIZE``² over 2 bands, the level-4 sphere: the pixels
+    whose face differs, and the faces they flip between. Printed, not
+    held: the port's form is the one the smoke holds to the whole frame."""
+    import torch
+    from st3d_torch.core.cameras import build_fixed_cameras
+    from st3d_torch.kernels import raster as kr
+    from st3d_torch.render.rasterize import face_verts_screen
+
+    mesh = sphere(ICO_LEVEL).to(dev)
+    cams = build_fixed_cameras(12, seed=0).to(dev)
+    fv = face_verts_screen(mesh.verts, mesh.faces, cams, TILE_SIZE)
+    rows = TILE_SIZE // 2
+    flips, pairs = 0, set()
+    for r0 in (0, rows):
+        ours = kr.rasterize_batched(fv, TILE_SIZE, rows, row0=r0)[0]
+        shifted = fv - fv.new_tensor([0.0, float(r0), 0.0])
+        jax_form = kr.rasterize_batched(shifted, TILE_SIZE, rows)[0]
+        diff = ours != jax_form
+        flips += int(diff.sum())
+        pairs |= set(zip(ours[diff].tolist(), jax_form[diff].tolist()))
+    print(f"parallel: the y -= r0 band form at {TILE_SIZE}² x 12 views, 2 "
+          f"bands: {flips} pixels take another face than the whole frame's "
+          f"(face pairs, whole frame's first: {sorted(pairs)[:12]})")
+    return {"pixels": flips, "face_pairs": sorted(pairs)[:12]}
+
+
+def world_run(tmp, name, n, jobs):
+    """Run ``jobs`` in a world of ``n`` ranks sharing cuda:0, each rank a
+    process of this script (``--rank``) meeting the others through a file
+    store; returns each rank's results and rank 0's output. Every process
+    is waited for, and killed past ``PAR_TIMEOUT``."""
+    root = os.path.join(tmp, name)
+    os.makedirs(root, exist_ok=True)
+    spec = os.path.join(root, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"store": os.path.join(root, "store"), "jobs": jobs}, f)
+    procs, logs = [], []
+    for r in range(n):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(n),
+                   LOCAL_RANK=str(r), LOCAL_WORLD_SIZE=str(n),
+                   CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        logs.append(open(os.path.join(root, f"rank{r}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", spec],
+            env=env, stdout=logs[-1], stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + PAR_TIMEOUT
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    texts = []
+    for r in range(n):
+        with open(os.path.join(root, f"rank{r}.log")) as f:
+            texts.append(f.read())
+    if any(p.returncode != 0 for p in procs):
+        for r, text in enumerate(texts):
+            print(f"--- {name} rank {r} (exit {procs[r].returncode}) ---\n"
+                  + text[-3000:])
+        fail(f"world {name} of {n} ranks failed")
+    results = []
+    for r in range(n):
+        with open(os.path.join(root, f"result{r}.json")) as f:
+            results.append(json.load(f))
+    return results, texts[0]
+
+
+def _texture_digests(result):
+    """sha256 of every texture a CLI returned (a mesh, or a dict of them,
+    nested per mesh in the fleet), and the textures as float32 arrays."""
+    import hashlib
+
+    flat = {}
+    if isinstance(result, dict):
+        for k, v in result.items():
+            for s, m in (v.items() if isinstance(v, dict) else [(None, v)]):
+                flat[k if s is None else f"{k}/{s}"] = m.texture
+    else:
+        flat["texture"] = result.texture
+    arrays = {k: t.detach().float().cpu().numpy() for k, t in flat.items()}
+    return {k: hashlib.sha256(a.tobytes()).hexdigest()[:16]
+            for k, a in arrays.items()}, arrays
+
+
+def rank_worker(spec_path):
+    """One rank of ``world_run``: joins the world on cuda:0, runs each job
+    and writes its results (per CLI job: the launches counted from 0, the
+    peak device memory, the textures' sha256 and the wall seconds; rank 0
+    also saves the textures)."""
+    import importlib
+    import warnings
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from st3d_torch.parallel.sharding import distributed
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for k in ROUTE_ENV:
+        os.environ.pop(k, None)
+    with open(spec_path) as f:
+        spec = json.load(f)
+    results = []
+    with distributed("cuda", init_method="file://" + spec["store"]) as world:
+        for job in spec["jobs"]:
+            if job["kind"] == "collectives":
+                results.append(collectives_check(world))
+                continue
+            main_fn = importlib.import_module(
+                f"st3d_torch.{job['entry']}").main
+            for counts in launch_counts():
+                for k in counts:
+                    counts[k] = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                torch.use_deterministic_algorithms(job.get("deterministic",
+                                                           False),
+                                                   warn_only=True)
+                try:
+                    out = main_fn(job["argv"])
+                finally:
+                    torch.use_deterministic_algorithms(False)
+            torch.cuda.synchronize()
+            digests, arrays = _texture_digests(out)
+            if world.main and job.get("save"):
+                np.savez(job["save"], **arrays)
+            results.append({
+                "wall_s": time.perf_counter() - t0,
+                "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20,
+                "sha256": digests, "device": str(world.device),
+                "backend": world.backend,
+                "launches": {k: n for counts in launch_counts()
+                             for k, n in counts.items() if n}})
+    with open(os.path.join(os.path.dirname(spec_path),
+                           f"result{world.rank}.json"), "w") as f:
+        json.dump(results, f)
+    return 0
+
+
+def collectives_check(world):
+    """The three collectives the port uses, on CUDA tensors over this
+    world's backend: ``all_reduce`` SUM, ``broadcast`` from rank 0 and
+    ``all_gather`` of rows, each against the tensor it must give."""
+    import torch
+    from st3d_torch.parallel.sharding import all_sum, gather_cat, replicate
+
+    dev, r, n = world.device, world.rank, world.size
+    x = torch.arange(6, dtype=torch.float32, device=dev).reshape(2, 3) + r
+    want_sum = sum(torch.arange(6, dtype=torch.float32,
+                                device=dev).reshape(2, 3) + k
+                   for k in range(n))
+    b = x.clone()
+    replicate([b], world)
+    rows = gather_cat(x[:1].contiguous(), world)
+    want_rows = torch.cat([x[:1] - r + k for k in range(n)])
+    return {"all_reduce": bool(torch.equal(all_sum(x, world), want_sum)),
+            "broadcast": bool(torch.equal(b, x - r)),
+            "all_gather": bool(torch.equal(rows, want_rows))}
+
+
+def _par_cli(entry, argv, save=None, deterministic=False):
+    return {"kind": "cli", "entry": entry, "argv": argv, "save": save,
+            "deterministic": deterministic}
+
+
+def _same_on_every_rank(results, i, what):
+    digests = [r[i]["sha256"] for r in results]
+    if any(d != digests[0] for d in digests):
+        fail(f"{what}: the ranks' textures differ: {digests}")
+    return digests[0]
+
+
+def _losses_close(got, want, rtol, what):
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} losses, want {len(want)}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if not rel <= rtol:
+        fail(f"{what}: losses {got} against {want}, rel {rel} > {rtol}")
+    return rel
+
+
+def _pngs(path):
+    from st3d_torch.io.image import read_png
+
+    return {f: read_png(os.path.join(path, f)) for f in sorted(
+        os.listdir(path))}
+
+
+def parallel_phase(tmp, obj, style, styles, fleet_objs, refs):
+    """Data and tile parallelism on one card (``st3d_torch/parallel``):
+    NCCL on one rank, K1 and K6 on row bands, then worlds of ranks sharing
+    cuda:0 over gloo (``world_run``): the second approach (texture, bf16
+    for ``EPOCHS`` and float32 for ``F32_EPOCHS``, ``--data_parallel``)
+    and the first approach (texture, 30 + 20 steps) on 2 ranks, each
+    rank's texture hash equal and the losses within ``PAR_LOSS_RTOL`` (the
+    first approach ``FA_PAR_RTOL``) of the single-process runs ``refs``
+    names; multi-style (3 styles) and the fleet (2 x 2: a 1 x 3 grid of
+    ranks over cells padded to 2 x 3) on 3 ranks in bf16 and float32,
+    against the single-process runs' cells at their tolerances
+    (``bf16_cells_agree``, ``CELL_TOL``); and two runs of 2 ranks at 1024²
+    (``TILE_EPOCHS``, deterministic algorithms), one with
+    ``--tile_parallel``, whose ``final_render/`` PNGs equal each other's
+    and a world of 1's pixel for pixel. Prints the backend, each run's
+    median step labelled by the ranks sharing the card, and each rank's
+    peak memory; returns the record."""
+    import numpy as np
+    import torch
+
+    nccl_check()
+    dev = torch.device("cuda", 0)
+    rec = {"band_max_abs_err": band_check(dev),
+           "y_shift_flips": shift_flips(dev)}
+    dp = ["--data_parallel", "True"]
+
+    def sa(dtype, epochs):
+        out = os.path.join(tmp, f"par_second_{dtype}")
+        return out, second_approach_argv(obj, style, epochs, dtype, out) + dp
+
+    sa_bf16, sa_f32 = sa("bfloat16", EPOCHS), sa("float32", F32_EPOCHS)
+    fa_out = os.path.join(tmp, "par_first")
+    fa_argv = ["--obj_path", obj, "--style_path", style, "--size", str(SIZE),
+               "--n_views", str(VIEWS), "--batch_size", str(VIEWS),
+               "--compute_dtype", "bfloat16", "--n_style_transfer_steps",
+               str(ST_STEPS), "--n_mse_steps", str(MSE_STEPS),
+               "--randomize_views", "False", "--device", "cuda",
+               "--output_path", fa_out] + dp
+    tile_argv = {k: second_approach_argv(
+        obj, style, TILE_EPOCHS, "bfloat16", os.path.join(tmp, f"tile_{k}"))
+        + ["--size", str(TILE_SIZE)] for k in ("one", "plain", "tiled")}
+    tile_argv["tiled"] += ["--tile_parallel", "True"]
+    t0 = time.perf_counter()
+    two, log0 = world_run(tmp, "world2", 2, [
+        {"kind": "collectives"},
+        _par_cli("second_approach", sa_bf16[1]),
+        _par_cli("second_approach", sa_f32[1]),
+        _par_cli("first_approach", fa_argv),
+        _par_cli("second_approach", tile_argv["plain"], deterministic=True),
+        _par_cli("second_approach", tile_argv["tiled"], deterministic=True)])
+    print(f"parallel: the world of 2 ranks took "
+          f"{time.perf_counter() - t0:.1f} s")
+    backend = [l for l in log0.splitlines() if "backend" in l]
+    print("parallel: " + (backend[0] if backend else "no backend line"))
+    if not backend or "backend gloo" not in backend[0]:
+        fail("the world of 2 ranks on one card did not print its gloo "
+             "backend")
+    bad = [r[0] for r in two if not all(r[0].values())]
+    print(f"parallel: gloo on cuda:0, 2 ranks: " + json.dumps(two[0][0]))
+    if bad:
+        fail(f"gloo collectives on CUDA tensors gave other tensors: {bad}")
+    one, _ = world_run(tmp, "world1", 1, [
+        _par_cli("second_approach", tile_argv["one"], deterministic=True)])
+
+    runs = {}
+
+    def report(what, results, i, out, ranks):
+        """Print and keep a run's median step (epochs' ``step_s``; the
+        first approach logs none), peak memory and wall seconds per rank,
+        and its texture hash, failing unless every rank's is the same."""
+        sha = _same_on_every_rank(results, i, what)
+        peaks = [round(r[i]["peak_mib"], 1) for r in results]
+        walls = [round(r[i]["wall_s"], 2) for r in results]
+        runs[what] = {"ranks": ranks, "peak_mib_per_rank": peaks,
+                      "sha256": sha, "wall_s": walls}
+        step = ""
+        if out is not None:
+            step_ms, n = median_step_ms(out, 10)
+            runs[what]["median_step_ms"] = step_ms
+            step = f"median step {step_ms:.2f} ms over the last {n}, "
+        print(f"parallel: {what} ({ranks} ranks sharing one card): {step}"
+              f"run {walls} s, peak MiB per rank {peaks}, texture sha256 "
+              f"per rank equal {sha}, rank 0 launches "
+              + json.dumps(results[0][i]["launches"]))
+        return results[0][i]["launches"]
+
+    for i, (dtype, (out, _), epochs) in enumerate(
+            (("bfloat16", sa_bf16, EPOCHS), ("float32", sa_f32,
+                                             F32_EPOCHS)), start=1):
+        launches = report(f"second approach {dtype} --data_parallel", two,
+                          i, out, 2)
+        rel = _losses_close(read_log(out), read_log(refs[dtype]),
+                            PAR_LOSS_RTOL[dtype],
+                            f"second approach {dtype} on 2 ranks")
+        runs[f"second approach {dtype} --data_parallel"]["loss_rel"] = rel
+        per = STEP_LAUNCHES if dtype == "bfloat16" else {
+            "conv3x3_tf32x3": 22, "gram_tf32x3": 4}
+        for k, n in per.items():
+            if launches.get(k, 0) < n * epochs:
+                fail(f"second approach {dtype} on 2 ranks: rank 0 launched "
+                     f"{k} {launches.get(k, 0)} times, want {n} a step")
+        check_outputs(out)
+    report("first approach --data_parallel", two, 3, None, 2)
+    rel = _losses_close(read_log(fa_out), read_log(refs["first"]),
+                        FA_PAR_RTOL, "first approach on 2 ranks")
+    runs["first approach --data_parallel"]["loss_rel"] = rel
+    check_outputs(fa_out)
+
+    pngs = {k: _pngs(os.path.join(tmp, f"tile_{k}", "final_render"))
+            for k in tile_argv}
+    for k in ("plain", "tiled"):
+        diff = {f: int((pngs[k][f] != pngs["one"][f]).any(axis=-1).sum())
+                for f in pngs["one"]}
+        if len(pngs[k]) != 12 or any(diff.values()):
+            fail(f"tile_parallel at {TILE_SIZE}²: {k} world-2 final_render "
+                 f"differs from the world of 1 at {diff} pixels")
+    if one[0][0]["sha256"] != two[0][4]["sha256"]:
+        fail("the world-2 run at 1024² trained another texture than the "
+             "world of 1 under deterministic algorithms")
+    k1 = [r[5]["launches"].get("raster_hard", 0) for r in two]
+    for what, results, i, k in (("1024² world of 1", one, 0, "one"),
+                                ("1024² 2 ranks", two, 4, "plain"),
+                                ("1024² 2 ranks --tile_parallel", two, 5,
+                                 "tiled")):
+        report(what, results, i, os.path.join(tmp, f"tile_{k}"),
+               len(results))
+    print(f"parallel: --tile_parallel at {TILE_SIZE}² x {VIEWS} views, "
+          f"{TILE_EPOCHS} epochs, deterministic algorithms: 12 final_render "
+          "PNGs equal pixel for pixel across the world of 1, 2 ranks and 2 "
+          f"ranks tiled; K1 launches per rank in the tiled run {k1}")
+    if min(k1) < 1:
+        fail("a rank of the tiled run launched no K1")
+
+    ms_out = {d: os.path.join(tmp, f"par_ms_{d}") for d in ("bf16", "f32")}
+    fl_out = {d: os.path.join(tmp, f"par_fleet_{d}") for d in ("bf16", "f32")}
+    ms_flags = ["--obj_path", obj, "--style_paths", ",".join(styles)] + dp
+    fl_flags = ["--obj_paths", ",".join(fleet_objs), "--style_paths",
+                ",".join(styles[:FLEET_STYLES])] + dp
+    saves = {k: os.path.join(tmp, f"par_{k}.npz")
+             for k in ("ms_bf16", "ms_f32", "fl_bf16", "fl_f32")}
+    three, _ = world_run(tmp, "world3", 3, [
+        _par_cli("multi_style", cell_argv(MS_EPOCHS, "bfloat16",
+                                          ms_out["bf16"], *ms_flags),
+                 saves["ms_bf16"]),
+        _par_cli("multi_style", cell_argv(CELL_F32_EPOCHS, "float32",
+                                          ms_out["f32"], *ms_flags),
+                 saves["ms_f32"]),
+        _par_cli("fleet", cell_argv(MS_EPOCHS, "bfloat16", fl_out["bf16"],
+                                    *fl_flags), saves["fl_bf16"]),
+        _par_cli("fleet", cell_argv(CELL_F32_EPOCHS, "float32",
+                                    fl_out["f32"], *fl_flags),
+                 saves["fl_f32"])])
+    for i, (what, out, key, save, ref) in enumerate((
+            ("multi-style bf16", ms_out["bf16"], "per_style",
+             saves["ms_bf16"], refs["ms_bf16"]),
+            ("multi-style f32", ms_out["f32"], "per_style", saves["ms_f32"],
+             refs["ms_f32"]),
+            ("fleet bf16", fl_out["bf16"], "per_cell", saves["fl_bf16"],
+             refs["fl_bf16"]),
+            ("fleet f32", fl_out["f32"], "per_cell", saves["fl_f32"],
+             refs["fl_f32"]))):
+        report(f"{what} --data_parallel", three, i, out, 3)
+        epochs = CELL_F32_EPOCHS if "f32" in what else MS_EPOCHS
+        falls = cells_fell(out, key, epochs, f"{what} on 3 ranks")
+        with np.load(save) as z:
+            got = {k: torch.from_numpy(z[k]) for k in z.files}
+        ref_out, ref_tex, init = ref
+        if "f32" in what:
+            gap = max(float((got[k] - ref_tex[k].float().cpu()).abs().max())
+                      for k in got)
+            print(f"parallel: {what} on 3 ranks: max |texture - the single "
+                  f"process's| {gap:.3g} (tolerance {CELL_TOL})")
+            if not gap <= CELL_TOL:
+                fail(f"{what} on 3 ranks: textures {gap} from one process")
+            runs[f"{what} --data_parallel"]["max_abs_gap"] = gap
+        else:
+            ref_falls = cells_fell(ref_out, key, epochs, f"{what} reference")
+            runs[f"{what} --data_parallel"]["vs_one_process"] = \
+                bf16_cells_agree(
+                    f"{what} on 3 ranks",
+                    {k: (falls[k], got[k]) for k in got},
+                    {k: (ref_falls[k], ref_tex[k], init[k]) for k in got})
+    rec["runs"] = runs
+    return rec
+
+
 def main(argv=None):
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--steps"]):
+    worker = len(argv) == 2 and argv[0] == "--rank"
+    if argv not in ([], ["--steps"]) and not worker:
         print("usage: chip_smoke.py [--steps]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if worker:
+        return rank_worker(argv[1])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import st3d_torch  # noqa: F401  (fails outside a checkout)
 
@@ -3643,10 +4192,12 @@ def main(argv=None):
         batch_errs = cell_batch_check(dev)
         lap("bf16 VGG kernels at the cell batches")
         styles = style_pngs(tmp, MS_STYLES)
-        ms_bf16, ms_f32, ms_rec = multistyle_phase(tmp, obj, styles, texture)
+        ms_bf16, ms_f32, ms_rec, cells = multistyle_phase(tmp, obj, styles,
+                                                          texture)
         lap("multi-style")
-        fl_bf16, fl_f32, fl_rec, fleet_objs = fleet_phase(
+        fl_bf16, fl_f32, fl_rec, fleet_objs, fl_cells = fleet_phase(
             tmp, scenes, styles[:FLEET_STYLES], dev)
+        cells.update(fl_cells)
         lap("fleet")
         padding_check(dev)
         lap("padding")
@@ -3655,10 +4206,16 @@ def main(argv=None):
         lap("resume")
         device_ms = debug_profile_phase(tmp, obj, styles, fleet_objs)
         lap("debug_nan, profile")
+        parallel = parallel_phase(tmp, obj, style, styles, fleet_objs, dict(
+            cells, bfloat16=os.path.join(tmp, "second_default_bfloat16"),
+            float32=os.path.join(tmp, "second_default_float32"),
+            first=os.path.join(tmp, "first_texture")))
+        lap("parallel")
     print("phase seconds " + json.dumps(seconds))
     print("multi-style and fleet " + json.dumps({
         "multistyle": ms_rec, "fleet": fl_rec, "resume": resume,
         "device_ms_per_step": device_ms}))
+    print("parallel " + json.dumps(parallel))
     # Launches on this slice's path: each raster kernel from the first
     # vertex run of its mode (K7: SoftRas), the VGG kernels from the hard
     # run, the float32 route's kernels from the f32 texture run, the

@@ -42,6 +42,11 @@
 // chunk in band, 12 x 128 rows staged between two barriers): launched by no
 // route, the twin chip_smoke.py holds this kernel against.
 //
+// Row bands: a launch may cover rows [row0, row0 + H) of a taller image
+// (the tiled render's band). Each pixel's py, and the rows the block tests
+// chunk bands against, are image rows, so a band's outputs equal those
+// rows of the whole frame's, bit for bit, with the same coefficients.
+//
 // Exactness: b = px*A + py*B + C is evaluated as two rounded products and
 // two rounded sums in that order (__fmul_rn / __fadd_rn, which nvcc never
 // contracts into an FMA), the same operations as the plain torch version,
@@ -73,7 +78,7 @@ raster_hard_kernel(const float* __restrict__ coeffs,
                    const float* __restrict__ bounds, int* __restrict__ p2f,
                    float* __restrict__ zbuf,
                    unsigned long long* __restrict__ tested, int H, int W,
-                   int f_pad, int n_chunks) {
+                   int f_pad, int n_chunks, int row0) {
   __shared__ __align__(16) float buf[2][CHUNK * HARD_REC];
   const int v = blockIdx.y;
   const long long hw = (long long)H * W;
@@ -81,7 +86,7 @@ raster_hard_kernel(const float* __restrict__ coeffs,
   const long long p = t0 + threadIdx.x;
   const long long last = min(t0 + TILE - 1, hw - 1);
   const float px = (float)(p % W);
-  const float py = (float)(p / W);
+  const float py = (float)(p / W + row0);
   const bool live = p < hw;
   const Box box = warp_box(px, py, W);
 
@@ -90,7 +95,8 @@ raster_hard_kernel(const float* __restrict__ coeffs,
 
   float best = 0.f;   // background: 1/z <= 0
   int fid = -1;
-  ChunkScan scan(bv, n_chunks, (float)(t0 / W), (float)(last / W));
+  ChunkScan scan(bv, n_chunks, (float)(t0 / W + row0),
+                 (float)(last / W + row0));
   const unsigned long long pairs = hard_walk(scan, buf, cv, f_pad, n_chunks,
                                              box, px, py, live, best, fid);
   add_tested(tested, pairs);
@@ -160,18 +166,19 @@ raster_hard_every_face_kernel(const float* __restrict__ coeffs,
 }  // namespace
 
 // coeffs (N, 20, f_pad) float32, rows 0..11 read; bounds (N, 2, n_chunks)
-// float32; p2f (N, H*W) int32 in sorted face order; zbuf (N, H*W) float32.
-// tested, if not null, a uint64 the (pixel, face) pairs of the warps'
-// lists are added to (one atomic a block).
+// float32; p2f (N, H*W) int32 in sorted face order; zbuf (N, H*W) float32,
+// the image rows [row0, row0 + H). tested, if not null, a uint64 the
+// (pixel, face) pairs of the warps' lists are added to (one atomic a
+// block).
 extern "C" int st3d_raster_hard(const void* coeffs, const void* bounds,
                                 void* p2f, void* zbuf, void* tested, int N,
                                 int H, int W, int f_pad, int n_chunks,
-                                void* stream) {
+                                int row0, void* stream) {
   const long long hw = (long long)H * W;
   dim3 grid((unsigned)((hw + TILE - 1) / TILE), (unsigned)N);
   raster_hard_kernel<<<grid, TILE, 0, (cudaStream_t)stream>>>(
       (const float*)coeffs, (const float*)bounds, (int*)p2f, (float*)zbuf,
-      (unsigned long long*)tested, H, W, f_pad, n_chunks);
+      (unsigned long long*)tested, H, W, f_pad, n_chunks, row0);
   return (int)cudaGetLastError();
 }
 

@@ -30,6 +30,10 @@
 // every chunk of the range, rows staged between two barriers): launched by
 // no route, the twin chip_smoke.py holds the new walk against.
 //
+// A launch may cover rows [row0, row0 + H) of a taller image, as K1's does
+// (raster_hard.cu): each pixel's py is its image row, and the wrapper
+// makes the ranges for those rows.
+//
 // Selection and rounding are K1's (raster_hard.cu, raster_soft.cu): strict
 // '>' in sorted order over 1/z from 0 for the covering face, over the gated
 // signed distance from -3e38 (id 0) for the nearest face; every affine value
@@ -59,14 +63,15 @@ raster_stream_kernel(const float* __restrict__ coeffs,
                      const int* __restrict__ ranges, int* __restrict__ p2f,
                      float* __restrict__ zbuf, int* __restrict__ near_out,
                      unsigned long long* __restrict__ tested, int H, int W,
-                     int f_pad, int n_chunks, int n_tiles, int cull) {
+                     int f_pad, int n_chunks, int n_tiles, int cull,
+                     int row0) {
   __shared__ __align__(16) float buf[2][CHUNK * (SOFT ? REC : HARD_REC)];
   const int v = blockIdx.y;
   const long long hw = (long long)H * W;
   const long long t0 = (long long)blockIdx.x * TILE;
   const long long p = t0 + threadIdx.x;
   const float px = (float)(p % W);
-  const float py = (float)(p / W);
+  const float py = (float)(p / W + row0);
   const bool live = p < hw;
   const Box box = warp_box(px, py, W);
   const int* rv = ranges + ((long long)v * n_tiles + t0 / cull) * 2;
@@ -202,12 +207,12 @@ raster_stream_every_chunk_kernel(const float* __restrict__ coeffs,
 // H*W); p2f (N, H*W) int32 sorted ids; zbuf (N, H*W) float32; near
 // (N, H*W) int32, written only when soft != 0; tested, if not null, a
 // uint64 the (pixel, face) pairs of the warps' lists are added to (one
-// atomic a block).
+// atomic a block); the outputs are the image rows [row0, row0 + H).
 extern "C" int st3d_raster_stream(const void* coeffs, const void* ranges,
                                   void* p2f, void* zbuf, void* near,
                                   void* tested, int N, int H, int W,
                                   int f_pad, int n_tiles, int cull, int soft,
-                                  void* stream) {
+                                  int row0, void* stream) {
   const long long hw = (long long)H * W;
   dim3 grid((unsigned)((hw + TILE - 1) / TILE), (unsigned)N);
   cudaStream_t st = (cudaStream_t)stream;
@@ -216,12 +221,12 @@ extern "C" int st3d_raster_stream(const void* coeffs, const void* ranges,
     raster_stream_kernel<true><<<grid, TILE, 0, st>>>(
         (const float*)coeffs, (const int*)ranges, (int*)p2f, (float*)zbuf,
         (int*)near, (unsigned long long*)tested, H, W, f_pad, n_chunks,
-        n_tiles, cull);
+        n_tiles, cull, row0);
   } else {
     raster_stream_kernel<false><<<grid, TILE, 0, st>>>(
         (const float*)coeffs, (const int*)ranges, (int*)p2f, (float*)zbuf,
         (int*)near, (unsigned long long*)tested, H, W, f_pad, n_chunks,
-        n_tiles, cull);
+        n_tiles, cull, row0);
   }
   return (int)cudaGetLastError();
 }

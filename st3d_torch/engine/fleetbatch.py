@@ -20,9 +20,13 @@ Outputs: ``output_path/<mesh>/<style>/final.obj`` and ``final_render/``
 per cell, written with the unpadded geometry; ``log.txt`` with the summed
 loss and ``metrics.jsonl`` with the ``per_cell`` losses.
 
-The JAX package's device grid (``_pick_grid``, grid padding, the cell
-mask) exists only to shard the grid over several devices and is not here;
-``--data_parallel`` and ``--tile_parallel`` raise, as in the pipelines.
+With ``--data_parallel`` in a world of W ranks the grid shards over a
+``dm x ds`` grid of the ranks (``_pick_grid``; ``parallel/grid.py``): rank
+r owns the cells of block ``(r // ds, r % ds)``, its meshes' visibility
+(one ``fleet_visibility`` launch) and content features and its styles'
+Gram targets. An axis that the ranks do not divide is padded by repeating
+its first mesh or style, and the padded cells are masked to zero loss.
+Checkpoints hold the real M x S grid, so a run resumes under any world.
 """
 
 from __future__ import annotations
@@ -50,10 +54,11 @@ from st3d_torch.engine.pipelines import (
     _compute_dtype,
     build_cameras,
     load_scene,
-    resolve_device,
 )
 from st3d_torch.models.vgg import get_features, get_vgg
 from st3d_torch.ops.losses import CONTENT_LAYER
+from st3d_torch.parallel.grid import CellGrid, _pad_axis, _pick_grid  # noqa: F401
+from st3d_torch.parallel.sharding import current_world
 from st3d_torch.render.rasterize import RasterizationSettings, rasterize_batch
 from st3d_torch.render.renderer import compact_visibility, render_meshes
 from st3d_torch.render.shading import pixel_uvs
@@ -116,14 +121,19 @@ def run_fleet_batched(cfg: PipelineConfig, obj_paths: Sequence[str],
     {mesh_stem: {style_stem: final mesh}}."""
     epochs = epochs if epochs is not None else cfg.epochs
     _check_config(cfg)
-    device = resolve_device(cfg.device)
-    os.makedirs(cfg.output_path, exist_ok=True)
+    world = current_world(cfg.device)
+    device = world.device
     mesh_names = [stem(p) for p in obj_paths]
     style_names = [stem(p) for p in style_paths]
     if len(set(mesh_names)) != len(mesh_names):
         raise ValueError(f"duplicate mesh stems in {mesh_names}")
     if len(set(style_names)) != len(style_names):
         raise ValueError(f"duplicate style stems in {style_names}")
+    grid = (CellGrid.fleet(world, len(mesh_names), len(style_names))
+            if cfg.data_parallel and world.sharded
+            else CellGrid.whole(len(mesh_names), len(style_names)))
+    if world.main:
+        os.makedirs(cfg.output_path, exist_ok=True)
 
     meshes = [m.to(device) for m in _load_fleet_meshes(cfg, obj_paths)]
     padded = [pad_mesh(m, max(x.verts.shape[0] for x in meshes),
@@ -146,30 +156,34 @@ def run_fleet_batched(cfg: PipelineConfig, obj_paths: Sequence[str],
     vgg = get_vgg(cfg.vgg_weights, device=device)
     cameras = build_cameras(cfg).to(device)
     dtype = _compute_dtype(cfg)
-    styles = load_styles(style_paths, cfg.size, device)
+    rows, cols = grid.mesh_ids(), grid.style_ids()
+    styles = load_styles([style_paths[j] for j in cols], cfg.size, device)
 
-    # Per-batch constants: the fleet's visibility, each mesh's content
-    # features and the per-style Gram targets (shared by every mesh).
+    # Per-batch constants of this rank's cells: its meshes' visibility and
+    # content features and its styles' Gram targets.
     batch_const = []
     with torch.no_grad():
         for _, b0, b1 in _batches(cfg.n_views, cfg.batch_size):
             cams_b = cameras[b0:b1]
-            vis = fleet_visibility(meshes, padded, cams_b, settings)
+            vis = fleet_visibility([meshes[i] for i in rows],
+                                   [padded[i] for i in rows], cams_b,
+                                   settings)
             cfeat = torch.stack([
-                get_features(render_meshes(m, cams_b, settings)[0], vgg,
-                             dtype=dtype, layout="NHWC")[CONTENT_LAYER]
-                for m in padded])
+                get_features(render_meshes(padded[i], cams_b, settings)[0],
+                             vgg, dtype=dtype, layout="NHWC")[CONTENT_LAYER]
+                for i in rows])
             batch_const.append((vis, cfeat, style_gram_targets(
                 styles, b1 - b0, vgg, dtype)))
 
     textures = torch.stack([
-        m.texture[None].expand((len(style_names),) + tuple(m.texture.shape))
-        for m in padded])
+        padded[i].texture[None].expand((len(cols),)
+                                       + tuple(padded[i].texture.shape))
+        for i in rows])
     textures = optimise_cells(
-        cfg, epochs, device, vgg, dtype, textures, batch_const, "per_cell",
-        [f"{m}/{s}" for m in mesh_names for s in style_names])
+        cfg, epochs, world, grid, vgg, dtype, textures, batch_const,
+        "per_cell", [f"{m}/{s}" for m in mesh_names for s in style_names])
     return {mn: {sn: write_cell(cfg, meshes[mi], textures[mi, si],
                                 os.path.join(cfg.output_path, mn, sn),
-                                settings)
+                                settings, world)
                  for si, sn in enumerate(style_names)}
             for mi, mn in enumerate(mesh_names)}

@@ -14,6 +14,14 @@ Outputs: ``output_path/<style_stem>/final.obj`` (+ .mtl, texture PNG) and
 epoch, and ``metrics.jsonl`` with the ``per_style`` losses and ``step_s``.
 ``--checkpoint_every``, ``--resume``, ``--debug_nan`` and ``--profile``
 act as in the second approach.
+
+With ``--data_parallel`` in a world of W ranks the style axis shards over
+them (``parallel/grid.py``): rank r owns a contiguous block of S/W styles,
+their textures, Adam moments and Gram targets, and the W must divide S.
+The visibility and the content features are computed on every rank. The
+cells' leaves are disjoint, so no gradient crosses ranks; the summed loss
+and the per-style losses are gathered for the logs, and checkpoints hold
+every style, as the unsharded run writes them.
 """
 
 from __future__ import annotations
@@ -35,14 +43,20 @@ from st3d_torch.engine.pipelines import (
     build_cameras,
     load_scene,
     maybe_profile,
-    resolve_device,
+    nan_check,
     save_render,
-    take_step,
 )
 from st3d_torch.io.image import load_as_tensor
 from st3d_torch.io.obj import save_mesh
 from st3d_torch.models.vgg import get_features, get_vgg
 from st3d_torch.ops.losses import CONTENT_LAYER, STYLE_LAYERS, gram_matrix_nhwc
+from st3d_torch.parallel.grid import CellGrid
+from st3d_torch.parallel.sharding import (
+    World,
+    current_world,
+    make_view_parallel_step,
+    replicate,
+)
 from st3d_torch.render.rasterize import RasterizationSettings
 from st3d_torch.render.renderer import (
     compact_visibility,
@@ -137,33 +151,47 @@ def textured_step(cfg: PipelineConfig, vgg, dtype, textures, vis, cfeat,
                                      cfg.size)
 
 
-def optimise_cells(cfg: PipelineConfig, epochs: int, device, vgg, dtype,
-                   textures: torch.Tensor, batch_const, key: str,
-                   names: Sequence[str]) -> torch.Tensor:
-    """Adam on the stacked ``textures`` (G, S, Ht, Wt, 3) over
-    ``batch_const`` [(vis, cfeat, grams)] for ``epochs`` epochs (from the
-    checkpoint with ``--resume``): ``log.txt`` gets the summed loss of each
-    epoch, ``metrics.jsonl`` the per-cell losses under ``key`` by the
-    cells' ``names`` (G x S of them) and ``step_s``. Returns the optimised
-    textures."""
+def optimise_cells(cfg: PipelineConfig, epochs: int, world: World,
+                   grid: CellGrid, vgg, dtype, textures: torch.Tensor,
+                   batch_const, key: str, names: Sequence[str]
+                   ) -> torch.Tensor:
+    """Adam on this rank's block ``textures`` (mb, sb, Ht, Wt, 3) of
+    ``grid`` over ``batch_const`` [(vis, cfeat, grams)] of its cells for
+    ``epochs`` epochs (from the checkpoint with ``--resume``): ``log.txt``
+    gets the summed loss of each epoch, ``metrics.jsonl`` the per-cell
+    losses under ``key`` by the real cells' ``names`` (M x S of them) and
+    ``step_s``. Padded cells are masked to zero loss. Returns every real
+    cell's optimised texture, (M, S, Ht, Wt, 3), on every rank."""
+    device = world.device
     params = {"textures": textures.detach().clone(
         memory_format=torch.contiguous_format).requires_grad_(True)}
     optimizer = torch.optim.Adam(list(params.values()), lr=cfg.lr)
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     ckpt = os.path.join(cfg.output_path, CHECKPOINT)
-    start_epoch, _ = restore(cfg.resume, ckpt, params, optimizer, gen)
-    logger = RunLogger(cfg.output_path)
-    stop_profile = maybe_profile(cfg, device)
+    start_epoch, _ = restore(cfg.resume, ckpt, params, optimizer, gen,
+                             leaf_in=grid.block_of_array)
+    logger = RunLogger(cfg.output_path, active=world.main)
+    stop_profile = maybe_profile(cfg, device, world)
+    mask = grid.mask(device) if grid.padded else None
+
+    def loss_fn(vis, cfeat, grams):
+        per_cell = textured_step(cfg, vgg, dtype, params["textures"], vis,
+                                 cfeat, grams)
+        if mask is not None:
+            per_cell = per_cell * mask
+        return per_cell.sum(), per_cell
+
+    # Each rank's leaves are its own: the gradients stay local.
+    step = make_view_parallel_step(loss_fn, optimizer, params, None,
+                                   has_aux=True, check=nan_check(cfg, world))
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
-        cells = torch.zeros(textures.shape[:2], device=device)
+        cells = torch.zeros((grid.mb, grid.sb), device=device)
         for bi, (vis, cfeat, grams) in enumerate(batch_const):
-            optimizer.zero_grad(set_to_none=True)
-            per_cell = textured_step(cfg, vgg, dtype, params["textures"],
-                                     vis, cfeat, grams)
-            take_step(cfg, optimizer, params, per_cell.sum(),
-                      f"epoch {epoch}, batch {bi}")
+            _, per_cell = step(vis, cfeat, grams,
+                               label=f"epoch {epoch}, batch {bi}")
             cells = cells + per_cell.detach()
+        cells = grid.gather(cells)
         values = cells.flatten().tolist()
         if device.type == "cuda":
             torch.cuda.synchronize(device)
@@ -171,20 +199,29 @@ def optimise_cells(cfg: PipelineConfig, epochs: int, device, vgg, dtype,
                          **{key: dict(zip(names, values))},
                          step_s=time.perf_counter() - t0)
         if cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
-            save_checkpoint(ckpt, epoch + 1, params, optimizer, gen)
+            save_checkpoint(ckpt, epoch + 1, params, optimizer, gen,
+                            write=world.main, leaf_out=grid.gather)
     stop_profile()
     logger.close()
-    return params["textures"].detach()
+    # Every rank renders rank 0's cells (ranks that each ran the whole grid
+    # may differ in the last bits on the card).
+    textures = grid.gather(params["textures"].detach()).contiguous()
+    replicate([textures], world)
+    return textures
 
 
 def write_cell(cfg: PipelineConfig, mesh: Mesh, texture: torch.Tensor,
-               out_dir: str, settings: RasterizationSettings) -> Mesh:
+               out_dir: str, settings: RasterizationSettings,
+               world: World) -> Mesh:
     """``out_dir/final_render/`` (12 fixed views) and ``out_dir/final.obj``
-    of ``mesh`` with ``texture``; returns the finalised mesh."""
+    of ``mesh`` with ``texture``; returns the finalised mesh. Every rank
+    calls it (the render may be banded over the ranks); rank 0 writes."""
     final = finalize_mesh(mesh.replace(texture=texture))
     save_render(final, build_fixed_cameras(12, seed=cfg.seed).to(
-        texture.device), settings, os.path.join(out_dir, "final_render"))
-    save_mesh(final, os.path.join(out_dir, "final.obj"))
+        texture.device), settings, os.path.join(out_dir, "final_render"),
+        tile_parallel=cfg.tile_parallel, world=world)
+    if world.main:
+        save_mesh(final, os.path.join(out_dir, "final.obj"))
     return final
 
 
@@ -194,19 +231,25 @@ def run_multistyle(cfg: PipelineConfig, style_paths: Sequence[str],
     returns {style_stem: final mesh}."""
     epochs = epochs if epochs is not None else cfg.epochs
     _check_config(cfg)
-    device = resolve_device(cfg.device)
-    os.makedirs(cfg.output_path, exist_ok=True)
+    world = current_world(cfg.device)
+    device = world.device
     names = [stem(p) for p in style_paths]
+    grid = (CellGrid.styles(world, len(names))
+            if cfg.data_parallel and world.sharded
+            else CellGrid.whole(1, len(names)))
+    if world.main:
+        os.makedirs(cfg.output_path, exist_ok=True)
 
     mesh = load_scene(cfg).to(device)
     settings = RasterizationSettings(image_size=cfg.size)
     vgg = get_vgg(cfg.vgg_weights, device=device)
     cameras = build_cameras(cfg).to(device)
     dtype = _compute_dtype(cfg)
-    styles = load_styles(style_paths, cfg.size, device)
+    styles = load_styles([style_paths[j] for j in grid.style_ids()],
+                         cfg.size, device)
 
     # Per-batch constants: the compact visibility, the content features
-    # (shared by every style) and the per-style Gram targets.
+    # (shared by every style) and this rank's styles' Gram targets.
     batch_const = []
     with torch.no_grad():
         for _, b0, b1 in _batches(cfg.n_views, cfg.batch_size):
@@ -222,9 +265,10 @@ def run_multistyle(cfg: PipelineConfig, style_paths: Sequence[str],
                                                 dtype)))
 
     textures = mesh.texture[None, None].expand(
-        (1, len(names)) + tuple(mesh.texture.shape))
-    textures = optimise_cells(cfg, epochs, device, vgg, dtype, textures,
+        (1, grid.sb) + tuple(mesh.texture.shape))
+    textures = optimise_cells(cfg, epochs, world, grid, vgg, dtype, textures,
                               batch_const, "per_style", names)[0]
     return {name: write_cell(cfg, mesh, textures[s],
-                             os.path.join(cfg.output_path, name), settings)
+                             os.path.join(cfg.output_path, name), settings,
+                             world)
             for s, name in enumerate(names)}

@@ -28,6 +28,16 @@ device synchronisation and a host fetch of its loss), ``current_images/``,
 ``final_render/view_i.png`` (12 fixed views) and ``final.obj`` (+ .mtl +
 texture PNG).
 
+Under ``torchrun`` (a world of W > 1 ranks, ``st3d_torch/parallel``),
+``--data_parallel`` shards each view batch over the ranks: rank r takes
+views ``[r·B/W, (r+1)·B/W)`` of the second approach's step and of the
+first approach's MSE phase, every gradient and loss is averaged over the
+ranks, and the leaves stay replicated; hot loop A runs unsharded on rank
+0, which broadcasts the stylised views. ``--tile_parallel`` bands the
+final render's rows over the ranks (``save_render``). In a world of 1
+both flags run the plain path, as the JAX package does on one device.
+Only rank 0 writes files; every rank reads a checkpoint.
+
 As in the JAX package, both pipelines write ``checkpoint.npz``
 (``utils/checkpoint.py``): the second approach every ``checkpoint_every``
 epochs, the first approach after every view batch and, with
@@ -43,10 +53,12 @@ traces the optimisation loop with ``torch.profiler`` into
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import time
 
+import numpy as np
 import torch
 
 from st3d_torch.core.cameras import (
@@ -69,6 +81,17 @@ from st3d_torch.ops.losses import (
     mesh_regularizer_loss,
     style_content_loss,
 )
+from st3d_torch.parallel.sharding import (
+    World,
+    current_world,
+    gather_cat,
+    make_view_parallel_step,
+    replicate,
+    resolve_device,  # noqa: F401  (the entry points' device check)
+    shard_views,
+    view_block,
+)
+from st3d_torch.parallel.tiles import render_meshes_tiled
 from st3d_torch.render.rasterize import RasterizationSettings
 from st3d_torch.render.renderer import (
     compact_visibility,
@@ -86,34 +109,12 @@ from st3d_torch.utils.logging import RunLogger
 CHECKPOINT = "checkpoint.npz"
 
 
-def resolve_device(name: str) -> torch.device:
-    """``torch.device(name)``; asking for CUDA without a GPU raises (there
-    is no CPU fallback)."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {name!r} requested but no CUDA GPU is available; pass "
-            "--device cpu to run the kernels' plain versions")
-    return dev
-
-
 def _check_config(cfg: PipelineConfig) -> None:
-    """Raise before any work on a config the port cannot run: ValueError
-    for an unknown ``raster_backend`` (every known one takes the port's one
-    rasterizer, as st3d/render/rasterize.py::resolve_backend accepts them),
-    NotImplementedError for the part not ported yet."""
+    """Raise ValueError before any work for an unknown ``raster_backend``
+    (every known one takes the port's one rasterizer, as
+    st3d/render/rasterize.py::resolve_backend accepts them)."""
     if cfg.raster_backend not in RASTER_BACKENDS:
         raise ValueError(f"unknown rasterizer backend {cfg.raster_backend!r}")
-    why = _unsupported(cfg)
-    if why:
-        raise NotImplementedError(f"st3d_torch does not run {why}")
-
-
-def _unsupported(cfg: PipelineConfig) -> str:
-    """Why ``cfg`` is outside what the port runs yet ('' when it is not)."""
-    if cfg.data_parallel or cfg.tile_parallel:
-        return "data/tile parallelism (not yet ported)"
-    return ""
 
 
 def load_scene(cfg: PipelineConfig) -> Mesh:
@@ -146,15 +147,26 @@ def _batches(n_views: int, batch_size: int):
 
 
 def save_render(mesh: Mesh, cameras: FoVPerspectiveCameras,
-                settings: RasterizationSettings, path: str) -> None:
-    """Render every camera and write ``view_{i}.png``."""
-    os.makedirs(path, exist_ok=True)
-    warn_if_hard_k_saturated(mesh, cameras, settings,
-                             context=f"save_render({path})")
+                settings: RasterizationSettings, path: str,
+                tile_parallel: bool = False, world: World = None) -> None:
+    """Render every camera and write ``view_{i}.png`` (rank 0). With
+    ``tile_parallel`` in a world of several ranks the rows are banded over
+    the ranks (``parallel/tiles.py``), so every rank must call it;
+    otherwise rank 0 renders alone."""
+    world = world or World()
+    tiled = tile_parallel and world.sharded
+    if not (tiled or world.main):
+        return
+    if world.main:
+        os.makedirs(path, exist_ok=True)
+        warn_if_hard_k_saturated(mesh, cameras, settings,
+                                 context=f"save_render({path})")
     with torch.no_grad():
-        imgs, _ = render_meshes(mesh, cameras, settings)
-    for i in range(imgs.shape[0]):
-        save_image(imgs[i], os.path.join(path, f"view_{i}.png"))
+        imgs, _ = (render_meshes_tiled(mesh, cameras, settings, world)
+                   if tiled else render_meshes(mesh, cameras, settings))
+    if world.main:
+        for i in range(imgs.shape[0]):
+            save_image(imgs[i], os.path.join(path, f"view_{i}.png"))
 
 
 def _settings(cfg: PipelineConfig) -> RasterizationSettings:
@@ -168,13 +180,14 @@ def _compute_dtype(cfg: PipelineConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
-def maybe_profile(cfg: PipelineConfig, device: torch.device):
+def maybe_profile(cfg: PipelineConfig, device: torch.device,
+                  world: World = None):
     """With ``--profile``, start a ``torch.profiler`` trace (CPU, and CUDA
-    on a GPU) and return the function that stops it and writes
+    on a GPU) on rank 0 and return the function that stops it and writes
     ``output_path/profile/trace.json`` (Chrome trace format) and
     ``device_ms.json``, the device milliseconds of each kernel over the
     traced span (``profile_step.kernel_ms``); without it, a no-op."""
-    if not cfg.profile:
+    if not cfg.profile or not (world or World()).main:
         return lambda: None
     act = torch.profiler.ProfilerActivity
     prof = torch.profiler.profile(
@@ -198,31 +211,44 @@ def maybe_profile(cfg: PipelineConfig, device: torch.device):
     return stop
 
 
-def take_step(cfg: PipelineConfig, optimizer: torch.optim.Optimizer,
-              params, loss: torch.Tensor, label: str) -> None:
-    """Backpropagate ``loss`` and let ``optimizer`` update ``params``. With
-    ``--debug_nan`` the loss, every gradient of the leaves and the updated
-    leaves are each checked finite (``check_finite``, one host
-    synchronisation each), naming ``label``."""
-    if cfg.debug_nan:
-        check_finite(loss, f"{label} loss")
-    loss.backward()
-    if cfg.debug_nan:
-        check_finite({k: p.grad for k, p in params.items()},
-                     f"{label} gradient")
-    optimizer.step()
-    if cfg.debug_nan:
-        check_finite(params, f"{label} parameter")
+def nan_check(cfg: PipelineConfig, world: World):
+    """With ``--debug_nan``, the step's check of its loss, gradients and
+    updated leaves (``check_finite``, one host synchronisation each; every
+    rank of ``world`` stops together); else None."""
+    if not cfg.debug_nan:
+        return None
+    return functools.partial(check_finite, world=world)
+
+
+def view_noise_seeds(seed: int, step: int, n_views: int) -> np.ndarray:
+    """The noise seeds of a data-parallel step, one per view: ``seed + step
+    * 131071 + arange(B)`` as uint32 (st3d/engine/pipelines.py:848-851)."""
+    return ((seed + step * 131071 + np.arange(n_views, dtype=np.int64))
+            & 0xFFFFFFFF).astype(np.uint32)
+
+
+def noise_generators(seed: int, device) -> tuple:
+    """The two noise streams of a shard whose first view's seed is
+    ``seed``: the current background's, seeded with it, and the content
+    background's, derived from it as ``fold_in(key, 1)`` is in the JAX
+    package (the 1 in the seed's high word)."""
+    return (torch.Generator(device=device).manual_seed(int(seed)),
+            torch.Generator(device=device).manual_seed(int(seed) + (1 << 32)))
 
 
 def _finish(cfg: PipelineConfig, content_mesh: Mesh, params,
-            settings: RasterizationSettings, device) -> Mesh:
+            settings: RasterizationSettings, world: World) -> Mesh:
     """Write ``final_render/`` (12 fixed views) and ``final.obj``; returns
-    the final clamped mesh."""
+    the final clamped mesh. Every rank renders rank 0's leaves."""
+    with torch.no_grad():
+        replicate(params.values(), world)
     final = finalize_mesh(apply_params(content_mesh, params))
-    save_render(final, build_fixed_cameras(12, seed=cfg.seed).to(device),
-                settings, os.path.join(cfg.output_path, "final_render"))
-    save_mesh(final, os.path.join(cfg.output_path, "final.obj"))
+    save_render(final, build_fixed_cameras(12, seed=cfg.seed).to(
+        world.device), settings, os.path.join(cfg.output_path,
+                                              "final_render"),
+        tile_parallel=cfg.tile_parallel, world=world)
+    if world.main:
+        save_mesh(final, os.path.join(cfg.output_path, "final.obj"))
     return final
 
 
@@ -256,14 +282,28 @@ def _stylise(cfg: PipelineConfig, content_mesh: Mesh, params, cams_b,
         lr=cfg.style_transfer_lr, dtype=dtype).clamp(0.0, 1.0)
 
 
+def _data_parallel(cfg: PipelineConfig, world: World) -> bool:
+    """Whether the view batches shard over the ranks: ``--data_parallel``
+    in a world of several, where every view batch must divide the ranks
+    (``view_block``'s ValueError otherwise)."""
+    if not (cfg.data_parallel and world.sharded):
+        return False
+    for _, b0, b1 in _batches(cfg.n_views, cfg.batch_size):
+        view_block(b1 - b0, world)
+    return True
+
+
 def run_first_approach(cfg: PipelineConfig) -> Mesh:
     """Stylise each view batch in 2D, then fit the texture to the stylised
     views by masked MSE through the renderer; returns the final (clamped)
     mesh."""
     _check_config(cfg)
-    device = resolve_device(cfg.device)
+    world = current_world(cfg.device)
+    device = world.device
+    use_dp = _data_parallel(cfg, world)
     st_dir = os.path.join(cfg.output_path, "2d_style_transfer")
-    os.makedirs(st_dir, exist_ok=True)
+    if world.main:
+        os.makedirs(st_dir, exist_ok=True)
 
     content_mesh = load_scene(cfg).to(device)
     settings = _settings(cfg)
@@ -280,47 +320,63 @@ def run_first_approach(cfg: PipelineConfig) -> Mesh:
     style = load_as_tensor(resolve_asset(cfg.style_path), size=cfg.size)
     ckpt = os.path.join(cfg.output_path, CHECKPOINT)
     start_batch, extras = restore(cfg.resume, ckpt, params, optimizer, gen)
-    logger = RunLogger(cfg.output_path)
-    stop_profile = maybe_profile(cfg, device)
+    logger = RunLogger(cfg.output_path, active=world.main)
+    stop_profile = maybe_profile(cfg, device, world)
 
+    def mse_loss(cams, target, vis):
+        mesh = apply_params(content_mesh, params)
+        rgba = (render_rgba_static(mesh, vis, settings) if static_vis
+                else render_rgba(mesh, cams, settings))
+        imgs = rgba[..., :3]
+        masks = (rgba[..., 3:4] > 0).to(imgs.dtype)
+        return compute_first_approach_loss(
+            imgs, masks, target, mesh.verts, content_mesh.verts, mesh,
+            weights, cfg.optimization_target)
+
+    # Hot loop B over this rank's views (all of them without data
+    # parallelism): the masked MSE is a batch mean and the regularizers
+    # are the same on every rank, so the averaged loss is the batch's.
+    mse_step = make_view_parallel_step(mse_loss, optimizer, params,
+                                       world if use_dp else None,
+                                       check=nan_check(cfg, world))
     for i, b0, b1 in _batches(cfg.n_views, cfg.batch_size):
         if i < start_batch:
             continue
         cams_b = cameras[b0:b1]
-        style_b = style[None].expand(b1 - b0, -1, -1, -1).to(device)
-        with torch.no_grad():
-            vis = (compact_visibility(
-                precompute_visibility(content_mesh, cams_b, settings))
-                if static_vis else None)
         if i == start_batch and "mse_done" in extras:
             # A mid-batch checkpoint: continue the MSE steps against the
             # stored stylised targets.
             done = int(extras["mse_done"])
             applied = torch.from_numpy(extras["applied"]).to(device)
         else:
-            applied = _stylise(cfg, content_mesh, params, cams_b, style_b,
-                               settings, vgg, gen, dtype)
-            for j in range(b1 - b0):
-                save_image(applied[j], os.path.join(
-                    st_dir, f"view_{i * cfg.batch_size + j}.png"))
+            # Hot loop A runs unsharded: rank 0 stylises the whole batch
+            # and the others receive its views.
+            if world.main:
+                style_b = style[None].expand(b1 - b0, -1, -1, -1).to(device)
+                applied = _stylise(cfg, content_mesh, params, cams_b,
+                                   style_b, settings, vgg, gen, dtype)
+                for j in range(b1 - b0):
+                    save_image(applied[j], os.path.join(
+                        st_dir, f"view_{i * cfg.batch_size + j}.png"))
+            else:
+                applied = torch.empty((b1 - b0, 3, cfg.size, cfg.size),
+                                      device=device)
+            replicate([applied], world)
             done = 0
 
-        # Hot loop B: the trainable leaves against the stylised views, NHWC.
+        # NHWC targets of this rank's views.
         target = applied.permute(0, 2, 3, 1)
+        if use_dp:
+            cams_b, target = cams_b[view_block(b1 - b0, world)], shard_views(
+                target, world)
+        with torch.no_grad():
+            vis = (compact_visibility(
+                precompute_visibility(content_mesh, cams_b, settings))
+                if static_vis else None)
         pending = []
         while done < cfg.n_mse_steps:
-            optimizer.zero_grad(set_to_none=True)
-            mesh = apply_params(content_mesh, params)
-            rgba = (render_rgba_static(mesh, vis, settings) if static_vis
-                    else render_rgba(mesh, cams_b, settings))
-            imgs = rgba[..., :3]
-            masks = (rgba[..., 3:4] > 0).to(imgs.dtype)
-            loss = compute_first_approach_loss(
-                imgs, masks, target, mesh.verts, content_mesh.verts, mesh,
-                weights, cfg.optimization_target)
-            take_step(cfg, optimizer, params, loss,
-                      f"batch {i}, step {done}")
-            pending.append(loss.detach())
+            pending.append(mse_step(cams_b, target, vis,
+                                    label=f"batch {i}, step {done}"))
             done += 1
             mid_batch = (cfg.checkpoint_every and done < cfg.n_mse_steps
                          and done % cfg.checkpoint_every == 0)
@@ -333,11 +389,13 @@ def run_first_approach(cfg: PipelineConfig) -> Mesh:
                 pending.clear()
             if mid_batch:
                 save_checkpoint(ckpt, i, params, optimizer, gen,
-                                extras={"mse_done": done, "applied": applied})
-        save_checkpoint(ckpt, i + 1, params, optimizer, gen)
+                                extras={"mse_done": done, "applied": applied},
+                                write=world.main)
+        save_checkpoint(ckpt, i + 1, params, optimizer, gen,
+                        write=world.main)
 
     stop_profile()
-    final = _finish(cfg, content_mesh, params, settings, device)
+    final = _finish(cfg, content_mesh, params, settings, world)
     logger.close()
     return final
 
@@ -347,10 +405,12 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
     (plus the mesh regularizers for the mesh and both targets); returns the
     final (clamped) mesh."""
     _check_config(cfg)
-    device = resolve_device(cfg.device)
-    os.makedirs(cfg.output_path, exist_ok=True)
-    os.makedirs(os.path.join(cfg.output_path, "current_images"),
-                exist_ok=True)
+    world = current_world(cfg.device)
+    device = world.device
+    use_dp = _data_parallel(cfg, world)
+    if world.main:
+        os.makedirs(os.path.join(cfg.output_path, "current_images"),
+                    exist_ok=True)
 
     content_mesh = load_scene(cfg).to(device)
     settings = _settings(cfg)
@@ -366,9 +426,11 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
     gen = torch.Generator(device=device).manual_seed(cfg.seed)
     style = load_as_tensor(resolve_asset(cfg.style_path), size=cfg.size)
     content_noise = cfg.content_background == "noise"
+    noise = content_noise or cfg.current_background == "noise"
 
     # Per-batch constants, hoisted out of the epoch loop (the visibility
-    # only for the texture target).
+    # only for the texture target), each cut to this rank's views under
+    # data parallelism.
     batch_const = []
     with torch.no_grad():
         for _, b0, b1 in _batches(cfg.n_views, cfg.batch_size):
@@ -379,64 +441,93 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
                 cimgs, cmasks, cfg.content_background, style_b, gen)
             targets = StyleContentTargets.create(content_b, style_b, vgg,
                                                  dtype=dtype, layout="NHWC")
+            if use_dp:
+                cams_b = cams_b[view_block(b1 - b0, world)]
+                style_b, cimgs, cmasks = shard_views((style_b, cimgs, cmasks),
+                                                     world)
+                targets = StyleContentTargets(
+                    shard_views(targets.content_features, world),
+                    shard_views(targets.style_grams, world),
+                    targets.feature_shapes)
             vis = (compact_visibility(
                 precompute_visibility(content_mesh, cams_b, settings))
                 if static_vis else None)
             batch_const.append((cams_b, style_b, cimgs, cmasks, targets,
                                 vis))
 
+    def loss_fn(cams_b, style_b, cimgs, cmasks, targets, vis, g_cur,
+                g_content):
+        mesh = apply_params(content_mesh, params)
+        rgba = (render_rgba_static(mesh, vis, settings) if static_vis
+                else render_rgba(mesh, cams_b, settings))
+        cur_i = rgba[..., :3]
+        cur_m = (rgba[..., 3:4] > 0).to(cur_i.dtype)
+        cur = apply_background(cur_i, cur_m, cfg.current_background,
+                               style_b.permute(0, 2, 3, 1), g_cur)
+        feats = get_features(cur, vgg, dtype=dtype, layout="NHWC",
+                             input_layout="NHWC", gram1=True)
+        tg = targets
+        if content_noise:
+            with torch.no_grad():
+                content_b = apply_background(cimgs, cmasks, "noise",
+                                             style_b, g_content)
+                cf = get_features(content_b, vgg, dtype=dtype,
+                                  layout="NHWC")[CONTENT_LAYER]
+            tg = StyleContentTargets(cf, targets.style_grams,
+                                     targets.feature_shapes)
+        loss = style_content_loss(feats, tg, cfg.style_weight,
+                                  cfg.content_weight, layout="NHWC")
+        if not static_vis:
+            loss = weights["main_loss_weight"] * loss + (
+                mesh_regularizer_loss(mesh, mesh.verts,
+                                      content_mesh.verts, weights))
+        return loss, cur
+
+    step = make_view_parallel_step(loss_fn, optimizer, params,
+                                   world if use_dp else None, has_aux=True,
+                                   check=nan_check(cfg, world))
     ckpt = os.path.join(cfg.output_path, CHECKPOINT)
     start_epoch, _ = restore(cfg.resume, ckpt, params, optimizer, gen)
-    logger = RunLogger(cfg.output_path)
-    stop_profile = maybe_profile(cfg, device)
+    # Data-parallel noise comes from seeds of the global step index, which
+    # a resume continues (the plain path's generator is checkpointed).
+    step_counter = start_epoch * len(batch_const)
+    logger = RunLogger(cfg.output_path, active=world.main)
+    stop_profile = maybe_profile(cfg, device, world)
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.perf_counter()
         total = torch.zeros((), device=device)
-        for bi, (cams_b, style_b, cimgs, cmasks, targets, vis) in enumerate(
-                batch_const):
-            optimizer.zero_grad(set_to_none=True)
-            mesh = apply_params(content_mesh, params)
-            rgba = (render_rgba_static(mesh, vis, settings) if static_vis
-                    else render_rgba(mesh, cams_b, settings))
-            cur_i = rgba[..., :3]
-            cur_m = (rgba[..., 3:4] > 0).to(cur_i.dtype)
-            cur = apply_background(cur_i, cur_m, cfg.current_background,
-                                   style_b.permute(0, 2, 3, 1), gen)
-            feats = get_features(cur, vgg, dtype=dtype, layout="NHWC",
-                                 input_layout="NHWC", gram1=True)
-            tg = targets
-            if content_noise:
-                with torch.no_grad():
-                    content_b = apply_background(cimgs, cmasks, "noise",
-                                                 style_b, gen)
-                    cf = get_features(content_b, vgg, dtype=dtype,
-                                      layout="NHWC")[CONTENT_LAYER]
-                tg = StyleContentTargets(cf, targets.style_grams,
-                                         targets.feature_shapes)
-            loss = style_content_loss(feats, tg, cfg.style_weight,
-                                      cfg.content_weight, layout="NHWC")
-            if not static_vis:
-                loss = weights["main_loss_weight"] * loss + (
-                    mesh_regularizer_loss(mesh, mesh.verts,
-                                          content_mesh.verts, weights))
-            take_step(cfg, optimizer, params, loss,
-                      f"epoch {epoch}, batch {bi}")
-            total = total + loss.detach()
+        for bi, const in enumerate(batch_const):
+            g_cur = g_content = gen
+            if use_dp and noise:
+                # Shard r draws from the first seed of its block of views.
+                n_local = len(const[0])
+                seeds = view_noise_seeds(cfg.seed, step_counter,
+                                         n_local * world.size)
+                g_cur, g_content = noise_generators(
+                    seeds[world.rank * n_local], device)
+            loss, cur = step(*const, g_cur, g_content,
+                             label=f"epoch {epoch}, batch {bi}")
+            step_counter += 1
+            total = total + loss
             if cfg.save_intermediate:
                 frames = cur.detach().clamp(0.0, 1.0).permute(0, 3, 1, 2)
-                for j in range(frames.shape[0]):
-                    save_image(frames[j], os.path.join(
-                        cfg.output_path, "current_images",
-                        f"view_{bi * cfg.batch_size + j}.png"))
+                if use_dp:
+                    frames = gather_cat(frames, world)
+                if world.main:
+                    for j in range(frames.shape[0]):
+                        save_image(frames[j], os.path.join(
+                            cfg.output_path, "current_images",
+                            f"view_{bi * cfg.batch_size + j}.png"))
         loss_value = float(total)
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         logger.log_epoch(epoch, loss_value,
                          step_s=time.perf_counter() - t0)
         if cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
-            save_checkpoint(ckpt, epoch + 1, params, optimizer, gen)
+            save_checkpoint(ckpt, epoch + 1, params, optimizer, gen,
+                            write=world.main)
 
     stop_profile()
-    final = _finish(cfg, content_mesh, params, settings, device)
+    final = _finish(cfg, content_mesh, params, settings, world)
     logger.close()
     return final

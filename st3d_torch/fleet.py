@@ -14,7 +14,8 @@ mesh into ``<output_path>/<mesh stem>``. Either way each cell lands in
 ``<output_path>/<mesh>/<style>/``. UV-less meshes get spherical auto-UVs
 unless ``--auto_uv`` says otherwise. The second approach's flags and
 ``--device`` (default ``cuda``) apply, as in ``fleet.py`` at the
-repository root.
+repository root. Under ``torchrun``, ``--data_parallel True`` shards the
+grid over the ranks (``engine/fleetbatch.py``).
 """
 
 import argparse
@@ -26,6 +27,7 @@ from st3d_torch.engine.fleetbatch import run_fleet_batched
 from st3d_torch.engine.multistyle import run_multistyle, stem
 from st3d_torch.io.obj import load_obj
 from st3d_torch.multi_style import split_paths
+from st3d_torch.parallel.sharding import distributed
 from st3d_torch.utils.assets import resolve_asset
 
 
@@ -41,9 +43,13 @@ def main(argv=None):
                      "grid; sequential: the multi-style engine per mesh")
     ns, rest = pre.parse_known_args(argv)
     cfg = parse_second_approach(rest)
-    obj_paths = split_paths(ns.obj_paths)
-    style_paths = split_paths(ns.style_paths)
-    if ns.fleet_mode == "batched":
+    with distributed(cfg.device):
+        return _run(cfg, ns.fleet_mode, split_paths(ns.obj_paths),
+                    split_paths(ns.style_paths))
+
+
+def _run(cfg, fleet_mode, obj_paths, style_paths):
+    if fleet_mode == "batched":
         return run_fleet_batched(cfg, obj_paths, style_paths)
 
     results = {}

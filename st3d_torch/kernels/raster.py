@@ -265,30 +265,31 @@ def cull_tile(h: int, w: int, soft: bool) -> int:
     return t if hw % t == 0 else TILE_PIXELS
 
 
-def _tile_rows(h: int, w: int, tile: int, device
+def _tile_rows(h: int, w: int, tile: int, device, row0: int = 0
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """First and last row (float32) of every ``tile``-pixel band."""
+    """First and last image row (float32) of every ``tile``-pixel band of a
+    frame whose first row is image row ``row0``."""
     hw = h * w
     t0 = torch.arange(0, hw, tile, device=device)
     last = torch.clamp(t0 + tile - 1, max=hw - 1)
-    return (t0 // w).float(), (last // w).float()
+    return (t0 // w + row0).float(), (last // w + row0).float()
 
 
 def _band_overlap(bounds: torch.Tensor, h: int, w: int, tile: int,
-                  margin: float) -> torch.Tensor:
+                  margin: float, row0: int = 0) -> torch.Tensor:
     """(N, n_tiles, n_chunks): chunk c's row band meets tile t's rows
     widened by ``margin`` (the kernels' per-chunk cull test)."""
-    row0, row1 = _tile_rows(h, w, tile, bounds.device)
+    row0, row1 = _tile_rows(h, w, tile, bounds.device, row0)
     return ((bounds[:, None, 1, :] >= (row0 - margin)[None, :, None])
             & (bounds[:, None, 0, :] <= (row1 + margin)[None, :, None]))
 
 
 def stream_ranges(bounds: torch.Tensor, h: int, w: int, tile: int,
-                  margin: float) -> torch.Tensor:
+                  margin: float, row0: int = 0) -> torch.Tensor:
     """(N, n_tiles, 2) int32 [c_lo, c_hi] per tile: the first and last chunk
     whose band meets the tile's rows (+ margin); (1, 0) when none does
-    (raster_pallas.py:605-624)."""
-    ov = _band_overlap(bounds, h, w, tile, margin)
+    (raster_pallas.py:605-624). ``row0``: the frame's first image row."""
+    ov = _band_overlap(bounds, h, w, tile, margin, row0)
     n_chunks = bounds.shape[2]
     c = torch.arange(n_chunks, dtype=torch.int32, device=bounds.device)
     first = torch.where(ov, c, n_chunks).amin(dim=2)
@@ -340,19 +341,20 @@ def _chunk_planes(blk: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
 
 def _scan_plain(coeffs: torch.Tensor, active: torch.Tensor, h: int, w: int,
                 tile: int, soft: bool,
-                tile_pix: Optional[torch.Tensor] = None):
+                tile_pix: Optional[torch.Tensor] = None, row0: int = 0):
     """Shared plain body of K1, K1-soft, K6 and K9: chunk c is tested at the
     pixels of every tile t with ``active[v, t, c]``, in chunk order; hard
     selection by strict '>' on 1/z over a first-index chunk maximum, soft
     ``nearest`` the same on the signed distance from -3e38 and id 0.
     Only the active (pixel, chunk) pairs are evaluated. A tile's pixels are
     ``tile_pix[t]`` (flat indices, ``h*w`` past the image), by default the
-    run of ``tile`` flat pixels from ``t*tile``."""
+    run of ``tile`` flat pixels from ``t*tile``. The frame's rows are the
+    image rows ``[row0, row0 + h)``."""
     n, _, f_pad = coeffs.shape
     hw = h * w
     dev = coeffs.device
     flat = torch.arange(hw, device=dev)
-    pxf, pyf = (flat % w).float(), (flat // w).float()
+    pxf, pyf = (flat % w).float(), (flat // w + row0).float()
     if tile_pix is None:
         tile_pix = torch.arange(active.shape[1] * tile,
                                 device=dev).reshape(-1, tile)
@@ -393,11 +395,14 @@ def _scan_plain(coeffs: torch.Tensor, active: torch.Tensor, h: int, w: int,
 
 
 def raster_hard_plain(coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
-                      w: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      w: int, row0: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K1: (p2f (N, H*W) int32 in sorted ids, zbuf
-    (N, H*W)), the row-band cull on the kernel's 256-pixel blocks."""
-    active = _band_overlap(bounds, h, w, TILE_PIXELS, 0.0)
-    return _scan_plain(coeffs, active, h, w, TILE_PIXELS, soft=False)[:2]
+    (N, H*W)) of the image rows ``[row0, row0 + h)``, the row-band cull on
+    the kernel's 256-pixel blocks."""
+    active = _band_overlap(bounds, h, w, TILE_PIXELS, 0.0, row0)
+    return _scan_plain(coeffs, active, h, w, TILE_PIXELS, soft=False,
+                       row0=row0)[:2]
 
 
 def raster_soft_plain(coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
@@ -409,14 +414,15 @@ def raster_soft_plain(coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
 
 
 def raster_stream_plain(coeffs: torch.Tensor, ranges: torch.Tensor, h: int,
-                        w: int, tile: int, soft: bool):
+                        w: int, tile: int, soft: bool, row0: int = 0):
     """Plain version of K6: every chunk of each tile's [c_lo, c_hi] range
-    is tested there. (p2f, zbuf, nearest) (N, H*W); nearest is None in
-    hard mode."""
+    is tested there. (p2f, zbuf, nearest) (N, H*W) of the image rows
+    ``[row0, row0 + h)``; nearest is None in hard mode."""
     c = torch.arange(coeffs.shape[2] // FACE_CHUNK, device=coeffs.device)
     active = ((c[None, None, :] >= ranges[..., 0:1])
               & (c[None, None, :] <= ranges[..., 1:2]))
-    p2f, zbuf, near = _scan_plain(coeffs, active, h, w, tile, soft)
+    p2f, zbuf, near = _scan_plain(coeffs, active, h, w, tile, soft,
+                                  row0=row0)
     return p2f, zbuf, (near if soft else None)
 
 
@@ -534,14 +540,16 @@ def _check_coeffs(name: str, coeffs: torch.Tensor, aux: torch.Tensor,
 
 
 def raster_hard(coeffs: torch.Tensor, bounds: torch.Tensor, h: int, w: int,
-                tested: Optional[torch.Tensor] = None
+                tested: Optional[torch.Tensor] = None, row0: int = 0
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K1 on preprocessed faces: coeffs (N, 20, F_pad) float32, bounds
-    (N, 2, n_chunks) -> (p2f (N, H*W) int32 sorted ids, zbuf (N, H*W)). A
-    CUDA kernel adds the (pixel, face) pairs of its warps' face lists to
-    ``tested`` (a one-element int64 CUDA tensor) if given."""
+    (N, 2, n_chunks) -> (p2f (N, H*W) int32 sorted ids, zbuf (N, H*W)) of
+    the image rows ``[row0, row0 + h)`` (a band of the tiled render: the
+    whole frame's rows, bit for bit). A CUDA kernel adds the (pixel, face)
+    pairs of its warps' face lists to ``tested`` (a one-element int64 CUDA
+    tensor) if given."""
     return _hard("raster_hard", 2, raster_hard_plain, coeffs, bounds, h, w,
-                 tested)
+                 tested, row0)
 
 
 def raster_hard_every_face(coeffs: torch.Tensor, bounds: torch.Tensor,
@@ -556,15 +564,19 @@ def raster_hard_every_face(coeffs: torch.Tensor, bounds: torch.Tensor,
 
 def _hard(name: str, bound_rows: int, plain, coeffs: torch.Tensor,
           bounds: torch.Tensor, h: int, w: int,
-          tested: Optional[torch.Tensor]
+          tested: Optional[torch.Tensor], row0: int = 0
           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The launch of K1 or G (``name``, in ``csrc/<name>.cu``) or of its
     twin (``<name>_every_face``, in the same source, with no counter) on
-    bounds (N, ``bound_rows``, n_chunks); ``plain`` for CPU tensors."""
+    bounds (N, ``bound_rows``, n_chunks); ``plain`` for CPU tensors. Only
+    K1 takes a first row ``row0``."""
     n, _, f_pad = coeffs.shape
+    if row0 and name != "raster_hard":
+        raise ValueError(f"{name}: no row offset (row0={row0})")
+    extra = [row0] if name == "raster_hard" else []
     if _check_coeffs(name, coeffs, bounds,
                      (n, bound_rows, f_pad // FACE_CHUNK), torch.float32):
-        return plain(coeffs, bounds, h, w)
+        return plain(coeffs, bounds, h, w, *extra)
     coeffs, bounds = coeffs.contiguous(), bounds.contiguous()
     dev = coeffs.device
     p2f = torch.empty((n, h * w), dtype=torch.int32, device=dev)
@@ -574,9 +586,9 @@ def _hard(name: str, bound_rows: int, plain, coeffs: torch.Tensor,
     lib = name.removesuffix("_every_face")
     if name == lib:
         args.append(_check_tested(name, tested, dev))
-    fn = build.symbol(lib, "st3d_" + name, len(args), 5)
-    err = fn(*args, n, h, w, f_pad, f_pad // FACE_CHUNK,
-             build.stream_handle(dev))
+    ints = [n, h, w, f_pad, f_pad // FACE_CHUNK] + extra
+    fn = build.symbol(lib, "st3d_" + name, len(args), len(ints))
+    err = fn(*args, *ints, build.stream_handle(dev))
     build.check(err, name)
     LAUNCHES[name] += 1
     return p2f, zbuf
@@ -637,15 +649,16 @@ def _soft(name: str, coeffs: torch.Tensor, bounds: torch.Tensor, h: int,
 def raster_stream(coeffs: torch.Tensor, bounds: torch.Tensor,
                   ranges: torch.Tensor, h: int, w: int, tile: int,
                   soft: bool, margin: float = 0.0,
-                  tested: Optional[torch.Tensor] = None):
+                  tested: Optional[torch.Tensor] = None, row0: int = 0):
     """K6 on preprocessed faces, their chunk bounds (N, 2, n_chunks) and
     per-tile chunk ranges (N, n_tiles, 2) int32 (``stream_ranges`` with the
-    same ``tile`` and ``margin``): (p2f, zbuf, nearest) (N, H*W) in sorted
-    ids; nearest is None in hard mode. A CUDA kernel adds the (pixel, face)
-    pairs of its warps' face lists to ``tested`` (a one-element int64 CUDA
-    tensor) if given."""
+    same ``tile``, ``margin`` and ``row0``): (p2f, zbuf, nearest) (N, H*W)
+    in sorted ids of the image rows ``[row0, row0 + h)``; nearest is None
+    in hard mode. A CUDA kernel adds the (pixel, face) pairs of its warps'
+    face lists to ``tested`` (a one-element int64 CUDA tensor) if
+    given."""
     return _stream("raster_stream", coeffs, bounds, ranges, h, w, tile, soft,
-                   margin, tested)
+                   margin, tested, row0)
 
 
 def raster_stream_every_chunk(coeffs: torch.Tensor, bounds: torch.Tensor,
@@ -662,11 +675,13 @@ def raster_stream_every_chunk(coeffs: torch.Tensor, bounds: torch.Tensor,
 
 def _stream(name: str, coeffs: torch.Tensor, bounds: torch.Tensor,
             ranges: torch.Tensor, h: int, w: int, tile: int, soft: bool,
-            margin: float, tested: Optional[torch.Tensor]):
+            margin: float, tested: Optional[torch.Tensor], row0: int = 0):
     n, _, f_pad = coeffs.shape
     n_tiles = -(-(h * w) // tile)
+    if row0 and name != "raster_stream":
+        raise ValueError(f"{name}: no row offset (row0={row0})")
     if _check_coeffs(name, coeffs, ranges, (n, n_tiles, 2), torch.int32):
-        return raster_stream_plain(coeffs, ranges, h, w, tile, soft)
+        return raster_stream_plain(coeffs, ranges, h, w, tile, soft, row0)
     _check_coeffs(name, coeffs, bounds, (n, 2, f_pad // FACE_CHUNK),
                   torch.float32)
     if tile % TILE_PIXELS and tile < h * w:
@@ -683,10 +698,12 @@ def _stream(name: str, coeffs: torch.Tensor, bounds: torch.Tensor,
                        device=dev)
     # The kernels read the ranges, not the bounds or the margin they were
     # made with.
-    fn = build.symbol("raster_stream", "st3d_" + name, 6, 7)
+    ints = [n, h, w, f_pad, n_tiles, tile, int(soft)] + (
+        [row0] if name == "raster_stream" else [])
+    fn = build.symbol("raster_stream", "st3d_" + name, 6, len(ints))
     err = fn(coeffs.data_ptr(), ranges.data_ptr(), p2f.data_ptr(),
-             zbuf.data_ptr(), near.data_ptr(), counter, n, h, w, f_pad,
-             n_tiles, tile, int(soft), build.stream_handle(dev))
+             zbuf.data_ptr(), near.data_ptr(), counter, *ints,
+             build.stream_handle(dev))
     build.check(err, name)
     LAUNCHES[name] += 1
     return p2f, zbuf, (near if soft else None)
@@ -773,21 +790,23 @@ def use_stream(n_faces: int) -> bool:
 
 
 def _rasterize(face_verts: torch.Tensor, w: int, h: int, soft: bool,
-               margin: float, stream: Optional[bool]):
+               margin: float, stream: Optional[bool], row0: int = 0):
     n = face_verts.shape[0]
     if stream is None:
         stream = use_stream(face_verts.shape[1])
+    if row0 and soft:
+        raise ValueError("a row offset (row0) is for hard mode only")
     tile = cull_tile(h, w, soft)
     with torch.no_grad():
         coeffs, bounds, order = preprocess(face_verts.detach())
         if stream:
-            ranges = stream_ranges(bounds, h, w, tile, margin)
+            ranges = stream_ranges(bounds, h, w, tile, margin, row0)
             p2f, zbuf, near = raster_stream(coeffs, bounds, ranges, h, w,
-                                            tile, soft, margin)
+                                            tile, soft, margin, row0=row0)
         elif soft:
             p2f, zbuf, near = raster_soft(coeffs, bounds, h, w, margin, tile)
         else:
-            p2f, zbuf = raster_hard(coeffs, bounds, h, w)
+            p2f, zbuf = raster_hard(coeffs, bounds, h, w, row0=row0)
             near = None
         p2f = _to_mesh_ids(order, p2f).reshape(n, h, w)
         if near is not None:
@@ -797,14 +816,16 @@ def _rasterize(face_verts: torch.Tensor, w: int, h: int, soft: bool,
 
 def rasterize_batched(face_verts: torch.Tensor, image_size: int,
                       image_height: Optional[int] = None,
-                      stream: Optional[bool] = None
+                      stream: Optional[bool] = None, row0: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Hard visibility of a view batch (N, F, 3, 3) -> pix_to_face
     (N, H, W) int32 in mesh face ids (-1 = background) and zbuf (N, H, W)
-    (counterpart of ``rasterize_pallas_batched`` in hard mode). K6 runs
-    where ``use_stream`` says so; ``stream`` forces either kernel."""
+    (counterpart of ``rasterize_pallas_batched`` in hard mode), of the
+    image rows ``[row0, row0 + H)``. K6 runs where ``use_stream`` says
+    so; ``stream`` forces either kernel."""
     h = image_height if image_height is not None else image_size
-    p2f, zbuf, _ = _rasterize(face_verts, image_size, h, False, 0.0, stream)
+    p2f, zbuf, _ = _rasterize(face_verts, image_size, h, False, 0.0, stream,
+                              row0)
     return p2f, zbuf
 
 

@@ -9,13 +9,15 @@ all styles' renders through VGG as one batch (BASELINE config 4).
 ``--style_paths`` (comma-separated) plus the second approach's flags and
 ``--device`` (default ``cuda``), as ``multi_style.py`` at the repository
 root. Writes ``<output_path>/<style stem>/final.obj`` and
-``final_render/`` per style.
+``final_render/`` per style. Under ``torchrun``, ``--data_parallel True``
+shards the styles over the ranks.
 """
 
 import argparse
 
 from st3d_torch.engine.config import parse_second_approach
 from st3d_torch.engine.multistyle import run_multistyle
+from st3d_torch.parallel.sharding import distributed
 
 
 def split_paths(spec: str):
@@ -27,8 +29,9 @@ def main(argv=None):
     pre.add_argument("--style_paths", default="./imgs/Style_1.jpg", type=str,
                      help="comma-separated style image paths")
     ns, rest = pre.parse_known_args(argv)
-    return run_multistyle(parse_second_approach(rest),
-                          split_paths(ns.style_paths))
+    cfg = parse_second_approach(rest)
+    with distributed(cfg.device):
+        return run_multistyle(cfg, split_paths(ns.style_paths))
 
 
 if __name__ == "__main__":

@@ -71,9 +71,15 @@ class Fragments:
 
 def rasterize_batch(face_verts: torch.Tensor,
                     settings: RasterizationSettings,
-                    image_height: Optional[int] = None) -> Fragments:
-    """Rasterize a batch of views (N, F, 3, 3) in one kernel launch."""
+                    image_height: Optional[int] = None,
+                    row0: int = 0) -> Fragments:
+    """Rasterize a batch of views (N, F, 3, 3) in one kernel launch; with
+    ``image_height``, the rows ``[row0, row0 + image_height)`` of the
+    image (hard K = 1 takes a ``row0``: the tiled render's bands)."""
     face_verts = face_verts.detach()
+    if row0 and (settings.hard_k or settings.soft):
+        raise NotImplementedError(
+            f"a row offset (row0={row0}) is for hard K=1 rasterization only")
     if settings.hard_k:
         if image_height is not None and image_height != settings.image_size:
             raise NotImplementedError(
@@ -92,7 +98,7 @@ def rasterize_batch(face_verts: torch.Tensor,
             image_height)
         return Fragments(pix_to_face=p2f, zbuf=zbuf, nearest_face=near)
     p2f, zbuf = rasterize_batched(face_verts, settings.image_size,
-                                  image_height)
+                                  image_height, row0=row0)
     return Fragments(pix_to_face=p2f, zbuf=zbuf)
 
 

@@ -220,9 +220,10 @@ def shade_textured(face_verts: torch.Tensor, pix_to_face: torch.Tensor,
                    verts_uvs: torch.Tensor, faces_uvs: torch.Tensor,
                    texture: torch.Tensor,
                    background_color: Tuple[float, float, float] = (
-                       1.0, 1.0, 1.0)) -> torch.Tensor:
+                       1.0, 1.0, 1.0), row0: int = 0) -> torch.Tensor:
     """Ambient-shaded RGBA (N, H, W, 4) of a view batch, differentiable in
-    ``face_verts`` and ``texture``.
+    ``face_verts`` and ``texture``; ``pix_to_face`` holds the image rows
+    ``[row0, row0 + H)``.
 
     Only the covered pixels are gathered, interpolated and sampled; their
     colors land in a background-filled frame. The values are the dense
@@ -236,7 +237,8 @@ def shade_textured(face_verts: torch.Tensor, pix_to_face: torch.Tensor,
     fid = pix_to_face.reshape(-1)[cov].long()
     tri = face_rows(face_verts, view, fid)               # (P, 3, 3)
     uvf = verts_uvs[faces_uvs][fid]                      # (P, 3, 2)
-    bary = barycentrics_at(tri, (pix % w).float(), (pix // w).float())
+    bary = barycentrics_at(tri, (pix % w).float(),
+                           (pix // w + row0).float())
     uv = torch.sum(uvf * bary[..., None], dim=-2)
     rgb_cov = sample_texture(texture, uv)
     bg = torch.tensor(background_color, dtype=rgb_cov.dtype,

@@ -6,16 +6,22 @@ directly against the VGG perceptual loss on differentiable renders.
         --compute_dtype bfloat16 --device cuda
 
 Same flags and defaults as ``second_approach.py`` at the repository root,
-plus ``--device`` (default ``cuda``).
+plus ``--device`` (default ``cuda``). Under ``torchrun``
+(``python -m torch.distributed.run --standalone --nproc_per_node N -m
+st3d_torch.second_approach ... --data_parallel True``) each rank joins the
+world (``parallel/sharding.py::init_world``) and the group is destroyed on
+exit.
 """
 
 from st3d_torch.engine.config import parse_second_approach
 from st3d_torch.engine.pipelines import run_second_approach
+from st3d_torch.parallel.sharding import distributed
 
 
 def main(argv=None):
     cfg = parse_second_approach(argv)
-    return run_second_approach(cfg)
+    with distributed(cfg.device):
+        return run_second_approach(cfg)
 
 
 if __name__ == "__main__":

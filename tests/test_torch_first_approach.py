@@ -324,8 +324,15 @@ def test_flags_and_defaults_match_jax():
     ["--soft_raster", "True", "--tile_parallel", "True"],
     ["--data_parallel", "True"],
     ["--tile_parallel", "True"]])
-def test_unported_options_raise(scene, flag):
+def test_parallel_flags_run_in_a_world_of_one(scene, flag):
+    """Without ``torchrun`` the process is a world of 1, where
+    ``--data_parallel`` and ``--tile_parallel`` take the plain path (as the
+    JAX package does on one device): the same log and final texture as
+    the run without the flag."""
     root, argv = scene
-    with pytest.raises(NotImplementedError):
-        main(argv + ["--output_path", str(root / "x"), "--device", "cpu"]
-             + flag)
+    name = "_".join(flag).replace("-", "")
+    base = argv + ["--device", "cpu"] + flag[:-2]
+    plain = main(base + ["--output_path", str(root / f"plain{name}")])
+    got = main(base + flag[-2:] + ["--output_path", str(root / name)])
+    assert _read_log(str(root / name)) == _read_log(str(root / f"plain{name}"))
+    assert torch.equal(got.texture, plain.texture)

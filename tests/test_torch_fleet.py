@@ -212,13 +212,20 @@ def test_fleet_refuses_what_the_jax_fleet_refuses(scene, tmp_path, case,
 
 
 @pytest.mark.parametrize("flag", ["data_parallel", "tile_parallel"])
-def test_fleet_refuses_parallelism(scene, tmp_path, flag):
+def test_parallel_flags_run_in_a_world_of_one(scene, batched, tmp_path,
+                                              flag):
+    """Without ``torchrun`` both flags take the plain path: the same losses
+    and cells as the batched run without them."""
     root, argv, objs, styles = scene
     cfg = dataclasses.replace(parse_second_approach(
         argv + ["--device", "cpu", "--output_path", str(tmp_path)]),
         **{flag: True})
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        run_fleet_batched(cfg, objs, styles)
+    got = run_fleet_batched(cfg, objs, styles)
+    out, want = batched
+    assert _log(str(tmp_path)) == _log(out)
+    for m in want:
+        for s in want[m]:
+            assert torch.equal(got[m][s].texture, want[m][s].texture)
 
 
 @pytest.mark.parametrize("cli", ["multi_style", "fleet", "fleet_sequential"])

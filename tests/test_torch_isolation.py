@@ -38,6 +38,8 @@ def test_port_imports_no_jax_and_no_st3d():
         "import st3d_torch.core.uv, st3d_torch.engine.multistyle\n"
         "import st3d_torch.engine.fleetbatch\n"
         "import st3d_torch.multi_style, st3d_torch.fleet\n"
+        "import st3d_torch.parallel.sharding, st3d_torch.parallel.tiles\n"
+        "import st3d_torch.parallel.grid\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'st3d' not in sys.modules, 'st3d imported'\n"
         "print('clean')\n")

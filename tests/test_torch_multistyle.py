@@ -199,9 +199,14 @@ def test_multistyle_resume_is_bit_equal(scene, port_run, tmp_path):
         assert torch.equal(resumed[name].texture, mesh.texture)
 
 
-def test_multistyle_refuses_parallelism(scene, tmp_path):
+@pytest.mark.parametrize("flag", ["--data_parallel", "--tile_parallel"])
+def test_parallel_flags_run_in_a_world_of_one(scene, port_run, tmp_path,
+                                              flag):
+    """Without ``torchrun`` both flags take the plain path: the same losses
+    and textures as the run without them."""
     root, argv, styles = scene
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        main(argv + ["--style_paths", ",".join(styles), "--device", "cpu",
-                     "--output_path", str(tmp_path), "--data_parallel",
-                     "True"])
+    got = main(argv + ["--style_paths", ",".join(styles), "--device", "cpu",
+                       "--output_path", str(tmp_path), flag, "True"])
+    assert _log(str(tmp_path)) == _log(port_run[0])
+    for name, mesh in port_run[1].items():
+        assert torch.equal(got[name].texture, mesh.texture)

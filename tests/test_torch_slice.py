@@ -154,8 +154,15 @@ def test_flags_and_defaults_match_jax():
 @pytest.mark.parametrize("flag", [
     ["--data_parallel", "True"],
     ["--optimization_target", "mesh", "--tile_parallel", "True"]])
-def test_unported_options_raise(scene, flag):
+def test_parallel_flags_run_in_a_world_of_one(scene, flag):
+    """Without ``torchrun`` the process is a world of 1, where both flags
+    take the plain path: the same log and final mesh as without them."""
     root, argv = scene
-    with pytest.raises(NotImplementedError):
-        main(argv + ["--output_path", str(root / "x"), "--device", "cpu"]
-             + flag)
+    name = "_".join(flag).replace("-", "")
+    base = argv + ["--device", "cpu"] + flag[:-2]
+    plain = main(base + ["--output_path", str(root / f"plain{name}")])
+    got = main(base + flag[-2:] + ["--output_path", str(root / name)])
+    assert _read_log(os.path.join(root, name, "log.txt")) == _read_log(
+        os.path.join(root, f"plain{name}", "log.txt"))
+    assert torch.equal(got.texture, plain.texture)
+    assert torch.equal(got.verts, plain.verts)
