@@ -1,0 +1,11 @@
+"""``device.idle_share`` in the host-bound cells, where it moves ``epoch_ms.dispatch``."""
+
+import os
+
+from portbench import cells
+
+_BASE = cells.reader(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "device.idle_share")
+UNIT, SOURCE, LAYER = _BASE.UNIT, _BASE.SOURCE, _BASE.LAYER
+MOVES = "epoch_ms.dispatch"
+read = _BASE.read
