@@ -54,6 +54,7 @@ from st3d_torch.engine.pipelines import (
     _compute_dtype,
     build_cameras,
     load_scene,
+    profile_spans,
 )
 from st3d_torch.models.vgg import get_features, get_vgg
 from st3d_torch.ops.losses import CONTENT_LAYER
@@ -62,6 +63,7 @@ from st3d_torch.parallel.sharding import current_world
 from st3d_torch.render.rasterize import RasterizationSettings, rasterize_batch
 from st3d_torch.render.renderer import compact_visibility, render_meshes
 from st3d_torch.render.shading import pixel_uvs
+from st3d_torch.utils import trace
 
 
 def _load_fleet_meshes(cfg: PipelineConfig,
@@ -122,6 +124,7 @@ def run_fleet_batched(cfg: PipelineConfig, obj_paths: Sequence[str],
     epochs = epochs if epochs is not None else cfg.epochs
     _check_config(cfg)
     world = current_world(cfg.device)
+    profile_spans(cfg, world)
     device = world.device
     mesh_names = [stem(p) for p in obj_paths]
     style_names = [stem(p) for p in style_paths]
@@ -135,50 +138,63 @@ def run_fleet_batched(cfg: PipelineConfig, obj_paths: Sequence[str],
     if world.main:
         os.makedirs(cfg.output_path, exist_ok=True)
 
-    meshes = [m.to(device) for m in _load_fleet_meshes(cfg, obj_paths)]
-    padded = [pad_mesh(m, max(x.verts.shape[0] for x in meshes),
-                       max(x.faces.shape[0] for x in meshes),
-                       num_uvs=max(x.verts_uvs.shape[0] for x in meshes),
-                       texture_size=max(x.texture.shape[0] for x in meshes))
-              for m in meshes]
-    # The step shades from compact visibility, which needs hard K = 1
-    # rasterization: refuse the rest rather than optimise another objective
-    # than run_second_approach would for the same cfg.
-    if cfg.soft_raster or cfg.blur_radius > 0 or cfg.faces_per_pixel > 1:
-        raise ValueError(
-            "fleet_mode=batched requires hard K=1 rasterization "
-            f"(got soft_raster={cfg.soft_raster}, "
-            f"blur_radius={cfg.blur_radius}, "
-            f"faces_per_pixel={cfg.faces_per_pixel}); use the multi-style "
-            "or second-approach entry points for soft or blurred "
-            "rasterization.")
-    settings = RasterizationSettings(image_size=cfg.size)
-    vgg = get_vgg(cfg.vgg_weights, device=device)
-    cameras = build_cameras(cfg).to(device)
-    dtype = _compute_dtype(cfg)
-    rows, cols = grid.mesh_ids(), grid.style_ids()
-    styles = load_styles([style_paths[j] for j in cols], cfg.size, device)
+    # The set-up's second part, up to the first step, is optimise_cells'.
+    with trace.span("setup"):
+        with trace.span("setup.scene"):
+            meshes = [m.to(device)
+                      for m in _load_fleet_meshes(cfg, obj_paths)]
+            padded = [pad_mesh(m, max(x.verts.shape[0] for x in meshes),
+                               max(x.faces.shape[0] for x in meshes),
+                               num_uvs=max(x.verts_uvs.shape[0]
+                                           for x in meshes),
+                               texture_size=max(x.texture.shape[0]
+                                                for x in meshes))
+                      for m in meshes]
+        # The step shades from compact visibility, which needs hard K = 1
+        # rasterization: refuse the rest rather than optimise another
+        # objective than run_second_approach would for the same cfg.
+        if cfg.soft_raster or cfg.blur_radius > 0 or cfg.faces_per_pixel > 1:
+            raise ValueError(
+                "fleet_mode=batched requires hard K=1 rasterization "
+                f"(got soft_raster={cfg.soft_raster}, "
+                f"blur_radius={cfg.blur_radius}, "
+                f"faces_per_pixel={cfg.faces_per_pixel}); use the "
+                "multi-style or second-approach entry points for soft or "
+                "blurred rasterization.")
+        settings = RasterizationSettings(image_size=cfg.size)
+        with trace.span("setup.vgg"):
+            vgg = get_vgg(cfg.vgg_weights, device=device)
+        cameras = build_cameras(cfg).to(device)
+        dtype = _compute_dtype(cfg)
+        rows, cols = grid.mesh_ids(), grid.style_ids()
+        with trace.span("setup.targets"):
+            styles = load_styles([style_paths[j] for j in cols], cfg.size,
+                                 device)
 
-    # Per-batch constants of this rank's cells: its meshes' visibility and
-    # content features and its styles' Gram targets.
-    batch_const = []
-    with torch.no_grad():
-        for _, b0, b1 in _batches(cfg.n_views, cfg.batch_size):
-            cams_b = cameras[b0:b1]
-            vis = fleet_visibility([meshes[i] for i in rows],
-                                   [padded[i] for i in rows], cams_b,
-                                   settings)
-            cfeat = torch.stack([
-                get_features(render_meshes(padded[i], cams_b, settings)[0],
-                             vgg, dtype=dtype, layout="NHWC")[CONTENT_LAYER]
-                for i in rows])
-            batch_const.append((vis, cfeat, style_gram_targets(
-                styles, b1 - b0, vgg, dtype)))
+        # Per-batch constants of this rank's cells: its meshes' visibility
+        # and content features and its styles' Gram targets.
+        batch_const = []
+        with torch.no_grad():
+            for _, b0, b1 in _batches(cfg.n_views, cfg.batch_size):
+                cams_b = cameras[b0:b1]
+                with trace.span("setup.visibility"):
+                    vis = fleet_visibility([meshes[i] for i in rows],
+                                           [padded[i] for i in rows],
+                                           cams_b, settings)
+                with trace.span("setup.targets"):
+                    cfeat = torch.stack([
+                        get_features(render_meshes(padded[i], cams_b,
+                                                   settings)[0],
+                                     vgg, dtype=dtype,
+                                     layout="NHWC")[CONTENT_LAYER]
+                        for i in rows])
+                    grams = style_gram_targets(styles, b1 - b0, vgg, dtype)
+                batch_const.append((vis, cfeat, grams))
 
-    textures = torch.stack([
-        padded[i].texture[None].expand((len(cols),)
-                                       + tuple(padded[i].texture.shape))
-        for i in rows])
+        textures = torch.stack([
+            padded[i].texture[None].expand((len(cols),)
+                                           + tuple(padded[i].texture.shape))
+            for i in rows])
     textures = optimise_cells(
         cfg, epochs, world, grid, vgg, dtype, textures, batch_const,
         "per_cell", [f"{m}/{s}" for m in mesh_names for s in style_names])

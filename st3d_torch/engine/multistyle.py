@@ -44,6 +44,7 @@ from st3d_torch.engine.pipelines import (
     load_scene,
     maybe_profile,
     nan_check,
+    profile_spans,
     save_render,
 )
 from st3d_torch.io.image import load_as_tensor
@@ -64,6 +65,7 @@ from st3d_torch.render.renderer import (
     render_meshes,
 )
 from st3d_torch.render.shading import shade_compact_styles
+from st3d_torch.utils import trace
 from st3d_torch.utils.assets import resolve_asset
 from st3d_torch.utils.checkpoint import restore, save_checkpoint
 from st3d_torch.utils.logging import RunLogger
@@ -77,6 +79,7 @@ def stem(path: str) -> str:
     return os.path.splitext(os.path.basename(path))[0]
 
 
+@trace.spanned("loss")
 def _multi_style_content_loss(feats, content_features, style_grams,
                               style_weight, content_weight, image_h):
     """Per-style reference loss on features with leading axes (a style
@@ -139,8 +142,9 @@ def textured_step(cfg: PipelineConfig, vgg, dtype, textures, vis, cfeat,
     pixel's mesh, where G > 1), all G x S x B renders through VGG-19 as
     one batch, each cell against its mesh's content features ``cfeat``
     (G, B, H, W, C) and its style's Grams."""
-    rgb = shade_compact_styles(textures, vis["cov_idx"], vis["uv_cov"],
-                               vis["mask"], vis.get("group"))
+    with trace.span("render"):
+        rgb = shade_compact_styles(textures, vis["cov_idx"], vis["uv_cov"],
+                                   vis["mask"], vis.get("group"))
     lead = rgb.shape[:3]
     feats = get_features(rgb.reshape((-1,) + rgb.shape[3:]), vgg,
                          dtype=dtype, layout="NHWC", input_layout="NHWC",
@@ -163,16 +167,19 @@ def optimise_cells(cfg: PipelineConfig, epochs: int, world: World,
     ``step_s``. Padded cells are masked to zero loss. Returns every real
     cell's optimised texture, (M, S, Ht, Wt, 3), on every rank."""
     device = world.device
-    params = {"textures": textures.detach().clone(
-        memory_format=torch.contiguous_format).requires_grad_(True)}
-    optimizer = torch.optim.Adam(list(params.values()), lr=cfg.lr)
-    gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    ckpt = os.path.join(cfg.output_path, CHECKPOINT)
-    start_epoch, _ = restore(cfg.resume, ckpt, params, optimizer, gen,
-                             leaf_in=grid.block_of_array)
-    logger = RunLogger(cfg.output_path, active=world.main)
-    stop_profile = maybe_profile(cfg, device, world)
-    mask = grid.mask(device) if grid.padded else None
+    with trace.span("setup"):
+        params = {"textures": textures.detach().clone(
+            memory_format=torch.contiguous_format).requires_grad_(True)}
+        with trace.span("setup.optim"):
+            optimizer = torch.optim.Adam(list(params.values()), lr=cfg.lr)
+        gen = torch.Generator(device=device).manual_seed(cfg.seed)
+        ckpt = os.path.join(cfg.output_path, CHECKPOINT)
+        with trace.span("setup.restore"):
+            start_epoch, _ = restore(cfg.resume, ckpt, params, optimizer,
+                                     gen, leaf_in=grid.block_of_array)
+        logger = RunLogger(cfg.output_path, active=world.main)
+        stop_profile = maybe_profile(cfg, device, world)
+        mask = grid.mask(device) if grid.padded else None
 
     def loss_fn(vis, cfeat, grams):
         per_cell = textured_step(cfg, vgg, dtype, params["textures"], vis,
@@ -191,16 +198,19 @@ def optimise_cells(cfg: PipelineConfig, epochs: int, world: World,
             _, per_cell = step(vis, cfeat, grams,
                                label=f"epoch {epoch}, batch {bi}")
             cells = cells + per_cell.detach()
-        cells = grid.gather(cells)
-        values = cells.flatten().tolist()
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        logger.log_epoch(epoch, float(cells.sum()),
-                         **{key: dict(zip(names, values))},
-                         step_s=time.perf_counter() - t0)
-        if cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
-            save_checkpoint(ckpt, epoch + 1, params, optimizer, gen,
-                            write=world.main, leaf_out=grid.gather)
+        with trace.span("epoch_end"):
+            trace.count("epochs")
+            cells = grid.gather(cells)
+            values = cells.flatten().tolist()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            logger.log_epoch(epoch, float(cells.sum()),
+                             **{key: dict(zip(names, values))},
+                             step_s=time.perf_counter() - t0)
+            if cfg.checkpoint_every and (epoch + 1) % (
+                    cfg.checkpoint_every) == 0:
+                save_checkpoint(ckpt, epoch + 1, params, optimizer, gen,
+                                write=world.main, leaf_out=grid.gather)
     stop_profile()
     logger.close()
     # Every rank renders rank 0's cells (ranks that each ran the whole grid
@@ -232,6 +242,7 @@ def run_multistyle(cfg: PipelineConfig, style_paths: Sequence[str],
     epochs = epochs if epochs is not None else cfg.epochs
     _check_config(cfg)
     world = current_world(cfg.device)
+    profile_spans(cfg, world)
     device = world.device
     names = [stem(p) for p in style_paths]
     grid = (CellGrid.styles(world, len(names))
@@ -240,32 +251,41 @@ def run_multistyle(cfg: PipelineConfig, style_paths: Sequence[str],
     if world.main:
         os.makedirs(cfg.output_path, exist_ok=True)
 
-    mesh = load_scene(cfg).to(device)
-    settings = RasterizationSettings(image_size=cfg.size)
-    vgg = get_vgg(cfg.vgg_weights, device=device)
-    cameras = build_cameras(cfg).to(device)
-    dtype = _compute_dtype(cfg)
-    styles = load_styles([style_paths[j] for j in grid.style_ids()],
-                         cfg.size, device)
+    # The set-up's second part, up to the first step, is optimise_cells'.
+    with trace.span("setup"):
+        with trace.span("setup.scene"):
+            mesh = load_scene(cfg).to(device)
+        settings = RasterizationSettings(image_size=cfg.size)
+        with trace.span("setup.vgg"):
+            vgg = get_vgg(cfg.vgg_weights, device=device)
+        cameras = build_cameras(cfg).to(device)
+        dtype = _compute_dtype(cfg)
+        with trace.span("setup.targets"):
+            styles = load_styles([style_paths[j] for j in grid.style_ids()],
+                                 cfg.size, device)
 
-    # Per-batch constants: the compact visibility, the content features
-    # (shared by every style) and this rank's styles' Gram targets.
-    batch_const = []
-    with torch.no_grad():
-        for _, b0, b1 in _batches(cfg.n_views, cfg.batch_size):
-            cams_b = cameras[b0:b1]
-            content_imgs, _ = render_meshes(mesh, cams_b, settings)
-            cfeat = get_features(content_imgs, vgg, dtype=dtype,
-                                 layout="NHWC")[CONTENT_LAYER]
-            vis = compact_visibility(
-                precompute_visibility(mesh, cams_b, settings))
-            batch_const.append((
-                {k: (v[None] if k == "mask" else v) for k, v in vis.items()},
-                cfeat[None], style_gram_targets(styles, b1 - b0, vgg,
-                                                dtype)))
+        # Per-batch constants: the compact visibility, the content
+        # features (shared by every style) and this rank's styles' Gram
+        # targets.
+        batch_const = []
+        with torch.no_grad():
+            for _, b0, b1 in _batches(cfg.n_views, cfg.batch_size):
+                cams_b = cameras[b0:b1]
+                with trace.span("setup.targets"):
+                    content_imgs, _ = render_meshes(mesh, cams_b, settings)
+                    cfeat = get_features(content_imgs, vgg, dtype=dtype,
+                                         layout="NHWC")[CONTENT_LAYER]
+                with trace.span("setup.visibility"):
+                    vis = compact_visibility(
+                        precompute_visibility(mesh, cams_b, settings))
+                with trace.span("setup.targets"):
+                    grams = style_gram_targets(styles, b1 - b0, vgg, dtype)
+                batch_const.append((
+                    {k: (v[None] if k == "mask" else v)
+                     for k, v in vis.items()}, cfeat[None], grams))
 
-    textures = mesh.texture[None, None].expand(
-        (1, grid.sb) + tuple(mesh.texture.shape))
+        textures = mesh.texture[None, None].expand(
+            (1, grid.sb) + tuple(mesh.texture.shape))
     textures = optimise_cells(cfg, epochs, world, grid, vgg, dtype, textures,
                               batch_const, "per_style", names)[0]
     return {name: write_cell(cfg, mesh, textures[s],

@@ -49,6 +49,19 @@ that holds only the resumed steps. ``--debug_nan`` checks each step's loss,
 gradients and updated leaves (``utils/debug.py``), and ``--profile``
 traces the optimisation loop with ``torch.profiler`` into
 ``output_path/profile/``.
+
+Every entry runs in named spans (``utils/trace.py``, off unless
+``--profile`` or ``portbench/spans.py`` turns them on): ``st3d.setup``
+from the entry to its first step, with ``setup.scene``, ``setup.vgg``,
+``setup.optim``, ``setup.targets``, ``setup.visibility`` and
+``setup.restore`` inside;
+``st3d.step`` with its ``forward`` (``render``, ``vgg``, ``loss``),
+``backward``, ``optim`` and, under ``--debug_nan``, ``check``;
+``st3d.epoch_end`` (the loss fetch, the sync, the log, the checkpoint);
+``st3d.stylise`` (hot loop A); ``st3d.kernels.load``. ``--profile``'s
+``trace.json`` holds them beside the kernels, and ``spans.json`` holds
+every span and counter (``steps``, ``epochs``, ``kernels.loaded``,
+``kernels.built``).
 """
 
 from __future__ import annotations
@@ -101,6 +114,7 @@ from st3d_torch.render.renderer import (
     render_rgba_static,
     warn_if_hard_k_saturated,
 )
+from st3d_torch.utils import trace
 from st3d_torch.utils.assets import resolve_asset
 from st3d_torch.utils.checkpoint import restore, save_checkpoint
 from st3d_torch.utils.debug import check_finite
@@ -180,13 +194,24 @@ def _compute_dtype(cfg: PipelineConfig) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
+def profile_spans(cfg: PipelineConfig, world: World = None) -> None:
+    """With ``--profile``, turn the port's spans on (rank 0) from the
+    entry on, so that ``spans.json`` holds the set-up by phase, which the
+    profiler, started after set-up, does not see."""
+    if cfg.profile and (world or World()).main:
+        trace.enable()
+
+
 def maybe_profile(cfg: PipelineConfig, device: torch.device,
                   world: World = None):
     """With ``--profile``, start a ``torch.profiler`` trace (CPU, and CUDA
     on a GPU) on rank 0 and return the function that stops it and writes
-    ``output_path/profile/trace.json`` (Chrome trace format) and
-    ``device_ms.json``, the device milliseconds of each kernel over the
-    traced span (``profile_step.kernel_ms``); without it, a no-op."""
+    ``output_path/profile/trace.json`` (Chrome trace format, with the
+    port's ``st3d.*`` spans), ``device_ms.json``, the device milliseconds
+    of each kernel over the traced span (``profile_step.kernel_ms``), and
+    ``spans.json``, every span since the entry and the counters on the
+    trace's clock (``utils/trace.py``), and turns the spans off; without
+    it, a no-op."""
     if not cfg.profile or not (world or World()).main:
         return lambda: None
     act = torch.profiler.ProfilerActivity
@@ -207,6 +232,8 @@ def maybe_profile(cfg: PipelineConfig, device: torch.device,
         prof.export_chrome_trace(os.path.join(out, "trace.json"))
         with open(os.path.join(out, "device_ms.json"), "w") as f:
             json.dump(kernel_ms(prof.events(), 1), f, indent=1)
+        trace.write(os.path.join(out, "spans.json"))
+        trace.disable()
 
     return stop
 
@@ -299,29 +326,38 @@ def run_first_approach(cfg: PipelineConfig) -> Mesh:
     mesh."""
     _check_config(cfg)
     world = current_world(cfg.device)
+    profile_spans(cfg, world)
     device = world.device
     use_dp = _data_parallel(cfg, world)
     st_dir = os.path.join(cfg.output_path, "2d_style_transfer")
     if world.main:
         os.makedirs(st_dir, exist_ok=True)
 
-    content_mesh = load_scene(cfg).to(device)
-    settings = _settings(cfg)
-    vgg = get_vgg(cfg.vgg_weights, device=device)
-    cameras = build_cameras(cfg).to(device)
-    warn_if_hard_k_saturated(content_mesh, cameras[:cfg.batch_size],
-                             settings, context="first render")
-    params, optimizer = setup_optimizations(cfg.optimization_target,
-                                            content_mesh, cfg.mse_lr)
-    static_vis = cfg.optimization_target == "texture"
-    weights = cfg.loss_weights()
-    dtype = _compute_dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    style = load_as_tensor(resolve_asset(cfg.style_path), size=cfg.size)
-    ckpt = os.path.join(cfg.output_path, CHECKPOINT)
-    start_batch, extras = restore(cfg.resume, ckpt, params, optimizer, gen)
-    logger = RunLogger(cfg.output_path, active=world.main)
-    stop_profile = maybe_profile(cfg, device, world)
+    with trace.span("setup"):
+        with trace.span("setup.scene"):
+            content_mesh = load_scene(cfg).to(device)
+        settings = _settings(cfg)
+        with trace.span("setup.vgg"):
+            vgg = get_vgg(cfg.vgg_weights, device=device)
+        cameras = build_cameras(cfg).to(device)
+        warn_if_hard_k_saturated(content_mesh, cameras[:cfg.batch_size],
+                                 settings, context="first render")
+        with trace.span("setup.optim"):
+            params, optimizer = setup_optimizations(
+                cfg.optimization_target, content_mesh, cfg.mse_lr)
+        static_vis = cfg.optimization_target == "texture"
+        weights = cfg.loss_weights()
+        dtype = _compute_dtype(cfg)
+        gen = torch.Generator(device=device).manual_seed(cfg.seed)
+        with trace.span("setup.targets"):
+            style = load_as_tensor(resolve_asset(cfg.style_path),
+                                   size=cfg.size)
+        ckpt = os.path.join(cfg.output_path, CHECKPOINT)
+        with trace.span("setup.restore"):
+            start_batch, extras = restore(cfg.resume, ckpt, params,
+                                          optimizer, gen)
+        logger = RunLogger(cfg.output_path, active=world.main)
+        stop_profile = maybe_profile(cfg, device, world)
 
     def mse_loss(cams, target, vis):
         mesh = apply_params(content_mesh, params)
@@ -353,8 +389,9 @@ def run_first_approach(cfg: PipelineConfig) -> Mesh:
             # and the others receive its views.
             if world.main:
                 style_b = style[None].expand(b1 - b0, -1, -1, -1).to(device)
-                applied = _stylise(cfg, content_mesh, params, cams_b,
-                                   style_b, settings, vgg, gen, dtype)
+                with trace.span("stylise"):
+                    applied = _stylise(cfg, content_mesh, params, cams_b,
+                                       style_b, settings, vgg, gen, dtype)
                 for j in range(b1 - b0):
                     save_image(applied[j], os.path.join(
                         st_dir, f"view_{i * cfg.batch_size + j}.png"))
@@ -406,93 +443,108 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
     final (clamped) mesh."""
     _check_config(cfg)
     world = current_world(cfg.device)
+    profile_spans(cfg, world)
     device = world.device
     use_dp = _data_parallel(cfg, world)
     if world.main:
         os.makedirs(os.path.join(cfg.output_path, "current_images"),
                     exist_ok=True)
 
-    content_mesh = load_scene(cfg).to(device)
-    settings = _settings(cfg)
-    vgg = get_vgg(cfg.vgg_weights, device=device)
-    cameras = build_cameras(cfg).to(device)
-    warn_if_hard_k_saturated(content_mesh, cameras[:cfg.batch_size],
-                             settings, context="first render")
-    params, optimizer = setup_optimizations(cfg.optimization_target,
-                                            content_mesh, cfg.lr)
-    weights = cfg.loss_weights()
-    static_vis = cfg.optimization_target == "texture"
-    dtype = _compute_dtype(cfg)
-    gen = torch.Generator(device=device).manual_seed(cfg.seed)
-    style = load_as_tensor(resolve_asset(cfg.style_path), size=cfg.size)
-    content_noise = cfg.content_background == "noise"
-    noise = content_noise or cfg.current_background == "noise"
+    with trace.span("setup"):
+        with trace.span("setup.scene"):
+            content_mesh = load_scene(cfg).to(device)
+        settings = _settings(cfg)
+        with trace.span("setup.vgg"):
+            vgg = get_vgg(cfg.vgg_weights, device=device)
+        cameras = build_cameras(cfg).to(device)
+        warn_if_hard_k_saturated(content_mesh, cameras[:cfg.batch_size],
+                                 settings, context="first render")
+        with trace.span("setup.optim"):
+            params, optimizer = setup_optimizations(
+                cfg.optimization_target, content_mesh, cfg.lr)
+        weights = cfg.loss_weights()
+        static_vis = cfg.optimization_target == "texture"
+        dtype = _compute_dtype(cfg)
+        gen = torch.Generator(device=device).manual_seed(cfg.seed)
+        with trace.span("setup.targets"):
+            style = load_as_tensor(resolve_asset(cfg.style_path),
+                                   size=cfg.size)
+        content_noise = cfg.content_background == "noise"
+        noise = content_noise or cfg.current_background == "noise"
 
-    # Per-batch constants, hoisted out of the epoch loop (the visibility
-    # only for the texture target), each cut to this rank's views under
-    # data parallelism.
-    batch_const = []
-    with torch.no_grad():
-        for _, b0, b1 in _batches(cfg.n_views, cfg.batch_size):
-            cams_b = cameras[b0:b1]
-            style_b = style[None].expand(b1 - b0, -1, -1, -1).to(device)
-            cimgs, cmasks = render_meshes(content_mesh, cams_b, settings)
-            content_b = cimgs if content_noise else apply_background(
-                cimgs, cmasks, cfg.content_background, style_b, gen)
-            targets = StyleContentTargets.create(content_b, style_b, vgg,
-                                                 dtype=dtype, layout="NHWC")
-            if use_dp:
-                cams_b = cams_b[view_block(b1 - b0, world)]
-                style_b, cimgs, cmasks = shard_views((style_b, cimgs, cmasks),
-                                                     world)
-                targets = StyleContentTargets(
-                    shard_views(targets.content_features, world),
-                    shard_views(targets.style_grams, world),
-                    targets.feature_shapes)
-            vis = (compact_visibility(
-                precompute_visibility(content_mesh, cams_b, settings))
-                if static_vis else None)
-            batch_const.append((cams_b, style_b, cimgs, cmasks, targets,
-                                vis))
+        # Per-batch constants, hoisted out of the epoch loop (the
+        # visibility only for the texture target), each cut to this rank's
+        # views under data parallelism.
+        batch_const = []
+        with torch.no_grad():
+            for _, b0, b1 in _batches(cfg.n_views, cfg.batch_size):
+                cams_b = cameras[b0:b1]
+                with trace.span("setup.targets"):
+                    style_b = style[None].expand(b1 - b0, -1, -1, -1).to(
+                        device)
+                    cimgs, cmasks = render_meshes(content_mesh, cams_b,
+                                                  settings)
+                    content_b = cimgs if content_noise else apply_background(
+                        cimgs, cmasks, cfg.content_background, style_b, gen)
+                    targets = StyleContentTargets.create(
+                        content_b, style_b, vgg, dtype=dtype, layout="NHWC")
+                if use_dp:
+                    cams_b = cams_b[view_block(b1 - b0, world)]
+                    style_b, cimgs, cmasks = shard_views(
+                        (style_b, cimgs, cmasks), world)
+                    targets = StyleContentTargets(
+                        shard_views(targets.content_features, world),
+                        shard_views(targets.style_grams, world),
+                        targets.feature_shapes)
+                with trace.span("setup.visibility"):
+                    vis = (compact_visibility(
+                        precompute_visibility(content_mesh, cams_b, settings))
+                        if static_vis else None)
+                batch_const.append((cams_b, style_b, cimgs, cmasks, targets,
+                                    vis))
 
-    def loss_fn(cams_b, style_b, cimgs, cmasks, targets, vis, g_cur,
-                g_content):
-        mesh = apply_params(content_mesh, params)
-        rgba = (render_rgba_static(mesh, vis, settings) if static_vis
-                else render_rgba(mesh, cams_b, settings))
-        cur_i = rgba[..., :3]
-        cur_m = (rgba[..., 3:4] > 0).to(cur_i.dtype)
-        cur = apply_background(cur_i, cur_m, cfg.current_background,
-                               style_b.permute(0, 2, 3, 1), g_cur)
-        feats = get_features(cur, vgg, dtype=dtype, layout="NHWC",
-                             input_layout="NHWC", gram1=True)
-        tg = targets
-        if content_noise:
-            with torch.no_grad():
-                content_b = apply_background(cimgs, cmasks, "noise",
-                                             style_b, g_content)
-                cf = get_features(content_b, vgg, dtype=dtype,
-                                  layout="NHWC")[CONTENT_LAYER]
-            tg = StyleContentTargets(cf, targets.style_grams,
-                                     targets.feature_shapes)
-        loss = style_content_loss(feats, tg, cfg.style_weight,
-                                  cfg.content_weight, layout="NHWC")
-        if not static_vis:
-            loss = weights["main_loss_weight"] * loss + (
-                mesh_regularizer_loss(mesh, mesh.verts,
-                                      content_mesh.verts, weights))
-        return loss, cur
+        def loss_fn(cams_b, style_b, cimgs, cmasks, targets, vis, g_cur,
+                    g_content):
+            mesh = apply_params(content_mesh, params)
+            rgba = (render_rgba_static(mesh, vis, settings) if static_vis
+                    else render_rgba(mesh, cams_b, settings))
+            cur_i = rgba[..., :3]
+            cur_m = (rgba[..., 3:4] > 0).to(cur_i.dtype)
+            cur = apply_background(cur_i, cur_m, cfg.current_background,
+                                   style_b.permute(0, 2, 3, 1), g_cur)
+            feats = get_features(cur, vgg, dtype=dtype, layout="NHWC",
+                                 input_layout="NHWC", gram1=True)
+            tg = targets
+            if content_noise:
+                with torch.no_grad():
+                    content_b = apply_background(cimgs, cmasks, "noise",
+                                                 style_b, g_content)
+                    cf = get_features(content_b, vgg, dtype=dtype,
+                                      layout="NHWC")[CONTENT_LAYER]
+                tg = StyleContentTargets(cf, targets.style_grams,
+                                         targets.feature_shapes)
+            loss = style_content_loss(feats, tg, cfg.style_weight,
+                                      cfg.content_weight, layout="NHWC")
+            if not static_vis:
+                loss = weights["main_loss_weight"] * loss + (
+                    mesh_regularizer_loss(mesh, mesh.verts,
+                                          content_mesh.verts, weights))
+            return loss, cur
 
-    step = make_view_parallel_step(loss_fn, optimizer, params,
-                                   world if use_dp else None, has_aux=True,
-                                   check=nan_check(cfg, world))
-    ckpt = os.path.join(cfg.output_path, CHECKPOINT)
-    start_epoch, _ = restore(cfg.resume, ckpt, params, optimizer, gen)
-    # Data-parallel noise comes from seeds of the global step index, which
-    # a resume continues (the plain path's generator is checkpointed).
-    step_counter = start_epoch * len(batch_const)
-    logger = RunLogger(cfg.output_path, active=world.main)
-    stop_profile = maybe_profile(cfg, device, world)
+        step = make_view_parallel_step(loss_fn, optimizer, params,
+                                       world if use_dp else None,
+                                       has_aux=True,
+                                       check=nan_check(cfg, world))
+        ckpt = os.path.join(cfg.output_path, CHECKPOINT)
+        with trace.span("setup.restore"):
+            start_epoch, _ = restore(cfg.resume, ckpt, params, optimizer,
+                                     gen)
+        # Data-parallel noise comes from seeds of the global step index,
+        # which a resume continues (the plain path's generator is
+        # checkpointed).
+        step_counter = start_epoch * len(batch_const)
+        logger = RunLogger(cfg.output_path, active=world.main)
+        stop_profile = maybe_profile(cfg, device, world)
     for epoch in range(start_epoch, cfg.epochs):
         t0 = time.perf_counter()
         total = torch.zeros((), device=device)
@@ -518,14 +570,17 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
                         save_image(frames[j], os.path.join(
                             cfg.output_path, "current_images",
                             f"view_{bi * cfg.batch_size + j}.png"))
-        loss_value = float(total)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        logger.log_epoch(epoch, loss_value,
-                         step_s=time.perf_counter() - t0)
-        if cfg.checkpoint_every and (epoch + 1) % cfg.checkpoint_every == 0:
-            save_checkpoint(ckpt, epoch + 1, params, optimizer, gen,
-                            write=world.main)
+        with trace.span("epoch_end"):
+            trace.count("epochs")
+            loss_value = float(total)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            logger.log_epoch(epoch, loss_value,
+                             step_s=time.perf_counter() - t0)
+            if cfg.checkpoint_every and (epoch + 1) % (
+                    cfg.checkpoint_every) == 0:
+                save_checkpoint(ckpt, epoch + 1, params, optimizer, gen,
+                                write=world.main)
 
     stop_profile()
     final = _finish(cfg, content_mesh, params, settings, world)

@@ -25,6 +25,8 @@ from typing import Dict, List
 
 import torch
 
+from st3d_torch.utils import trace
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "st3d_torch")
@@ -144,10 +146,12 @@ def build(name: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    """The loaded library of ``csrc/<name>.cu``, built on first use (the
+    source hashed, nvcc if needed, dlopen: the span ``st3d.kernels.load``)."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = _LIBS[name] = ctypes.CDLL(build(name))
+        with trace.span("kernels.load"):
+            lib = _LIBS[name] = ctypes.CDLL(build(name))
     return lib
 
 

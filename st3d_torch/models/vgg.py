@@ -68,6 +68,7 @@ from st3d_torch.kernels.conv import (
 )
 from st3d_torch.kernels.stage1 import conv1_1_relu_stats, conv1_2_relu_pool
 from st3d_torch.kernels.stage1v3 import conv1_1_relu_gram, conv1_2_relu_pool_v3
+from st3d_torch.utils import trace
 
 VGG19_CFG: Tuple = (
     64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
@@ -244,6 +245,7 @@ def _max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
 
 
+@trace.spanned("vgg")
 def get_features(images: torch.Tensor, model: VGG19,
                  layers: Optional[Dict[str, str]] = None,
                  dtype: torch.dtype = torch.float32, layout: str = "NCHW",

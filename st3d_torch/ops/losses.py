@@ -20,6 +20,7 @@ import torch
 from st3d_torch.core.mesh import Mesh
 from st3d_torch.kernels.conv import gram_nhwc_diff
 from st3d_torch.models.vgg import VGG19, get_features
+from st3d_torch.utils import trace
 
 STYLE_LAYERS = ("conv1_1", "conv2_1", "conv3_1", "conv4_1", "conv5_1")
 CONTENT_LAYER = "conv4_2"
@@ -71,6 +72,7 @@ class StyleContentTargets:
                    feature_shapes=shapes)
 
 
+@trace.spanned("loss")
 def style_content_loss(current_features: Dict[str, torch.Tensor],
                        targets: StyleContentTargets,
                        style_weight: float = 1e6,
@@ -164,6 +166,7 @@ def mesh_normal_consistency(mesh: Mesh) -> torch.Tensor:
     return torch.mean(1.0 - cos)
 
 
+@trace.spanned("loss")
 def mesh_regularizer_loss(mesh: Mesh, verts: torch.Tensor,
                           target_verts: torch.Tensor,
                           weights: Dict[str, float]) -> torch.Tensor:

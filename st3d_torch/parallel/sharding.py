@@ -28,6 +28,8 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from st3d_torch.utils import trace
+
 
 @dataclasses.dataclass(frozen=True)
 class World:
@@ -230,24 +232,35 @@ def make_view_parallel_step(loss_fn: Callable,
     ``world=None`` keeps the gradients and the loss local, for leaves that
     each rank owns alone. ``check(tree, what)``, where given, runs on the
     loss, the gradients and the updated leaves, ``what`` naming ``label``
-    and the stage (``--debug_nan``)."""
+    and the stage (``--debug_nan``). The step runs in the span ``st3d.step``
+    with its ``forward``, ``backward``, ``optim`` and ``check`` phases
+    (``utils/trace.py``)."""
     world = world or World()
 
+    @trace.spanned("step")
     def step(*args, label: str = ""):
-        optimizer.zero_grad(set_to_none=True)
-        out = loss_fn(*args)
-        loss, aux = out if has_aux else (out, None)
-        mean = all_mean(loss.detach(), world)
+        trace.count("steps")
+        with trace.span("optim"):
+            optimizer.zero_grad(set_to_none=True)
+        with trace.span("forward"):
+            out = loss_fn(*args)
+            loss, aux = out if has_aux else (out, None)
+            mean = all_mean(loss.detach(), world)
         if check:
-            check(mean, f"{label} loss")
-        loss.backward()
-        average_gradients(params.values(), world)
+            with trace.span("check"):
+                check(mean, f"{label} loss")
+        with trace.span("backward"):
+            loss.backward()
+            average_gradients(params.values(), world)
         if check:
-            check({k: p.grad for k, p in params.items()},
-                  f"{label} gradient")
-        optimizer.step()
+            with trace.span("check"):
+                check({k: p.grad for k, p in params.items()},
+                      f"{label} gradient")
+        with trace.span("optim"):
+            optimizer.step()
         if check:
-            check(params, f"{label} parameter")
+            with trace.span("check"):
+                check(params, f"{label} parameter")
         return (mean, aux) if has_aux else mean
 
     return step

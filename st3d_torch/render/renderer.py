@@ -42,6 +42,7 @@ from st3d_torch.render.topk import (
     rasterize_topk,
     shade_softras,
 )
+from st3d_torch.utils import trace
 
 
 def shade_views(mesh: Mesh, fv: torch.Tensor, vis: Dict[str, torch.Tensor],
@@ -76,6 +77,7 @@ def rasterize_views(fv: torch.Tensor, settings: RasterizationSettings
     return vis
 
 
+@trace.spanned("render")
 def render_rgba(mesh: Mesh, cameras: FoVPerspectiveCameras,
                 settings: RasterizationSettings) -> torch.Tensor:
     """(N, H, W, 4) RGBA for every camera: white background, alpha =
@@ -142,6 +144,7 @@ def compact_visibility(vis: Dict[str, torch.Tensor]
             "uv_cov": vis["uv"].reshape(-1, 2)[cov_idx]}
 
 
+@trace.spanned("render")
 def render_rgba_static(mesh: Mesh, vis: Dict[str, torch.Tensor],
                        settings: RasterizationSettings) -> torch.Tensor:
     """``render_rgba`` with the visibility pass replaced by the constants of

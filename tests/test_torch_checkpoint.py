@@ -370,8 +370,9 @@ def test_debug_nan_run_raises_naming_the_epoch(scene, tmp_path):
 def test_profile_writes_a_trace(scene, tmp_path, approach):
     """As ``tests/test_pipelines.py::test_profile_flag_writes_trace``: a
     Chrome trace of the optimisation loop, the port's VGG autograd
-    functions among its events, and its device time by kernel (empty on
-    the CPU) under ``output_path/profile/``."""
+    functions and its ``st3d.*`` spans among its events, its device time by
+    kernel (empty on the CPU) and its spans (``spans.json``) under
+    ``output_path/profile/``."""
     import json
 
     _, argv = scene
@@ -381,8 +382,10 @@ def test_profile_writes_a_trace(scene, tmp_path, approach):
     else:
         _first(argv, out, "--n_mse_steps", "2", "--profile", "True")
     prof = os.path.join(out, "profile")
-    assert sorted(os.listdir(prof)) == ["device_ms.json", "trace.json"]
+    assert sorted(os.listdir(prof)) == ["device_ms.json", "spans.json",
+                                        "trace.json"]
     with open(os.path.join(prof, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
     assert any(str(e.get("name", "")).startswith("_Conv3x3Bias")
                for e in events)
+    assert any(e.get("name") == "st3d.vgg" for e in events)
