@@ -36,7 +36,10 @@ Phases; any failure raises and the script exits non-zero:
    bf16 on the tensor-core kernel ``conv3x3_wgmma`` (max-abs error <= 1e-2
    * max|plain|) and in f32 on the 3xTF32 tensor-core kernel
    ``conv3x3_tf32x3`` (<= 1e-4 * max|plain|); each call must launch the
-   kernel its route names;
+   kernel its route names; the float32 K2 also at the f32 cell's shapes
+   (``k2_f32_cell_check``: conv2_1 .. conv5_1 at 768², batches 4 and 2,
+   forward and dx, and C at conv1_2), each timed beside its 3xTF32 bound
+   with its tiles, CTAs and waves;
    K2 at the widths TMA cannot stride (``narrow_check``): 3 -> 64 and 64 ->
    3 at 512² x 4, 5 -> 12 and 12 -> 5 at 128² x 4, forward and dx, on
    ``conv3x3_narrow_wgmma`` (bf16) and ``conv3x3_narrow_tf32x3`` (f32) with
@@ -1327,6 +1330,112 @@ def conv_check(dev):
             rec["library_ms_tf32_on"] = t["lib_tf32"]
         recs.append(rec)
     return recs
+
+
+# The f32 cell (vgg19-768x6-f32.texture): 768², its 6 views in batches of 4
+# and 2. K2 runs conv2_1 .. conv5_1 forward and their input gradients
+# (conv1_2 goes through C, its gradient through D); (Cin, Cout, H).
+F32_CELL_SIZE = 768
+F32_CELL_BATCHES = (4, 2)
+F32_CELL_K2_CONVS = [(cin, cout, h * F32_CELL_SIZE // SIZE)
+                     for cin, cout, h in VGG_K2_CONVS[1:]]
+
+
+def k2_f32_cell_check(dev):
+    """The float32 K2 (3xTF32) at the f32 cell's shapes: each conv of
+    ``F32_CELL_K2_CONVS`` at both batches, forward and dx, and C at conv1_2,
+    against the plain versions (<= 1e-4 * max|plain|), timed (CUDA events)
+    beside its 3xTF32 bound with its tiles (boxes of ``tf32x3_tile``, C's
+    of ``pool_tile``), CTAs (min(tiles, SMs)) and waves; the forward also
+    beside the plain version and ``F.conv2d`` in float32 with TF32 off (the
+    library time). The totals are one epoch's, both batches: the record's
+    ``ms``, ``plain_ms``, ``library_ms`` and ``bound_ms`` are the forward
+    calls', ``dx_ms`` and ``dx_bound_ms`` the input gradients', ``c_ms`` and
+    ``c_bound_ms`` C's."""
+    import torch
+    import torch.nn.functional as F
+    from st3d_torch.kernels.conv import (
+        LAUNCHES, SMS, _transpose_conv, conv3x3_nhwc, conv3x3_nhwc_plain,
+        conv3x3_relu_pool, conv3x3_relu_pool_plain, pool_tile, tf32x3_tile)
+
+    def plan(bsz, h, cout, pool=False):
+        bw, bh = pool_tile(h) if pool else tf32x3_tile(h, h)
+        tiles = (bsz * -(-h // bw) * -(-h // bh)
+                 * -(-cout // (64 if cout <= 64 else 128)))
+        ctas = min(tiles, SMS)
+        return f"tiles {tiles}, CTAs {ctas}, waves {tiles / ctas:.2f}"
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    tot = {"ms": 0.0, "dx": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0,
+           "dx_bound": 0.0, "c": 0.0, "c_bound": 0.0, "err": 0.0}
+    for bsz in F32_CELL_BATCHES:
+        for cin, cout, h in F32_CELL_K2_CONVS:
+            x, w, b, ct = _conv_operands(gen, dev, cin, cout, h,
+                                         torch.float32, bsz)
+            what = f"{cin:>3}->{cout:<3} {h:>3}² x {bsz}"
+            err, text = _conv_fwd_dx(x, w, b, ct, True, 1e-4,
+                                     "conv3x3_tf32x3", what)
+            t_k = cuda_ms(lambda: conv3x3_nhwc(x, w, b, True), 5)
+            t_d = cuda_ms(lambda: _transpose_conv(ct, w), 5)
+            t_p = cuda_ms(lambda: conv3x3_nhwc_plain(x, w, b, True), 3, 1)
+            xl = x.permute(0, 3, 1, 2)
+            wl = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            t_l = cuda_ms(lambda: F.conv2d(xl, wl, b, padding=1), 5)
+            # The forward and the input gradient move the same bytes and
+            # make the same products, so one bound holds for each.
+            flops = 2 * 9 * cin * cout * h * h * bsz
+            nbytes = 4 * (bsz * h * h * (cin + cout) + 9 * cin * cout + cout)
+            t_b = bound(3 * flops, nbytes, TF32_FLOPS)[0]
+            for k, v in (("ms", t_k), ("dx", t_d), ("plain", t_p),
+                         ("lib", t_l), ("bound", t_b), ("dx_bound", t_b)):
+                tot[k] += v
+            tot["err"] = max(tot["err"], err)
+            print(f"K2 f32 cell {what} {text}  fwd {t_k:.3f} ms "
+                  f"({plan(bsz, h, cout)}), dx {t_d:.3f} ms "
+                  f"({plan(bsz, h, cin)}), bound {t_b:.4f} ms each "
+                  f"({t_b / t_k:.0%}, {t_b / t_d:.0%} of it), plain "
+                  f"{t_p:.3f} ms, F.conv2d {t_l:.3f} ms")
+        x, w, b, _ = _conv_operands(gen, dev, 64, 64, F32_CELL_SIZE,
+                                    torch.float32, bsz)
+        before = dict(LAUNCHES)
+        p = conv3x3_relu_pool(x, w, b)[0]
+        torch.cuda.synchronize()
+        if _launched(before) != {"conv3x3_relu_pool_tf32x3": 1}:
+            fail(f"C f32 cell: launched {_launched(before)}")
+        p_ref = conv3x3_relu_pool_plain(x, w, b)[0]
+        err = float((p - p_ref).abs().max())
+        scale = float(p_ref.abs().max())
+        if not err <= 1e-4 * scale:
+            fail(f"C f32 cell x {bsz}: max err {err} > 1e-4 * {scale}")
+        t_c = cuda_ms(lambda: conv3x3_relu_pool(x, w, b), 5)
+        flops = 2 * 9 * 64 * 64 * F32_CELL_SIZE ** 2 * bsz
+        px = bsz * F32_CELL_SIZE ** 2
+        t_b = bound(3 * flops, 4 * px * 64 + 5 * px // 4 * 64
+                    + 4 * (9 * 64 * 64 + 64), TF32_FLOPS)[0]
+        tot["c"] += t_c
+        tot["c_bound"] += t_b
+        print(f"C f32 cell 64->64 {F32_CELL_SIZE}² x {bsz} err {err:.3g}/"
+              f"{scale:.3g}  {t_c:.3f} ms "
+              f"({plan(bsz, F32_CELL_SIZE, 64, True)}), bound {t_b:.4f} ms "
+              f"({t_b / t_c:.0%} of it)")
+    k2 = tot["ms"] + tot["dx"]
+    k2_bound = tot["bound"] + tot["dx_bound"]
+    print(f"K2 f32 cell, one epoch (22 calls a batch): fwd {tot['ms']:.3f} ms "
+          f"(bound {tot['bound']:.3f}, plain {tot['plain']:.3f}, F.conv2d "
+          f"{tot['lib']:.3f}) + dx {tot['dx']:.3f} ms (bound "
+          f"{tot['dx_bound']:.3f}) = {k2:.3f} ms, bound {k2_bound:.3f} ms "
+          f"({k2_bound / k2:.0%} of it); C {tot['c']:.3f} ms, bound "
+          f"{tot['c_bound']:.3f} ms")
+    return [{"name": "conv3x3_tf32x3 (f32 cell)", "route": "cuda",
+             "source": "st3d_torch/csrc/conv3x3_tf32x3.cu",
+             "replaces": "st3d/kernels/conv_pallas.py:128",
+             "dtype": "float32", "max_abs_err": tot["err"],
+             "ms": tot["ms"], "plain_ms": tot["plain"],
+             "library_ms": tot["lib"], "bound_ms": tot["bound"],
+             "bound_by": "operations", "dx_ms": tot["dx"],
+             "dx_bound_ms": tot["dx_bound"], "c_ms": tot["c"],
+             "c_bound_ms": tot["c_bound"]}]
 
 
 # (Cin, Cout, H) of K2 at the widths TMA cannot stride: conv1_1 and its
@@ -4126,7 +4235,8 @@ def main(argv=None):
     card_phase()
     card = smi()
     lap("build")
-    kernels = raster_check(dev) + conv_check(dev) + narrow_check(dev)
+    kernels = raster_check(dev) + conv_check(dev) + k2_f32_cell_check(dev)
+    kernels += narrow_check(dev)
     kernels += gram_check(dev)
     kernels += stage1_check(dev)
     lap("K1-K3, A-D checks")

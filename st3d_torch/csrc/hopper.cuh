@@ -7,8 +7,8 @@
 // through conv_narrow.cuh, conv3x3_narrow_wgmma.cu and
 // conv3x3_narrow_tf32x3.cu),
 // from raw PTX: mbarriers, cp.async, TMA tile loads and stores, named
-// barriers, the proxy fence, wgmma shared-memory descriptors and the wgmma
-// instructions; the Grams' second pass; conv1_1's patch rows and stage 1
+// barriers, the proxy fence, setmaxnreg, wgmma shared-memory descriptors
+// and the wgmma instructions; the Grams' second pass; conv1_1's patch rows and stage 1
 // v3's y in bf16 and in float32; and, on the host, the tensor maps the
 // convolutions share.
 // kernels/build.py folds every csrc/*.cuh into each library's hash, so an
@@ -55,6 +55,18 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         "selp.u32 %0, 1, 0, p;\n}\n"
         : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   }
+}
+
+// The warpgroup's registers a thread (setmaxnreg; a multiple of 8 from 24
+// to 256, executed by all four warps): a producer lowers its budget so
+// that consumers can raise theirs.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(N));
 }
 
 // TMA tile loads of the box at the given coordinates (innermost first) into
@@ -318,9 +330,39 @@ __device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16], uint64_t a,
 // (PTX ISA's register fragment of .tf32 A, CUTLASS's ALayout_64x8). The
 // registers are read while the wgmma runs: keep them (fence_regs after the
 // wait) until wgmma_wait has returned.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_rs(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t b, int scale_d = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
                                                        const uint32_t (&a)[4],
-                                                       uint64_t b) {
+                                                       uint64_t b,
+                                                       int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
@@ -336,7 +378,7 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_rs(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
 }
 
 __device__ __forceinline__ void wgmma_m64n32k8_tf32_rs(float (&d)[16],

@@ -11,9 +11,9 @@ kernels:
   ``conv_route`` on dtype and widths: ``csrc/conv3x3_wgmma.cu`` (bf16 on
   the tensor cores, TMA-fed tiles of ``conv_tile``'s shape),
   ``csrc/conv3x3_tf32x3.cu`` (float32 on the tensor cores by the 3xTF32
-  split of ``split_tf32``, the same tiles), and for the widths TMA cannot
-  stride (conv1_1's 3 -> 64 and its 64 -> 3 input gradient)
-  ``csrc/conv3x3_narrow_wgmma.cu`` (bf16) and
+  split of ``split_tf32``, persistent over tiles of ``tf32x3_tile``'s
+  shape), and for the widths TMA cannot stride (conv1_1's 3 -> 64 and
+  its 64 -> 3 input gradient) ``csrc/conv3x3_narrow_wgmma.cu`` (bf16) and
   ``csrc/conv3x3_narrow_tf32x3.cu`` (float32, 3xTF32), both on the tensor
   cores with the A fragments loaded from a halo staged by cp.async (3
   channels) or TMA (multiples of 32 bytes) and the weights laid out by
@@ -305,6 +305,24 @@ def pool_footprint(width: int) -> Tuple[int, int]:
     return bw // 2 + 2, (2 if bh == 1 else bh // 2 + 2)
 
 
+def tf32x3_tile(width: int, height: int) -> Tuple[int, int]:
+    """(BW, BH) of the float32 K2's output tile: of the 128-pixel boxes (BW
+    a power of two up to 128, BW * BH = 128), one whose tiles cover the
+    image with the fewest pixels past its edges (loaded as zeros and not
+    stored): ``conv_tile``'s box if it is one of them, else the widest. At
+    768² VGG's 192-, 96- and 48-wide layers fill ``conv_tile``'s box to
+    three quarters; 64 x 2, 32 x 4 and 16 x 8 fill it whole."""
+    def padded(bw: int) -> int:
+        bh = CONV_TILE_PIXELS // bw
+        return -(-width // bw) * bw * (-(-height // bh) * bh)
+
+    first = conv_tile(width)[0]
+    widths = [first] + [CONV_TILE_PIXELS >> k for k in range(8)
+                        if CONV_TILE_PIXELS >> k != first]
+    bw = min(widths, key=padded)
+    return bw, CONV_TILE_PIXELS // bw
+
+
 # ---------------------------------------------------------------------------
 # K2: 3x3 SAME conv + bias (+ ReLU)
 # ---------------------------------------------------------------------------
@@ -449,7 +467,7 @@ def _conv3x3_tf32x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                     relu: bool) -> torch.Tensor:
     """K2 in float32 on the tensor cores by the 3xTF32 split: x
     (B,H,W,Cin), w HWIO laid out (Cout, 3, 3, Cin) and split by
-    ``split_tf32``, tiles of ``conv_tile``."""
+    ``split_tf32``, tiles of ``tf32x3_tile``."""
     bsz, h, wd, cin = x.shape
     cout = w.shape[3]
     x = _tma_ready(x)
@@ -458,8 +476,8 @@ def _conv3x3_tf32x3(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
     fn = build.symbol("conv3x3_tf32x3", "st3d_conv3x3_tf32x3_f32", 5, 7)
     err = fn(x.data_ptr(), w_hi.data_ptr(), w_lo.data_ptr(), b.data_ptr(),
-             y.data_ptr(), bsz, h, wd, cin, cout, conv_tile(wd)[0], int(relu),
-             build.stream_handle(x.device))
+             y.data_ptr(), bsz, h, wd, cin, cout, tf32x3_tile(wd, h)[0],
+             int(relu), build.stream_handle(x.device))
     build.check(err, "conv3x3_tf32x3")
     LAUNCHES["conv3x3_tf32x3"] += 1
     return y

@@ -199,3 +199,29 @@ def test_gram_split_fills_the_card_at_the_style_taps_tf32x3(h, c):
     slices, slice_len = kconv.gram_split(4, h * h, c, "tf32x3")
     assert slice_len % 32 == 0
     assert 4 * slices * kconv.gram_tiles(c, "tf32x3") >= kconv.SMS
+
+
+# The float32 K2's tile: a 128-pixel box that pads the image least,
+# ``conv_tile``'s where it is one (at 768², 384², every VGG layer at 512²
+# and every image narrower than a box), else the widest; at 768² VGG's
+# 192-, 96- and 48-wide layers get boxes that fit them exactly, and images
+# that no box fits (100 x 60, 300 x 200, 3 x 1000) the one that pads least.
+@pytest.mark.parametrize("width,height,box", [
+    (768, 768, (128, 1)), (384, 384, (128, 1)), (192, 192, (64, 2)),
+    (96, 96, (32, 4)), (48, 48, (16, 8)), (64, 64, (64, 2)),
+    (20, 24, (4, 32)), (1, 7, (1, 128)), (2, 5, (2, 64)), (8, 8, (8, 16)),
+    (512, 512, (128, 1)), (256, 256, (128, 1)), (128, 128, (128, 1)),
+    (32, 32, (32, 4)), (16, 16, (16, 8)), (24, 24, (32, 4)),
+    (100, 60, (4, 32)), (300, 200, (16, 8)), (1000, 3, (128, 1)),
+    (3, 1000, (1, 128))])
+def test_tf32x3_tile_pads_least(width, height, box):
+    def padded(bw):
+        bh = 128 // bw
+        return -(-width // bw) * bw * (-(-height // bh) * bh)
+
+    least = min(padded(1 << k) for k in range(8))
+    first = kconv.conv_tile(width)[0]
+    assert kconv.tf32x3_tile(width, height) == box
+    assert padded(box[0]) == least
+    assert box[0] == first or (padded(first) > least and all(
+        padded(1 << k) > least for k in range(8) if (1 << k) > box[0]))

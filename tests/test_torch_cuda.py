@@ -134,9 +134,17 @@ def test_conv_wgmma_matches_plain(dev, shape, cin, cout, relu):
         assert _rel_err(got, ref) <= 1e-2
 
 
-# The same tile shapes in float32, plus W = 1 and 2 (boxes 1 x 128 and
-# 2 x 64) and Cin = 4, the narrowest the 3xTF32 route takes.
-TF32X3_CONVS = WGMMA_CONVS + [((1, 7, 1), 4, 8), ((2, 5, 2), 8, 4)]
+# The same shapes in float32 (boxes of ``kconv.tf32x3_tile``: 4 x 32, 8 x
+# 16, 32 x 4, 64 x 2 and 128 x 1), plus W = 1 and 2 (boxes 1 x 128 and 2 x
+# 64) and Cin = 4, the narrowest the 3xTF32 route takes; then the edges of
+# the persistent schedule (min(tiles, 132) CTAs): one tile (8 x 8), 3
+# pixel tiles, 132 tiles (one a CTA) and 144 (conv5_1 at 48² x 2, boxes 16
+# x 8: 12 CTAs walk two), and Cout a multiple of 4 but not of BN (20 and
+# 100: B's box runs past Cout; 200: a partial second channel tile).
+TF32X3_CONVS = WGMMA_CONVS + [
+    ((1, 7, 1), 4, 8), ((2, 5, 2), 8, 4), ((1, 8, 8), 64, 64),
+    ((1, 40, 8), 64, 64), ((2, 132, 64), 16, 64), ((2, 48, 48), 512, 512),
+    ((1, 9, 32), 64, 20), ((1, 24, 20), 40, 100), ((1, 9, 32), 64, 200)]
 
 
 def _conv_f64(x, w, b, relu):
@@ -173,6 +181,37 @@ def test_conv_tf32x3_matches_plain(dev, shape, cin, cout, relu):
         assert got.dtype == torch.float32
         assert _rel_err(got, kconv.conv3x3_nhwc_plain(*args)) <= 1e-4
         assert _rel_err(got, _conv_f64(*args)) <= 1e-5
+
+
+@pytest.mark.parametrize("shape,cin,cout", TF32X3_CONVS)
+def test_conv_tf32x3_bit_equal_on_exact_data(dev, shape, cin, cout):
+    """x and the cotangent in quarters, w and b in eighths (small integers
+    times powers of two, exact in TF32, so every lo part is zero and every
+    sum exact in float32, in any order): the forward with ReLU and the
+    input gradient equal the plain versions bit for bit, and a second
+    call."""
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def grid(size, lo, hi, unit):
+        return torch.randint(lo, hi + 1, size, generator=g,
+                             device=dev).float() * unit
+
+    x = grid(shape + (cin,), -3, 3, 0.25)
+    w = grid((3, 3, cin, cout), -4, 4, 0.125)
+    b = grid((cout,), -4, 4, 0.125)
+    ct = grid(shape + (cout,), -3, 3, 0.25)
+    n0 = dict(kconv.LAUNCHES)
+    y = kconv.conv3x3_nhwc(x, w, b, True)
+    dx = kconv._transpose_conv(ct, w)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {"conv3x3_tf32x3": 2}
+    ref = kconv.conv3x3_nhwc_plain(x, w, b, True)
+    assert bool((ref == 0).any()) and bool((ref > 0).any())
+    assert torch.equal(y, ref)
+    assert torch.equal(dx, kconv.conv3x3_nhwc_plain(
+        ct, kconv.transpose_weights(w, torch.float32),
+        torch.zeros(cin, device=dev)))
+    assert torch.equal(kconv.conv3x3_nhwc(x, w, b, True), y)
 
 
 @pytest.mark.parametrize("pixels,c", [(37 * 29, 64), (1000, 128),
@@ -639,8 +678,10 @@ def test_conv3x3_relu_pool_wgmma_ties_and_zero_windows(dev, shape, cin,
 
 
 # The same boxes in float32, plus Cin and Cout multiples of 4 but not of 8,
-# the narrowest the 3xTF32 route takes.
-POOL_FWD_TF32X3 = POOL_FWD_WGMMA + [((1, 6, 4), 4, 12), ((2, 10, 8), 12, 36)]
+# the narrowest the 3xTF32 route takes, and 192 tiles of BN = 128 (CTAs
+# walk two, the staged tile's buffer reused).
+POOL_FWD_TF32X3 = POOL_FWD_WGMMA + [((1, 6, 4), 4, 12), ((2, 10, 8), 12, 36),
+                                    ((2, 96, 96), 128, 128)]
 
 
 @pytest.mark.parametrize("shape,cin,cout", POOL_FWD_TF32X3)
@@ -676,7 +717,9 @@ def test_conv3x3_relu_pool_tf32x3_matches_plain(dev, shape, cin, cout):
 @pytest.mark.parametrize("shape,cin,cout", [((2, 16, 64), 16, 64),
                                             ((1, 8, 130), 8, 24),
                                             ((1, 34, 20), 16, 136),
-                                            ((1, 6, 10), 4, 12)])
+                                            ((1, 6, 10), 4, 12),
+                                            ((1, 8, 8), 8, 128),
+                                            ((2, 256, 64), 8, 64)])
 def test_conv3x3_relu_pool_tf32x3_ties_and_zero_windows(dev, shape, cin,
                                                         cout):
     """Integer operands (x, w in {-1, 0, 1}, b in {-2..2}) split exactly
