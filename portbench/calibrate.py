@@ -50,6 +50,7 @@ def main(argv=None) -> int:
     from portbench import cells, harness, judge
 
     cell = cells.resolve(args.workload, ROOT)
+    unlimited = judge.unlimited(cell.loss)
     dev = torch.device(args.device, 0) if args.device == "cuda" else (
         torch.device("cpu"))
     os.makedirs(args.out, exist_ok=True)
@@ -73,18 +74,19 @@ def main(argv=None) -> int:
                 prog = harness.run_program(cell, args.seconds, False, dev,
                                            work, inp)
                 emit("program", seed,
-                     judge.compare(prog["readings"], ref, judge.ALL),
+                     judge.compare(prog["readings"], ref, unlimited,
+                                   cell.loss),
                      {"failed": prog["failed"],
                       "seconds": time.perf_counter() - t})
             if args.control:
                 fmt = CONTROL[cell.dtype]
                 ctl = harness.reference_readings(cell, inp, dev, fmt)
                 emit("control_" + fmt, seed,
-                     judge.compare(ctl, ref, judge.ALL))
+                     judge.compare(ctl, ref, unlimited, cell.loss))
                 half = harness.reference_readings(cell, inp, dev,
                                                   half_batch=True)
                 emit("half_batch", seed,
-                     judge.compare(half, ref, judge.ALL))
+                     judge.compare(half, ref, unlimited, cell.loss))
         finally:
             shutil.rmtree(work, ignore_errors=True)
     sink.close()

@@ -17,10 +17,12 @@ drives, during the warm-up: the leaves before the first step, the first
 gradient as Adam holds it after one step (``exp_avg / (1 - beta1)``, kept
 on the host), the
 leaves' change after ``CHANGE_AFTER`` steps, and each epoch's loss from the
-port's ``metrics.jsonl``. The first step's style Grams come from the
-port's own VGG call: ``GramTap`` wraps ``get_features`` where the entry's
-module looks it up, keeps the Grams of the first call that takes a
-gradient and puts the port's function back, so the window runs unwrapped.
+port's ``metrics.jsonl``. The first step's statistic of the cell's loss
+(``portbench/losses/<loss>.py``; the style Grams for the Gram loss) comes
+from the port's own VGG call: ``FirstStepTap`` wraps ``get_features`` where
+the entry's module looks it up, keeps the loss's ``port_first_step`` of the
+first call that takes a gradient and puts the port's function back, so the
+window runs unwrapped.
 Once the window has closed, the peak memory is
 read and the port's state freed, the reference follows the same inputs for
 ``REFERENCE_STEPS`` steps and ``judge`` compares.
@@ -160,21 +162,22 @@ class Window:
         return [b - a for a, b in zip(e, e[1:])]
 
 
-class GramTap:
-    """The port's style Grams of its first step with a gradient:
+class FirstStepTap:
+    """The loss's statistic of the port's first step with a gradient,
+    ``loss.port_first_step`` of what ``get_features`` returns:
     ``get_features`` wrapped in ``module`` (the entry's module, which looks
     it up by name) until that call, then put back."""
 
-    def __init__(self, module):
+    def __init__(self, module, loss):
         self.module, self.orig = module, module.get_features
-        self.grams: Dict[str, torch.Tensor] = {}
+        self.pick = loss.port_first_step
+        self.values: Dict[str, torch.Tensor] = {}
         module.get_features = self._call
 
     def _call(self, images, *args, **kwargs):
         feats = self.orig(images, *args, **kwargs)
         if torch.is_grad_enabled() and images.requires_grad:
-            self.grams = {k.split(":")[0]: v.detach().float().cpu()
-                          for k, v in feats.items() if k.endswith(":gram")}
+            self.values = self.pick(feats)
             self.remove()
         return feats
 
@@ -206,13 +209,38 @@ def _argv(flags: dict) -> List[str]:
     return out
 
 
-def reference_cell(flags: dict) -> dict:
+# The flags the reference takes besides its loss's ``FLAGS``.
+REFERENCE_FLAGS = ("size", "n_views", "batch_size", "optimization_target",
+                   "lr", "main_loss_weight", "mesh_edge_loss_weight",
+                   "mesh_laplacian_smoothing_weight",
+                   "mesh_normal_consistency_weight", "mesh_verts_weight")
+# Flags only the port reads: its precision (the reference runs float64, or
+# the control's format), the seed of its rig (which ``follow`` takes
+# apart), the resize of a texture the inputs draw at the render size
+# already, and its intermediate images.
+PORT_ONLY = ("compute_dtype", "seed", "resize_texture", "save_intermediate")
+# Flags the reference models at one value only: its rig is random, its
+# backgrounds white, its raster a hard z-buffer (one face a pixel, no blur).
+MODELLED = {"randomize_views": True, "content_background": "white",
+            "current_background": "white", "soft_raster": False,
+            "faces_per_pixel": 1, "blur_radius": 0.0}
+
+
+def reference_cell(flags: dict, loss) -> dict:
     """The configuration as the reference takes it, from the cell's files
-    (never from the port's parsed configuration)."""
-    keys = ("size", "n_views", "batch_size", "optimization_target", "lr",
-            "style_weight", "content_weight", "main_loss_weight",
-            "mesh_edge_loss_weight", "mesh_laplacian_smoothing_weight",
-            "mesh_normal_consistency_weight", "mesh_verts_weight")
+    (never from the port's parsed configuration). A flag that the reference
+    does not model raises: the run would be judged against another
+    computation."""
+    keys = REFERENCE_FLAGS + tuple(loss.FLAGS)
+    odd = sorted(k for k, v in flags.items()
+                 if k not in keys and k not in PORT_ONLY
+                 and (k not in MODELLED or v != MODELLED[k]))
+    if odd:
+        raise ValueError(
+            "the reference does not model " + ", ".join(
+                f"{k}={flags[k]!r}" for k in odd)
+            + f" (it takes {', '.join(keys)}; "
+            + ", ".join(f"{k}={v!r}" for k, v in MODELLED.items()) + ")")
     return {k: flags[k] for k in keys if k in flags}
 
 
@@ -274,7 +302,7 @@ def run_program(cell: cells.Cell, seconds: float, trace: bool,
 
         def loop():
             entry.run_second_approach(cfg)
-    tap = GramTap(entry)
+    tap = FirstStepTap(entry, cell.loss)
     hooks = [register_optimizer_step_pre_hook(win.pre),
              register_optimizer_step_post_hook(win.post)]
     try:
@@ -302,18 +330,18 @@ def run_program(cell: cells.Cell, seconds: float, trace: bool,
                          "first_grad": _norms(win.first_grad),
                          "first_grad_t": win.first_grad,
                          "change": win.change,
-                         "grams": style_split(tap.grams, cell.styles,
-                                              multi)}}
+                         "first_step": style_split(tap.values, cell.styles,
+                                                   multi)}}
 
 
-def style_split(grams: Dict[str, torch.Tensor], styles: int, multi: bool
+def style_split(values: Dict[str, torch.Tensor], styles: int, multi: bool
                 ) -> Dict[str, torch.Tensor]:
-    """{tap} or, in a multi-style run, whose VGG batch is style-major,
-    {tap.s<k>}: each style's (B, C, C) Grams."""
+    """{key} or, in a multi-style run, whose VGG batch is style-major,
+    {key.s<k>}: each style's part of the first step's statistic."""
     if not multi:
-        return grams
+        return values
     out = {}
-    for k_, g in grams.items():
+    for k_, g in values.items():
         for s, part in enumerate(g.chunk(styles)):
             out[f"{k_}.s{s}"] = part
     return out
@@ -324,17 +352,18 @@ def reference_readings(cell: cells.Cell, inp, device,
                        ) -> dict:
     """The reference's readings, laid out as ``run_program``'s, in float64
     or in ``fmt`` (``reference/precision.py``)."""
-    rcell = reference_cell(cell.flags)
+    loss = cell.loss
+    rcell = reference_cell(cell.flags, loss)
     multi = cell.mix["entry"] == "multistyle"
     out = {"epoch_loss": {}, "first_grad": {}, "first_grad_t": {},
-           "change": {}, "grams": {}}
+           "change": {}, "first_step": {}}
     for k in range(cell.styles):
-        r = follow(inp, inp.styles[k], rcell, int(cell.flags["seed"]),
+        r = follow(inp, inp.styles[k], rcell, loss, int(cell.flags["seed"]),
                    REFERENCE_STEPS, CHANGE_AFTER, device, fmt, half_batch)
         suffix = f".s{k}" if multi else ""
         for e, v in enumerate(r["epoch_loss"]):
             out["epoch_loss"][f"e{e}{suffix}"] = v
-        for part in ("first_grad", "first_grad_t", "change", "grams"):
+        for part in ("first_grad", "first_grad_t", "change", "first_step"):
             out[part].update({k_ + suffix: v for k_, v in r[part].items()})
     return out
 
@@ -348,6 +377,7 @@ def make_cell_inputs(cell: cells.Cell, seed: int, root: str, device):
 def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
              device: torch.device, t_start: float, log=print) -> dict:
     """One run of ``cell``; the result line's object (``compared`` last)."""
+    reference_cell(cell.flags, cell.loss)
     workdir = tempfile.mkdtemp(prefix="portbench-")
     try:
         t_inputs = time.perf_counter()
@@ -377,16 +407,12 @@ def run_cell(cell: cells.Cell, seed: int, seconds: float, trace: bool,
         log(f"reference: {time.perf_counter() - t_ref:.2f} s")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    checks = judge.compare(prog["readings"], ref, cell.limits)
+    checks = judge.compare(prog["readings"], ref, cell.limits, cell.loss)
     ok = all(c["value"] <= c["limit"] for c in checks.values())
     correct = bool(ok and prog["failed"] == 0 and prog["attempted"] > 0)
-    flags = cell.flags
     ctx = Context(cell=cell, setup_s=setup_s, epoch_s=win.epoch_s,
                   untraced_s=win.untraced_s, peak_bytes=int(peak),
-                  trace=summary,
-                  work=work.summary(int(flags["size"]),
-                                    int(flags["n_views"]), cell.styles,
-                                    cell.dtype))
+                  trace=summary, work=work.summary(cell))
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = cells.reader(cell.root, m["name"]).read(ctx)

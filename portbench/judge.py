@@ -1,6 +1,7 @@
 """Whether a run is correct: its readings against the reference's.
 
-Five numbers, each against the limit in the cell's limits file:
+Four numbers, and a fifth that the cell's loss names, each against the
+limit in the cell's limits file:
 
 * ``loss_gap``: the largest relative gap ``|L - L_ref| / |L_ref|`` over the
   first two epochs' losses (each the sum of the epoch's steps; per style in
@@ -17,13 +18,12 @@ Five numbers, each against the limit in the cell's limits file:
   sums is a signed sum of rounding errors, small by chance for a coarse
   format on some seeds); the first gradient is a pure function of the
   inputs, and its difference measures the arithmetic element by element;
-* ``gram_diff``: over the style taps (and styles), the largest
-  ``||G - G_ref|| / ||G_ref||`` of the first step's style Grams (every view
-  of the first batch), as the port's VGG returns them to its loss. The
-  Grams are VGG's forward alone: their gap follows the precision of its
-  convolutions and Grams, where the gradient's gap also carries the
-  render's float32 arithmetic against the reference's float64 and answers
-  to a coarser format by a factor of 2 to 4 only.
+* the loss's ``FIRST_STEP`` (``gram_diff`` for the Gram loss): over the
+  keys of its first-step statistic (and styles), the largest
+  ``||S - S_ref|| / ||S_ref||``, the port's as ``port_first_step`` picks
+  it from its first VGG call with a gradient, the reference's as
+  ``first_step`` computes it (``portbench/losses/<loss>.py`` says what it
+  is and why).
 
 A reading the run lacks, one of another shape, or one that is not finite,
 reads infinity. A
@@ -38,9 +38,17 @@ import statistics
 from typing import Dict
 
 NOUGHT = 1e-3
-NUMBERS = ("loss_gap", "grad_gap", "change_gap", "grad_diff", "gram_diff")
-# Every number compared, as the calibration reads them.
-ALL = {n: {"limit": math.inf} for n in NUMBERS}
+NUMBERS = ("loss_gap", "grad_gap", "change_gap", "grad_diff")
+
+
+def numbers(loss) -> tuple:
+    """The names of the numbers compared in a cell with ``loss``."""
+    return NUMBERS + (loss.FIRST_STEP,)
+
+
+def unlimited(loss) -> dict:
+    """Every number compared, as the calibration reads them."""
+    return {n: {"limit": math.inf} for n in numbers(loss)}
 
 
 def _finite(x) -> float:
@@ -95,7 +103,7 @@ def rel_diff(prog: Dict[str, "torch.Tensor"], ref: Dict[str, "torch.Tensor"]
     return max(gaps)
 
 
-def compare(prog: dict, ref: dict, limits: dict) -> Dict[str, dict]:
+def compare(prog: dict, ref: dict, limits: dict, loss) -> Dict[str, dict]:
     """{name: {"value", "limit"}} in a fixed order."""
     med = statistics.median(ref["first_grad"].values())
     moving = {k for k, v in ref["first_grad"].items() if v >= NOUGHT * med}
@@ -104,7 +112,8 @@ def compare(prog: dict, ref: dict, limits: dict) -> Dict[str, dict]:
         "grad_gap": norm_gap(prog["first_grad"], ref["first_grad"]),
         "change_gap": norm_gap(prog["change"], ref["change"], moving),
         "grad_diff": diff_gap(prog["first_grad_t"], ref["first_grad_t"]),
-        "gram_diff": rel_diff(prog.get("grams", {}), ref.get("grams", {})),
+        loss.FIRST_STEP: rel_diff(prog.get("first_step", {}),
+                                  ref.get("first_step", {})),
     }
     return {k: {"value": v, "limit": float(limits[k]["limit"])}
             for k, v in values.items() if limits[k].get("limit") is not None}

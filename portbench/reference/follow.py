@@ -1,17 +1,19 @@
 """The reference's second-approach optimisation, followed for a few steps.
 
-Per view batch (views ``[k * batch, (k + 1) * batch)`` of the rig), set up
-once: the content render of the unmoved mesh, its conv4_2 map, and the
-style image's Grams, one per view of the batch. Each step renders the
-batch from the current leaves (the texture target keeps the content
-mesh's visibility; a vertex target rasterizes the moved mesh every step),
-takes the style/content loss (times ``main_loss_weight`` plus the
-regularizers for a vertex target), backpropagates to the leaves and takes
-one Adam step (betas (0.9, 0.999), eps 1e-8, bias-corrected), batch after
-batch. ``follow`` returns what a run is judged by: each epoch's summed
-loss (and each step's), each leaf's first gradient (its norm, and the
-tensor on the host), the norm of its change after ``change_after`` steps,
-and the first step's style Grams (B, C, C) of each style tap, on the host.
+The perceptual loss is the configuration's (``loss``, a module of
+``portbench/losses/``); VGG runs to the deepest of its ``TAPS``. Per view
+batch (views ``[k * batch, (k + 1) * batch)`` of the rig), set up once: the
+content render of the unmoved mesh and the loss's ``targets`` from its taps
+and the style image's. Each step renders the batch from the current leaves
+(the texture target keeps the content mesh's visibility; a vertex target
+rasterizes the moved mesh every step), takes the loss (times
+``main_loss_weight`` plus the regularizers for a vertex target),
+backpropagates to the leaves and takes one Adam step (betas (0.9, 0.999),
+eps 1e-8, bias-corrected), batch after batch. ``follow`` returns what a
+run is judged by: each epoch's summed loss (and each step's), each leaf's
+first gradient (its norm, and the tensor on the host), the norm of its
+change after ``change_after`` steps, and the loss's ``first_step``
+statistic of the first step's taps, on the host.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import numpy as np
 import torch
 
 from portbench.reference import camera, render, vgg
-from portbench.reference.loss import Topology, regularizers, style_content
+from portbench.reference.loss import Topology, regularizers
 from portbench.reference.precision import full_float32
 
 
@@ -51,22 +53,22 @@ def _norm(t: torch.Tensor) -> float:
     return float(torch.linalg.norm(t.double()))
 
 
-def follow(inp, style: np.ndarray, cell: dict, seed: int, steps: int,
+def follow(inp, style: np.ndarray, cell: dict, loss, seed: int, steps: int,
            change_after: int, device, fmt: str = "float64",
            half_batch: bool = False) -> dict:
     """Follow ``steps`` steps of a run with one style image.
 
-    ``cell``: size, n_views, batch_size, optimization_target, lr,
-    style_weight, content_weight and the regularizer weights, as the run
-    was configured. ``fmt`` is the arithmetic (``precision``'s formats);
+    ``cell``: size, n_views, batch_size, optimization_target, lr, the
+    regularizer weights and the loss's ``FLAGS``, as the run was
+    configured. ``fmt`` is the arithmetic (``precision``'s formats);
     ``half_batch`` keeps only the first half of each batch's views, the
     mean taken over them (a planted fault)."""
     with full_float32():
-        return _follow(inp, style, cell, seed, steps, change_after, device,
-                       fmt, half_batch)
+        return _follow(inp, style, cell, loss, seed, steps, change_after,
+                       device, fmt, half_batch)
 
 
-def _follow(inp, style, cell, seed, steps, change_after, device, fmt,
+def _follow(inp, style, cell, loss, seed, steps, change_after, device, fmt,
             half_batch) -> dict:
     size, n_views, bsz = cell["size"], cell["n_views"], cell["batch_size"]
     vertex = cell["optimization_target"] != "texture"
@@ -88,7 +90,7 @@ def _follow(inp, style, cell, seed, steps, change_after, device, fmt,
 
     batches = []
     with torch.no_grad():
-        style_taps = vgg.taps(sty, weights, fmt)
+        style_taps = vgg.taps(sty, weights, loss.TAPS, fmt)
         for b0 in range(0, n_views, bsz):
             b1 = min(b0 + bsz, n_views)
             if half_batch:
@@ -97,10 +99,10 @@ def _follow(inp, style, cell, seed, steps, change_after, device, fmt,
             p2f = render.rasterize(scr, faces, size)
             img, _ = render.render(scr.to(ft), faces, face_uvs, tex0, size,
                                    p2f)
-            content = vgg.taps(img, weights, fmt)[vgg.CONTENT_TAP]
-            grams = {t: vgg.gram(style_taps[t], fmt).expand(b1 - b0, -1, -1)
-                     for t in vgg.STYLE_TAPS}
-            batches.append((b0, b1, p2f, content, grams))
+            target = loss.targets(style_taps,
+                                  vgg.taps(img, weights, loss.TAPS, fmt),
+                                  b1 - b0, fmt)
+            batches.append((b0, b1, p2f, target))
 
     params = {"texture": tex0.clone()}
     if vertex:
@@ -108,9 +110,9 @@ def _follow(inp, style, cell, seed, steps, change_after, device, fmt,
     start = {k: v.clone() for k, v in params.items()}
     opt = Adam(params, cell["lr"])
     losses: List[float] = []
-    first_grad, change, first_grams = {}, {}, {}
+    first_grad, change, first_step = {}, {}, {}
     for s in range(steps):
-        b0, b1, p2f, content, grams = batches[s % len(batches)]
+        b0, b1, p2f, target = batches[s % len(batches)]
         leaves = {k: v.detach().requires_grad_(True)
                   for k, v in params.items()}
         verts = leaves.get("verts", verts0)
@@ -119,22 +121,20 @@ def _follow(inp, style, cell, seed, steps, change_after, device, fmt,
             p2f = render.rasterize(scr.detach().float(), faces, size)
         img, _ = render.render(scr.to(ft), faces, face_uvs,
                                leaves["texture"], size, p2f)
-        cur = vgg.taps(img, weights, fmt)
-        loss = style_content(cur, content, grams, cell["style_weight"],
-                             cell["content_weight"], fmt)
+        cur = vgg.taps(img, weights, loss.TAPS, fmt)
+        value = loss.loss(cur, target, cell, fmt)
         if s == 0:
             with torch.no_grad():
-                first_grams = {t: vgg.gram(cur[t], fmt).cpu()
-                               for t in vgg.STYLE_TAPS}
+                first_step = loss.first_step(cur, fmt)
         if vertex:
-            loss = cell["main_loss_weight"] * loss + regularizers(
+            value = cell["main_loss_weight"] * value + regularizers(
                 verts, verts0, topo, cell)
-        loss.backward()
+        value.backward()
         grads = {k: v.grad for k, v in leaves.items()}
         if s == 0:
             first_grad = {k: g.detach().cpu() for k, g in grads.items()}
         opt.step(grads)
-        losses.append(float(loss.detach()))
+        losses.append(float(value.detach()))
         if s + 1 == change_after:
             change = {k: _norm(params[k] - start[k]) for k in params}
     per_epoch = len(batches)
@@ -143,4 +143,4 @@ def _follow(inp, style, cell, seed, steps, change_after, device, fmt,
     return {"epoch_loss": epochs, "step_loss": losses,
             "first_grad": {k: _norm(g) for k, g in first_grad.items()},
             "first_grad_t": first_grad, "change": change,
-            "grams": first_grams}
+            "first_step": first_step}

@@ -1,11 +1,5 @@
-"""The style/content loss and the mesh regularizers.
-
-Style/content (the reference repository's second approach): the content
-term is the mean squared difference of conv4_2 against the content
-render's; the style term sums over conv1_1 ... conv5_1 the mean squared
-difference of the unnormalised Grams against the style image's, each
-divided by ``C**2 * H**2`` (the tap's height squared, not H*W); the loss is
-``content_weight * content + style_weight * style``.
+"""The mesh regularizers (the perceptual loss is the configuration's own,
+``portbench/losses/<loss>.py``).
 
 Regularizers (``pytorch3d.loss``, uniform Laplacian): the mean over unique
 edges of their squared length; the mean over vertices with neighbours of
@@ -22,23 +16,6 @@ from typing import Dict
 
 import numpy as np
 import torch
-
-from portbench.reference.vgg import CONTENT_TAP, STYLE_TAPS, gram
-
-
-def style_content(cur: Dict[str, torch.Tensor], content: torch.Tensor,
-                  style_grams: Dict[str, torch.Tensor], style_weight: float,
-                  content_weight: float, fmt: str = "float32"
-                  ) -> torch.Tensor:
-    c_loss = torch.mean((cur[CONTENT_TAP] - content) ** 2)
-    s_loss = 0.0
-    for t in STYLE_TAPS:
-        f = cur[t]
-        g = gram(f, fmt)
-        c, h = f.shape[1], f.shape[2]
-        s_loss = s_loss + torch.mean((g - style_grams[t]) ** 2) / (
-            float(c) ** 2 * float(h) ** 2)
-    return content_weight * c_loss + style_weight * s_loss
 
 
 class Topology:

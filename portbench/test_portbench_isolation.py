@@ -1,5 +1,6 @@
 """Nothing the benchmark runs imports JAX or the JAX package, and the
-reference imports nothing of the port.
+reference, with the losses that are part of it, imports nothing of the
+port.
 
 Top-level module names (the part before the first dot) are compared whole:
 ``st3d_torch`` begins with ``st3d`` and is not it.
@@ -44,7 +45,7 @@ def top_level_imports(path):
 def test_no_jax_and_no_port_in_the_reference(path):
     names = top_level_imports(path)
     assert not names & BANNED, f"{path} imports {sorted(names & BANNED)}"
-    if os.sep + "reference" + os.sep in path:
+    if any(os.sep + d + os.sep in path for d in ("reference", "losses")):
         assert "st3d_torch" not in names, f"{path} imports the port"
 
 

@@ -22,6 +22,7 @@ from portbench.reference import camera, follow, loss, render, vgg
 
 SIZE = 64
 CPU = torch.device("cpu")
+GRAM = cells.load_loss(cells.ROOT, "gram")
 MIXES = ("texture", "both-hard", "styles3")
 
 
@@ -116,15 +117,17 @@ def test_vgg_taps_and_loss_match_the_port(scene):
         np.savez(os.path.join(d, "w.npz"), **scene.vgg)
         model = load_vgg19_npz(os.path.join(d, "w.npz"))
     w = vgg.load_weights(scene.vgg, CPU)
-    ours = vgg.taps(x, w)
+    ours = vgg.taps(x, w, GRAM.TAPS)
     theirs = get_features(x, model)
-    for k in vgg.TAPS.values():
+    assert set(ours) == set(GRAM.TAPS)
+    for k in GRAM.TAPS:
         torch.testing.assert_close(ours[k], theirs[k], rtol=1e-4, atol=1e-4)
     tg = StyleContentTargets.create(c, s, model)
     want = style_content_loss(get_features(x, model), tg, 1e6, 1.0)
-    grams = {t: vgg.gram(vgg.taps(s, w)[t]) for t in vgg.STYLE_TAPS}
-    got = loss.style_content(ours, vgg.taps(c, w)[vgg.CONTENT_TAP], grams,
-                             1e6, 1.0)
+    grams = {t: GRAM.gram(vgg.taps(s, w, GRAM.TAPS)[t])
+             for t in GRAM.STYLE_TAPS}
+    got = GRAM.style_content(ours, vgg.taps(c, w, GRAM.TAPS)[
+        GRAM.CONTENT_TAP], grams, 1e6, 1.0)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
 
 
@@ -186,7 +189,7 @@ def test_the_control_is_not_correct(mix):
         inp = harness.make_cell_inputs(cell, 5, d, CPU)
         ref = harness.reference_readings(cell, inp, CPU)
         ctl = harness.reference_readings(cell, inp, CPU, "tf32")
-    checks = judge.compare(ctl, ref, cell.limits)
+    checks = judge.compare(ctl, ref, cell.limits, cell.loss)
     assert any(c["value"] > c["limit"] for c in checks.values()), checks
 
 
@@ -300,13 +303,13 @@ def test_the_control_fails_at_the_cell_size_on_the_card(workload, card):
             ref = harness.reference_readings(cell, inp, card)
             ctl = harness.reference_readings(cell, inp, card,
                                              CONTROL[cell.dtype])
-        checks = judge.compare(ctl, ref, cell.limits)
+        checks = judge.compare(ctl, ref, cell.limits, cell.loss)
         assert any(c["value"] > c["limit"] for c in checks.values()), checks
 
 
 @pytest.mark.parametrize("mix", ["texture", "styles3"])
 def test_the_grams_come_from_the_ports_first_step(mix):
-    """``GramTap`` keeps the Grams of the port's first VGG call with a
+    """``FirstStepTap`` keeps the Grams of the port's first VGG call with a
     gradient, one (B, C, C) per style tap (and style), and puts the port's
     ``get_features`` back."""
     from st3d_torch.engine import multistyle, pipelines
@@ -317,10 +320,10 @@ def test_the_grams_come_from_the_ports_first_step(mix):
         inp = harness.make_cell_inputs(cell, 9, d, CPU)
         prog = harness.run_program(cell, 0.2, False, CPU, d, inp)
     assert (pipelines.get_features, multistyle.get_features) == before
-    grams = prog["readings"]["grams"]
+    grams = prog["readings"]["first_step"]
     suffixes = [f".s{k}" for k in range(cell.styles)] if (
         mix == "styles3") else [""]
-    assert set(grams) == {t + s for t in vgg.STYLE_TAPS for s in suffixes}
+    assert set(grams) == {t + s for t in GRAM.STYLE_TAPS for s in suffixes}
     batch = int(cell.flags["batch_size"])
     for k, g in grams.items():
         c = g.shape[-1]
@@ -338,8 +341,9 @@ def test_gram_diff_tells_the_port_from_the_control(dtype, fmt):
         ref = harness.reference_readings(cell, inp, CPU)
         prog = harness.run_program(cell, 0.2, False, CPU, d, inp)
         ctl = harness.reference_readings(cell, inp, CPU, fmt)
-    port = judge.compare(prog["readings"], ref, judge.ALL)["gram_diff"]
-    control = judge.compare(ctl, ref, judge.ALL)["gram_diff"]
+    every = judge.unlimited(cell.loss)
+    port = judge.compare(prog["readings"], ref, every, cell.loss)["gram_diff"]
+    control = judge.compare(ctl, ref, every, cell.loss)["gram_diff"]
     assert 3 * port["value"] < control["value"], (port, control)
 
 

@@ -2,25 +2,27 @@
 
 Counted once from the configuration's shapes, whatever implements them:
 
-* VGG-19 (Simonyan & Zisserman, arXiv:1409.1556) runs forward to conv5_1
-  (13 of its 16 3x3 convs, each ``2 * 9 * Cin * Cout`` FLOPs a pixel of its
-  resolution) and backward to the input image only: the weights are frozen,
-  so a conv's backward is its input gradient, as many FLOPs again.
-* Each of the five style taps (conv1_1 ... conv5_1) takes a Gram of its
-  (pixels, C) map, ``2 * pixels * C**2`` FLOPs, and its backward,
-  ``dF = F (dG + dG^T)``, as many again.
+* VGG-19 (Simonyan & Zisserman, arXiv:1409.1556) runs forward to the
+  deepest tap of the configuration's loss (``portbench/losses/<loss>.py``'s
+  ``TAPS``; conv5_1, 13 of its 16 3x3 convs, for the Gram loss), each conv
+  ``2 * 9 * Cin * Cout`` FLOPs a pixel of its resolution, and backward to
+  the input image only: the weights are frozen, so a conv's backward is its
+  input gradient, as many FLOPs again.
+* The loss adds its own FLOPs (``flops``) and the (FLOPs, bytes) of its
+  layers (``layer_work``): an entry named after a VGG layer runs with it
+  and counts in it, any other is a layer of its own after them.
 
-At H x W pixels that is ``722,304 * H * W`` forward, the same backward and
-``69,632 * H * W`` for the Grams: 893.1 GFLOP an image at 768². Over VGG-19's
-16 convs at 224² the forward is ``777,600 * 224**2`` = 39.0 GFLOP
-(19.5 GMAC, the published 19.6 GMAC less the three FC layers).
+To conv5_1 at H x W pixels that is ``722,304 * H * W`` forward and the same
+backward; the Gram loss adds ``69,632 * H * W``: 893.1 GFLOP an image at
+768². Over VGG-19's 16 convs at 224² the forward is ``777,600 * 224**2`` =
+39.0 GFLOP (19.5 GMAC, the published 19.6 GMAC less the three FC layers).
 
 The bound of a layer is the larger of its FLOPs over the peak and its bytes
 over HBM bandwidth, each tensor read once and written once (a conv's input,
 weights and output forward; its output gradient, weights, output, for the
 ReLU mask, and input gradient backward; a pool's input and output, and
-their gradients; a Gram's map and (C, C) result, and their gradients). The
-VGG bound sums the layers' bounds: they run one after another.
+their gradients; the loss's layers as it counts them). The VGG bound sums
+the layers' bounds: they run one after another.
 
 Peaks are NVIDIA's data sheet for one H100 SXM, dense: 989 TFLOP/s bf16 on
 the tensor cores, 495 TFLOP/s TF32 (the float32 route runs 3xTF32 on those
@@ -38,9 +40,6 @@ DTYPE_BYTES = {"bfloat16": 2, "float32": 4}
 # VGG-19's feature stack: conv widths, "M" a 2x2 max-pool.
 VGG19_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
              512, 512, 512, 512, "M", 512, 512, 512, 512, "M")
-STYLE_TAPS = ("conv1_1", "conv2_1", "conv3_1", "conv4_1", "conv5_1")
-CONTENT_TAP = "conv4_2"
-LAST_CONV = "conv5_1"
 
 
 def vgg_layers(n_convs: int = 16) -> List[Tuple[str, int, int, int]]:
@@ -60,9 +59,17 @@ def vgg_layers(n_convs: int = 16) -> List[Tuple[str, int, int, int]]:
     return out
 
 
-def convs_to(last: str = LAST_CONV) -> int:
-    names = [n for n, _, c, _ in vgg_layers() if c]
-    return names.index(last) + 1
+def conv_names() -> List[str]:
+    return [n for n, _, c, _ in vgg_layers() if c]
+
+
+def convs_to(last: str) -> int:
+    return conv_names().index(last) + 1
+
+
+def deepest(taps) -> str:
+    """The conv of ``taps`` that lies deepest in the stack."""
+    return max(taps, key=conv_names().index)
 
 
 def conv_forward_flops(h: int, w: int, n_convs: int) -> float:
@@ -71,17 +78,11 @@ def conv_forward_flops(h: int, w: int, n_convs: int) -> float:
                      for _, ci, co, s in vgg_layers(n_convs) if co))
 
 
-def gram_flops(h: int, w: int) -> float:
-    """FLOPs of one image's five style Grams, forward and backward."""
-    taps = {n: (co, s) for n, _, co, s in vgg_layers() if co}
-    return float(sum(4 * (h // taps[t][1]) * (w // taps[t][1])
-                     * taps[t][0] ** 2 for t in STYLE_TAPS))
-
-
-def image_step_flops(h: int, w: int) -> float:
-    """Model FLOPs of one image's optimisation step: the forward to
-    conv5_1, its input-gradient backward and the Grams."""
-    return 2 * conv_forward_flops(h, w, convs_to()) + gram_flops(h, w)
+def image_step_flops(h: int, w: int, loss) -> float:
+    """Model FLOPs of one image's optimisation step: the forward to the
+    loss's deepest tap, its input-gradient backward and the loss's own."""
+    return (2 * conv_forward_flops(h, w, convs_to(deepest(loss.TAPS)))
+            + loss.flops(h, w))
 
 
 def images_per_epoch(n_views: int, styles: int) -> int:
@@ -89,16 +90,21 @@ def images_per_epoch(n_views: int, styles: int) -> int:
     return n_views * styles
 
 
-def epoch_flops(size: int, n_views: int, styles: int) -> float:
-    return images_per_epoch(n_views, styles) * image_step_flops(size, size)
+def epoch_flops(size: int, n_views: int, styles: int, loss) -> float:
+    return images_per_epoch(n_views, styles) * image_step_flops(size, size,
+                                                                loss)
 
 
-def _layer_work(h: int, w: int, dtype: str) -> List[Tuple[float, float]]:
-    """(FLOPs, bytes) of each VGG layer of one image's step, forward and
-    backward together."""
+def _layer_work(h: int, w: int, dtype: str, loss
+                ) -> List[Tuple[float, float]]:
+    """(FLOPs, bytes) of each layer of one image's step, forward and
+    backward together: VGG's to the loss's deepest tap, with the loss's
+    work in the layer it names, then the loss's layers of their own."""
     nb = DTYPE_BYTES[dtype]
+    extra = loss.layer_work(h, w, dtype)
     work = []
-    for name, ci, co, s in vgg_layers(convs_to()):
+    layers = vgg_layers(convs_to(deepest(loss.TAPS)))
+    for name, ci, co, s in layers:
         px = (h // s) * (w // s)
         if not co:                               # a pool
             out = px // 4 * ci
@@ -108,25 +114,31 @@ def _layer_work(h: int, w: int, dtype: str) -> List[Tuple[float, float]]:
         wbytes = 4 * 9 * ci * co
         nbytes = nb * (px * ci + px * co) + wbytes            # forward
         nbytes += nb * (2 * px * co + px * ci) + wbytes       # backward
-        if name in STYLE_TAPS:
-            flops += 4 * px * co * co
-            nbytes += nb * 2 * px * co + 4 * 2 * co * co
+        if name in extra:
+            flops += extra[name][0]
+            nbytes += extra[name][1]
         work.append((float(flops), float(nbytes)))
+    names = {layer[0] for layer in layers}
+    work += [(float(f), float(b)) for name, (f, b) in extra.items()
+             if name not in names]
     return work
 
 
-def vgg_bound_s(size: int, images: int, dtype: str) -> float:
+def vgg_bound_s(size: int, images: int, dtype: str, loss) -> float:
     """Seconds the card needs at least for ``images`` images' VGG steps:
     the sum over layers of max(FLOPs / peak, bytes / HBM bandwidth)."""
     peak = PEAK_FLOPS[dtype]
     return images * sum(max(f / peak, b / HBM_BYTES_S)
-                        for f, b in _layer_work(size, size, dtype))
+                        for f, b in _layer_work(size, size, dtype, loss))
 
 
-def summary(size: int, n_views: int, styles: int, dtype: str
-            ) -> Dict[str, float]:
-    n = images_per_epoch(n_views, styles)
+def summary(cell) -> Dict[str, float]:
+    """The work of ``cell``'s epoch (a ``cells.Cell``), with its loss."""
+    size, n_views = int(cell.flags["size"]), int(cell.flags["n_views"])
+    n = images_per_epoch(n_views, cell.styles)
     return {"images_per_epoch": n,
-            "epoch_flops": epoch_flops(size, n_views, styles),
-            "vgg_bound_s_per_epoch": vgg_bound_s(size, n, dtype),
-            "peak_flops": PEAK_FLOPS[dtype]}
+            "epoch_flops": epoch_flops(size, n_views, cell.styles,
+                                       cell.loss),
+            "vgg_bound_s_per_epoch": vgg_bound_s(size, n, cell.dtype,
+                                                 cell.loss),
+            "peak_flops": PEAK_FLOPS[cell.dtype]}
