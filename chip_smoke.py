@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase below
     python3 chip_smoke.py --steps    # only step times (see ``steps_only``)
+    python3 chip_smoke.py --nnfm     # only the NNFM kernels (``nnfm_check``)
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -40,6 +41,13 @@ Phases; any failure raises and the script exits non-zero:
    (``k2_f32_cell_check``: conv2_1 .. conv5_1 at 768², batches 4 and 2,
    forward and dx, and C at conv1_2), each timed beside its 3xTF32 bound
    with its tiles, CTAs and waves;
+   ARF's NNFM kernels at the NNFM cell's shapes (``nnfm_check``): the
+   3xTF32 matching ``nnfm_match_tf32x3`` of 4 and 2 views' 36,864 rows
+   against 36,864 style rows at 768 channels, on 8,192 rows the columns of
+   float64's argmax and values within 2e-6, timed beside its 3xTF32 bound
+   and the plain blockwise float32 matmul + argmax (TF32 off), which it
+   must beat; the centring and the loss rows with their backward against
+   their plain versions;
    K2 at the widths TMA cannot stride (``narrow_check``): 3 -> 64 and 64 ->
    3 at 512² x 4, 5 -> 12 and 12 -> 5 at 128² x 4, forward and dx, on
    ``conv3x3_narrow_wgmma`` (bf16) and ``conv3x3_narrow_tf32x3`` (f32) with
@@ -1436,6 +1444,105 @@ def k2_f32_cell_check(dev):
              "bound_by": "operations", "dx_ms": tot["dx"],
              "dx_bound_ms": tot["dx_bound"], "c_ms": tot["c"],
              "c_bound_ms": tot["c_bound"]}]
+
+
+NNFM_POSITIONS = (F32_CELL_SIZE // 4) ** 2   # the conv3 block at 768²
+NNFM_CHANNELS = 768
+
+
+def nnfm_check(dev):
+    """ARF's NNFM kernels (``csrc/nnfm_match_tf32x3.cu``) at the NNFM
+    cell's shapes: the matching of both batches (4 and 2 views of 36,864
+    positions against the style's 36,864, 768 channels) against float64 on
+    its first 8,192 rows (the same columns, values within 2e-6), timed
+    (CUDA events) beside its 3xTF32 bound and the plain blockwise float32
+    ``torch.matmul`` + ``argmax`` with TF32 off, which it must beat; the
+    centring, the loss rows and their backward against their plain
+    versions. The totals are one epoch's."""
+    import torch
+    from st3d_torch.kernels import nnfm as kn
+
+    plain_in_float32()
+    p, c = NNFM_POSITIONS, NNFM_CHANNELS
+    gen = torch.Generator(device=dev).manual_seed(25)
+
+    def block(n):
+        return torch.relu(torch.randn((n, p, c), generator=gen, device=dev)
+                          + 0.3)
+
+    style = kn.style_operand(kn.center_normalize(block(1)))
+    tot = {"ms": 0.0, "plain": 0.0, "bound": 0.0, "rows": 0.0}
+    err = 0.0
+    for bsz in F32_CELL_BATCHES:
+        f = block(bsz)
+        before = dict(kn.LAUNCHES)
+        fh = kn.center_normalize(f)
+        idx, val = kn.match(fh, style)
+        torch.cuda.synchronize()
+        if {k: v - before[k] for k, v in kn.LAUNCHES.items()
+                if v != before[k]} != {"nnfm_normalize": 1,
+                                       "nnfm_match_tf32x3": 1}:
+            fail(f"NNFM x {bsz}: launched {kn.LAUNCHES} from {before}")
+        ref_i, ref_v = kn.match_plain(fh[:8192].double(),
+                                      style.hat.double(), 1024)
+        flips = int((idx[:8192].long() != ref_i).sum())
+        verr = float((val[:8192].double() - ref_v).abs().max())
+        if flips or not verr < 2e-6:
+            fail(f"NNFM match x {bsz}: {flips} of 8192 rows off float64's "
+                 f"argmax, values {verr:.3g} off")
+        nerr = float((fh - kn.center_normalize_plain(f)).abs().max())
+        t_k = cuda_ms(lambda: kn.match(fh, style), 3, 1)
+        t_p = cuda_ms(lambda: kn.match_plain(fh, style.hat), 1, 1)
+        t_n = cuda_ms(lambda: kn.center_normalize(f), 3, 1)
+        m = bsz * p
+        flops = 2 * m * p * c
+        t_b = bound(3 * flops, 4 * c * (m + 2 * p) + 8 * m, TF32_FLOPS)[0]
+        rows = f.reshape(m, c)
+        content = torch.rand((m, c), generator=gen, device=dev)
+        leaf = rows.clone().requires_grad_(True)
+        nn = idx.long()
+        got = kn.loss_rows(leaf, style.hat, content, idx, 0.5 / m,
+                           0.005 / (m * c))
+        got.sum().backward()
+        want_leaf = rows.double().requires_grad_(True)
+        want = kn.loss_rows_plain(want_leaf, style.hat.double(),
+                                  content.double(), nn, 0.5 / m,
+                                  0.005 / (m * c))
+        want.sum().backward()
+        lerr = float((got.double() - want).abs().max() / want.abs().max())
+        gerr = float((leaf.grad.double() - want_leaf.grad).abs().max()
+                     / want_leaf.grad.abs().max())
+        if not (lerr < 1e-5 and gerr < 1e-5 and nerr < 1e-6):
+            fail(f"NNFM rows x {bsz}: loss {lerr:.3g}, grad {gerr:.3g}, "
+                 f"normalise {nerr:.3g} off their plain versions")
+
+        def loss_step():
+            a = rows.detach().requires_grad_(True)
+            kn.loss_rows(a, style.hat, content, idx, 0.5 / m,
+                         0.005 / (m * c)).sum().backward()
+
+        t_r = cuda_ms(loss_step, 3, 1)
+        err = max(err, verr)
+        for k, v in (("ms", t_k), ("plain", t_p), ("bound", t_b),
+                     ("rows", t_n + t_r)):
+            tot[k] += v
+        print(f"NNFM x {bsz} ({m} x {p} x {c}): match {t_k:.3f} ms, 3xTF32 "
+              f"bound {t_b:.3f} ms ({t_b / t_k:.0%} of it; one product a "
+              f"FLOP {t_b / 3 / t_k:.1%}), plain float32 {t_p:.3f} ms; "
+              f"centring {t_n:.3f} ms, loss rows fwd + bwd {t_r:.3f} ms; "
+              f"value err {verr:.3g}, loss {lerr:.3g}, grad {gerr:.3g}")
+    if not tot["ms"] < tot["plain"]:
+        fail(f"NNFM match {tot['ms']:.3f} ms an epoch, not under the plain "
+             f"float32 route's {tot['plain']:.3f}")
+    print(f"NNFM, one epoch: match {tot['ms']:.3f} ms (3xTF32 bound "
+          f"{tot['bound']:.3f}, plain float32 {tot['plain']:.3f}); centring "
+          f"and loss rows {tot['rows']:.3f} ms")
+    return [{"name": "nnfm_match_tf32x3 (NNFM cell)", "route": "cuda",
+             "source": "st3d_torch/csrc/nnfm_match_tf32x3.cu",
+             "replaces": None, "dtype": "float32", "max_abs_err": err,
+             "ms": tot["ms"], "plain_ms": tot["plain"], "library_ms": None,
+             "bound_ms": tot["bound"], "bound_by": "operations",
+             "rows_ms": tot["rows"]}]
 
 
 # (Cin, Cout, H) of K2 at the widths TMA cannot stride: conv1_1 and its
@@ -4203,8 +4310,8 @@ def main(argv=None):
 
     argv = sys.argv[1:] if argv is None else argv
     worker = len(argv) == 2 and argv[0] == "--rank"
-    if argv not in ([], ["--steps"]) and not worker:
-        print("usage: chip_smoke.py [--steps]", file=sys.stderr)
+    if argv not in ([], ["--steps"], ["--nnfm"]) and not worker:
+        print("usage: chip_smoke.py [--steps | --nnfm]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4219,6 +4326,10 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     for k in ROUTE_ENV:
         os.environ.pop(k, None)
+    if argv == ["--nnfm"]:
+        print(smi())
+        nnfm_check(dev)
+        return 0
     if argv:
         print(smi())
         steps_only(dev)
@@ -4236,6 +4347,7 @@ def main(argv=None):
     card = smi()
     lap("build")
     kernels = raster_check(dev) + conv_check(dev) + k2_f32_cell_check(dev)
+    kernels += nnfm_check(dev)
     kernels += narrow_check(dev)
     kernels += gram_check(dev)
     kernels += stage1_check(dev)

@@ -3,6 +3,11 @@
 defaults, plus ``--device``.
 
 Boolean flags accept true/false/1/0/yes/no and reject anything else.
+``--loss`` picks the perceptual loss: ``gram`` (the reference's, the
+default) or ``nnfm`` (ARF's nearest-neighbour feature matching,
+``ops/nnfm.py``), which only the second approach's plain entry runs: the
+first approach, multi-style, the fleet and ``--data_parallel`` refuse it
+while parsing.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ class PipelineConfig:
     style_path: str = "./imgs/Style_1.jpg"
     style_weight: float = 1e6
     content_weight: float = 1.0
+    loss: str = "gram"                    # gram | nnfm
     resize_texture: bool = True
     size: int = 768
     output_path: str = "./output"
@@ -100,6 +106,11 @@ def _add_shared(p: argparse.ArgumentParser) -> None:
                    help="Weight of the style loss")
     p.add_argument("--content_weight", default=1.0, type=float,
                    help="Weight of the content loss")
+    p.add_argument("--loss", default="gram", type=str,
+                   choices=["gram", "nnfm"],
+                   help="perceptual loss: the Gram style loss with the "
+                   "conv4_2 content loss, or ARF's NNFM on VGG-16's conv3 "
+                   "block")
     p.add_argument("--resize_texture", default=True, type=_str2bool,
                    help="Whether to resize the texture to the image size")
     p.add_argument("--size", default=768, type=int,
@@ -158,13 +169,29 @@ def parse_first_approach(argv=None) -> PipelineConfig:
                    choices=["noise", "current", "content"])
     p.add_argument("--style_transfer_lr", default=0.01, type=float)
     p.add_argument("--mse_lr", default=0.01, type=float)
-    return PipelineConfig(**vars(p.parse_args(argv)))
+    return _parsed(p, argv, "the first approach")
 
 
-def parse_second_approach(argv=None) -> PipelineConfig:
+def parse_second_approach(argv=None, entry: str = "") -> PipelineConfig:
+    """The second approach's flags; ``entry`` names an entry point that
+    runs them without ``--loss nnfm`` (``multi-style``, ``the fleet``)."""
     p = argparse.ArgumentParser(description="second approach (perceptual)")
     _add_shared(p)
     p.add_argument("--epochs", default=3000, type=int)
     p.add_argument("--output_path", default="./output_second", type=str)
     p.add_argument("--lr", default=0.01, type=float)
-    return PipelineConfig(**vars(p.parse_args(argv)))
+    return _parsed(p, argv, entry)
+
+
+def _parsed(p: argparse.ArgumentParser, argv, entry: str) -> PipelineConfig:
+    """Parse; ``--loss nnfm`` exits through ``p.error`` under ``entry`` (an
+    entry point without it) or with ``--data_parallel``."""
+    cfg = PipelineConfig(**vars(p.parse_args(argv)))
+    if cfg.loss == "nnfm":
+        if entry:
+            p.error(f"argument --loss: {entry} runs the Gram loss only, "
+                    "not nnfm")
+        if cfg.data_parallel:
+            p.error("argument --loss: nnfm does not run with "
+                    "--data_parallel")
+    return cfg

@@ -11,7 +11,10 @@ Second approach (``run_second_approach``), per view batch, hoisted out of
 the epoch loop: the content render and the style/content targets. Per
 step: render, composite the background, run VGG-19 to conv5_1 with
 in-model Grams, take ``style_content_loss``, backpropagate and let Adam
-update the trainable leaves.
+update the trainable leaves. With ``--loss nnfm`` the targets are the
+style's conv3 block (once) and each batch's content blocks, VGG runs to
+conv3_3 and matches the render's block to the style's inside the call,
+and the loss is ``ops/nnfm.py::nnfm_loss``.
 
 The texture target hoists the visibility out of the step loop too
 (``precompute_visibility``): the geometry never moves. The mesh and both
@@ -86,7 +89,8 @@ from st3d_torch.engine.optim import apply_params, setup_optimizations
 from st3d_torch.engine.style_transfer2d import style_transfer
 from st3d_torch.io.image import load_as_tensor, resize_bilinear_chw, save_image
 from st3d_torch.io.obj import load_mesh, save_mesh
-from st3d_torch.models.vgg import get_features, get_vgg
+from st3d_torch.models.vgg import BLOCK3_CONVS, get_features, get_vgg
+from st3d_torch.ops import nnfm as nnfm_ops
 from st3d_torch.ops.losses import (
     CONTENT_LAYER,
     StyleContentTargets,
@@ -123,12 +127,17 @@ from st3d_torch.utils.logging import RunLogger
 CHECKPOINT = "checkpoint.npz"
 
 
-def _check_config(cfg: PipelineConfig) -> None:
+def _check_config(cfg: PipelineConfig, nnfm_ok: bool = False) -> None:
     """Raise ValueError before any work for an unknown ``raster_backend``
     (every known one takes the port's one rasterizer, as
-    st3d/render/rasterize.py::resolve_backend accepts them)."""
+    st3d/render/rasterize.py::resolve_backend accepts them), and for
+    ``--loss nnfm`` where the entry (``nnfm_ok`` false) or
+    ``--data_parallel`` does not run it (the parsers refuse it first)."""
     if cfg.raster_backend not in RASTER_BACKENDS:
         raise ValueError(f"unknown rasterizer backend {cfg.raster_backend!r}")
+    if cfg.loss != "gram" and (not nnfm_ok or cfg.data_parallel):
+        raise ValueError(f"--loss {cfg.loss} runs in the second approach's "
+                         "plain entry only")
 
 
 def load_scene(cfg: PipelineConfig) -> Mesh:
@@ -441,7 +450,7 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
     """Optimise the trainable leaves against the VGG style/content loss
     (plus the mesh regularizers for the mesh and both targets); returns the
     final (clamped) mesh."""
-    _check_config(cfg)
+    _check_config(cfg, nnfm_ok=True)
     world = current_world(cfg.device)
     profile_spans(cfg, world)
     device = world.device
@@ -454,8 +463,10 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
         with trace.span("setup.scene"):
             content_mesh = load_scene(cfg).to(device)
         settings = _settings(cfg)
+        nnfm = cfg.loss == "nnfm"
         with trace.span("setup.vgg"):
-            vgg = get_vgg(cfg.vgg_weights, device=device)
+            vgg = get_vgg(cfg.vgg_weights, device=device,
+                          convs=BLOCK3_CONVS if nnfm else None)
         cameras = build_cameras(cfg).to(device)
         warn_if_hard_k_saturated(content_mesh, cameras[:cfg.batch_size],
                                  settings, context="first render")
@@ -469,6 +480,9 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
         with trace.span("setup.targets"):
             style = load_as_tensor(resolve_asset(cfg.style_path),
                                    size=cfg.size)
+            # NNFM: the style's block once, not once a view.
+            style_block = (nnfm_ops.style_target(style[None].to(device), vgg,
+                                                 dtype) if nnfm else None)
         content_noise = cfg.content_background == "noise"
         noise = content_noise or cfg.current_background == "noise"
 
@@ -486,8 +500,11 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
                                                   settings)
                     content_b = cimgs if content_noise else apply_background(
                         cimgs, cmasks, cfg.content_background, style_b, gen)
-                    targets = StyleContentTargets.create(
-                        content_b, style_b, vgg, dtype=dtype, layout="NHWC")
+                    targets = (
+                        nnfm_ops.content_target(content_b, vgg, dtype)
+                        if nnfm else StyleContentTargets.create(
+                            content_b, style_b, vgg, dtype=dtype,
+                            layout="NHWC"))
                 if use_dp:
                     cams_b = cams_b[view_block(b1 - b0, world)]
                     style_b, cimgs, cmasks = shard_views(
@@ -512,19 +529,32 @@ def run_second_approach(cfg: PipelineConfig) -> Mesh:
             cur_m = (rgba[..., 3:4] > 0).to(cur_i.dtype)
             cur = apply_background(cur_i, cur_m, cfg.current_background,
                                    style_b.permute(0, 2, 3, 1), g_cur)
-            feats = get_features(cur, vgg, dtype=dtype, layout="NHWC",
-                                 input_layout="NHWC", gram1=True)
-            tg = targets
+            content_b = None
             if content_noise:
                 with torch.no_grad():
                     content_b = apply_background(cimgs, cmasks, "noise",
                                                  style_b, g_content)
-                    cf = get_features(content_b, vgg, dtype=dtype,
-                                      layout="NHWC")[CONTENT_LAYER]
-                tg = StyleContentTargets(cf, targets.style_grams,
-                                         targets.feature_shapes)
-            loss = style_content_loss(feats, tg, cfg.style_weight,
-                                      cfg.content_weight, layout="NHWC")
+            if nnfm:
+                feats = get_features(cur, vgg, dtype=dtype,
+                                     input_layout="NHWC",
+                                     nnfm=style_block.operand)
+                content = targets if content_b is None else (
+                    nnfm_ops.content_target(content_b, vgg, dtype))
+                loss = nnfm_ops.nnfm_loss(feats, content, style_block,
+                                          cfg.style_weight,
+                                          cfg.content_weight)
+            else:
+                feats = get_features(cur, vgg, dtype=dtype, layout="NHWC",
+                                     input_layout="NHWC", gram1=True)
+                tg = targets
+                if content_b is not None:
+                    with torch.no_grad():
+                        cf = get_features(content_b, vgg, dtype=dtype,
+                                          layout="NHWC")[CONTENT_LAYER]
+                    tg = StyleContentTargets(cf, targets.style_grams,
+                                             targets.feature_shapes)
+                loss = style_content_loss(feats, tg, cfg.style_weight,
+                                          cfg.content_weight, layout="NHWC")
             if not static_vis:
                 loss = weights["main_loss_weight"] * loss + (
                     mesh_regularizer_loss(mesh, mesh.verts,

@@ -42,7 +42,7 @@ def main(argv=None):
                      help="batched: one optimisation over the mesh x style "
                      "grid; sequential: the multi-style engine per mesh")
     ns, rest = pre.parse_known_args(argv)
-    cfg = parse_second_approach(rest)
+    cfg = parse_second_approach(rest, entry="the fleet")
     with distributed(cfg.device):
         return _run(cfg, ns.fleet_mode, split_paths(ns.obj_paths),
                     split_paths(ns.style_paths))

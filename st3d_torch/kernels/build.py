@@ -50,7 +50,8 @@ WGMMA_SOURCES = ("conv3x3_wgmma", "conv3x3_tf32x3", "gram_wgmma",
                  "conv1_1_stats_tf32x3", "conv1_1_bwd_tf32x3",
                  "conv3x3_narrow_wgmma", "conv3x3_narrow_tf32x3",
                  "conv1_1_gram_wgmma", "conv1_1_gram_bwd_wgmma",
-                 "conv1_1_gram_tf32x3", "conv1_1_gram_bwd_tf32x3")
+                 "conv1_1_gram_tf32x3", "conv1_1_gram_bwd_tf32x3",
+                 "nnfm_match_tf32x3")
 # The narrow K3 takes mma.sync, not wgmma, but shares hopper.cuh with them
 # (cp.async, the Grams' second pass), so it links and reports as they do.
 TENSOR_CORE_SOURCES = WGMMA_SOURCES + ("gram_narrow",)

@@ -39,11 +39,19 @@ HWIO, and activations run NHWC, as in the JAX package.
   * conv4_2 and the taps without ``gram1`` are ``conv3x3_bias``;
   * the remaining pools are ``max_pool2d``.
 With both switches set this is the dispatch of the port's first slice.
+With ``relu3`` (ARF's NNFM loss, ``ops/nnfm.py``) the stack is VGG-16's
+conv1_1-conv3_3 (VGG-19's first seven convs, the same widths): conv3_1,
+conv3_2 and conv3_3 are K2 with ReLU and their outputs come back as one
+float32 (B, P, 768) map ``"relu3"``; given the style's operand
+(``nnfm``), the same call matches it (``kernels/nnfm.py``, span
+``st3d.nnfm``) and adds ``"relu3:nn"`` and ``"relu3:nn_cos"``. The stack
+stops at the deepest conv wanted.
 Every other backward is K2 on flipped weights. The same dispatch runs on
 the CPU (plain versions) and on the GPU (kernels).
 
-Weights resolve as in the JAX package: explicit path, then
-``$ST3D_VGG_WEIGHTS``, then ``<repo>/weights/vgg19_imagenet.npz``, then a
+Weights resolve as in the JAX package (``convs`` of them, all 16 by
+default; the first seven of a VGG-16 or VGG-19 file for ``relu3``):
+explicit path, then ``$ST3D_VGG_WEIGHTS``, then ``<repo>/weights/vgg19_imagenet.npz``, then a
 deterministic random He initialisation from a ``torch.Generator`` (whose
 bits differ from ``jax.random``'s; ``st3d_torch.convert.vgg19_from_numpy``
 carries the JAX package's weights across).
@@ -66,6 +74,7 @@ from st3d_torch.kernels.conv import (
     conv3x3_bias_relu_pool_packed,
     gram_nhwc_diff,
 )
+from st3d_torch.kernels.nnfm import StyleOperand, center_normalize, match
 from st3d_torch.kernels.stage1 import conv1_1_relu_stats, conv1_2_relu_pool
 from st3d_torch.kernels.stage1v3 import conv1_1_relu_gram, conv1_2_relu_pool_v3
 from st3d_torch.utils import trace
@@ -84,6 +93,10 @@ TAP_CONV_INDEX: Dict[str, int] = {
     "conv5_1": 12,  # features[28]
 }
 LAST_TAP_CONV = max(TAP_CONV_INDEX.values())
+# ARF's NNFM block: relu3_1, relu3_2 and relu3_3, concatenated.
+BLOCK3_CONV_INDEX: Dict[str, int] = {"conv3_1": 4, "conv3_2": 5,
+                                     "conv3_3": 6}
+BLOCK3_CONVS = max(BLOCK3_CONV_INDEX.values()) + 1
 # Style taps whose Gram is taken right after the conv (K3) when gram1=True.
 FUSED_GRAM_CONVS = frozenset(
     TAP_CONV_INDEX[n] for n in ("conv2_1", "conv3_1", "conv4_1", "conv5_1"))
@@ -101,13 +114,15 @@ def conv_shapes() -> List[Tuple[int, int]]:
 
 
 class VGG19(torch.nn.Module):
-    """Frozen VGG-19 feature stack: 16 convs' HWIO kernels and biases,
-    held as buffers (nothing here trains)."""
+    """Frozen VGG-19 feature stack: the HWIO kernels and biases of its 16
+    convs, or of its first ``convs`` (such as the seven that VGG-16
+    shares), held as buffers (nothing here trains)."""
 
     def __init__(self, kernels: Sequence[torch.Tensor],
-                 biases: Sequence[torch.Tensor]):
+                 biases: Sequence[torch.Tensor],
+                 convs: Optional[int] = None):
         super().__init__()
-        shapes = conv_shapes()
+        shapes = conv_shapes()[:convs]
         if len(kernels) != len(shapes) or len(biases) != len(shapes):
             raise ValueError(f"want {len(shapes)} kernels and biases")
         for i, ((c_in, c_out), w, b) in enumerate(zip(shapes, kernels,
@@ -122,10 +137,11 @@ class VGG19(torch.nn.Module):
                     f"{(c_out,)}")
             self.register_buffer(f"kernel{i}", w.contiguous())
             self.register_buffer(f"bias{i}", b.contiguous())
+        self._convs = len(shapes)
 
     @property
     def num_convs(self) -> int:
-        return len(conv_shapes())
+        return self._convs
 
     @property
     def kernels(self) -> Tuple[torch.Tensor, ...]:
@@ -137,26 +153,33 @@ class VGG19(torch.nn.Module):
         return tuple(getattr(self, f"bias{i}") for i in range(self.num_convs))
 
 
-def init_random_vgg19(seed: int = 0, device=None) -> VGG19:
-    """Deterministic He-initialised weights from a ``torch.Generator``."""
+def init_random_vgg19(seed: int = 0, device=None,
+                      convs: Optional[int] = None) -> VGG19:
+    """Deterministic He-initialised weights from a ``torch.Generator`` (the
+    first ``convs`` of them: a prefix of the full stack's draws)."""
     gen = torch.Generator().manual_seed(seed)
     kernels, biases = [], []
-    for c_in, c_out in conv_shapes():
+    for c_in, c_out in conv_shapes()[:convs]:
         w = torch.randn((3, 3, c_in, c_out), generator=gen)
         kernels.append(w * float(np.sqrt(2.0 / (9 * c_in))))
         biases.append(torch.zeros(c_out))
-    return VGG19(kernels, biases).to(device)
+    return VGG19(kernels, biases, convs).to(device)
 
 
-def load_vgg19_npz(path: str, device=None) -> VGG19:
+def load_vgg19_npz(path: str, device=None,
+                   convs: Optional[int] = None) -> VGG19:
     """Weights from an .npz with keys conv{i}_kernel (HWIO) and
-    conv{i}_bias, i in 0..15 (the JAX package's converter format)."""
+    conv{i}_bias, i in 0..15 (the JAX package's converter format); with
+    ``convs``, only the first that many are read and checked, so a VGG-16
+    file (13 convs, its eighth conv4_1) serves the seven convs it shares
+    with VGG-19."""
+    n = len(conv_shapes()[:convs])
     with np.load(path) as data:
         kernels = [np.asarray(data[f"conv{i}_kernel"], np.float32)
-                   for i in range(16)]
+                   for i in range(n)]
         biases = [np.asarray(data[f"conv{i}_bias"], np.float32)
-                  for i in range(16)]
-    return VGG19(kernels, biases).to(device)
+                  for i in range(n)]
+    return VGG19(kernels, biases, convs).to(device)
 
 
 def save_vgg19_npz(model: VGG19, path: str) -> None:
@@ -171,10 +194,12 @@ def save_vgg19_npz(model: VGG19, path: str) -> None:
 _warned_random = False
 
 
-def get_vgg(weights_path: Optional[str] = None, device=None) -> VGG19:
+def get_vgg(weights_path: Optional[str] = None, device=None,
+            convs: Optional[int] = None) -> VGG19:
     """Resolution order: ``weights_path`` (missing -> FileNotFoundError),
     ``$ST3D_VGG_WEIGHTS``, ``<repo>/weights/vgg19_imagenet.npz``, then the
-    random initialisation with a one-time warning."""
+    random initialisation with a one-time warning; ``convs`` as
+    ``load_vgg19_npz`` takes it."""
     global _warned_random
     candidates = []
     if weights_path:
@@ -189,14 +214,14 @@ def get_vgg(weights_path: Optional[str] = None, device=None) -> VGG19:
     candidates.append(os.path.join(repo_root, "weights", "vgg19_imagenet.npz"))
     for cand in candidates:
         if os.path.isfile(cand):
-            return load_vgg19_npz(cand, device)
+            return load_vgg19_npz(cand, device, convs)
     if not _warned_random:
         warnings.warn(
             "No pretrained VGG-19 weights found; using deterministic random "
             "init. Point ST3D_VGG_WEIGHTS at an .npz made by "
             "scripts/convert_vgg_weights.py.", stacklevel=2)
         _warned_random = True
-    return init_random_vgg19(device=device)
+    return init_random_vgg19(device=device, convs=convs)
 
 
 def gram1_closed_form(ptp: torch.Tensor, s27: torch.Tensor, w: torch.Tensor,
@@ -250,7 +275,9 @@ def get_features(images: torch.Tensor, model: VGG19,
                  layers: Optional[Dict[str, str]] = None,
                  dtype: torch.dtype = torch.float32, layout: str = "NCHW",
                  input_layout: str = "NCHW",
-                 gram1: bool = False) -> Dict[str, torch.Tensor]:
+                 gram1: bool = False, relu3: bool = False,
+                 nnfm: Optional[StyleOperand] = None
+                 ) -> Dict[str, torch.Tensor]:
     """Tap dict for a batch of [0, 1] images (B, 3, H, W), or (B, H, W, 3)
     with ``input_layout="NHWC"``.
 
@@ -258,16 +285,32 @@ def get_features(images: torch.Tensor, model: VGG19,
     returns (B, H', W', C) taps in the compute ``dtype``. With ``gram1``,
     conv1_1 is replaced by ``"conv1_1:gram"`` and the other style taps by
     ``"<tap>:gram"``: (B, C, C) float32 Grams, the taps never exported.
+    With ``relu3`` or ``nnfm`` the one output is ``"relu3"``, the float32
+    (B, P, 768) post-ReLU conv3 block (positions y * W' + x); with
+    ``nnfm``, a style's operand (``kernels/nnfm.py::style_operand``), also
+    ``"relu3:nn"`` (B, P) int32, each position's matched style row, and
+    ``"relu3:nn_cos"`` (B, P) float32, its centred cosine.
     """
-    wanted = set(TAP_CONV_INDEX)
-    if layers is not None:
-        wanted = set(layers.values())
+    block = relu3 or nnfm is not None
+    if block:
+        wanted = set(BLOCK3_CONV_INDEX)
+        name_by_conv = {v: k for k, v in BLOCK3_CONV_INDEX.items()}
+    else:
+        wanted = set(TAP_CONV_INDEX)
+        if layers is not None:
+            wanted = set(layers.values())
+        name_by_conv = {v: k for k, v in TAP_CONV_INDEX.items()}
+    last_conv = max((ci for ci, n in name_by_conv.items() if n in wanted),
+                    default=LAST_TAP_CONV)
+    if last_conv >= model.num_convs:
+        raise ValueError(f"get_features: conv {last_conv} wanted, the model "
+                         f"holds {model.num_convs} convs")
     x = images.to(dtype)
     if input_layout != "NHWC":
         x = x.permute(0, 2, 3, 1)
     x = x.contiguous()
     feats: Dict[str, torch.Tensor] = {}
-    name_by_conv = {v: k for k, v in TAP_CONV_INDEX.items()}
+    relus: List[torch.Tensor] = []
     kernels, biases = model.kernels, model.biases
 
     conv_i = 0
@@ -290,7 +333,10 @@ def get_features(images: torch.Tensor, model: VGG19,
         next_is_pool = (cfg_i + 1 < len(VGG19_CFG)
                         and VGG19_CFG[cfg_i + 1] == "M")
         did_relu = False
-        stage1 = _stage1_route(x, gram1, wanted) if conv_i == 0 else None
+        # The block takes stage 1 too, its conv1_1 Gram left unused.
+        stage1 = (_stage1_route(x, gram1 or block,
+                                {"conv1_1"} if block else wanted)
+                  if conv_i == 0 else None)
         if stage1 == "v3":
             z, feats["conv1_1:gram"] = conv1_1_relu_gram(x, w, b)
             x, _ = conv1_2_relu_pool_v3(z, kernels[1].to(dtype),
@@ -301,8 +347,9 @@ def get_features(images: torch.Tensor, model: VGG19,
         elif stage1 == "v2":
             bsz, h, wd, _ = x.shape
             z, ptp, s27 = conv1_1_relu_stats(x, w, b)
-            feats["conv1_1:gram"] = gram1_closed_form(
-                ptp, s27, kernels[0], biases[0], h * wd)
+            if not block:
+                feats["conv1_1:gram"] = gram1_closed_form(
+                    ptp, s27, kernels[0], biases[0], h * wd)
             x, _ = conv1_2_relu_pool(z, kernels[1].to(dtype),
                                      biases[1].to(dtype))
             skip_convs = 1             # conv1_2 consumed here
@@ -324,6 +371,10 @@ def get_features(images: torch.Tensor, model: VGG19,
                 feats["conv1_1:gram"] = gram1_closed_form(
                     gram_nhwc_diff(patches), s27, kernels[0], biases[0],
                     h * wd)
+        elif block and name is not None:
+            x = conv3x3_bias_relu(x, w, b)
+            relus.append(x)
+            did_relu = True
         elif gram1 and conv_i in FUSED_GRAM_CONVS and name in wanted:
             x, g = conv3x3_bias_gram(x, w, b)
             feats[name + ":gram"] = g
@@ -338,12 +389,33 @@ def get_features(images: torch.Tensor, model: VGG19,
             did_relu = True
         else:
             x = conv3x3_bias(x, w, b)
-        if name is not None and name in wanted and name + ":gram" not in feats:
+        if (not block and name is not None and name in wanted
+                and name + ":gram" not in feats):
             feats[name] = x if layout == "NHWC" else (
                 x.permute(0, 3, 1, 2).float())
-        if conv_i >= LAST_TAP_CONV:
+        if conv_i >= last_conv:
             break
         if not did_relu:
             x = torch.relu(x)
         conv_i += 1
+    if block:
+        bsz = images.shape[0]
+        f = torch.cat(relus, dim=-1).float()
+        f = f.reshape(bsz, -1, f.shape[-1])
+        feats["relu3"] = f
+        if nnfm is not None:
+            feats.update(_match_block(f, nnfm))
     return feats
+
+
+def _match_block(f: torch.Tensor, style: StyleOperand
+                 ) -> Dict[str, torch.Tensor]:
+    """The matching of the block ``f`` (B, P, C) against ``style``, with no
+    gradient: span ``st3d.nnfm``, counters ``nnfm.rows`` (render positions
+    matched) and ``nnfm.pairs`` (rows times style rows scored)."""
+    bsz, p, _ = f.shape
+    with trace.span("nnfm"), torch.no_grad():
+        nn, cos = match(center_normalize(f.detach()), style)
+        trace.count("nnfm.rows", bsz * p)
+        trace.count("nnfm.pairs", bsz * p * style.rows)
+    return {"relu3:nn": nn.reshape(bsz, p), "relu3:nn_cos": cos.reshape(bsz, p)}

@@ -29,7 +29,7 @@ def main(argv=None):
     pre.add_argument("--style_paths", default="./imgs/Style_1.jpg", type=str,
                      help="comma-separated style image paths")
     ns, rest = pre.parse_known_args(argv)
-    cfg = parse_second_approach(rest)
+    cfg = parse_second_approach(rest, entry="multi-style")
     with distributed(cfg.device):
         return run_multistyle(cfg, split_paths(ns.style_paths))
 

@@ -304,7 +304,7 @@ def test_log_step_matches_jax(tmp_path):
 
 def test_flags_and_defaults_match_jax():
     """Same flags and defaults as the JAX first-approach CLI, plus
-    --device."""
+    --device and --loss (whose one value here is the Gram loss)."""
     from st3d.engine.config import PipelineConfig as JaxConfig
 
     port, ref = parse_first_approach([]), jax_parse([])
@@ -315,7 +315,7 @@ def test_flags_and_defaults_match_jax():
     argv = ["--n_mse_steps", "7", "--style_transfer_init", "noise",
             "--mse_lr", "0.5", "--style_transfer_lr", "0.2"]
     assert parse_first_approach(argv).__dict__ == {
-        **jax_parse(argv).__dict__, "device": "cuda"}
+        **jax_parse(argv).__dict__, "device": "cuda", "loss": "gram"}
     with pytest.raises(SystemExit):
         parse_first_approach(["--style_transfer_init", "random"])
 

@@ -137,16 +137,17 @@ def test_backgrounds_run(scene, content_bg, current_bg):
 
 
 def test_flags_and_defaults_match_jax():
-    """Same flags and defaults as the JAX CLI, plus --device."""
+    """Same flags and defaults as the JAX CLI, plus --device and --loss
+    (the JAX package has the Gram loss only)."""
     from st3d.engine.config import PipelineConfig as JaxConfig
 
     port = parse_second_approach([])
     ref = jax_parse([])
     for f in JaxConfig.__dataclass_fields__:
         assert getattr(port, f) == getattr(ref, f), f
-    assert port.device == "cuda"
+    assert port.device == "cuda" and port.loss == "gram"
     assert set(PipelineConfig.__dataclass_fields__) - set(
-        JaxConfig.__dataclass_fields__) == {"device"}
+        JaxConfig.__dataclass_fields__) == {"device", "loss"}
     with pytest.raises(SystemExit):
         parse_second_approach(["--randomize_views", "maybe"])
 

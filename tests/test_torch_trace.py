@@ -39,6 +39,10 @@ def _one_torch_thread():
 
 @pytest.fixture(autouse=True)
 def _tracing_off():
+    """Each test starts with tracing off and no records: a worker that
+    ran another file first may hold the records of its runs (``enable``
+    clears them, ``disable`` keeps them readable)."""
+    trace.enable()
     trace.disable()
     yield
     trace.disable()
