@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # every phase below
     python3 chip_smoke.py --steps    # only step times (see ``steps_only``)
     python3 chip_smoke.py --nnfm     # only the NNFM kernels (``nnfm_check``)
+    python3 chip_smoke.py --k2       # only the bf16 K2 at the bf16 cells'
+                                     # shapes (``k2_bf16_cell_check``)
 
 Phases; any failure raises and the script exits non-zero:
 
@@ -40,7 +42,11 @@ Phases; any failure raises and the script exits non-zero:
    kernel its route names; the float32 K2 also at the f32 cell's shapes
    (``k2_f32_cell_check``: conv2_1 .. conv5_1 at 768², batches 4 and 2,
    forward and dx, and C at conv1_2), each timed beside its 3xTF32 bound
-   with its tiles, CTAs and waves;
+   with its tiles, CTAs and waves; the bf16 K2 at the bf16 cells' shapes
+   (``k2_bf16_cell_check``: the same convs at batches 12 and 6, styles3,
+   and 4 and 2, bf16.texture, forward and dx, and C at conv1_2, against the
+   plain versions), each timed beside its bf16 bound and ``F.conv2d`` in
+   bf16 with its box, BN, tiles, CTAs and waves;
    ARF's NNFM kernels at the NNFM cell's shapes (``nnfm_check``): the
    3xTF32 matching ``nnfm_match_tf32x3`` of 4 and 2 views' 36,864 rows
    against 36,864 style rows at 768 channels, on 8,192 rows the columns of
@@ -1444,6 +1450,122 @@ def k2_f32_cell_check(dev):
              "bound_by": "operations", "dx_ms": tot["dx"],
              "dx_bound_ms": tot["dx_bound"], "c_ms": tot["c"],
              "c_bound_ms": tot["c_bound"]}]
+
+
+# The bf16 cells at the same 768² and convs: styles3 runs VGG on 12 and 6
+# images an epoch (3 styles x 4 and 2 views), bf16.texture on 4 and 2.
+BF16_CELL_BATCHES = {"styles3": (12, 6), "texture": (4, 2)}
+
+
+def k2_bf16_cell_check(dev):
+    """The bf16 K2 (``csrc/conv3x3_wgmma.cu``) at the bf16 cells' shapes:
+    each conv of ``F32_CELL_K2_CONVS`` at each batch of
+    ``BF16_CELL_BATCHES``, forward and dx, and C at conv1_2, against the
+    plain versions (<= 1e-2 * max|plain|; C's idx equal wherever the plain
+    top two of the window differ by more), timed (CUDA events) beside its
+    bf16 bound with its tiles (``k2_plan``'s box and BN; C's ``pool_tile``
+    and BN 64), CTAs (min(tiles, SMs)) and waves; the forward also beside
+    ``F.conv2d`` in bf16 (the library time). Per cell the totals are one
+    epoch's: the record's ``ms``, ``library_ms`` and ``bound_ms`` are the
+    forward calls', ``dx_ms`` and ``dx_bound_ms`` the input gradients',
+    ``c_ms`` and ``c_bound_ms`` C's."""
+    import torch
+    import torch.nn.functional as F
+    from st3d_torch.kernels.conv import (
+        LAUNCHES, SMS, _transpose_conv, conv3x3_nhwc, conv3x3_nhwc_plain,
+        conv3x3_relu_pool, conv3x3_relu_pool_plain, k2_plan, pool_tile)
+
+    def plan(bsz, h, cout, pool=False):
+        if pool:
+            bw, bh = pool_tile(h)
+            bn, tiles_m = 64, bsz * -(-h // bw) * -(-h // bh)
+            box = f"{bw} x {bh}"
+        else:
+            bw, bn, pixels, _ = k2_plan(bsz, h, h, cout)
+            tiles_m = pixels // 128
+            box = f"{bw} x {128 // bw}"
+        tiles = tiles_m * -(-cout // bn)
+        ctas = min(tiles, SMS)
+        return (f"box {box}, BN {bn}, tiles {tiles}, CTAs {ctas}, waves "
+                f"{tiles / ctas:.2f}")
+
+    plain_in_float32()
+    gen = torch.Generator(device=dev).manual_seed(26)
+    bf, size = torch.bfloat16, F32_CELL_SIZE
+    recs = []
+    for cell, batches in BF16_CELL_BATCHES.items():
+        tot = {"ms": 0.0, "dx": 0.0, "lib": 0.0, "bound": 0.0, "c": 0.0,
+               "c_bound": 0.0, "err": 0.0}
+        for bsz in batches:
+            for cin, cout, h in F32_CELL_K2_CONVS:
+                x, w, b, ct = _conv_operands(gen, dev, cin, cout, h, bf, bsz)
+                what = f"{cin:>3}->{cout:<3} {h:>3}² x {bsz:>2}"
+                err, text = _conv_fwd_dx(x, w, b, ct, True, 1e-2,
+                                         "conv3x3_wgmma", what)
+                t_k = cuda_ms(lambda: conv3x3_nhwc(x, w, b, True), 5)
+                t_d = cuda_ms(lambda: _transpose_conv(ct, w), 5)
+                xl = x.permute(0, 3, 1, 2)
+                wl = w.permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last)
+                t_l = cuda_ms(lambda: F.conv2d(xl, wl, b, padding=1), 5)
+                # The forward and the input gradient move the same bytes and
+                # make the same products, so one bound holds for each.
+                flops = 2 * 9 * cin * cout * h * h * bsz
+                nbytes = 2 * (bsz * h * h * (cin + cout) + 9 * cin * cout
+                              + cout)
+                t_b = bound(flops, nbytes, BF16_FLOPS)[0]
+                for k, v in (("ms", t_k), ("dx", t_d), ("lib", t_l),
+                             ("bound", t_b)):
+                    tot[k] += v
+                tot["err"] = max(tot["err"], err)
+                print(f"K2 bf16 {cell} {what} {text}  fwd {t_k:.3f} ms "
+                      f"({plan(bsz, h, cout)}), dx {t_d:.3f} ms "
+                      f"({plan(bsz, h, cin)}), bound {t_b:.4f} ms each "
+                      f"({t_b / t_k:.0%}, {t_b / t_d:.0%} of it), F.conv2d "
+                      f"{t_l:.3f} ms")
+                del x, w, b, ct
+            x, w, b, _ = _conv_operands(gen, dev, 64, 64, size, bf, bsz)
+            before = dict(LAUNCHES)
+            p, idx = conv3x3_relu_pool(x, w, b)
+            torch.cuda.synchronize()
+            if _launched(before) != {"conv3x3_relu_pool_wgmma": 1}:
+                fail(f"C bf16 {cell}: launched {_launched(before)}")
+            p_ref, idx_ref = conv3x3_relu_pool_plain(x, w, b)
+            err, scale = _max_err(p, p_ref, 1e-2, f"C bf16 {cell} x {bsz}")
+            bad, _ = _idx_mismatches(idx, idx_ref, conv3x3_nhwc_plain(
+                x, w, b, True), 1e-2 * scale)
+            if bad:
+                fail(f"C bf16 {cell} x {bsz}: {bad} idx mismatches where "
+                     "separated")
+            t_c = cuda_ms(lambda: conv3x3_relu_pool(x, w, b), 5)
+            px = bsz * size ** 2
+            t_b = bound(2 * 9 * 64 * 64 * px, 2 * px * 64 + 3 * px // 4 * 64
+                        + 2 * (9 * 64 * 64 + 64), BF16_FLOPS)[0]
+            tot["c"] += t_c
+            tot["c_bound"] += t_b
+            tot["err"] = max(tot["err"], err)
+            print(f"C bf16 {cell} 64->64 {size}² x {bsz} err {err:.3g}/"
+                  f"{scale:.3g}  {t_c:.3f} ms ({plan(bsz, size, 64, True)}), "
+                  f"bound {t_b:.4f} ms ({t_b / t_c:.0%} of it)")
+            del x, w, b, p, idx, p_ref, idx_ref
+            torch.cuda.empty_cache()
+        k2 = tot["ms"] + tot["dx"]
+        k2_bound = 2 * tot["bound"]
+        print(f"K2 bf16 {cell}, one epoch (22 calls a batch): fwd "
+              f"{tot['ms']:.3f} ms (bound {tot['bound']:.3f}, F.conv2d "
+              f"{tot['lib']:.3f}) + dx {tot['dx']:.3f} ms = {k2:.3f} ms, "
+              f"bound {k2_bound:.3f} ms ({k2_bound / k2:.0%} of it); C "
+              f"{tot['c']:.3f} ms, bound {tot['c_bound']:.3f} ms")
+        recs.append({"name": f"conv3x3_wgmma (bf16 {cell} cell)",
+                     "route": "cuda",
+                     "source": "st3d_torch/csrc/conv3x3_wgmma.cu",
+                     "replaces": "st3d/kernels/conv_pallas.py:128",
+                     "dtype": "bfloat16", "max_abs_err": tot["err"],
+                     "ms": tot["ms"], "library_ms": tot["lib"],
+                     "bound_ms": tot["bound"], "bound_by": "operations",
+                     "dx_ms": tot["dx"], "dx_bound_ms": tot["bound"],
+                     "c_ms": tot["c"], "c_bound_ms": tot["c_bound"]})
+    return recs
 
 
 NNFM_POSITIONS = (F32_CELL_SIZE // 4) ** 2   # the conv3 block at 768²
@@ -4310,8 +4432,9 @@ def main(argv=None):
 
     argv = sys.argv[1:] if argv is None else argv
     worker = len(argv) == 2 and argv[0] == "--rank"
-    if argv not in ([], ["--steps"], ["--nnfm"]) and not worker:
-        print("usage: chip_smoke.py [--steps | --nnfm]", file=sys.stderr)
+    if argv not in ([], ["--steps"], ["--nnfm"], ["--k2"]) and not worker:
+        print("usage: chip_smoke.py [--steps | --nnfm | --k2]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4330,6 +4453,10 @@ def main(argv=None):
         print(smi())
         nnfm_check(dev)
         return 0
+    if argv == ["--k2"]:
+        print(smi())
+        k2_bf16_cell_check(dev)
+        return 0
     if argv:
         print(smi())
         steps_only(dev)
@@ -4347,6 +4474,7 @@ def main(argv=None):
     card = smi()
     lap("build")
     kernels = raster_check(dev) + conv_check(dev) + k2_f32_cell_check(dev)
+    kernels += k2_bf16_cell_check(dev)
     kernels += nnfm_check(dev)
     kernels += narrow_check(dev)
     kernels += gram_check(dev)

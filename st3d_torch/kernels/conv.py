@@ -9,7 +9,7 @@ kernels:
   stride-1 SAME conv is the same conv of the cotangent with flipped,
   IO-transposed weights and a zero bias. Four kernels, chosen by
   ``conv_route`` on dtype and widths: ``csrc/conv3x3_wgmma.cu`` (bf16 on
-  the tensor cores, TMA-fed tiles of ``conv_tile``'s shape),
+  the tensor cores, persistent over TMA-fed tiles of ``k2_plan``'s shape),
   ``csrc/conv3x3_tf32x3.cu`` (float32 on the tensor cores by the 3xTF32
   split of ``split_tf32``, persistent over tiles of ``tf32x3_tile``'s
   shape), and for the widths TMA cannot stride (conv1_1's 3 -> 64 and
@@ -67,6 +67,7 @@ import torch
 import torch.nn.functional as F
 
 from st3d_torch.kernels import build
+from st3d_torch.utils import trace
 
 LAUNCHES: Dict[str, int] = {"conv3x3_nhwc": 0, "conv3x3_wgmma": 0,
                             "conv3x3_tf32x3": 0,
@@ -83,6 +84,10 @@ LAUNCHES: Dict[str, int] = {"conv3x3_nhwc": 0, "conv3x3_wgmma": 0,
 
 SMS = 132                       # streaming multiprocessors of an H100
 CONV_TILE_PIXELS = 128          # output pixels of one tensor-core K2 tile
+# The bf16 K2's time for one 128 x 256 output tile over two 128 x 128 ones
+# (``k2_bn``): 0.83-1.04, median 0.90, over the bf16 cells' convs with Cout
+# past 128 on an H100 SXM at 700 W.
+K2_WIDE_TILE_COST = 0.9
 POOL_TILE_WIDTH = 64            # widest tile that holds whole 2x2 windows
 # K3's split over pixel slices, per route: (Gram tile edge, upper triangle
 # only, pixels per step, shortest slice, blocks wanted). The tensor-core
@@ -306,12 +311,13 @@ def pool_footprint(width: int) -> Tuple[int, int]:
 
 
 def tf32x3_tile(width: int, height: int) -> Tuple[int, int]:
-    """(BW, BH) of the float32 K2's output tile: of the 128-pixel boxes (BW
-    a power of two up to 128, BW * BH = 128), one whose tiles cover the
-    image with the fewest pixels past its edges (loaded as zeros and not
-    stored): ``conv_tile``'s box if it is one of them, else the widest. At
-    768² VGG's 192-, 96- and 48-wide layers fill ``conv_tile``'s box to
-    three quarters; 64 x 2, 32 x 4 and 16 x 8 fill it whole."""
+    """(BW, BH) of the tensor-core K2's output tile, in both dtypes: of the
+    128-pixel boxes (BW a power of two up to 128, BW * BH = 128), one whose
+    tiles cover the image with the fewest pixels past its edges (loaded as
+    zeros and not stored): ``conv_tile``'s box if it is one of them, else
+    the widest. At 768² VGG's 192-, 96- and 48-wide layers fill
+    ``conv_tile``'s box to three quarters; 64 x 2, 32 x 4 and 16 x 8 fill
+    it whole."""
     def padded(bw: int) -> int:
         bh = CONV_TILE_PIXELS // bw
         return -(-width // bw) * bw * (-(-height // bh) * bh)
@@ -321,6 +327,39 @@ def tf32x3_tile(width: int, height: int) -> Tuple[int, int]:
                         if CONV_TILE_PIXELS >> k != first]
     bw = min(widths, key=padded)
     return bw, CONV_TILE_PIXELS // bw
+
+
+def k2_bn(tiles_m: int, cout: int) -> int:
+    """BN, the output channels of the bf16 K2's tile, for ``tiles_m``
+    pixel tiles into ``cout`` channels: 64 up to 64 channels, 128 up to
+    128; past that 256 (one warpgroup's m64n256: a fifth fewer
+    shared-memory bytes a FLOP) unless 128's tiles leave the persistent
+    CTAs' last wave so much fuller that they end first: each CTA walks
+    ceil(tiles / SMS) tiles, and a 128 x 256 tile costs
+    ``K2_WIDE_TILE_COST`` of two 128 x 128 ones."""
+    if cout <= 64:
+        return 64
+    if cout <= 128:
+        return 128
+
+    def cost(bn: int) -> float:
+        tiles = tiles_m * -(-cout // bn)
+        walk = -(-tiles // SMS)
+        return walk * bn * (K2_WIDE_TILE_COST if bn == 256 else 1.0)
+
+    return min((256, 128), key=cost)
+
+
+def k2_plan(bsz: int, h: int, wd: int,
+            cout: int) -> Tuple[int, int, int, int]:
+    """(BW, BN, pixels, pad) of the bf16 K2 on x (bsz, h, wd, Cin) into
+    ``cout`` channels: ``tf32x3_tile``'s box, ``k2_bn``'s BN, the pixels its
+    pixel tiles compute and, of those, the ones past the image (the
+    counters ``k2.pixels`` and ``k2.pad_pixels``)."""
+    bw, bh = tf32x3_tile(wd, h)
+    pixels = bsz * -(-wd // bw) * bw * -(-h // bh) * bh
+    bn = k2_bn(pixels // CONV_TILE_PIXELS, cout)
+    return bw, bn, pixels, pixels - bsz * h * wd
 
 
 # ---------------------------------------------------------------------------
@@ -408,17 +447,19 @@ def _tma_ready(t: torch.Tensor) -> torch.Tensor:
 def _conv3x3_wgmma(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                    relu: bool) -> torch.Tensor:
     """K2 on the tensor cores: bf16 x (B,H,W,Cin), w HWIO laid out
-    (Cout, 3, 3, Cin) so that K is innermost, tiles of ``conv_tile``."""
+    (Cout, 3, 3, Cin) so that K is innermost, tiles of ``k2_plan``."""
     bsz, h, wd, cin = x.shape
     cout = w.shape[3]
+    bw, bn, pixels, pad = k2_plan(bsz, h, wd, cout)
+    trace.count("k2.pixels", pixels)
+    trace.count("k2.pad_pixels", pad)
     x = _tma_ready(x)
     wk = w.permute(3, 0, 1, 2).contiguous()
     b = b.contiguous()
     y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
-    fn = build.symbol("conv3x3_wgmma", "st3d_conv3x3_wgmma_bf16", 4, 7)
+    fn = build.symbol("conv3x3_wgmma", "st3d_conv3x3_wgmma_bf16", 4, 8)
     err = fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(), y.data_ptr(), bsz, h,
-             wd, cin, cout, conv_tile(wd)[0], int(relu),
-             build.stream_handle(x.device))
+             wd, cin, cout, bw, bn, int(relu), build.stream_handle(x.device))
     build.check(err, "conv3x3_wgmma")
     LAUNCHES["conv3x3_wgmma"] += 1
     return y

@@ -225,3 +225,44 @@ def test_tf32x3_tile_pads_least(width, height, box):
     assert padded(box[0]) == least
     assert box[0] == first or (padded(first) > least and all(
         padded(1 << k) > least for k in range(8) if (1 << k) > box[0]))
+
+
+# The bf16 K2's plan (``k2_plan``, what ``_conv3x3_wgmma`` launches with):
+# at VGG's widths at 768² (768 .. 48) its box is the least-padding box of
+# ``tf32x3_tile``, which covers each image exactly, so the counter
+# ``k2.pad_pixels`` reads 0 and ``k2.pixels`` the image's pixels.
+@pytest.mark.parametrize("bsz", [12, 6, 4, 2])
+@pytest.mark.parametrize("width,bw", [(768, 128), (384, 128), (192, 64),
+                                      (96, 32), (48, 16)])
+def test_k2_plan_box_pads_nothing_at_768(bsz, width, bw):
+    for cout in (64, 128, 256, 512):
+        box, _, pixels, pad = kconv.k2_plan(bsz, width, width, cout)
+        assert box == bw == kconv.tf32x3_tile(width, width)[0]
+        assert (pixels, pad) == (bsz * width * width, 0)
+
+
+@pytest.mark.parametrize("bsz,h,wd,box,pixels", [
+    # 20 x 20: the 32 x 4 box, 32 x 20 pixels an image, 12 x 20 past it.
+    (2, 20, 20, 32, 2 * 32 * 20),
+    # 100 x 60: 4 x 32 boxes, 100 x 64 pixels an image.
+    (1, 60, 100, 4, 100 * 64),
+    # 24 wide, 20 high: 32 x 4 (32 x 20) pads less than 8 x 16 (24 x 32).
+    (3, 20, 24, 32, 3 * 32 * 20)])
+def test_k2_plan_counts_pad_pixels_at_ragged_widths(bsz, h, wd, box, pixels):
+    bw, _, got, pad = kconv.k2_plan(bsz, h, wd, 64)
+    assert bw == box == kconv.tf32x3_tile(wd, h)[0]
+    assert (got, pad) == (pixels, pixels - bsz * h * wd)
+    assert got % kconv.CONV_TILE_PIXELS == 0
+
+
+@pytest.mark.parametrize("tiles_m,cout,bn", [
+    # Cout up to 64 and 128: the parent kernel's BN.
+    (1, 8, 64), (5000, 64, 64), (1, 72, 128), (5000, 128, 128),
+    # Past 128, many waves: the 128 x 256 tile.
+    (5000, 256, 256), (864, 512, 256), (3456, 256, 256),
+    # 384 channels: the second 256-wide tile computes 128 channels past Cout.
+    (5000, 384, 128),
+    # Every 128-wide tile in one wave, as few 256-wide ones: 128 ends first.
+    (10, 512, 128), (66, 256, 128), (30, 384, 128)])
+def test_k2_bn(tiles_m, cout, bn):
+    assert kconv.k2_bn(tiles_m, cout) == bn

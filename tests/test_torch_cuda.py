@@ -98,8 +98,9 @@ def test_gram_kernel_matches_plain(dev, dtype, tol, pixels, c):
     assert torch.equal(got, kconv.gram_nhwc(y))      # deterministic
 
 
-# The tensor-core K2 at every tile shape of ``conv_tile``: W 4, 8, 20, 32,
-# 64 and 128 (boxes 4 x 32 .. 128 x 1), H not a multiple of the box height
+# The tensor-core K2 at W 4, 8, 20, 32, 64 and 128 (``conv_tile``'s boxes
+# 4 x 32 .. 128 x 1; both dtypes take ``tf32x3_tile``'s, listed below, 4 x
+# 32 at W = 20), H not a multiple of the box height
 # and H below it (the box runs past the image), Cin below and past one
 # 64-channel slab, and Cout = 64 (BN = 64) on the forward or the dx side.
 WGMMA_CONVS = [((2, 6, 4), 16, 64), ((1, 20, 8), 64, 64),
@@ -132,6 +133,78 @@ def test_conv_wgmma_matches_plain(dev, shape, cin, cout, relu):
     for got, ref in zip((y, dx), refs):
         assert got.shape == ref.shape and got.dtype == torch.bfloat16
         assert _rel_err(got, ref) <= 1e-2
+
+
+# The bf16 K2's persistent schedule on ``kconv.k2_plan``'s tiles: the
+# least-padding boxes of 192-, 96- and 48-wide layers (64 x 2, 32 x 4, 16 x
+# 8; the last with BN = 256 over 72 tiles, where BN = 128 would take 144);
+# one tile; fewer tiles than SMs (8); 133 = 132 + 1 tiles in the forward,
+# the dx and C (one CTA walks two); BN = 256 with Cout = 384 (the second
+# channel tile half past Cout, 132 tiles) and C over 198 tiles. (B, H, W),
+# Cin, Cout, the forward's box width and BN.
+K2_PLANS = [((1, 4, 192), 64, 128, 64, 128), ((2, 8, 96), 128, 256, 32, 128),
+            ((2, 48, 48), 512, 512, 16, 256), ((1, 8, 16), 64, 64, 16, 64),
+            ((2, 16, 32), 64, 128, 32, 128), ((1, 266, 64), 16, 64, 64, 64),
+            ((1, 132, 64), 64, 384, 64, 256)]
+
+
+@pytest.mark.parametrize("shape,cin,cout,bw,bn", K2_PLANS)
+def test_conv_wgmma_persistent_matches_plain(dev, shape, cin, cout, bw, bn):
+    """Forward, input gradient and C (the pool epilogue) in bf16 on the
+    persistent tensor-core kernel against the plain versions: max-abs error
+    <= 1e-2 * max|plain|, C's idx equal wherever the plain top two of the
+    window differ by more than that; one launch of each key a call."""
+    assert kconv.k2_plan(*shape, cout)[:2] == (bw, bn)
+    g = torch.Generator(device=dev).manual_seed(26)
+    x = torch.randn(shape + (cin,), generator=g, device=dev).bfloat16()
+    w = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
+         * (2.0 / (9 * cin)) ** 0.5).bfloat16()
+    b = (torch.randn((cout,), generator=g, device=dev) * 0.1).bfloat16()
+    ct = torch.randn(shape + (cout,), generator=g, device=dev).bfloat16()
+    n0 = dict(kconv.LAUNCHES)
+    y = kconv.conv3x3_nhwc(x, w, b, True)
+    dx = kconv._transpose_conv(ct, w)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {"conv3x3_wgmma": 2}
+    zb = torch.zeros(cin, dtype=torch.bfloat16, device=dev)
+    pre = kconv.conv3x3_nhwc_plain(x, w, b, True)
+    refs = (pre, kconv.conv3x3_nhwc_plain(
+        ct, kconv.transpose_weights(w, torch.bfloat16), zb))
+    for got, ref in zip((y, dx), refs):
+        assert got.shape == ref.shape and got.dtype == torch.bfloat16
+        assert _rel_err(got, ref) <= 1e-2
+    n0 = dict(kconv.LAUNCHES)
+    p, idx = kconv.conv3x3_relu_pool(x, w, b)
+    torch.cuda.synchronize()
+    assert _launched(n0) == {"conv3x3_relu_pool_wgmma": 1}
+    p_ref, idx_ref = kconv.conv3x3_relu_pool_plain(x, w, b)
+    assert p.shape == p_ref.shape and _rel_err(p, p_ref) <= 1e-2
+    scale = float(p_ref.float().abs().max())
+    assert _idx_mismatch_where_separated(idx, idx_ref, pre, 1e-2 * scale) == 0
+
+
+@pytest.mark.parametrize("shape,cin,cout", [((2, 48, 48), 512, 512),
+                                            ((1, 20, 24), 64, 384)])
+def test_conv_wgmma_bits_do_not_depend_on_the_plan(dev, shape, cin, cout):
+    """Each output sums its products in one accumulator in the same order
+    whatever the tile: every box (BW 1 .. 128) and BN (64, 128, 256) gives
+    the wrapper's output bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(27)
+    x = torch.randn(shape + (cin,), generator=g, device=dev).bfloat16()
+    w = (torch.randn((3, 3, cin, cout), generator=g, device=dev)
+         * (2.0 / (9 * cin)) ** 0.5).bfloat16()
+    b = (torch.randn((cout,), generator=g, device=dev) * 0.1).bfloat16()
+    want = kconv.conv3x3_nhwc(x, w, b)
+    wk = w.permute(3, 0, 1, 2).contiguous()
+    fn = kconv.build.symbol("conv3x3_wgmma", "st3d_conv3x3_wgmma_bf16", 4, 8)
+    for bw in (1 << k for k in range(8)):
+        for bn in (64, 128, 256):
+            y = torch.full_like(want, float("nan"))
+            err = fn(x.data_ptr(), wk.data_ptr(), b.data_ptr(), y.data_ptr(),
+                     *shape, cin, cout, bw, bn, 0,
+                     kconv.build.stream_handle(x.device))
+            assert err == 0
+            assert torch.equal(y, want), (bw, bn)
 
 
 # The same shapes in float32 (boxes of ``kconv.tf32x3_tile``: 4 x 32, 8 x
