@@ -58,39 +58,31 @@ Phases; any failure raises and the script exits non-zero:
    3 at 512² x 4, 5 -> 12 and 12 -> 5 at 128² x 4, forward and dx, on
    ``conv3x3_narrow_wgmma`` (bf16) and ``conv3x3_narrow_tf32x3`` (f32) with
    K2's tolerances, bit-equal on exact data in both dtypes; at 512² each
-   timed beside the CUDA-core ``conv3x3_nhwc`` (launched by no route, held
-   against the plain version too) and ``F.conv2d``;
+   timed beside ``F.conv2d``;
    K3 at the four style-Gram shapes, in bf16 on ``gram_wgmma`` (relative
    Frobenius error <= 1e-3) and in f32 on the 3xTF32 ``gram_tf32x3``
-   (<= 1e-5; the CUDA-core ``gram_nhwc`` held and timed on the same f32
-   inputs), and conv1_1's 27-wide PᵀP (4 x 512² x 27) in both dtypes on
+   (<= 1e-5), and conv1_1's 27-wide PᵀP (4 x 512² x 27) in both dtypes on
    the narrow tensor-core kernel ``gram_narrow`` (bf16 <= 1e-3 of the
    plain version; f32 <= 1e-5 of a float64 Gram, and of the plain version
    within 1e-5 plus the plain float32 sum's own distance from float64),
-   held and timed beside its CUDA-core twin ``gram_nhwc`` and
-   ``torch.bmm`` in the same dtype; each Gram bit-identical on a second
-   call;
+   timed beside ``torch.bmm`` in the same dtype; each Gram bit-identical on
+   a second call;
    stage 1 at 512² x 4 (conv1_1 3->64, conv1_2 64->64), bf16 and f32:
    A (``conv1_1_stats_wgmma`` on the tensor cores in bf16,
    ``conv1_1_stats_tf32x3`` by 3xTF32 in f32, its statistics bit-identical
-   on a second call and printed against a float64 sum; the CUDA-core
-   ``conv1_1_stats`` held and timed on the inputs of both dtypes, beside
+   on a second call and printed against a float64 sum; timed beside
    ``F.conv2d`` bf16 3 -> 64, the nearest library call to its z half), B
-   (``conv1_1_bwd_wgmma`` in bf16, ``conv1_1_bwd_tf32x3`` in f32, the
-   CUDA-core ``conv1_1_bwd`` on the inputs of both dtypes; its fold of the
-   statistics' cotangents held: S = 0, ds27 = 0 or the next image's S
+   (``conv1_1_bwd_wgmma`` in bf16, ``conv1_1_bwd_tf32x3`` in f32; its fold
+   of the statistics' cotangents held: S = 0, ds27 = 0 or the next image's S
    each move the plain dx by more than ten tolerances), each timed in both
    dtypes by CUDA events and by the kernels' time under
    ``torch.profiler``, C (``conv3x3_relu_pool_wgmma``,
    K2's mainloop with a pool epilogue, in bf16;
    ``conv3x3_relu_pool_tf32x3``, the 3xTF32 mainloop with the pool
-   epilogue, in f32; the CUDA-core ``conv3x3_relu_pool`` held against the
-   plain version on the f32 inputs too), D (``pool_route_wgmma`` on the
-   tensor cores in bf16, ``pool_route_tf32x3`` by 3xTF32 in f32; the
-   CUDA-core ``pool_route_conv3x3_bwd`` held against the plain version in
-   f32 too); each call on its route's kernel; the tensor-core C and D
-   timed beside the CUDA-core kernel on the same inputs and K2's forward
-   or dx at the same shape, C also beside the three-call composition
+   epilogue, in f32), D (``pool_route_wgmma`` on the tensor cores in bf16,
+   ``pool_route_tf32x3`` by 3xTF32 in f32); each call on its route's
+   kernel; C and D timed beside K2's forward or dx at the same shape, C
+   also beside the three-call composition
    ``F.max_pool2d(F.relu(F.conv2d(...)), 2, return_indices=True)``:
    z, dx, pooled and dz max-abs error <= 1e-2 *
    max|plain| in bf16 and <= 1e-4 * max|plain| in f32; PᵀP and s27
@@ -107,9 +99,7 @@ Phases; any failure raises and the script exits non-zero:
    its fold of the Gram cotangent held: S = 0 or the next image's S each
    move the plain dx by more than ten tolerances), each call on its
    route's kernel, each timed in both dtypes by CUDA events and by the
-   profiler's kernel time, beside the CUDA-core twins ``conv1_1_gram``
-   and ``conv1_1_gram_bwd`` (launched by no route) held and timed on the
-   same inputs; K10c and K10d are C and D at the shapes above;
+   profiler's kernel time; K10c and K10d are C and D at the shapes above;
    K8, C and D at conv2_2's, conv3_4's and conv4_4's shapes (4 x 256² x 128,
    4 x 128² x 256, 4 x 64² x 512), bf16 and f32, with C's and D's
    tolerances, routes and comparisons, each timed in both dtypes;
@@ -135,26 +125,21 @@ Phases; any failure raises and the script exits non-zero:
    timed against ``F.conv2d`` in f32 with TF32 off (and, for information,
    on), the f32 K3 against ``torch.bmm`` in f32 with TF32 off; the bounds
    of the f32 K2, K3, A, B, C and D count three TF32 products at 495
-   TFLOP/s. The CUDA-core K3, A, B, C and D are timed in f32 on the
-   3xTF32 kernels' inputs (the route f32 took before), at the fp32 rate;
-   so are the CUDA-core E and F; the 3xTF32 E and F count three TF32
-   products too.
+   TFLOP/s; the 3xTF32 E and F count three TF32 products too.
 3. The second approach (``st3d_torch.second_approach.main``) at 512², 4
    views, batch 4, bf16, 20 epochs on a seeded synthetic scene, on the
    default VGG route: every loss finite, the last below the first,
    ``final.obj`` and ``final_render/`` written, all seven kernels launched
-   (K2, K3, A, B, C and D only on the tensor cores: no ``conv3x3_nhwc``,
-   ``conv1_1_stats``, ``conv1_1_bwd``, ``conv3x3_relu_pool`` or
-   ``pool_route_conv3x3_bwd`` launch on any bf16 route, no ``gram_nhwc``
-   on any route, no ``gram_narrow`` on any but the two below).
+   (K2, K3, A, B, C and D only on the tensor cores, no ``gram_narrow`` on
+   any route but the two below).
    Then 5 epochs each on PR 1's route (``ST3D_NO_STAGE1_V2=1
    ST3D_NO_PACKED1=1``: K1-K3 only) and on the K5 route
    (``ST3D_NO_STAGE1_V2=1``: C and D, not A and B), where conv1_1's
    27-wide PᵀP takes ``gram_narrow`` exactly once a step (PR 1's route
    also in float32), and 20 epochs each on
    the v3 route (``ST3D_STAGE1=v3``: E and F on the tensor cores,
-   ``conv1_1_gram_wgmma`` and ``conv1_1_gram_bwd_wgmma``, not A and B,
-   and no CUDA-core E or F) and the
+   ``conv1_1_gram_wgmma`` and ``conv1_1_gram_bwd_wgmma``, not A and B)
+   and the
    fused-pool route (``ST3D_FUSED_POOL=1``: the default's kernels, C and D
    four times as often, ``conv3x3_wgmma`` three times fewer for each C and
    each D).
@@ -162,13 +147,11 @@ Phases; any failure raises and the script exits non-zero:
    the default route: K2, K3, C and D only on their 3xTF32 kernels
    (``conv3x3_tf32x3``, ``gram_tf32x3`` four times a step,
    ``conv3x3_relu_pool_tf32x3`` once a step, ``pool_route_tf32x3``; A
-   and B by 3xTF32, ``conv1_1_stats_tf32x3`` and ``conv1_1_bwd_tf32x3``;
-   no launch of ``conv3x3_nhwc``, ``gram_nhwc``, ``conv3x3_relu_pool``,
-   ``pool_route_conv3x3_bwd``, ``conv1_1_stats`` or ``conv1_1_bwd``); its
-   median step. Then 10 epochs of it on the v3 route: E and F by 3xTF32
+   and B by 3xTF32, ``conv1_1_stats_tf32x3`` and ``conv1_1_bwd_tf32x3``);
+   its median step. Then 10 epochs of it on the v3 route: E and F by 3xTF32
    (``conv1_1_gram_tf32x3`` once a step plus A's set-up launches,
-   ``conv1_1_gram_bwd_tf32x3`` once a step) in place of A and B, never
-   ``conv1_1_gram`` or ``conv1_1_gram_bwd``; the loss falling.
+   ``conv1_1_gram_bwd_tf32x3`` once a step) in place of A and B; the loss
+   falling.
    B once a step in the bf16 default and fused-pool runs and the f32 run,
    A once a step plus the same set-up launches in each.
    Then the vertex optimisation, ``--optimization_target both`` at 512², 4
@@ -307,15 +290,13 @@ BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
 F32_FLOPS = 67e12
 # The VGG routes: the switches each sets, and the kernels it must launch.
-# In bf16 every K2, K3, A, B, C and D launch takes the tensor-core kernels;
-# so does conv1_1's 27-wide PᵀP Gram (``gram_narrow``), once a step, on the
-# two routes with stage 1 off.
+# Every K2, K3, A, B, C and D launch takes the tensor-core kernels; so does
+# conv1_1's 27-wide PᵀP Gram (``gram_narrow``), once a step, on the two
+# routes with stage 1 off.
 KERNELS = ("raster_hard", "conv3x3_wgmma", "gram_wgmma",
            "conv1_1_stats_wgmma", "conv1_1_bwd_wgmma",
            "conv3x3_relu_pool_wgmma", "pool_route_wgmma")
-# The default route in float32: K2, K3, A, B, C and D on 3xTF32 (no
-# conv3x3_nhwc, gram_nhwc, conv1_1_stats, conv1_1_bwd, conv3x3_relu_pool
-# or pool_route_conv3x3_bwd: every width they meet fits the tensor cores).
+# The default route in float32: K2, K3, A, B, C and D on 3xTF32.
 F32_KERNELS = {"raster_hard", "conv3x3_tf32x3", "gram_tf32x3",
                "conv1_1_stats_tf32x3", "conv1_1_bwd_tf32x3",
                "conv3x3_relu_pool_tf32x3", "pool_route_tf32x3"}
@@ -342,11 +323,9 @@ VERTEX_RUNS = {
 # Insertions into the K slots are not counted.
 PAIR_OPS = {"hard": 20, "soft": 34, "topk_test": 26, "topk_eligible": 5}
 # E and F by dtype, both on the tensor cores: bf16 on wgmma, float32 by
-# 3xTF32 (kernels/stage1v3.py::v3_route); their CUDA-core twins, which
-# float32 took before, are launched by no route.
+# 3xTF32 (kernels/stage1v3.py::v3_route).
 V3_KEYS = {"bfloat16": ("conv1_1_gram_wgmma", "conv1_1_gram_bwd_wgmma"),
            "float32": ("conv1_1_gram_tf32x3", "conv1_1_gram_bwd_tf32x3")}
-V3_TWINS = ("conv1_1_gram", "conv1_1_gram_bwd")
 # The v3 route in float32: E and F by 3xTF32 in place of A and B, the rest
 # as the float32 default route.
 F32_V3_KERNELS = (F32_KERNELS - {"conv1_1_stats_tf32x3", "conv1_1_bwd_tf32x3"}
@@ -1710,17 +1689,16 @@ def narrow_check(dev):
     float32), each call on its route's kernel, and the exact-data twins
     bit-equal in both dtypes. At 3 -> 64 and 64 -> 3 (512² x 4), each timed
     (CUDA events over the wrapper's call, and its kernel's device time
-    under the profiler) beside the CUDA-core ``conv3x3_nhwc`` (launched by
-    no route) and ``F.conv2d`` on the same inputs (float32 with TF32 off).
+    under the profiler) beside ``F.conv2d`` on the same inputs (float32
+    with TF32 off).
     The bound is the bytes (x, y and the weights once) over 3.35 TB/s, or
     the products on the tensor cores (float32: three TF32 passes)."""
     import torch
     import torch.nn.functional as F
-    from st3d_torch.kernels.conv import (conv3x3_cuda_core, conv3x3_nhwc,
-                                         conv3x3_nhwc_plain)
+    from st3d_torch.kernels.conv import conv3x3_nhwc, conv3x3_nhwc_plain
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    recs, core = [], {}
+    recs = []
     for dtype, tol, passes, rate in ((torch.bfloat16, 1e-2, 1, BF16_FLOPS),
                                      (torch.float32, 1e-4, 3, TF32_FLOPS)):
         name = str(dtype)[6:]
@@ -1742,12 +1720,6 @@ def narrow_check(dev):
             t_k = cuda_ms(lambda: conv3x3_nhwc(x, w, b), 10)
             dev_k = sum(v for k, v in profiled_ms(
                 lambda: conv3x3_nhwc(x, w, b))[1].items() if "narrow" in k)
-            t_c = cuda_ms(lambda: conv3x3_cuda_core(x, w, b), 5)
-            ref = conv3x3_nhwc_plain(x, w, b).float()
-            err_c = float((conv3x3_cuda_core(x, w, b).float() - ref).abs()
-                          .max())
-            if not err_c <= tol * float(ref.abs().max()):
-                fail(f"conv3x3_nhwc {what}: max err {err_c}")
             t_p = cuda_ms(lambda: conv3x3_nhwc_plain(x, w, b), 3, 1)
             xl = x.permute(0, 3, 1, 2)
             wl = w.permute(3, 2, 0, 1).contiguous(
@@ -1759,54 +1731,34 @@ def narrow_check(dev):
                                                 + 9 * cin * cout + cout),
                             rate)
             print(f"K2 {key} {what} {text}, exact twins bit-equal; kernel "
-                  f"{t_k:.4f} ms ({dev_k:.4f} device), CUDA-core "
-                  f"conv3x3_nhwc {t_c:.4f} ms, F.conv2d {t_l:.4f} ms "
-                  f"({t_k / t_l:.2f}x), plain {t_p:.3f} ms, bound "
-                  f"{t_b:.4f} ms ({by})")
+                  f"{t_k:.4f} ms ({dev_k:.4f} device), F.conv2d "
+                  f"{t_l:.4f} ms ({t_k / t_l:.2f}x), plain {t_p:.3f} ms, "
+                  f"bound {t_b:.4f} ms ({by})")
             part = {"ms": t_k, "device_ms": dev_k, "plain_ms": t_p,
-                    "bound_ms": t_b, "bound_by": by, "library_ms": t_l,
-                    "cuda_core_ms": t_c}
+                    "bound_ms": t_b, "bound_by": by, "library_ms": t_l}
             if cin == 3:
                 rec.update(part)
             else:
                 rec.update({"dx_" + k: v for k, v in part.items()})
-            core.setdefault((cin, cout), {})[name] = (t_c, t_b, by, t_l, t_p,
-                                                      err_c)
         recs.append(rec)
-    # The CUDA-core kernel, launched by no route: its times above, the bf16
-    # 3 -> 64 as its row.
-    t_c, t_b, by, t_l, t_p, err_c = core[(3, 64)]["bfloat16"]
-    recs.append({"name": "conv3x3_nhwc", "route": "cuda",
-                 "source": "st3d_torch/csrc/conv3x3_nhwc.cu",
-                 "replaces": "st3d/kernels/conv_pallas.py:128",
-                 "dtype": "bfloat16",
-                 "shape": "3->64 at 512² x 4 (launched by no route; timed "
-                          "beside the narrow kernels)",
-                 "max_abs_err": err_c, "ms": t_c, "plain_ms": t_p,
-                 "bound_ms": t_b, "bound_by": by, "library_ms": t_l,
-                 "times": {f"{ci}->{co} {dt}": v[0] for (ci, co), d in
-                           core.items() for dt, v in d.items()}})
     return recs
 
 
 def gram_check(dev):
     """K3 at the four style-Gram shapes of the main path: bf16 on the
     tensor-core kernel, float32 on the 3xTF32 one (each bit-identical on a
-    second call), the CUDA-core kernel held and timed on the same float32
-    inputs; then conv1_1's 27-wide PᵀP (``narrow_gram_check``). Times of
-    the four Grams: bf16 against ``torch.bmm`` in bf16 (its output rounded
+    second call); then conv1_1's 27-wide PᵀP (``narrow_gram_check``). Times
+    of the four Grams: bf16 against ``torch.bmm`` in bf16 (its output rounded
     to bf16, where K3 keeps float32), float32 against ``torch.bmm`` in
     float32 with TF32 off."""
     import torch
-    from st3d_torch.kernels.conv import (LAUNCHES, gram_cuda_core, gram_nhwc,
-                                         gram_nhwc_plain)
+    from st3d_torch.kernels.conv import LAUNCHES, gram_nhwc, gram_nhwc_plain
 
     plain_in_float32()
     gen = torch.Generator(device=dev).manual_seed(1)
     keys = {torch.bfloat16: "gram_wgmma", torch.float32: "gram_tf32x3"}
     # (passes over the products, rate) of each kernel's bound.
-    rates = {"gram_wgmma": (1, BF16_FLOPS), "gram_tf32x3": (3, TF32_FLOPS),
-             "gram_nhwc": (1, F32_FLOPS)}
+    rates = {"gram_wgmma": (1, BF16_FLOPS), "gram_tf32x3": (3, TF32_FLOPS)}
     tot = {k: {"err": 0.0, "ms": 0.0, "plain": 0.0, "lib": 0.0,
                "bound": 0.0} for k in rates}
     shapes = [(h * h, c, dtype) for h, c in GRAM_SHAPES for dtype in keys]
@@ -1844,26 +1796,18 @@ def gram_check(dev):
         nbytes = y.element_size() * VIEWS * pixels * c + 4 * VIEWS * c * c
         t_p = cuda_ms(lambda: gram_nhwc_plain(y))
         t_l = cuda_ms(lambda: torch.bmm(y.transpose(1, 2), y))
-        timed = [(key, gram_nhwc)]
-        if dtype == torch.float32:
-            # The CUDA-core kernel float32 took before, on the same inputs.
-            print(line)
-            line = held("gram_nhwc", gram_cuda_core, y, g_p, tol)[1]
-            timed.append(("gram_nhwc", gram_cuda_core))
         print(line)
-        for k, fn in timed:
-            t_k = cuda_ms(lambda: fn(y))
-            passes, rate = rates[k]
-            t_b = bound(passes * flops, nbytes, rate)[0]
-            for f, v in (("ms", t_k), ("plain", t_p), ("lib", t_l),
-                         ("bound", t_b)):
-                tot[k][f] += v
-            print(f"K3 {k} ({VIEWS},{pixels},{c}) {str(dtype)[6:]}  kernel "
-                  f"{t_k:.3f} ms ({flops / t_k / 1e9:.1f} TFLOP/s) plain "
-                  f"{t_p:.3f} ms bmm {t_l:.3f} ms bound {t_b:.4f} ms")
+        t_k = cuda_ms(lambda: gram_nhwc(y))
+        passes, rate = rates[key]
+        t_b = bound(passes * flops, nbytes, rate)[0]
+        for f, v in (("ms", t_k), ("plain", t_p), ("lib", t_l),
+                     ("bound", t_b)):
+            tot[key][f] += v
+        print(f"K3 {key} ({VIEWS},{pixels},{c}) {str(dtype)[6:]}  kernel "
+              f"{t_k:.3f} ms ({flops / t_k / 1e9:.1f} TFLOP/s) plain "
+              f"{t_p:.3f} ms bmm {t_l:.3f} ms bound {t_b:.4f} ms")
     recs = []
-    for key, dtype in (("gram_wgmma", "bfloat16"), ("gram_tf32x3", "float32"),
-                       ("gram_nhwc", "float32")):
+    for key, dtype in (("gram_wgmma", "bfloat16"), ("gram_tf32x3", "float32")):
         t = tot[key]
         print(f"K3 {key} the four {dtype} style Grams: kernel "
               f"{t['ms']:.3f} ms, plain {t['plain']:.3f} ms, bmm "
@@ -1875,29 +1819,21 @@ def gram_check(dev):
                "dtype": dtype, "max_abs_err": t["err"], "ms": t["ms"],
                "plain_ms": t["plain"], "bound_ms": t["bound"],
                "bound_by": "operations", "library_ms": t["lib"]}
-        if key == "gram_tf32x3":
-            rec["cuda_core_ms"] = tot["gram_nhwc"]["ms"]
-        if key == "gram_nhwc":
-            rec["shapes"] = ("the four f32 style Grams (the widths "
-                             "gram_route now sends to gram_tf32x3)")
         recs.append(rec)
-    return recs + narrow_gram_check(dev, gen, held, recs[-1])
+    return recs + narrow_gram_check(dev, gen, held)
 
 
-def narrow_gram_check(dev, gen, held, twin_rec):
+def narrow_gram_check(dev, gen, held):
     """conv1_1's 27-wide PᵀP at 4 x 512² x 27 in both dtypes on the narrow
     tensor-core kernel ``gram_narrow``, held by ``held`` (one launch, a
     second call bit-identical) against the plain version: bf16 within 1e-3;
     float32 within 1e-5 of a float64 Gram, and of the plain version within
     1e-5 plus the plain float32 sum's own distance from float64 (a sum over
-    2^18 pixels). Its CUDA-core twin ``gram_nhwc`` is held and timed on the
-    same inputs (its times go into ``twin_rec``), beside one ``torch.bmm``
-    in the same dtype. The bound is the byte bound: at ~27 operations a
-    byte the tensor cores' time (bf16, or three TF32 passes) is far
-    below it."""
+    2^18 pixels). It is timed beside one ``torch.bmm`` in the same dtype.
+    The bound is the byte bound: at ~27 operations a byte the tensor
+    cores' time (bf16, or three TF32 passes) is far below it."""
     import torch
-    from st3d_torch.kernels.conv import gram_cuda_core, gram_nhwc, \
-        gram_nhwc_plain
+    from st3d_torch.kernels.conv import gram_nhwc, gram_nhwc_plain
 
     c, pixels = 27, SIZE * SIZE
     rates = {torch.bfloat16: (1, BF16_FLOPS), torch.float32: (3, TF32_FLOPS)}
@@ -1916,16 +1852,12 @@ def narrow_gram_check(dev, gen, held, twin_rec):
         tol = 1e-3 if dtype == torch.bfloat16 else 1e-5
         slack = 0.0 if dtype == torch.bfloat16 else rel(g_p)
         g_k, line = held("gram_narrow", gram_nhwc, y, g_p, tol + slack)
-        g_t, twin_line = held("gram_nhwc", gram_cuda_core, y, g_p,
-                              tol + slack)
-        e64 = {"kernel": rel(g_k), "plain": rel(g_p), "twin": rel(g_t)}
+        e64 = {"kernel": rel(g_k), "plain": rel(g_p)}
         if dtype == torch.float32 and e64["kernel"] > tol:
             fail(f"K3 gram_narrow f32 27-wide: rel fro err {e64['kernel']} "
                  f"from float64 > {tol}")
         t_k = cuda_ms(lambda: gram_nhwc(y))
-        t_t = cuda_ms(lambda: gram_cuda_core(y))
         d_k, d_split = profiled_ms(lambda: gram_nhwc(y))
-        d_t = profiled_ms(lambda: gram_cuda_core(y))[0]
         t_p = cuda_ms(lambda: gram_nhwc_plain(y))
         t_l = cuda_ms(lambda: torch.bmm(y.transpose(1, 2), y))
         flops = 2 * VIEWS * pixels * c * c
@@ -1937,31 +1869,19 @@ def narrow_gram_check(dev, gen, held, twin_rec):
             "replaces": "st3d/kernels/conv_pallas.py:548", "dtype": name,
             "shape": [VIEWS, pixels, c],
             "max_abs_err": float((g_k - g_p).abs().max()), "ms": t_k,
-            "plain_ms": t_p, "cuda_core_ms": t_t, "device_ms": d_k,
+            "plain_ms": t_p, "device_ms": d_k,
             "device_ms_by_kernel": d_split,
-            "cuda_core_device_ms": d_t,
             "rel_fro_err_float64": e64["kernel"],
-            "plain_rel_fro_err_float64": e64["plain"],
-            "cuda_core_rel_fro_err_float64": e64["twin"]},
+            "plain_rel_fro_err_float64": e64["plain"]},
             passes * flops, nbytes, rate, t_l)
-        twin_b = bound(flops, nbytes, F32_FLOPS)
-        twin_rec.update({f"ms_27_wide_{name}": t_t,
-                         f"device_ms_27_wide_{name}": d_t,
-                         f"library_ms_27_wide_{name}": t_l,
-                         f"bound_ms_27_wide_{name}": twin_b[0]})
         print(line)
-        print(twin_line)
         print(f"K3 gram_narrow ({VIEWS},{pixels},{c}) {name}: rel fro err "
               f"from float64: kernel {e64['kernel']:.3g}, plain "
-              f"{e64['plain']:.3g}, CUDA-core twin {e64['twin']:.3g}; kernel "
-              f"{t_k:.4f} ms ({d_k:.4f} device: "
+              f"{e64['plain']:.3g}; kernel {t_k:.4f} ms ({d_k:.4f} device: "
               + ", ".join(f"{'second pass' if 'reduce' in n else 'pass 1'} "
                           f"{v:.4f}" for n, v in d_split.items())
-              + f"), CUDA-core twin {t_t:.4f} "
-              f"ms ({d_t:.4f} device), plain {t_p:.3f} "
-              f"ms, bmm {t_l:.3f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}); twin's bound {twin_b[0]:.4f} ms "
-              f"({twin_b[1]}, fp32 cores)")
+              + f"), plain {t_p:.3f} ms, bmm {t_l:.3f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
         recs.append(rec)
     return recs
 
@@ -1993,44 +1913,40 @@ D_KEYS = {"bfloat16": "pool_route_wgmma", "float32": "pool_route_tf32x3"}
 
 
 def c_versus(x, w, b, c_ms, key, what):
-    """Prints the tensor-core C's time beside, on the same inputs, the
-    CUDA-core C it replaces, K2's forward (conv + bias + ReLU, no pool) and
-    a three-call composition of torch ops (``F.max_pool2d(F.relu(
+    """Prints the tensor-core C's time beside, on the same inputs, K2's
+    forward (conv + bias + ReLU, no pool) and a three-call composition of
+    torch ops (``F.max_pool2d(F.relu(
     F.conv2d(...)), 2, return_indices=True)``: not one library call of the
     same function, its index counts in the whole plane); returns them."""
     import torch
     import torch.nn.functional as F
     from st3d_torch.kernels import conv as kconv
 
-    old = cuda_ms(lambda: kconv.conv3x3_relu_pool_cuda_core(x, w, b), 5)
     k2 = cuda_ms(lambda: kconv.conv3x3_nhwc(x, w, b, True), 5)
     xl = x.permute(0, 3, 1, 2)
     wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
     comp = cuda_ms(lambda: F.max_pool2d(F.relu(F.conv2d(xl, wl, b, padding=1)),
                                         2, return_indices=True), 5)
     torch.cuda.synchronize()
-    print(f"C {what}: {key} {c_ms:.3f} ms, the CUDA-core "
-          f"conv3x3_relu_pool on the same inputs {old:.3f} ms, K2's forward "
-          f"at the same shape {k2:.3f} ms, the composition max_pool2d(relu("
-          f"conv2d)) {comp:.3f} ms")
-    return {"cuda_core_ms": old, "k2_fwd_ms": k2, "composition_ms": comp}
+    print(f"C {what}: {key} {c_ms:.3f} ms, K2's forward at the same shape "
+          f"{k2:.3f} ms, the composition max_pool2d(relu(conv2d)) "
+          f"{comp:.3f} ms")
+    return {"k2_fwd_ms": k2, "composition_ms": comp}
 
 
 def d_versus(ct, pooled, idx, w, d_ms, key, what):
-    """Prints the tensor-core D's time beside the CUDA-core D on the same
-    inputs and K2's dx (the transpose conv alone, on the routed cotangent
-    at full resolution) at the same shape; returns them."""
+    """Prints the tensor-core D's time beside K2's dx (the transpose conv
+    alone, on the routed cotangent at full resolution) at the same shape;
+    returns it."""
     import torch
     from st3d_torch.kernels import conv as kconv
 
-    old = cuda_ms(lambda: kconv.pool_route_cuda_core(ct, pooled, idx, w), 5)
     routed = kconv.route_pool_cotangent(ct, pooled, idx)
     dx = cuda_ms(lambda: kconv._transpose_conv(routed, w), 5)
     torch.cuda.synchronize()
-    print(f"D {what}: {key} {d_ms:.3f} ms, the CUDA-core "
-          f"pool_route_conv3x3_bwd on the same inputs {old:.3f} ms, K2's dx "
-          f"at the same shape {dx:.3f} ms")
-    return {"cuda_core_ms": old, "k2_dx_ms": dx}
+    print(f"D {what}: {key} {d_ms:.3f} ms, K2's dx at the same shape "
+          f"{dx:.3f} ms")
+    return {"k2_dx_ms": dx}
 
 
 def _add(rec, extra):
@@ -2103,46 +2019,15 @@ def _stats_err(ptp, s27, ptp_p, s27_p, what, x):
     return worst
 
 
-def ab_versus(x, w1, b1, dz, sym, ds, plain, dx_ref, tol, res):
-    """The CUDA-core A and B, which both dtypes took before the
-    tensor-core ones, on the same inputs: held against the plain versions
-    and timed (events and profiler) beside the tensor-core kernels; in
-    float32 they are also entries of their own (``conv1_1_stats``,
-    ``conv1_1_bwd``). In bf16, F.conv2d 3 -> 64 + bias, the nearest library
-    call to A's z half (no statistics, no ReLU)."""
-    import torch
+def ab_versus(x, w1, b1, res):
+    """Prints A's and B's times (events, profiler, bound); in bf16 beside
+    F.conv2d 3 -> 64 + bias, the nearest library call to A's z half (no
+    statistics, no ReLU)."""
     import torch.nn.functional as F
-    from st3d_torch.kernels import stage1 as ks1
 
     name = str(x.dtype)[6:]
     a, b = A_KEYS[name], B_KEYS[name]
-    z_p, ptp_p, s27_p = plain
-    before = dict(ks1.LAUNCHES)
-    zc, ptpc, s27c = ks1.conv1_1_stats_cuda_core(x, w1, b1)
-    dxc = ks1.conv1_1_bwd_cuda_core(x, dz, z_p, w1, sym, ds)
-    torch.cuda.synchronize()
-    if _s1_launched(before) != {"conv1_1_stats": 1, "conv1_1_bwd": 1}:
-        fail(f"CUDA-core A, B: launched {_s1_launched(before)}")
-    res[a]["cuda_core_max_abs_err"] = _max_err(
-        zc, z_p, tol, f"A conv1_1_stats z {name}")[0]
-    stats_err = _stats_err(ptpc, s27c, ptp_p, s27_p,
-                           f"A conv1_1_stats {name}", x)
-    res[b]["cuda_core_max_abs_err"] = _max_err(
-        dxc, dx_ref, tol, f"B conv1_1_bwd dx {name}")[0]
-    calls = {a: lambda: ks1.conv1_1_stats_cuda_core(x, w1, b1),
-             b: lambda: ks1.conv1_1_bwd_cuda_core(x, dz, z_p, w1, sym, ds)}
-    for key, fn in calls.items():
-        res[key]["cuda_core_ms"] = cuda_ms(fn, 5)
-        res[key]["cuda_core_device_ms"] = profiled_ms(fn)[0]
-    if name == "float32":
-        for cc, key in (("conv1_1_stats", a), ("conv1_1_bwd", b)):
-            r = res[key]
-            res[cc].update(max_abs_err=r["cuda_core_max_abs_err"],
-                           ms=r["cuda_core_ms"],
-                           device_ms=r["cuda_core_device_ms"],
-                           plain_ms=r["plain_ms"])
-        res["conv1_1_stats"]["stats_rel_fro_err"] = stats_err
-    else:
+    if name == "bfloat16":
         xl = x.permute(0, 3, 1, 2)
         wl = w1.permute(3, 2, 0, 1).contiguous()
         res[a]["conv2d_z_half_ms"] = cuda_ms(
@@ -2151,9 +2036,7 @@ def ab_versus(x, w1, b1, dz, sym, ds, plain, dx_ref, tol, res):
     for key, what in ((a, "A"), (b, "B")):
         r = res[key]
         print(f"{what} {name}: {key} {r['ms']:.3f} ms (device "
-              f"{r['device_ms']:.4f}, bound {bound(*work[key])[0]:.4f}), the "
-              f"CUDA-core kernel on the same inputs {r['cuda_core_ms']:.3f} "
-              f"ms (device {r['cuda_core_device_ms']:.4f})"
+              f"{r['device_ms']:.4f}, bound {bound(*work[key])[0]:.4f})"
               + (f", F.conv2d bf16 3 -> 64 {r['conv2d_z_half_ms']:.3f} ms"
                  if "conv2d_z_half_ms" in r else ""))
 
@@ -2162,10 +2045,9 @@ def stage1_work():
     """(operations, bytes, rate) of each stage-1 kernel at 4 x 512²: A
     conv1_1 (27 -> 64) plus the 27 x 27 patch statistics; B the same two
     products backwards; C and D conv1_2 (64 -> 64, 9 taps) forward and
-    input gradient. bf16 at the bf16 tensor rate; the float32 routes at
-    their own: the three TF32 products of the 3xTF32 A, B, C and D at the
-    TF32 rate, the CUDA-core A, B, C and D at the fp32 rate; float32 moves
-    twice the bytes."""
+    input gradient. bf16 at the bf16 tensor rate; float32 the three TF32
+    products of the 3xTF32 A, B, C and D at the TF32 rate, moving twice
+    the bytes."""
     px = VIEWS * SIZE * SIZE
     conv12 = 2 * px * 9 * 64 * 64
     c11 = 2 * px * 27 * (64 + 27)
@@ -2176,8 +2058,6 @@ def stage1_work():
         "conv1_1_bwd_wgmma": (c11, 2 * b_bytes + stats, BF16_FLOPS),
         "conv1_1_stats_tf32x3": (3 * c11, 4 * a_bytes + stats, TF32_FLOPS),
         "conv1_1_bwd_tf32x3": (3 * c11, 4 * b_bytes + stats, TF32_FLOPS),
-        "conv1_1_stats": (c11, 4 * a_bytes + stats, F32_FLOPS),
-        "conv1_1_bwd": (c11, 4 * b_bytes + stats, F32_FLOPS),
         "conv3x3_relu_pool_wgmma": (conv12, 2 * px * 64 + 3 * (px // 4) * 64,
                                     BF16_FLOPS),
         "pool_route_wgmma": (conv12, 5 * (px // 4) * 64 + 2 * px * 64,
@@ -2185,12 +2065,8 @@ def stage1_work():
         "conv3x3_relu_pool_tf32x3": (3 * conv12,
                                      4 * px * 64 + 5 * (px // 4) * 64,
                                      TF32_FLOPS),
-        "conv3x3_relu_pool": (conv12, 4 * px * 64 + 5 * (px // 4) * 64,
-                              F32_FLOPS),
         "pool_route_tf32x3": (3 * conv12, 9 * (px // 4) * 64 + 4 * px * 64,
                               TF32_FLOPS),
-        "pool_route_conv3x3_bwd": (conv12, 9 * (px // 4) * 64 + 4 * px * 64,
-                                   F32_FLOPS),
     }
 
 
@@ -2198,8 +2074,7 @@ def stage1_check(dev):
     """Kernels A-D at the stage-1 shapes of the main path (4 x 512² x 3 ->
     64 -> 64, pool to 256²), each against its plain version, each call on
     its route's kernel: A, B, C and D on the tensor cores in bf16 and by
-    3xTF32 in float32 (the CUDA-core A and B also on the inputs of both
-    dtypes, the CUDA-core C and D on the float32 inputs). A's statistics
+    3xTF32 in float32. A's statistics
     bit-identical on a second call. A and B timed on both dtypes by CUDA
     events and by the profiler's kernel time."""
     import torch
@@ -2210,9 +2085,7 @@ def stage1_check(dev):
     gen = torch.Generator(device=dev).manual_seed(2)
     shape = (VIEWS, SIZE, SIZE)
     names = KERNELS[3:] + (A_KEYS["float32"], B_KEYS["float32"],
-                           C_KEYS["float32"], D_KEYS["float32"],
-                           "conv1_1_stats", "conv1_1_bwd",
-                           "conv3x3_relu_pool", "pool_route_conv3x3_bwd")
+                           C_KEYS["float32"], D_KEYS["float32"])
     res = {n: {"max_abs_err": 0.0} for n in names}
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
         name = str(dtype)[6:]
@@ -2294,21 +2167,6 @@ def stage1_check(dev):
             fail(f"D {name}: launched {_launched(before)}, want {d_key}")
         dz2_p = kconv.pool_route_conv3x3_bwd_plain(ct, pooled_p, idx_p, w2)
         errs[d_key] = _max_err(dz2, dz2_p, tol, f"D dz {name}")
-        if dtype == torch.float32:
-            # The CUDA-core C and D, which float32 took before the 3xTF32
-            # ones.
-            p_cc, idx_cc = kconv.conv3x3_relu_pool_cuda_core(z_p, w2, b2)
-            errs["conv3x3_relu_pool"] = _max_err(
-                p_cc, pooled_p, tol, f"C conv3x3_relu_pool pooled {name}")
-            bad, _ = _idx_mismatches(
-                idx_cc, idx_p, kconv.conv3x3_nhwc_plain(z_p, w2, b2, True),
-                tol * errs["conv3x3_relu_pool"][1])
-            if bad:
-                fail(f"C conv3x3_relu_pool idx {name}: {bad} mismatches "
-                     f"where separated")
-            dz_cc = kconv.pool_route_cuda_core(ct, pooled_p, idx_p, w2)
-            errs["pool_route_conv3x3_bwd"] = _max_err(
-                dz_cc, dz2_p, tol, f"D pool_route_conv3x3_bwd dz {name}")
         torch.cuda.synchronize()
 
         calls = {
@@ -2329,31 +2187,24 @@ def stage1_check(dev):
             r = res[n]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             line = f"{n} {name} max err {err:.3g}/{scale:.3g}"
-            # Timed on each dtype's route (the CUDA-core C and D below,
-            # beside 3xTF32's); A and B also by the profiler's kernel time,
-            # since an event loop over a call this short times its issue.
-            if n in calls:
-                r["ms"] = cuda_ms(calls[n][0], 5)
-                r["plain_ms"] = cuda_ms(calls[n][1], 3, 1)
-                line += (f"  kernel {r['ms']:.3f} ms plain "
-                         f"{r['plain_ms']:.3f} ms")
+            # Timed on each dtype's route; A and B also by the profiler's
+            # kernel time, since an event loop over a call this short times
+            # its issue.
+            r["ms"] = cuda_ms(calls[n][0], 5)
+            r["plain_ms"] = cuda_ms(calls[n][1], 3, 1)
+            line += (f"  kernel {r['ms']:.3f} ms plain "
+                     f"{r['plain_ms']:.3f} ms")
             if n in (a_key, b_key):
                 r["device_ms"], per = profiled_ms(calls[n][0])
                 line += f" device {r['device_ms']:.4f} ms " + json.dumps(
                     {k[:48]: round(v, 4) for k, v in per.items()})
             print(line)
-        ab_versus(x, w1, b1, dz, sym, ds, (z_p, ptp_p, s27_p), dx_p, tol,
-                  res)
+        ab_versus(x, w1, b1, res)
         what = f"conv1_2 4 x 512² x 64 -> 64 {name}"
         res[d_key].update(d_versus(ct, pooled_p, idx_p, w2, res[d_key]["ms"],
                                    d_key, what))
         res[c_key].update(c_versus(z_p, w2, b2, res[c_key]["ms"], c_key,
                                    what))
-        if dtype == torch.float32:
-            for cc_key, key in (("conv3x3_relu_pool", c_key),
-                                ("pool_route_conv3x3_bwd", d_key)):
-                res[cc_key]["ms"] = res[key]["cuda_core_ms"]
-                res[cc_key]["plain_ms"] = res[key]["plain_ms"]
     meta = {
         "conv1_1_stats_wgmma": ("st3d_torch/csrc/conv1_1_stats_wgmma.cu",
                                 "st3d/kernels/stage1_pallas.py:446"),
@@ -2363,33 +2214,22 @@ def stage1_check(dev):
                                  "st3d/kernels/stage1_pallas.py:446"),
         "conv1_1_bwd_tf32x3": ("st3d_torch/csrc/conv1_1_bwd_tf32x3.cu",
                                "st3d/kernels/stage1_pallas.py:583"),
-        "conv1_1_stats": ("st3d_torch/csrc/conv1_1_stats.cu",
-                          "st3d/kernels/stage1_pallas.py:446"),
-        "conv1_1_bwd": ("st3d_torch/csrc/conv1_1_bwd.cu",
-                        "st3d/kernels/stage1_pallas.py:583"),
         "conv3x3_relu_pool_wgmma": ("st3d_torch/csrc/conv3x3_wgmma.cu",
                                     "st3d/kernels/stage1_pallas.py:485, "
                                     "st3d/kernels/conv_pallas.py:760"),
         "conv3x3_relu_pool_tf32x3": ("st3d_torch/csrc/conv3x3_tf32x3.cu",
                                      "st3d/kernels/stage1_pallas.py:485, "
                                      "st3d/kernels/conv_pallas.py:760"),
-        "conv3x3_relu_pool": ("st3d_torch/csrc/conv3x3_relu_pool.cu",
-                              "st3d/kernels/stage1_pallas.py:485, "
-                              "st3d/kernels/conv_pallas.py:760"),
         "pool_route_wgmma": ("st3d_torch/csrc/pool_route_wgmma.cu",
                              "st3d/kernels/stage1_pallas.py:539, "
                              "st3d/kernels/conv_pallas.py:785"),
         "pool_route_tf32x3": ("st3d_torch/csrc/pool_route_tf32x3.cu",
                               "st3d/kernels/stage1_pallas.py:539, "
                               "st3d/kernels/conv_pallas.py:785"),
-        "pool_route_conv3x3_bwd": ("st3d_torch/csrc/pool_route_conv3x3_bwd.cu",
-                                   "st3d/kernels/stage1_pallas.py:539, "
-                                   "st3d/kernels/conv_pallas.py:785"),
     }
     work = stage1_work()
     f32 = (A_KEYS["float32"], B_KEYS["float32"], C_KEYS["float32"],
-           D_KEYS["float32"], "conv1_1_stats", "conv1_1_bwd",
-           "conv3x3_relu_pool", "pool_route_conv3x3_bwd")
+           D_KEYS["float32"])
     return [with_bound({"name": n, "route": "cuda", "source": meta[n][0],
                         "replaces": meta[n][1],
                         "dtype": "float32" if n in f32 else "bfloat16",
@@ -2433,7 +2273,7 @@ def stage1v3_work():
     and d is not rounded, so F's y·S and d·Wᵀ fold into (dz·mask)·Wᵀ + y·M
     with M = S·Wᵀ (64 x 27): the 3xTF32 kernels' three TF32 products of
     each 27-wide product and two of E's Gram (HH + LH + LHᵀ) at the TF32
-    rate, the CUDA-core twins' one at the fp32 rate."""
+    rate."""
     px = VIEWS * SIZE * SIZE
     e_ops, f_ops = 2 * px * 64 * (27 + 64), 2 * px * 64 * (27 + 64 + 27)
     f_fold = 2 * px * 64 * (27 + 27 + 27)
@@ -2445,8 +2285,6 @@ def stage1v3_work():
         V3_KEYS["bfloat16"][1]: (f_ops, 2 * f_px + grams, BF16_FLOPS),
         V3_KEYS["float32"][0]: (e_tf32, 4 * e_px + grams, TF32_FLOPS),
         V3_KEYS["float32"][1]: (3 * f_fold, 4 * f_px + grams, TF32_FLOPS),
-        V3_TWINS[0]: (e_ops, 4 * e_px + grams, F32_FLOPS),
-        V3_TWINS[1]: (f_fold, 4 * f_px + grams, F32_FLOPS),
     }
 
 
@@ -2475,9 +2313,7 @@ def stage1v3_check(dev):
     recomputes y by E's instructions, and a y within float32 rounding of 0
     may fall on the other side of the plain version's matmul; those pixels
     are counted, and each must have |y| <= 1e-5 max|y|. Each timed by CUDA
-    events and by the profiler's kernel time, beside the CUDA-core twins on
-    the same inputs (held against the plain versions as before), which are
-    entries of their own in float32, the dtype they served."""
+    events and by the profiler's kernel time, beside its bound."""
     import torch
     from st3d_torch.kernels import stage1v3 as ks3
     from st3d_torch.kernels.stage1 import patches27
@@ -2485,7 +2321,7 @@ def stage1v3_check(dev):
     plain_in_float32()
     gen = torch.Generator(device=dev).manual_seed(4)
     shape = (VIEWS, SIZE, SIZE)
-    names = V3_KEYS["bfloat16"] + V3_KEYS["float32"] + V3_TWINS
+    names = V3_KEYS["bfloat16"] + V3_KEYS["float32"]
     res = {n: {"max_abs_err": 0.0} for n in names}
     work = stage1v3_work()
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
@@ -2563,35 +2399,11 @@ def stage1v3_check(dev):
                   f"{r['ms']:.3f} ms plain {r['plain_ms']:.3f} ms device "
                   f"{r['device_ms']:.4f} ms " + json.dumps(
                       {k[:48]: round(v, 4) for k, v in per.items()}))
-        # The CUDA-core twins on the same inputs, held as before.
-        before = dict(ks3.LAUNCHES)
-        zc, gc = ks3.conv1_1_gram_cuda_core(x, w, b)
-        dxc = ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
-        torch.cuda.synchronize()
-        if _v3_launched(before) != dict.fromkeys(V3_TWINS, 1):
-            fail(f"CUDA-core E, F: launched {_v3_launched(before)}")
-        twin_errs = (_max_err(zc, z_p, tol, f"E conv1_1_gram z {name}")[0],
-                     _max_err(dxc, dx_p, tol,
-                              f"F conv1_1_gram_bwd dx {name}")[0])
-        _g64_err(gc, g_p, yr, f"E conv1_1_gram {name}")
-        twin_calls = {
-            e_key: lambda: ks3.conv1_1_gram_cuda_core(x, w, b),
-            f_key: lambda: ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)}
-        for (n, fn), twin, err in zip(twin_calls.items(), V3_TWINS,
-                                      twin_errs):
+        for n in calls:
             r = res[n]
-            r["cuda_core_ms"] = cuda_ms(fn, 5)
-            r["cuda_core_device_ms"] = profiled_ms(fn)[0]
             print(f"{n} {name}: {r['ms']:.3f} ms (device "
-                  f"{r['device_ms']:.4f}, bound "
-                  f"{bound(*work[n])[0]:.4f}), the CUDA-core twin on "
-                  f"the same inputs {r['cuda_core_ms']:.3f} ms (device "
-                  f"{r['cuda_core_device_ms']:.4f})")
-            if dtype == torch.float32:
-                res[twin].update(max_abs_err=err, ms=r["cuda_core_ms"],
-                                 device_ms=r["cuda_core_device_ms"],
-                                 plain_ms=r["plain_ms"])
-    f32 = V3_KEYS["float32"] + V3_TWINS
+                  f"{r['device_ms']:.4f}, bound {bound(*work[n])[0]:.4f})")
+    f32 = V3_KEYS["float32"]
     return [with_bound({"name": n, "route": "cuda",
                         "source": f"st3d_torch/csrc/{n}.cu",
                         "replaces": ("st3d/kernels/stage1v3_pallas.py:366"
@@ -2604,8 +2416,8 @@ def stage1v3_check(dev):
 def k8_check(dev):
     """Kernels C and D at K8's shapes (conv2_2, conv3_4, conv4_4 at 512²),
     each against its plain version, bf16 and f32 (both on the tensor cores,
-    by 3xTF32 in f32); times summed over the three convs, each beside the
-    CUDA-core kernel on the same inputs and K2 at the same shape."""
+    by 3xTF32 in f32); times summed over the three convs, each beside K2
+    at the same shape."""
     import torch
     from st3d_torch.kernels import conv as kconv
 
@@ -2687,8 +2499,7 @@ def k8_check(dev):
         other = ("K2's forward", r["k2_fwd_ms"]) if "k2_fwd_ms" in r else (
             "K2's dx", r["k2_dx_ms"])
         print(f"K8 over conv2_2, conv3_4, conv4_4: {n} {r['ms']:.3f} ms "
-              f"(CUDA-core kernel {r['cuda_core_ms']:.3f} ms, {other[0]} "
-              f"{other[1]:.3f} ms"
+              f"({other[0]} {other[1]:.3f} ms"
               + (f", composition {r['composition_ms']:.3f} ms"
                  if "composition_ms" in r else "") + ")")
     f32 = (C_KEYS["float32"], D_KEYS["float32"])
@@ -2794,8 +2605,8 @@ def check_stage1_counts(runs):
 
 def route_entries(kernels, default, routes):
     """Launch counts on the opt-in routes: the bf16 E and F get theirs from
-    the bf16 v3 run (the float32 ones and the twins theirs from the float32
-    v3 run, in ``main``); K10c/K10d (C and D at stage 1's shapes, as
+    the bf16 v3 run (the float32 ones theirs from the float32 v3 run, in
+    ``main``); K10c/K10d (C and D at stage 1's shapes, as
     measured there) and K8 (C and D at its own shapes) are added as entries
     of their own."""
     by_name = {k["name"]: k for k in kernels}
@@ -2872,12 +2683,11 @@ def second_approach_path(tmp, obj, style, route, epochs, dtype="bfloat16",
 
 def f32_texture_path(tmp, obj, style):
     """The texture step in float32, the CLI's default dtype, on the default
-    route: K2 (forward and dx), K3, C and D on 3xTF32, never
-    ``conv3x3_nhwc``, ``gram_nhwc``, ``conv3x3_relu_pool`` or
-    ``pool_route_conv3x3_bwd`` (``drive`` fails on any launch outside
-    ``F32_KERNELS``); C once and K3 four times a step. The targets' set-up
-    adds two C launches (VGG on the content and the style images) and five
-    Grams (the style image's five taps, conv1_1's 64-wide one included)."""
+    route: K2 (forward and dx), K3, C and D on 3xTF32 (``drive`` fails on
+    any launch outside ``F32_KERNELS``); C once and K3 four times a step.
+    The targets' set-up adds two C launches (VGG on the content and the
+    style images) and five Grams (the style image's five taps, conv1_1's
+    64-wide one included)."""
     launches = second_approach_path(tmp, obj, style, "default", F32_EPOCHS,
                                     "float32", want=F32_KERNELS)
     want = {C_KEYS["float32"]: F32_EPOCHS + 2,
@@ -2892,8 +2702,7 @@ def f32_texture_path(tmp, obj, style):
 def f32_v3_texture_path(tmp, obj, style, a_setups):
     """The texture step in float32 on the v3 route (``ST3D_STAGE1=v3``): E
     and F by 3xTF32 in place of A and B, the rest as on the float32 default
-    route (``drive`` fails on any launch outside ``F32_V3_KERNELS``, the
-    CUDA-core ``conv1_1_gram`` and ``conv1_1_gram_bwd`` among them); F once
+    route (``drive`` fails on any launch outside ``F32_V3_KERNELS``); F once
     a step, E once a step plus the set-up launches A takes on the default
     route (``a_setups``: the content and style targets)."""
     launches = second_approach_path(tmp, obj, style, "v3", F32_EPOCHS,
@@ -3204,11 +3013,9 @@ def small_parity(tmp):
                 if device == "cuda":
                     ran = {k for k, n in launch_counts()[1].items()
                            if n > before[k]}
-                    k2 = ran & {"conv3x3_wgmma", "conv3x3_tf32x3",
-                                "conv3x3_nhwc"}
+                    k2 = ran & {"conv3x3_wgmma", "conv3x3_tf32x3"}
                     c = ran & set(C_KEYS.values())
-                    d = ran & (set(D_KEYS.values())
-                               | {"pool_route_conv3x3_bwd"})
+                    d = ran & set(D_KEYS.values())
                     want = {"bfloat16": "conv3x3_wgmma",
                             "float32": "conv3x3_tf32x3"}[dtype]
                     if (k2 != {want} or c != {C_KEYS[dtype]}
@@ -4569,13 +4376,12 @@ def main(argv=None):
     # Launches on this slice's path: each raster kernel from the first
     # vertex run of its mode (K7: SoftRas), the VGG kernels from the hard
     # run, the float32 route's kernels from the f32 texture run, the
-    # float32 E and F (and their twins, launched by no route) from the f32
-    # v3 texture run.
+    # float32 E and F from the f32 v3 texture run.
     mode_of = {}
     for mode, (*_, kernel) in VERTEX_RUNS.items():
         mode_of.setdefault(kernel, mode)
     for k in kernels:
-        if k["name"] in V3_KEYS["float32"] + V3_TWINS:
+        if k["name"] in V3_KEYS["float32"]:
             k["launches"] = f32_v3.get(k["name"], 0)
             continue
         if k.get("dtype") == "float32":

@@ -9,8 +9,8 @@
 //
 // Replaces the TPU kernel st3d/kernels/stage1_pallas.py::_conv1_1_bwd_kernel
 // (entry conv1_1_bwd_dx, K4c) for float32 with Cout a multiple of 4, at
-// most 64 (kernels/stage1.py::c11_route); csrc/conv1_1_bwd.cu keeps the
-// other widths on the CUDA cores. The TPU ran dot(d, w) and dot(p, sym) in
+// most 64 (kernels/stage1.py::c11_route). The TPU ran dot(d, w) and
+// dot(p, sym) in
 // float32 (stage1_pallas.py:607-617).
 //
 // Numerics: csrc/conv3x3_tf32x3.cu's. Every factor is split exactly into
@@ -63,8 +63,8 @@
 // What bounds it on an H100: reading dz and z, 2 x 268 MB in float32 at
 // 512^2 x 4 views (160 us at 3.35 TB/s); the products are 3 x 8.4 GFLOP
 // of TF32 work with the halo and the padding to 32 (51 us at 495
-// TFLOP/s). csrc/conv1_1_bwd.cu spent about 2.5 k shared-memory loads a
-// pixel on the CUDA cores (0.80 ms at that shape).
+// TFLOP/s). The CUDA-core kernel it replaced spent about 2.5 k
+// shared-memory loads a pixel (0.80 ms at that shape).
 
 #include <cuda.h>
 #include <cuda_runtime.h>

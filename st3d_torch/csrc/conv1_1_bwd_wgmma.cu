@@ -9,8 +9,8 @@
 //
 // Replaces the TPU kernel st3d/kernels/stage1_pallas.py::_conv1_1_bwd_kernel
 // (entry conv1_1_bwd_dx, K4c) for bf16 with Cout a multiple of 8
-// (kernels/stage1.py::c11_route); float32 keeps csrc/conv1_1_bwd.cu on the
-// CUDA cores. The TPU ran dot(d.astype(dz.dtype), w) in the input dtype
+// (kernels/stage1.py::c11_route); csrc/conv1_1_bwd_tf32x3.cu takes float32.
+// The TPU ran dot(d.astype(dz.dtype), w) in the input dtype
 // and dot(p, sym) in float32 (stage1_pallas.py:607-617); here the first is
 // the same bf16 product on wgmma, and the second takes S split exactly
 // into bf16 hi + lo by the wrapper: P is exact in bf16 (x is bf16), so
@@ -50,8 +50,8 @@
 //
 // What bounds it on an H100: reading dz and z, 2 x 134 MB in bf16 at
 // 512^2 x 4 views (80 us at 3.35 TB/s); the products are 12 GFLOP of
-// tensor work with the halo. csrc/conv1_1_bwd.cu spent about 2.5 k shared-
-// memory loads a pixel on the CUDA cores (0.81 ms at that shape).
+// tensor work with the halo. The CUDA-core kernel it replaced spent about
+// 2.5 k shared-memory loads a pixel (0.81 ms at that shape).
 
 #include <cuda.h>
 #include <cuda_bf16.h>

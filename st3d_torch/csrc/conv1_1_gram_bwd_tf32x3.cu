@@ -10,8 +10,8 @@
 //
 // Replaces the TPU kernel st3d/kernels/stage1v3_pallas.py::_c11_bwd_kernel
 // (entry _c11_v3_bwd, K10b) for float32 (kernels/stage1v3.py::v3_route);
-// csrc/conv1_1_gram_bwd_wgmma.cu takes bf16 and csrc/conv1_1_gram_bwd.cu is
-// the CUDA-core twin. The TPU recomputed y in float32, masked on it and
+// csrc/conv1_1_gram_bwd_wgmma.cu takes bf16. The TPU recomputed y in
+// float32, masked on it and
 // took y S and d W^T as float32 dots (stage1v3_pallas.py:388-403).
 //
 // Numerics: csrc/conv3x3_tf32x3.cu's. Every factor is split exactly into
@@ -68,8 +68,8 @@
 // views (80 us at 3.35 TB/s; 88 us with x and dx); the products, with the
 // 1.31x halo and the padding of K to 32 and of dP to 32 columns, are 3 x
 // 1.38 M halo pixels x (32 x 64 + 64 x 32 + 64 x 32) MACs, ~51 GFLOP of
-// TF32 work (0.10 ms at 495 TFLOP/s). csrc/conv1_1_gram_bwd.cu ran them on
-// the fp32 cores (1.02 ms at that shape).
+// TF32 work (0.10 ms at 495 TFLOP/s). The CUDA-core kernel it replaced ran
+// them on the fp32 cores (1.02 ms at that shape).
 
 #include <cuda.h>
 #include <cuda_runtime.h>

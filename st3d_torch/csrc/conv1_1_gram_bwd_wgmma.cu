@@ -9,7 +9,7 @@
 //
 // Replaces the TPU kernel st3d/kernels/stage1v3_pallas.py::_c11_bwd_kernel
 // (entry _c11_v3_bwd, K10b) for bf16 (kernels/stage1v3.py::v3_route);
-// float32 keeps csrc/conv1_1_gram_bwd.cu on the CUDA cores. The TPU
+// csrc/conv1_1_gram_bwd_tf32x3.cu takes float32. The TPU
 // recomputed y in float32 for its halo rows, masked on it, took y_r S as a
 // float32 dot, rounded d once into bf16 and folded it with bf16 dots and
 // float32 accumulation (stage1v3_pallas.py:388-403). Here y_r S takes S
@@ -56,8 +56,8 @@
 // What bounds it on an H100: reading dz, 134 MB in bf16 at 512^2 x 4 views
 // (40 us at 3.35 TB/s, 44 us with x and dx); the products, with the 1.25x
 // halo and S's two parts, are ~40 GFLOP of tensor work (41 us at the bf16
-// peak). csrc/conv1_1_gram_bwd.cu ran them on the fp32 cores (1.1 ms at
-// that shape).
+// peak). The CUDA-core kernel it replaced ran them on the fp32 cores (1.1
+// ms at that shape).
 
 #include <cuda.h>
 #include <cuda_bf16.h>

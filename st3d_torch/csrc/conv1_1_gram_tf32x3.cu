@@ -6,8 +6,8 @@
 //
 // Replaces the TPU kernel st3d/kernels/stage1v3_pallas.py::_c11_fwd_kernel
 // (entry conv1_1_packed_v3, K10a) for float32 (kernels/stage1v3.py::
-// v3_route); csrc/conv1_1_gram_wgmma.cu takes bf16 and csrc/conv1_1_gram.cu
-// is the CUDA-core twin. In float32 the TPU ran y and the Gram as float32
+// v3_route); csrc/conv1_1_gram_wgmma.cu takes bf16. In float32 the TPU ran
+// y and the Gram as float32
 // dots and took y_r = y (stage1v3_pallas.py:264-275).
 //
 // Numerics: csrc/conv3x3_tf32x3.cu's. Every factor is split exactly, v =
@@ -63,8 +63,8 @@
 // views (80 us at 3.35 TB/s; 84 us with x); the products are 3 x 2 x
 // 1.05 M pixels x 64 x (32 + 64) MACs with K padded to 32, ~26 GFLOP of
 // TF32 work (52 us at 495 TFLOP/s) with the Gram's two products.
-// csrc/conv1_1_gram.cu ran y and the Gram on the fp32 cores (0.62 ms at
-// that shape).
+// The CUDA-core kernel it replaced ran y and the Gram on the fp32 cores
+// (0.62 ms at that shape).
 
 #include <cuda.h>
 #include <cuda_runtime.h>

@@ -6,7 +6,7 @@
 //
 // Replaces the TPU kernel st3d/kernels/stage1v3_pallas.py::_c11_fwd_kernel
 // (entry conv1_1_packed_v3, K10a) for bf16 (kernels/stage1v3.py::v3_route);
-// float32 keeps csrc/conv1_1_gram.cu on the CUDA cores. The TPU ran y as an
+// csrc/conv1_1_gram_tf32x3.cu takes float32. The TPU ran y as an
 // MXU dot in bf16 with float32 accumulation, rounded it once for z and once
 // for the Gram's operand, and ran the Gram as a bf16 dot with float32
 // accumulation (stage1v3_pallas.py:262-272): bf16 wgmma with float32
@@ -47,8 +47,8 @@
 //
 // What bounds it on an H100: writing z, 134 MB in bf16 at 512^2 x 4 views
 // (40 us at 3.35 TB/s); the products are 12.2 GFLOP of tensor work (12 us
-// at the bf16 peak). csrc/conv1_1_gram.cu ran the Gram on the fp32 cores
-// (0.70 ms at that shape).
+// at the bf16 peak). The CUDA-core kernel it replaced ran the Gram on the
+// fp32 cores (0.70 ms at that shape).
 
 #include <cuda.h>
 #include <cuda_bf16.h>

@@ -8,8 +8,8 @@
 //
 // Replaces the TPU kernel st3d/kernels/stage1_pallas.py::_conv1_1_kernel
 // (entry conv1_1_packed via _conv1_1_call / _packed_call, K4a) for float32
-// with Cout a multiple of 4, at most 64 (kernels/stage1.py::c11_route);
-// csrc/conv1_1_stats.cu keeps the other widths on the CUDA cores. The TPU
+// with Cout a multiple of 4, at most 64 (kernels/stage1.py::c11_route). The
+// TPU
 // ran both products as float32 dots (stage1_pallas.py:461 dot(p, w), :467
 // dot(p.T, p)).
 //
@@ -73,9 +73,8 @@
 // What bounds it on an H100: writing z, 268 MB in float32 at 512^2 x 4
 // views (80 us at 3.35 TB/s); the products are 3 x 4.3 GFLOP of TF32 work
 // for z (K padded to 32) and 4.3 for PtP (one 64 x 32 product a pixel),
-// 17 GFLOP (35 us at 495 TFLOP/s). csrc/conv1_1_stats.cu
-// spent one shared-memory load per FMA on the CUDA cores (0.39 ms at that
-// shape).
+// 17 GFLOP (35 us at 495 TFLOP/s). The CUDA-core kernel it replaced spent
+// one shared-memory load per FMA (0.39 ms at that shape).
 
 #include <cuda.h>
 #include <cuda_runtime.h>

@@ -7,8 +7,8 @@
 //
 // Replaces the TPU kernel st3d/kernels/stage1_pallas.py::_conv1_1_kernel
 // (entry conv1_1_packed via _conv1_1_call / _packed_call, K4a) for bf16
-// with Cout a multiple of 8 (kernels/stage1.py::c11_route); float32 keeps
-// csrc/conv1_1_stats.cu on the CUDA cores. The TPU ran both products as
+// with Cout a multiple of 8 (kernels/stage1.py::c11_route);
+// csrc/conv1_1_stats_tf32x3.cu takes float32. The TPU ran both products as
 // MXU dots in the input dtype with float32 accumulation
 // (stage1_pallas.py:461 dot(p, w), :467 dot(p.T, p)); bf16 wgmma with
 // float32 accumulators is that arithmetic.
@@ -45,8 +45,8 @@
 //
 // What bounds it on an H100: writing z, 134 MB in bf16 at 512^2 x 4 views
 // (40 us at 3.35 TB/s); the products are 13 GFLOP of tensor work (13 us at
-// the bf16 peak). csrc/conv1_1_stats.cu spent one shared-memory load per
-// FMA on the CUDA cores (0.39 ms at that shape).
+// the bf16 peak). The CUDA-core kernel it replaced spent one shared-memory
+// load per FMA (0.39 ms at that shape).
 
 #include <cuda.h>
 #include <cuda_bf16.h>

@@ -6,8 +6,7 @@
 //
 // Replaces the TPU kernels st3d/kernels/conv_pallas.py::_conv_kernel,
 // _conv_kernel_nopad and _conv_kernel_halo1 (entry _conv3x3_same_impl) at
-// those widths in float32, as csrc/conv3x3_nhwc.cu did on the CUDA cores
-// (kept, launched by no route). The design is conv_narrow.cuh's; the
+// those widths in float32. The design is conv_narrow.cuh's; the
 // numerics are csrc/conv3x3_tf32x3.cu's: each A fragment is split into
 // tf32 hi + lo in registers (hopper.cuh split_tf32), the weights by the
 // wrapper (kernels/conv.py::split_tf32), and every k-step is the three

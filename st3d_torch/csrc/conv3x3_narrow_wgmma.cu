@@ -5,9 +5,7 @@
 //
 // Replaces the TPU kernels st3d/kernels/conv_pallas.py::_conv_kernel,
 // _conv_kernel_nopad and _conv_kernel_halo1 (entry _conv3x3_same_impl) at
-// those widths, as csrc/conv3x3_nhwc.cu did on the CUDA cores (that kernel
-// stays, launched by no route, as the yardstick chip_smoke.py times beside
-// this one). The design is conv_narrow.cuh's: the x halo staged by
+// those widths. The design is conv_narrow.cuh's: the x halo staged by
 // cp.async (3 channels) or TMA (64), A fragments loaded from it into
 // registers in the dense im2col order (27 taps of conv1_1 in two k16
 // steps), wgmma m64nNk16 with N the output channels padded to 8, 16, 32 or
@@ -17,8 +15,8 @@
 // What bounds it on an H100: bytes. At 3 -> 64, 512^2 x 4 views, the
 // products are 3.6 GFLOP (4 us at 989 TFLOP/s; 4.3 GFLOP with K padded to
 // 32), the bytes 6.3 MB of x and 134 MB of y (42 us at 3.35 TB/s); at
-// 64 -> 3, 134 MB of x and 6.3 MB of y (42 us). csrc/conv3x3_nhwc.cu ran
-// scalar FMAs at 67 TFLOP/s peak (0.78 ms at 3 -> 64).
+// 64 -> 3, 134 MB of x and 6.3 MB of y (42 us). The CUDA-core kernel it
+// replaced ran scalar FMAs at 67 TFLOP/s peak (0.78 ms at 3 -> 64).
 
 #include "conv_narrow.cuh"
 

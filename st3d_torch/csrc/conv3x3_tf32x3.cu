@@ -6,15 +6,14 @@
 //
 // Replaces the TPU kernels st3d/kernels/conv_pallas.py::_conv_kernel,
 // _conv_kernel_nopad and _conv_kernel_halo1 (entry _conv3x3_same_impl) for
-// float32 with Cin and Cout multiples of 4; csrc/conv3x3_nhwc.cu (CUDA
-// cores) keeps the other widths (kernels/conv.py::conv_route). With the
+// float32 with Cin and Cout multiples of 4; csrc/conv3x3_narrow_tf32x3.cu
+// takes the other widths (kernels/conv.py::conv_route). With the
 // pool epilogue it replaces, for float32 with Cin and Cout multiples of 4
 // (kernels/conv.py::relu_pool_route), the TPU kernels
 // st3d/kernels/stage1_pallas.py::_conv1_2_kernel (entry conv1_2_packed_pool,
 // K4b; K10c's _c12_fwd_kernel is the same body),
 // conv_pallas.py::_conv2x2_fwd_kernel (entry conv3x3_bias_relu_pool_packed,
-// K5) and conv_pallas.py's conv3x3_bias_relu_pool with pool=True (K8);
-// csrc/conv3x3_relu_pool.cu (CUDA cores) keeps the other widths.
+// K5) and conv_pallas.py's conv3x3_bias_relu_pool with pool=True (K8).
 //
 // Numerics. One TF32 product keeps about 11 bits of each factor, too few
 // for the f32 tolerance (1e-4 of the largest output). Each factor is split

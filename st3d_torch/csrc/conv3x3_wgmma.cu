@@ -7,7 +7,7 @@
 // Replaces the TPU kernels st3d/kernels/conv_pallas.py::_conv_kernel,
 // _conv_kernel_nopad and _conv_kernel_halo1 (entry _conv3x3_same_impl) for
 // bf16 with Cin and Cout multiples of 8; csrc/conv3x3_tf32x3.cu takes
-// float32 and csrc/conv3x3_nhwc.cu (CUDA cores) the other widths
+// float32 and csrc/conv3x3_narrow_wgmma.cu the other widths
 // (kernels/conv.py::conv_route).
 // With the pool epilogue it replaces, for bf16 with Cin and Cout multiples
 // of 8 (kernels/conv.py::relu_pool_route), the TPU kernels
@@ -16,8 +16,7 @@
 // _c12_fwd_kernel, K10c), conv_pallas.py::_conv2x2_fwd_kernel (entry
 // conv3x3_bias_relu_pool_packed, K5) and conv_pallas.py's
 // conv3x3_bias_relu_pool with pool=True (K8); csrc/conv3x3_tf32x3.cu's pool
-// epilogue takes float32 and csrc/conv3x3_relu_pool.cu (CUDA cores) the
-// other widths.
+// epilogue takes float32.
 //
 // Work layout: an implicit GEMM with M = B*H*W output pixels, N = Cout,
 // K = 9*Cin, walked tap by tap (dy, dx) and, inside a tap, in 64-channel

@@ -3,8 +3,7 @@
 // (C <= 32: bf16 with C % 8 != 0, float32 with C % 4 != 0, such as
 // conv1_1's 27-wide patch Gram), read in its stored dtype and accumulated in
 // float32 on the tensor cores. kernels/conv.py::gram_route gives these
-// widths "narrow"; csrc/gram_nhwc.cu (CUDA cores) keeps the odd widths above
-// 32 and stays as the twin.
+// widths "narrow".
 //
 // Replaces the Gram half of st3d/kernels/conv_pallas.py::_conv_gram_kernel
 // and _conv_gram_kernel_halo (entry _conv_gram_impl) at these widths. The

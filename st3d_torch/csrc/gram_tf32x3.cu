@@ -5,9 +5,8 @@
 // Replaces the Gram half of st3d/kernels/conv_pallas.py::_conv_gram_kernel
 // and _conv_gram_kernel_halo (entry _conv_gram_impl) for float32 with C a
 // multiple of 4 (the pixel rows of y are C * 4 bytes apart, and TMA strides
-// are multiples of 16 bytes); csrc/gram_nhwc.cu (CUDA cores) keeps the
-// other widths, such as conv1_1's 27-wide patch Gram
-// (kernels/conv.py::gram_route).
+// are multiples of 16 bytes); csrc/gram_narrow.cu takes the other widths up
+// to 32, such as conv1_1's 27-wide patch Gram (kernels/conv.py::gram_route).
 //
 // Numerics: csrc/conv3x3_tf32x3.cu's. Each factor is split exactly, y =
 // y_hi + y_lo, y_hi with its low 13 mantissa bits cleared, and

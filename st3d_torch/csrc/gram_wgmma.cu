@@ -4,8 +4,8 @@
 //
 // Replaces the Gram half of st3d/kernels/conv_pallas.py::_conv_gram_kernel
 // and _conv_gram_kernel_halo (entry _conv_gram_impl) for bf16 with C a
-// multiple of 8; csrc/gram_tf32x3.cu takes float32 and csrc/gram_nhwc.cu
-// (CUDA cores) the other widths, such as conv1_1's 27-wide patch Gram
+// multiple of 8; csrc/gram_tf32x3.cu takes float32 and csrc/gram_narrow.cu
+// the other widths up to 32, such as conv1_1's 27-wide patch Gram
 // (kernels/conv.py::gram_route).
 //
 // The GEMM: M = N = C, K = the pixels. y is described to TMA as the 3-D

@@ -14,7 +14,7 @@
 // kernels/conv.py::conv3x3_bias_relu_pool), for float32 with C a multiple
 // of 16 (the uint8 index rows are C bytes apart, and TMA strides are
 // multiples of 16 bytes) and Cout a multiple of 4 (kernels/conv.py::
-// pool_route); csrc/pool_route_conv3x3_bwd.cu keeps the other widths.
+// pool_route).
 //
 // Numerics: csrc/conv3x3_tf32x3.cu's. Each factor is split exactly, x =
 // x_hi + x_lo, x_hi with its low 13 mantissa bits cleared, and

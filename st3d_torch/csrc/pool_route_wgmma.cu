@@ -12,7 +12,7 @@
 // _prp_bwd, K5's backward; K8's backward _brp through
 // kernels/conv.py::conv3x3_bias_relu_pool), for bf16 with C a multiple of
 // 16 and Cout a multiple of 8 (kernels/conv.py::pool_route);
-// csrc/pool_route_conv3x3_bwd.cu keeps float32 and other widths.
+// csrc/pool_route_tf32x3.cu takes float32.
 //
 // Work layout: csrc/conv3x3_wgmma.cu's implicit GEMM (M = B*H*W pixels of
 // dz, N = Cout, K = 9*C), walked slab by slab (64 channels, one 128-byte
@@ -37,7 +37,7 @@
 //   - the two consumer warpgroups are K2's: wgmma m64nBNk16 on their 64-row
 //     halves, one group in flight, the stage freed on its "empty" mbarrier.
 // Each pooled value is read from device memory once per slab and block,
-// where csrc/pool_route_conv3x3_bwd.cu makes three global loads per staged
+// where the CUDA-core kernel it replaced made three global loads per staged
 // value, nine times over; the routed full-resolution tensor never exists
 // in device memory.
 //

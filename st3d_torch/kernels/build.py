@@ -65,10 +65,7 @@ EXTRA_FLAGS.update({n: EXTRA_FLAGS.get(n, []) + ["-Xptxas", "-v"]
 LINK_FLAGS: Dict[str, List[str]] = {n: ["-lcuda"]
                                     for n in TENSOR_CORE_SOURCES}
 
-KERNEL_SOURCES = RASTER_SOURCES + (
-    "conv3x3_nhwc", "gram_nhwc", "conv1_1_stats", "conv1_1_bwd",
-    "conv3x3_relu_pool", "pool_route_conv3x3_bwd", "conv1_1_gram",
-    "conv1_1_gram_bwd") + TENSOR_CORE_SOURCES
+KERNEL_SOURCES = RASTER_SOURCES + TENSOR_CORE_SOURCES
 DTYPE_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -214,6 +211,15 @@ def check_operands(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(
                 f"{name}: all operands must share device {dev} and dtype "
                 f"{dt}; got {t.device} {t.dtype}")
+
+
+def no_route(fn: str, dtype: torch.dtype, rule: str,
+             **widths: int) -> ValueError:
+    """The error a route function raises for a dtype or widths that no
+    kernel takes: it names the function, the dtype, the widths and the
+    rule they fail."""
+    shown = ", ".join(f"{k}={v}" for k, v in widths.items())
+    return ValueError(f"{fn}: no kernel takes {dtype} at {shown}: {rule}")
 
 
 def check(err: int, what: str) -> None:

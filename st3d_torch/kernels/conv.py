@@ -1,56 +1,52 @@
 """3x3 convolution kernels for the VGG stack, with their gradients.
 
-Counterpart of ``st3d/kernels/conv_pallas.py``. Its hand-written CUDA
-kernels:
+Counterpart of ``st3d/kernels/conv_pallas.py``. Each family has two routes
+on the card, one a dtype, both on the tensor cores, and one plain PyTorch
+version for the CPU:
 
 - K2 ``conv3x3_nhwc``: 3x3 SAME stride-1 conv + bias (+ ReLU), NHWC
   activations, HWIO weights, float32 accumulation, output in the input
   dtype (bf16 or f32). It also runs every backward: the input gradient of a
   stride-1 SAME conv is the same conv of the cotangent with flipped,
-  IO-transposed weights and a zero bias. Four kernels, chosen by
-  ``conv_route`` on dtype and widths: ``csrc/conv3x3_wgmma.cu`` (bf16 on
-  the tensor cores, persistent over TMA-fed tiles of ``k2_plan``'s shape),
-  ``csrc/conv3x3_tf32x3.cu`` (float32 on the tensor cores by the 3xTF32
-  split of ``split_tf32``, persistent over tiles of ``tf32x3_tile``'s
-  shape), and for the widths TMA cannot stride (conv1_1's 3 -> 64 and
-  its 64 -> 3 input gradient) ``csrc/conv3x3_narrow_wgmma.cu`` (bf16) and
-  ``csrc/conv3x3_narrow_tf32x3.cu`` (float32, 3xTF32), both on the tensor
-  cores with the A fragments loaded from a halo staged by cp.async (3
-  channels) or TMA (multiples of 32 bytes) and the weights laid out by
-  ``narrow_weights``. ``csrc/conv3x3_nhwc.cu`` (the CUDA cores) takes no
-  route but widths whose narrow tiles overflow shared memory (none in
-  VGG); ``conv3x3_cuda_core`` calls it.
+  IO-transposed weights and a zero bias. ``conv_route`` chooses on dtype
+  and widths: ``csrc/conv3x3_wgmma.cu`` (bf16, persistent over TMA-fed
+  tiles of ``k2_plan``'s shape) and ``csrc/conv3x3_tf32x3.cu`` (float32 by
+  the 3xTF32 split of ``split_tf32``, persistent over tiles of
+  ``tf32x3_tile``'s shape), and at the widths TMA cannot stride (conv1_1's
+  3 -> 64 and its 64 -> 3 input gradient) ``csrc/conv3x3_narrow_wgmma.cu``
+  (bf16) and ``csrc/conv3x3_narrow_tf32x3.cu`` (float32, 3xTF32), with the
+  A fragments loaded from a halo staged by cp.async (3 channels) or TMA
+  (multiples of 32 bytes) and the weights laid out by ``narrow_weights``.
 - K3 ``gram_nhwc``: per-image unnormalised Gram ``yᵀy`` from y in its
   stored dtype, into float32, split over pixel slices by ``gram_split``.
-  Four kernels, chosen by ``gram_route``: ``csrc/gram_wgmma.cu`` (bf16,
-  tensor cores), ``csrc/gram_tf32x3.cu`` (float32 on the tensor cores by
-  the 3xTF32 split, the K-major operand tiles built in shared memory),
-  ``csrc/gram_narrow.cu`` (the widths TMA cannot stride up to 32, such as
-  conv1_1's 27-wide patch Gram: ``mma.sync`` on the tensor cores over the
-  flat pixel run staged by bulk copies, bf16 or 3xTF32) and ``csrc/gram_nhwc.cu`` (CUDA cores:
-  the odd widths past 32; ``gram_cuda_core`` calls it at any width).
+  ``gram_route`` chooses ``csrc/gram_wgmma.cu`` (bf16) or
+  ``csrc/gram_tf32x3.cu`` (float32 by the 3xTF32 split, the K-major
+  operand tiles built in shared memory), and at the widths TMA cannot
+  stride, up to 32, ``csrc/gram_narrow.cu`` (conv1_1's 27-wide patch Gram:
+  ``mma.sync`` over the flat pixel run staged by bulk copies, bf16 or
+  3xTF32).
 - ``conv3x3_relu_pool`` and its backward ``pool_route_conv3x3_bwd``:
   conv + bias + ReLU + 2x2 max-pool with the window index, and the input
-  gradient routed by that index. The forward has three kernels, chosen by
-  ``relu_pool_route``: ``csrc/conv3x3_wgmma.cu``'s pool epilogue (bf16,
+  gradient routed by that index. The forward, chosen by
+  ``relu_pool_route``, is ``csrc/conv3x3_wgmma.cu``'s pool epilogue (bf16,
   K2's mainloop on tiles of ``pool_tile``'s shape, the 2x2 pool in shared
-  memory), ``csrc/conv3x3_tf32x3.cu``'s pool epilogue (float32, the 3xTF32
-  mainloop on the same tiles) and ``csrc/conv3x3_relu_pool.cu`` (the CUDA
-  cores: other widths). The backward has three, chosen by ``pool_route``:
-  ``csrc/pool_route_wgmma.cu`` (bf16 on the tensor cores, K2's mainloop
-  with the routed A tile built in shared memory from the TMA-loaded
-  ``pool_footprint``), ``csrc/pool_route_tf32x3.cu`` (float32 the same
-  way, on the 3xTF32 mainloop) and ``csrc/pool_route_conv3x3_bwd.cu`` (the
-  CUDA cores: other widths). Together they are
-  ``conv3x3_bias_relu_pool_packed``
-  (K5), and ``kernels/stage1.py`` runs them as conv1_2 of stage 1 (K4b,
-  K4d; K10c, K10d under v3). They take any Cin/Cout, so they are also
-  ``conv3x3_bias_relu_pool`` (K8, the ``ST3D_FUSED_POOL`` route).
+  memory) or ``csrc/conv3x3_tf32x3.cu``'s (float32, the 3xTF32 mainloop on
+  the same tiles). The backward, chosen by ``pool_route``, is
+  ``csrc/pool_route_wgmma.cu`` (bf16, K2's mainloop with the routed A tile
+  built in shared memory from the TMA-loaded ``pool_footprint``) or
+  ``csrc/pool_route_tf32x3.cu`` (float32 the same way, on the 3xTF32
+  mainloop). Together they are ``conv3x3_bias_relu_pool_packed`` (K5), and
+  ``kernels/stage1.py`` runs them as conv1_2 of stage 1 (K4b, K4d; K10c,
+  K10d under v3). They are also ``conv3x3_bias_relu_pool`` (K8, the
+  ``ST3D_FUSED_POOL`` route).
 
-Each wrapper takes its kernel for a CUDA tensor and its plain PyTorch
-version, defined beside it, for a CPU tensor; nothing else. The plain
-versions are also what ``chip_smoke.py`` holds the kernels against.
-``LAUNCHES`` counts kernel launches (plain-version calls do not count).
+A route function given a dtype or widths that no kernel takes raises
+``ValueError`` (``build.no_route``); every width VGG-19 and VGG-16 meet in
+bf16 and float32 has a route. Each wrapper takes its kernel for a CUDA
+tensor and its plain PyTorch version, defined beside it, for a CPU tensor;
+nothing else. The plain versions are also what ``chip_smoke.py`` holds the
+kernels against. ``LAUNCHES`` counts kernel launches (plain-version calls
+do not count).
 
 VGG weights are frozen, so the autograd functions give the input gradient
 only, exactly as the JAX custom VJPs do (conv_pallas.py:455-501, 649-681,
@@ -61,7 +57,7 @@ as they were XLA ops outside the TPU kernel.
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,16 +65,13 @@ import torch.nn.functional as F
 from st3d_torch.kernels import build
 from st3d_torch.utils import trace
 
-LAUNCHES: Dict[str, int] = {"conv3x3_nhwc": 0, "conv3x3_wgmma": 0,
-                            "conv3x3_tf32x3": 0,
+LAUNCHES: Dict[str, int] = {"conv3x3_wgmma": 0, "conv3x3_tf32x3": 0,
                             "conv3x3_narrow_wgmma": 0,
                             "conv3x3_narrow_tf32x3": 0,
-                            "gram_nhwc": 0, "gram_wgmma": 0,
-                            "gram_tf32x3": 0, "gram_narrow": 0,
-                            "conv3x3_relu_pool": 0,
+                            "gram_wgmma": 0, "gram_tf32x3": 0,
+                            "gram_narrow": 0,
                             "conv3x3_relu_pool_wgmma": 0,
                             "conv3x3_relu_pool_tf32x3": 0,
-                            "pool_route_conv3x3_bwd": 0,
                             "pool_route_wgmma": 0,
                             "pool_route_tf32x3": 0}
 
@@ -92,16 +85,14 @@ POOL_TILE_WIDTH = 64            # widest tile that holds whole 2x2 windows
 # K3's split over pixel slices, per route: (Gram tile edge, upper triangle
 # only, pixels per step, shortest slice, blocks wanted). The tensor-core
 # kernels' steps are TMA boxes (64 pixels in bf16, 32 in float32) and they
-# compute the tiles with row <= column; the CUDA-core kernel computes every
-# 64 x 64 tile; the narrow kernel's one tile is the whole (at most 32-wide)
-# Gram, and it stages 256 pixels at a time whatever the slice's length (two
-# blocks an SM: one wave, and half the partials of four for its second
-# pass to add). Every step is a multiple of 8 pixels, so every slice starts
-# at one.
+# compute the tiles with row <= column; the narrow kernel's one tile is the
+# whole (at most 32-wide) Gram, and it stages 256 pixels at a time whatever
+# the slice's length (two blocks an SM: one wave, and half the partials of
+# four for its second pass to add). Every step is a multiple of 8 pixels,
+# so every slice starts at one.
 GRAM_PLAN = {"wgmma": (128, True, 64, 256, 2 * SMS),
              "tf32x3": (128, True, 32, 256, 2 * SMS),
-             "narrow": (32, False, 8, 256, 2 * SMS),
-             "cuda_core": (64, False, 16, 256, 4 * SMS)}
+             "narrow": (32, False, 8, 256, 2 * SMS)}
 NARROW_GRAM_C = 32              # the widest C csrc/gram_narrow.cu takes
 # The narrow K2 (csrc/conv_narrow.cuh): output channels a block (wgmma's n),
 # and a block's dynamic shared memory.
@@ -112,28 +103,37 @@ NARROW_ROUTES = {torch.bfloat16: "narrow_wgmma",
                  torch.float32: "narrow_tf32x3"}
 
 
-def _tma_route(dtype: torch.dtype, cin: int, cout: int) -> str:
+_TMA_RULE = ("bf16 takes Cin and Cout multiples of 8, float32 multiples "
+             "of 4")
+
+
+def _tma_route(dtype: torch.dtype, cin: int, cout: int) -> Optional[str]:
+    """"wgmma" for bf16 with Cin and Cout multiples of 8, "tf32x3" for
+    float32 with multiples of 4 (TMA's global strides are multiples of 16
+    bytes); None for the widths TMA cannot stride and other dtypes."""
     if dtype == torch.bfloat16 and cin % 8 == 0 and cout % 8 == 0:
         return "wgmma"
     if dtype == torch.float32 and cin % 4 == 0 and cout % 4 == 0:
         return "tf32x3"
-    return "cuda_core"
+    return None
 
 
 def conv_route(dtype: torch.dtype, cin: int, cout: int) -> str:
     """The K2 kernel a CUDA tensor takes: "wgmma" (``csrc/conv3x3_wgmma.cu``)
     for bf16 with Cin and Cout multiples of 8, "tf32x3"
     (``csrc/conv3x3_tf32x3.cu``) for float32 with Cin and Cout multiples of
-    4 (TMA's global strides are multiples of 16 bytes); the other widths
-    in bf16 "narrow_wgmma" (``csrc/conv3x3_narrow_wgmma.cu``) and in
-    float32 "narrow_tf32x3" (``csrc/conv3x3_narrow_tf32x3.cu``) wherever
-    ``narrow_nb`` finds a plan; else "cuda_core" (``csrc/conv3x3_nhwc.cu``:
-    widths whose narrow tiles overflow shared memory, and dtypes with no
-    tensor-core route, which the wrapper refuses)."""
+    4; the other widths in bf16 "narrow_wgmma"
+    (``csrc/conv3x3_narrow_wgmma.cu``) and in float32 "narrow_tf32x3"
+    (``csrc/conv3x3_narrow_tf32x3.cu``) wherever ``narrow_nb`` finds a
+    plan. Raises ``ValueError`` for any other dtype or widths."""
     route = _tma_route(dtype, cin, cout)
-    if route == "cuda_core" and dtype in NARROW_ROUTES and narrow_nb(
+    if route is None and dtype in NARROW_ROUTES and narrow_nb(
             dtype, cin, cout):
-        return NARROW_ROUTES[dtype]
+        route = NARROW_ROUTES[dtype]
+    if route is None:
+        raise build.no_route(
+            "conv_route", dtype, _TMA_RULE + ", other widths the narrow "
+            "kernels where narrow_nb finds a plan", cin=cin, cout=cout)
     return route
 
 
@@ -142,9 +142,13 @@ def relu_pool_route(dtype: torch.dtype, cin: int, cout: int) -> str:
     (``csrc/conv3x3_wgmma.cu`` with its pool epilogue) for bf16 with Cin
     and Cout multiples of 8, "tf32x3" (``csrc/conv3x3_tf32x3.cu`` with its
     pool epilogue) for float32 with Cin and Cout multiples of 4
-    (``conv_route``'s TMA rules), else "cuda_core"
-    (``csrc/conv3x3_relu_pool.cu``)."""
-    return _tma_route(dtype, cin, cout)
+    (``conv_route``'s TMA rules). Raises ``ValueError`` for any other
+    dtype or widths."""
+    route = _tma_route(dtype, cin, cout)
+    if route is None:
+        raise build.no_route("relu_pool_route", dtype, _TMA_RULE, cin=cin,
+                             cout=cout)
+    return route
 
 
 def pool_route(dtype: torch.dtype, c: int, cin: int) -> str:
@@ -154,13 +158,15 @@ def pool_route(dtype: torch.dtype, c: int, cin: int) -> str:
     uint8 index rows are C bytes apart, and TMA strides are multiples of 16
     bytes) and Cin a multiple of 8; "tf32x3" (``csrc/pool_route_tf32x3.cu``)
     for float32 with C a multiple of 16 and Cin a multiple of 4 (the f32
-    weight and dz rows, as ``conv_route``'s float32 rule); else
-    "cuda_core" (``csrc/pool_route_conv3x3_bwd.cu``)."""
+    weight and dz rows, as ``conv_route``'s float32 rule). Raises
+    ``ValueError`` for any other dtype or widths."""
     if dtype == torch.bfloat16 and c % 16 == 0 and cin % 8 == 0:
         return "wgmma"
     if dtype == torch.float32 and c % 16 == 0 and cin % 4 == 0:
         return "tf32x3"
-    return "cuda_core"
+    raise build.no_route(
+        "pool_route", dtype, "C a multiple of 16, Cin a multiple of 8 in "
+        "bf16 and of 4 in float32", c=c, cin=cin)
 
 
 def gram_route(dtype: torch.dtype, c: int) -> str:
@@ -169,16 +175,17 @@ def gram_route(dtype: torch.dtype, c: int) -> str:
     float32 with C a multiple of 4 (the pixel rows of y are C * 4 bytes
     apart, and TMA strides are multiples of 16 bytes); the other widths up
     to ``NARROW_GRAM_C`` in either dtype "narrow" (``csrc/gram_narrow.cu``:
-    conv1_1's 27-wide patch Gram); else "cuda_core" (``csrc/gram_nhwc.cu``:
-    odd widths past 32, and dtypes with no tensor-core route, which the
-    wrapper refuses)."""
+    conv1_1's 27-wide patch Gram). Raises ``ValueError`` for any other
+    dtype or width."""
     if dtype == torch.bfloat16 and c % 8 == 0:
         return "wgmma"
     if dtype == torch.float32 and c % 4 == 0:
         return "tf32x3"
     if dtype in (torch.bfloat16, torch.float32) and c <= NARROW_GRAM_C:
         return "narrow"
-    return "cuda_core"
+    raise build.no_route(
+        "gram_route", dtype, "bf16 takes C a multiple of 8, float32 of 4, "
+        f"either any C up to {NARROW_GRAM_C}", c=c)
 
 
 def _round_up(v: int, m: int) -> int:
@@ -411,30 +418,7 @@ def conv3x3_nhwc(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         return _conv3x3_wgmma(x, w, b, relu)
     if route == "tf32x3":
         return _conv3x3_tf32x3(x, w, b, relu)
-    if route in ("narrow_wgmma", "narrow_tf32x3"):
-        return _conv3x3_narrow(x, w, b, relu)
-    return conv3x3_cuda_core(x, w, b, relu)
-
-
-def conv3x3_cuda_core(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                      relu: bool = False) -> torch.Tensor:
-    """K2 on the CUDA cores (``csrc/conv3x3_nhwc.cu``): scalar FMAs, any
-    widths; CUDA tensors only. ``conv_route`` sends it only widths whose
-    narrow tiles overflow shared memory."""
-    cin, cout = _conv_shapes(x, w, b)
-    build.check_operands("conv3x3_nhwc", x, w, b)
-    bsz, h, wd, _ = x.shape
-    x = x.contiguous()
-    wf = w.reshape(9 * cin, cout).contiguous()
-    b = b.contiguous()
-    y = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=x.device)
-    fn = build.symbol("conv3x3_nhwc",
-                      "st3d_conv3x3_nhwc_" + build.DTYPE_SUFFIX[x.dtype], 4, 6)
-    err = fn(x.data_ptr(), wf.data_ptr(), b.data_ptr(), y.data_ptr(),
-             bsz, h, wd, cin, cout, int(relu), build.stream_handle(x.device))
-    build.check(err, "conv3x3_nhwc")
-    LAUNCHES["conv3x3_nhwc"] += 1
-    return y
+    return _conv3x3_narrow(x, w, b, relu)
 
 
 def _tma_ready(t: torch.Tensor) -> torch.Tensor:
@@ -639,7 +623,7 @@ def gram_split(bsz: int, pixels: int, c: int,
 
 
 GRAM_LIBS = {"wgmma": "gram_wgmma", "tf32x3": "gram_tf32x3",
-             "narrow": "gram_narrow", "cuda_core": "gram_nhwc"}
+             "narrow": "gram_narrow"}
 
 
 def gram_nhwc(y: torch.Tensor) -> torch.Tensor:
@@ -650,14 +634,6 @@ def gram_nhwc(y: torch.Tensor) -> torch.Tensor:
         return gram_nhwc_plain(y)
     build.check_operands("gram_nhwc", y)
     return _gram(y, gram_route(y.dtype, y.shape[-1]))
-
-
-def gram_cuda_core(y: torch.Tensor) -> torch.Tensor:
-    """K3 on the CUDA cores (``csrc/gram_nhwc.cu``), the route of the odd
-    widths past ``NARROW_GRAM_C`` and the twin of the narrow kernel; CUDA
-    tensors only."""
-    build.check_operands("gram_nhwc", y)
-    return _gram(y, "cuda_core")
 
 
 def _gram(y: torch.Tensor, route: str) -> torch.Tensor:
@@ -746,9 +722,7 @@ def conv3x3_relu_pool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     route = relu_pool_route(x.dtype, cin, cout)
     if route == "wgmma":
         return _conv3x3_relu_pool_wgmma(x, w, b)
-    if route == "tf32x3":
-        return _conv3x3_relu_pool_tf32x3(x, w, b)
-    return conv3x3_relu_pool_cuda_core(x, w, b)
+    return _conv3x3_relu_pool_tf32x3(x, w, b)
 
 
 def _pool_outputs(x: torch.Tensor, cout: int
@@ -799,29 +773,6 @@ def _conv3x3_relu_pool_tf32x3(x: torch.Tensor, w: torch.Tensor,
              pool_tile(wd)[0], build.stream_handle(x.device))
     build.check(err, "conv3x3_relu_pool_tf32x3")
     LAUNCHES["conv3x3_relu_pool_tf32x3"] += 1
-    return pooled, idx
-
-
-def conv3x3_relu_pool_cuda_core(x: torch.Tensor, w: torch.Tensor,
-                                b: torch.Tensor
-                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """C on the CUDA cores (``csrc/conv3x3_relu_pool.cu``), the route of
-    the widths ``relu_pool_route`` keeps off the tensor cores; CUDA tensors
-    only."""
-    cin, cout = _conv_shapes(x, w, b)
-    _pool_dims(x)
-    bsz, h, wd, _ = x.shape
-    x = x.contiguous()
-    wf = w.reshape(9 * cin, cout).contiguous()
-    b = b.contiguous()
-    pooled, idx = _pool_outputs(x, cout)
-    fn = build.symbol("conv3x3_relu_pool", "st3d_conv3x3_relu_pool_"
-                      + build.DTYPE_SUFFIX[x.dtype], 5, 5)
-    err = fn(x.data_ptr(), wf.data_ptr(), b.data_ptr(), pooled.data_ptr(),
-             idx.data_ptr(), bsz, h, wd, cin, cout,
-             build.stream_handle(x.device))
-    build.check(err, "conv3x3_relu_pool")
-    LAUNCHES["conv3x3_relu_pool"] += 1
     return pooled, idx
 
 
@@ -880,9 +831,7 @@ def pool_route_conv3x3_bwd(ct: torch.Tensor, pooled: torch.Tensor,
     route = pool_route(ct.dtype, c, cin)
     if route == "wgmma":
         return _pool_route_wgmma(ct, pooled, idx, w)
-    if route == "tf32x3":
-        return _pool_route_tf32x3(ct, pooled, idx, w)
-    return pool_route_cuda_core(ct, pooled, idx, w)
+    return _pool_route_tf32x3(ct, pooled, idx, w)
 
 
 def _pool_route_wgmma(ct: torch.Tensor, pooled: torch.Tensor,
@@ -931,27 +880,6 @@ def _pool_route_tf32x3(ct: torch.Tensor, pooled: torch.Tensor,
     return dz
 
 
-def pool_route_cuda_core(ct: torch.Tensor, pooled: torch.Tensor,
-                         idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """D on the CUDA cores (``csrc/pool_route_conv3x3_bwd.cu``), the route
-    of the widths ``pool_route`` keeps off the tensor cores; CUDA tensors
-    only."""
-    cin, c = _route_shapes(ct, pooled, idx, w)
-    bsz, hp, wp, _ = ct.shape
-    ct, pooled, idx = ct.contiguous(), pooled.contiguous(), idx.contiguous()
-    wt = transpose_weights(w, ct.dtype).reshape(9 * c, cin).contiguous()
-    dz = torch.empty((bsz, 2 * hp, 2 * wp, cin), dtype=ct.dtype,
-                     device=ct.device)
-    fn = build.symbol("pool_route_conv3x3_bwd", "st3d_pool_route_conv3x3_bwd_"
-                      + build.DTYPE_SUFFIX[ct.dtype], 5, 5)
-    err = fn(ct.data_ptr(), pooled.data_ptr(), idx.data_ptr(), wt.data_ptr(),
-             dz.data_ptr(), bsz, 2 * hp, 2 * wp, c, cin,
-             build.stream_handle(ct.device))
-    build.check(err, "pool_route_conv3x3_bwd")
-    LAUNCHES["pool_route_conv3x3_bwd"] += 1
-    return dz
-
-
 class _Conv3x3BiasReluPool(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b):
@@ -978,8 +906,8 @@ def conv3x3_bias_relu_pool_packed(x: torch.Tensor, w: torch.Tensor,
 
 
 # K8 (conv_pallas.py:505 ``conv3x3_bias_relu_pool``, the route
-# ``ST3D_FUSED_POOL``) computes the same function for the pre-pool convs of
-# any width, its backward (``_brp``, :527) masking by ``pooled > 0`` and
+# ``ST3D_FUSED_POOL``) computes the same function for VGG's pre-pool convs,
+# its backward (``_brp``, :527) masking by ``pooled > 0`` and
 # routing by idx before the transpose conv: kernels C and D, under the JAX
 # name.
 conv3x3_bias_relu_pool = conv3x3_bias_relu_pool_packed

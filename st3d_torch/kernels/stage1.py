@@ -14,12 +14,10 @@ Two autograd functions:
   shared memory, z and PᵀP by ``wgmma``; ``csrc/conv1_1_bwd_wgmma.cu``:
   ``c11_bwd_blocks`` persistent blocks, dz and z by TMA on the halo of a
   ``C11_BWD_TILE`` dx tile in two stages, dP by ``wgmma`` with S split
-  into bf16 hi + lo), float32 on the tensor cores by the 3xTF32 split
+  into bf16 hi + lo) and float32 on the tensor cores by the 3xTF32 split
   (``csrc/conv1_1_stats_tf32x3.cu``, ``csrc/conv1_1_bwd_tf32x3.cu``: the
   same plans, every operand split into tf32 hi + lo, the A operands of the
-  products split in registers) and the CUDA cores
-  (``csrc/conv1_1_stats.cu``, ``csrc/conv1_1_bwd.cu``: the widths the
-  tensor-core kernels do not take).
+  products split in registers).
 - ``conv1_2_relu_pool(z, w, b) -> (pooled, idx)``: conv1_2 + ReLU + 2x2
   max-pool. Forward ``conv3x3_relu_pool`` (replaces K4b), backward
   ``pool_route_conv3x3_bwd`` (replaces K4d); both kernels live in
@@ -48,16 +46,12 @@ from st3d_torch.kernels import build
 from st3d_torch.kernels.conv import (SMS, _tma_ready,
                                      conv3x3_bias_relu_pool_packed)
 
-LAUNCHES: Dict[str, int] = {"conv1_1_stats": 0, "conv1_1_bwd": 0,
-                            "conv1_1_stats_wgmma": 0,
+LAUNCHES: Dict[str, int] = {"conv1_1_stats_wgmma": 0,
                             "conv1_1_bwd_wgmma": 0,
                             "conv1_1_stats_tf32x3": 0,
                             "conv1_1_bwd_tf32x3": 0}
 
 K27 = 27
-# Pixels per block of the CUDA-core conv1_1_stats' first pass: 128 chunks
-# per 512² image.
-STATS_PIX_PER_BLOCK = 2048
 C11_MAX_COUT = 128                # the bf16 tensor-core kernels keep W resident
 C11_TF32_MAX_COUT = 64            # B's float32 stages fill a block's 227 KB
 C11_STATS_TILE = (32, 4)          # (TW, TH) pixels of a tensor-core A tile
@@ -85,14 +79,17 @@ def c11_route(dtype: torch.dtype, cout: int) -> str:
     (``csrc/conv1_1_stats_tf32x3.cu``, ``csrc/conv1_1_bwd_tf32x3.cu``) for
     float32 with Cout a multiple of 4 (rows Cout * 4 bytes apart) and at
     most ``C11_TF32_MAX_COUT`` = 64 (B's two stages of 32-channel dz and z
-    boxes, 192 KB, leave room for the weights of two slabs only); else
-    "cuda_core" (``csrc/conv1_1_stats.cu``, ``csrc/conv1_1_bwd.cu``)."""
+    boxes, 192 KB, leave room for the weights of two slabs only). Raises
+    ``ValueError`` for any other dtype or Cout."""
     if dtype == torch.bfloat16 and cout % 8 == 0 and cout <= C11_MAX_COUT:
         return "wgmma"
     if dtype == torch.float32 and cout % 4 == 0 \
             and cout <= C11_TF32_MAX_COUT:
         return "tf32x3"
-    return "cuda_core"
+    raise build.no_route(
+        "c11_route", dtype, f"bf16 takes Cout a multiple of 8 up to "
+        f"{C11_MAX_COUT}, float32 a multiple of 4 up to {C11_TF32_MAX_COUT}",
+        cout=cout)
 
 
 def c11_stats_tiles(h: int, w: int) -> Tuple[int, int]:
@@ -170,10 +167,7 @@ def conv1_1_stats(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     if x.device.type == "cpu":
         return conv1_1_stats_plain(x, w, b)
     build.check_operands("conv1_1_stats", x, w, b)
-    route = c11_route(x.dtype, cout)
-    if route == "cuda_core":
-        return conv1_1_stats_cuda_core(x, w, b)
-    return _conv1_1_stats_tensor_cores(x, w, b, route)
+    return _conv1_1_stats_tensor_cores(x, w, b, c11_route(x.dtype, cout))
 
 
 def _conv1_1_stats_tensor_cores(x: torch.Tensor, w: torch.Tensor,
@@ -202,35 +196,6 @@ def _conv1_1_stats_tensor_cores(x: torch.Tensor, w: torch.Tensor,
              cout, blocks, build.stream_handle(dev))
     build.check(err, key)
     LAUNCHES[key] += 1
-    return z, ptp, s27
-
-
-def conv1_1_stats_cuda_core(x: torch.Tensor, w: torch.Tensor,
-                            b: torch.Tensor
-                            ) -> Tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
-    """A on the CUDA cores (``csrc/conv1_1_stats.cu``), the route of the
-    widths ``c11_route`` keeps off the tensor cores; CUDA tensors only."""
-    cout = _c11_shapes(x, w)
-    build.check_operands("conv1_1_stats", x, w, b)
-    bsz, h, wd, _ = x.shape
-    chunks = -(-(h * wd) // STATS_PIX_PER_BLOCK)
-    x = x.contiguous()
-    w27 = w.reshape(K27, cout).contiguous()
-    b = b.contiguous()
-    dev = x.device
-    z = torch.empty((bsz, h, wd, cout), dtype=x.dtype, device=dev)
-    partial = torch.empty((bsz, chunks, K27 * K27 + K27), dtype=torch.float32,
-                          device=dev)
-    ptp = torch.empty((bsz, K27, K27), dtype=torch.float32, device=dev)
-    s27 = torch.empty((bsz, K27), dtype=torch.float32, device=dev)
-    fn = build.symbol("conv1_1_stats",
-                      "st3d_conv1_1_stats_" + build.DTYPE_SUFFIX[x.dtype], 7, 6)
-    err = fn(x.data_ptr(), w27.data_ptr(), b.data_ptr(), z.data_ptr(),
-             partial.data_ptr(), ptp.data_ptr(), s27.data_ptr(), bsz, h, wd,
-             cout, chunks, STATS_PIX_PER_BLOCK, build.stream_handle(dev))
-    build.check(err, "conv1_1_stats")
-    LAUNCHES["conv1_1_stats"] += 1
     return z, ptp, s27
 
 
@@ -276,10 +241,8 @@ def conv1_1_bwd(x: torch.Tensor, dz: torch.Tensor, z: torch.Tensor,
     if x.device.type == "cpu":
         return conv1_1_bwd_plain(x, dz, z, w, sym, ds27)
     _check_bwd_operands(x, dz, z, w, sym, ds27)
-    route = c11_route(x.dtype, cout)
-    if route == "cuda_core":
-        return conv1_1_bwd_cuda_core(x, dz, z, w, sym, ds27)
-    return _conv1_1_bwd_tensor_cores(x, dz, z, w, sym, ds27, route)
+    return _conv1_1_bwd_tensor_cores(x, dz, z, w, sym, ds27,
+                                     c11_route(x.dtype, cout))
 
 
 def _check_bwd_operands(x, dz, z, w, sym, ds27) -> None:
@@ -312,29 +275,6 @@ def _conv1_1_bwd_tensor_cores(x: torch.Tensor, dz: torch.Tensor,
              c11_bwd_blocks(bsz, h, wd), build.stream_handle(x.device))
     build.check(err, key)
     LAUNCHES[key] += 1
-    return dx
-
-
-def conv1_1_bwd_cuda_core(x: torch.Tensor, dz: torch.Tensor,
-                          z: torch.Tensor, w: torch.Tensor,
-                          sym: torch.Tensor,
-                          ds27: torch.Tensor) -> torch.Tensor:
-    """B on the CUDA cores (``csrc/conv1_1_bwd.cu``), the route of the
-    widths ``c11_route`` keeps off the tensor cores; CUDA tensors only."""
-    cout = _c11_shapes(x, w)
-    _check_bwd_operands(x, dz, z, w, sym, ds27)
-    bsz, h, wd, _ = x.shape
-    x, dz, z = x.contiguous(), dz.contiguous(), z.contiguous()
-    w27 = w.reshape(K27, cout).contiguous()
-    sym, ds27 = sym.contiguous(), ds27.contiguous()
-    dx = torch.empty_like(x)
-    fn = build.symbol("conv1_1_bwd",
-                      "st3d_conv1_1_bwd_" + build.DTYPE_SUFFIX[x.dtype], 7, 4)
-    err = fn(x.data_ptr(), dz.data_ptr(), z.data_ptr(), w27.data_ptr(),
-             sym.data_ptr(), ds27.data_ptr(), dx.data_ptr(), bsz, h, wd, cout,
-             build.stream_handle(x.device))
-    build.check(err, "conv1_1_bwd")
-    LAUNCHES["conv1_1_bwd"] += 1
     return dx
 
 

@@ -20,9 +20,7 @@ of ``models.vgg.get_features``.
   transposed, split y tile; ``csrc/conv1_1_gram_bwd_tf32x3.cu``: the same
   plan with 32-channel dz slabs, dP = (dz·mask)·Wᵀ + y·M with M = S·Wᵀ
   formed in the kernel; y from one device function shared by the two, so
-  F's mask is E's z > 0). The CUDA-core kernels (``csrc/conv1_1_gram.cu``,
-  ``csrc/conv1_1_gram_bwd.cu``) are their twins: the route "cuda_core"
-  names them, which only dtypes they refuse reach.
+  F's mask is E's z > 0).
 - ``conv1_2_relu_pool_v3``: K10c and K10d compute the function of v2's
   conv1_2 half, so they are kernels C and D (``kernels.stage1``).
 
@@ -54,16 +52,12 @@ from st3d_torch.kernels.stage1 import (C11_STATS_BLOCKS_PER_SM,
                                        c11_bwd_blocks, c11_stats_blocks,
                                        conv1_2_relu_pool, patches27)
 
-LAUNCHES: Dict[str, int] = {"conv1_1_gram": 0, "conv1_1_gram_bwd": 0,
-                            "conv1_1_gram_wgmma": 0,
+LAUNCHES: Dict[str, int] = {"conv1_1_gram_wgmma": 0,
                             "conv1_1_gram_bwd_wgmma": 0,
                             "conv1_1_gram_tf32x3": 0,
                             "conv1_1_gram_bwd_tf32x3": 0}
 
 COUT = 64
-# Pixels per block of the CUDA-core conv1_1_gram's first pass: 128 chunks
-# per 512² image.
-GRAM_PIX_PER_BLOCK = 2048
 
 # K10c and K10d compute exactly the function of v2's conv1_2 + ReLU + pool
 # and its routed backward: kernels C and D.
@@ -87,12 +81,14 @@ def v3_route(dtype: torch.dtype) -> str:
     ``wgmma`` N tile): "wgmma" (``csrc/conv1_1_gram_wgmma.cu``,
     ``csrc/conv1_1_gram_bwd_wgmma.cu``) for bf16, "tf32x3"
     (``csrc/conv1_1_gram_tf32x3.cu``, ``csrc/conv1_1_gram_bwd_tf32x3.cu``)
-    for float32; else "cuda_core", the twins ``conv1_1_gram_cuda_core``
-    and ``conv1_1_gram_bwd_cuda_core``, whose ``build.check_operands``
-    refuses such a dtype before any launch."""
+    for float32. Raises ``ValueError`` for any other dtype, which the
+    wrappers' ``build.check_operands`` has refused already."""
     if dtype == torch.bfloat16:
         return "wgmma"
-    return "tf32x3" if dtype == torch.float32 else "cuda_core"
+    if dtype == torch.float32:
+        return "tf32x3"
+    raise build.no_route("v3_route", dtype, "E and F take bf16 or float32",
+                         cout=COUT)
 
 
 def split_bf16(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -142,11 +138,8 @@ def conv1_1_gram(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     w27, b = _operands(x, w, b)
     if x.device.type == "cpu":
         return conv1_1_gram_plain(x, w, b)
-    route = v3_route(x.dtype)
-    if route == "cuda_core":
-        return conv1_1_gram_cuda_core(x, w, b)
     build.check_operands("conv1_1_gram", x, w27, b)
-    return _conv1_1_gram_tensor_cores(x, w27, b, route)
+    return _conv1_1_gram_tensor_cores(x, w27, b, v3_route(x.dtype))
 
 
 def _conv1_1_gram_tensor_cores(x: torch.Tensor, w27: torch.Tensor,
@@ -171,31 +164,6 @@ def _conv1_1_gram_tensor_cores(x: torch.Tensor, w27: torch.Tensor,
              build.stream_handle(dev))
     build.check(err, key)
     LAUNCHES[key] += 1
-    return z, g64
-
-
-def conv1_1_gram_cuda_core(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """E on the CUDA cores (``csrc/conv1_1_gram.cu``), the tensor-core
-    kernels' twin in both dtypes, launched by no route that a dtype it
-    takes reaches; CUDA tensors only."""
-    w27, b = _operands(x, w, b)
-    build.check_operands("conv1_1_gram", x, w27, b)
-    bsz, h, wd, _ = x.shape
-    chunks = -(-(h * wd) // GRAM_PIX_PER_BLOCK)
-    x, w27, b = x.contiguous(), w27.contiguous(), b.contiguous()
-    dev = x.device
-    z = torch.empty((bsz, h, wd, COUT), dtype=x.dtype, device=dev)
-    partial = torch.empty((bsz, chunks, COUT, COUT), dtype=torch.float32,
-                          device=dev)
-    g64 = torch.empty((bsz, COUT, COUT), dtype=torch.float32, device=dev)
-    fn = build.symbol("conv1_1_gram",
-                      "st3d_conv1_1_gram_" + build.DTYPE_SUFFIX[x.dtype], 6, 5)
-    err = fn(x.data_ptr(), w27.data_ptr(), b.data_ptr(), z.data_ptr(),
-             partial.data_ptr(), g64.data_ptr(), bsz, h, wd, chunks,
-             GRAM_PIX_PER_BLOCK, build.stream_handle(dev))
-    build.check(err, "conv1_1_gram")
-    LAUNCHES["conv1_1_gram"] += 1
     return z, g64
 
 
@@ -239,11 +207,9 @@ def conv1_1_gram_bwd(x: torch.Tensor, dz: torch.Tensor, w: torch.Tensor,
                          f"{(bsz, COUT, COUT)}")
     if x.device.type == "cpu":
         return conv1_1_gram_bwd_plain(x, dz, w, b, sym)
-    route = v3_route(x.dtype)
-    if route == "cuda_core":
-        return conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
     _check_bwd_operands(x, dz, w27, b, sym)
-    return _conv1_1_gram_bwd_tensor_cores(x, dz, w27, b, sym, route)
+    return _conv1_1_gram_bwd_tensor_cores(x, dz, w27, b, sym,
+                                          v3_route(x.dtype))
 
 
 def _check_bwd_operands(x, dz, w27, b, sym) -> None:
@@ -275,29 +241,6 @@ def _conv1_1_gram_bwd_tensor_cores(x: torch.Tensor, dz: torch.Tensor,
              c11_bwd_blocks(bsz, h, wd), build.stream_handle(x.device))
     build.check(err, key)
     LAUNCHES[key] += 1
-    return dx
-
-
-def conv1_1_gram_bwd_cuda_core(x: torch.Tensor, dz: torch.Tensor,
-                               w: torch.Tensor, b: torch.Tensor,
-                               sym: torch.Tensor) -> torch.Tensor:
-    """F on the CUDA cores (``csrc/conv1_1_gram_bwd.cu``), the tensor-core
-    kernels' twin in both dtypes, launched by no route that a dtype it
-    takes reaches; CUDA tensors only."""
-    w27, b = _operands(x, w, b)
-    _check_bwd_operands(x, dz, w27, b, sym)
-    bsz, h, wd, _ = x.shape
-    x, dz, sym = x.contiguous(), dz.contiguous(), sym.contiguous()
-    w27, b = w27.contiguous(), b.contiguous()
-    dx = torch.empty_like(x)
-    fn = build.symbol("conv1_1_gram_bwd",
-                      "st3d_conv1_1_gram_bwd_" + build.DTYPE_SUFFIX[x.dtype],
-                      6, 3)
-    err = fn(x.data_ptr(), dz.data_ptr(), w27.data_ptr(), b.data_ptr(),
-             sym.data_ptr(), dx.data_ptr(), bsz, h, wd,
-             build.stream_handle(x.device))
-    build.check(err, "conv1_1_gram_bwd")
-    LAUNCHES["conv1_1_gram_bwd"] += 1
     return dx
 
 

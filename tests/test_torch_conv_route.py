@@ -1,27 +1,47 @@
-"""Which K2, K3 and D kernel a CUDA tensor takes, and the tensor-core
+"""Which K2, K3, C and D kernel a CUDA tensor takes, and the tensor-core
 kernels' tile plans, as the pure functions of ``st3d_torch.kernels.conv``
 (no GPU): ``conv_route`` (bf16 with channel counts that are multiples of 8
 and float32 with multiples of 4 take the TMA-fed tensor-core kernels, the
 latter by 3xTF32; the other widths of both dtypes the narrow tensor-core
-kernels wherever ``narrow_nb`` finds a plan; anything else the CUDA
-cores), ``narrow_nb`` and ``narrow_smem`` (the narrow kernels' plan),
-``gram_route`` (bf16, multiples of
-8; float32, multiples of 4, by 3xTF32; the other widths up to 32 of both
-dtypes the narrow tensor-core kernel), ``relu_pool_route`` (``conv_route``'s
-rules), ``pool_route`` (bf16
-with C a multiple of 16 and Cin of 8; float32 with C a multiple of 16 and
-Cin of 4, by 3xTF32), ``conv_tile`` (the 128-pixel output box per image
+kernels wherever ``narrow_nb`` finds a plan), ``narrow_nb`` and
+``narrow_smem`` (the narrow kernels' plan), ``gram_route`` (bf16, multiples
+of 8; float32, multiples of 4, by 3xTF32; the other widths up to 32 of
+both dtypes the narrow tensor-core kernel), ``relu_pool_route``
+(``conv_route``'s TMA rules), ``pool_route`` (bf16 with C a multiple of 16
+and Cin of 8; float32 with C a multiple of 16 and Cin of 4, by 3xTF32);
+every route function refuses any other dtype or width with a
+``ValueError`` that names them, and every width VGG meets has a route;
+``conv_tile`` (the 128-pixel output box per image
 width), ``pool_tile`` (the same box holding whole 2x2 windows),
 ``pool_footprint`` (the pooled box D loads per tile) and ``gram_split``
 (slices that cover the pixels exactly, in whole steps, with enough blocks
 for the card)."""
 
+import re
+
 import pytest
 import torch
 
 from st3d_torch.kernels import conv as kconv
+from st3d_torch.kernels import stage1 as ks1
+from st3d_torch.kernels import stage1v3 as ks3
+from st3d_torch.models import vgg
 
 BF16, F32 = torch.bfloat16, torch.float32
+REFUSED = None      # no kernel takes the dtype or widths: the route raises
+
+
+def assert_route(fn, want, dtype, **widths):
+    """``fn(dtype, *widths)`` returns ``want``, or, where ``want`` is
+    ``REFUSED``, raises ``ValueError`` naming the function, the dtype and
+    the widths."""
+    if want is not REFUSED:
+        assert fn(dtype, *widths.values()) == want
+        return
+    shown = ", ".join(f"{k}={v}" for k, v in widths.items())
+    with pytest.raises(ValueError, match=re.escape(
+            f"{fn.__name__}: no kernel takes {dtype} at {shown}: ")):
+        fn(dtype, *widths.values())
 
 
 @pytest.mark.parametrize("dtype,cin,cout,route", [
@@ -29,14 +49,14 @@ BF16, F32 = torch.bfloat16, torch.float32
     (BF16, 128, 64, "wgmma"), (BF16, 8, 16, "wgmma"), (BF16, 40, 24, "wgmma"),
     (BF16, 3, 64, "narrow_wgmma"), (BF16, 64, 27, "narrow_wgmma"),
     (BF16, 12, 64, "narrow_wgmma"), (F32, 64, 64, "tf32x3"),
-    (F32, 512, 512, "tf32x3"), (torch.float16, 64, 64, "cuda_core"),
+    (F32, 512, 512, "tf32x3"), (torch.float16, 64, 64, REFUSED),
     (F32, 4, 8, "tf32x3"), (F32, 40, 24, "tf32x3"),
     (F32, 3, 64, "narrow_tf32x3"), (F32, 64, 27, "narrow_tf32x3"),
     (F32, 64, 3, "narrow_tf32x3"), (F32, 6, 64, "narrow_tf32x3"),
-    (BF16, 64, 3, "narrow_wgmma"), (torch.float16, 3, 64, "cuda_core"),
-    (F32, 256, 3, "cuda_core"), (BF16, 512, 3, "narrow_wgmma")])
+    (BF16, 64, 3, "narrow_wgmma"), (torch.float16, 3, 64, REFUSED),
+    (F32, 256, 3, REFUSED), (BF16, 512, 3, "narrow_wgmma")])
 def test_conv_route(dtype, cin, cout, route):
-    assert kconv.conv_route(dtype, cin, cout) == route
+    assert_route(kconv.conv_route, route, dtype, cin=cin, cout=cout)
 
 
 @pytest.mark.parametrize("dtype,cin,cout,nb", [
@@ -46,8 +66,8 @@ def test_conv_route(dtype, cin, cout, route):
 def test_narrow_plan_fits_a_block(dtype, cin, cout, nb):
     """The narrow K2's output channels a block, and its shared memory at
     every tile width within a block's (two blocks an SM at conv1_1's
-    3 -> 64 and, in bf16, its 64 -> 3 input gradient); None (the CUDA
-    cores) where 8 channels overflow."""
+    3 -> 64 and, in bf16, its 64 -> 3 input gradient); None (no route)
+    where 8 channels overflow."""
     assert kconv.narrow_nb(dtype, cin, cout) == nb
     if nb is None:
         return
@@ -63,29 +83,29 @@ def test_narrow_plan_fits_a_block(dtype, cin, cout, nb):
 @pytest.mark.parametrize("dtype,c,cin,route", [
     (BF16, 64, 64, "wgmma"), (BF16, 128, 128, "wgmma"),
     (BF16, 512, 512, "wgmma"), (BF16, 16, 8, "wgmma"), (BF16, 48, 24, "wgmma"),
-    (BF16, 40, 24, "cuda_core"), (BF16, 8, 64, "cuda_core"),
-    (BF16, 64, 3, "cuda_core"), (BF16, 64, 12, "cuda_core"),
+    (BF16, 40, 24, REFUSED), (BF16, 8, 64, REFUSED),
+    (BF16, 64, 3, REFUSED), (BF16, 64, 12, REFUSED),
     (F32, 64, 64, "tf32x3"), (F32, 512, 512, "tf32x3"),
-    (torch.float16, 64, 64, "cuda_core"), (F32, 128, 128, "tf32x3"),
-    (F32, 16, 4, "tf32x3"), (F32, 48, 24, "tf32x3"), (F32, 8, 64, "cuda_core"),
-    (F32, 40, 24, "cuda_core"), (F32, 64, 6, "cuda_core"),
-    (F32, 64, 3, "cuda_core")])
+    (torch.float16, 64, 64, REFUSED), (F32, 128, 128, "tf32x3"),
+    (F32, 16, 4, "tf32x3"), (F32, 48, 24, "tf32x3"), (F32, 8, 64, REFUSED),
+    (F32, 40, 24, REFUSED), (F32, 64, 6, REFUSED),
+    (F32, 64, 3, REFUSED)])
 def test_pool_route(dtype, c, cin, route):
-    assert kconv.pool_route(dtype, c, cin) == route
+    assert_route(kconv.pool_route, route, dtype, c=c, cin=cin)
 
 
 # (dtype, Cin, Cout, route) of the forward C.
 @pytest.mark.parametrize("dtype,cin,cout,route", [
     (BF16, 64, 64, "wgmma"), (BF16, 128, 128, "wgmma"),
     (BF16, 512, 512, "wgmma"), (BF16, 24, 40, "wgmma"),
-    (BF16, 3, 64, "cuda_core"), (BF16, 64, 12, "cuda_core"),
+    (BF16, 3, 64, REFUSED), (BF16, 64, 12, REFUSED),
     (F32, 64, 64, "tf32x3"), (F32, 512, 512, "tf32x3"),
-    (torch.float16, 64, 64, "cuda_core"), (F32, 128, 128, "tf32x3"),
-    (F32, 24, 40, "tf32x3"), (F32, 4, 8, "tf32x3"), (F32, 3, 64, "cuda_core"),
-    (F32, 64, 6, "cuda_core"), (F32, 6, 64, "cuda_core"),
-    (F32, 64, 27, "cuda_core")])
+    (torch.float16, 64, 64, REFUSED), (F32, 128, 128, "tf32x3"),
+    (F32, 24, 40, "tf32x3"), (F32, 4, 8, "tf32x3"), (F32, 3, 64, REFUSED),
+    (F32, 64, 6, REFUSED), (F32, 6, 64, REFUSED),
+    (F32, 64, 27, REFUSED)])
 def test_relu_pool_route(dtype, cin, cout, route):
-    assert kconv.relu_pool_route(dtype, cin, cout) == route
+    assert_route(kconv.relu_pool_route, route, dtype, cin=cin, cout=cout)
 
 
 def test_pool_tile_holds_whole_windows():
@@ -137,11 +157,11 @@ def test_pool_footprint_covers_every_tap(width):
     (BF16, 136, "wgmma"), (BF16, 27, "narrow"), (BF16, 4, "narrow"),
     (F32, 128, "tf32x3"), (F32, 27, "narrow"), (F32, 64, "tf32x3"),
     (F32, 512, "tf32x3"), (F32, 4, "tf32x3"), (F32, 136, "tf32x3"),
-    (F32, 6, "narrow"), (F32, 30, "narrow"), (BF16, 33, "cuda_core"),
-    (F32, 33, "cuda_core"), (torch.float16, 128, "cuda_core"),
-    (torch.float16, 27, "cuda_core")])
+    (F32, 6, "narrow"), (F32, 30, "narrow"), (BF16, 33, REFUSED),
+    (F32, 33, REFUSED), (torch.float16, 128, REFUSED),
+    (torch.float16, 27, REFUSED)])
 def test_gram_route(dtype, c, route):
-    assert kconv.gram_route(dtype, c) == route
+    assert_route(kconv.gram_route, route, dtype, c=c)
 
 
 @pytest.mark.parametrize("width,box", [
@@ -158,15 +178,18 @@ def test_conv_tile(width, box):
 
 
 # (batch, pixels, C): the style Grams at 512² (conv2_1 .. conv5_1), the 64²
-# ones, pixel counts off the 64-pixel box, conv1_1's 27-wide patch Gram.
+# ones, pixel counts off the 64-pixel box, conv1_1's 27-wide patch Gram;
+# then the cells' own at 768² (batches of 4 and 12 views, the NNFM cell's
+# 6 style images, its 27-wide patch Gram with stage 1 off).
 SPLITS = [(4, 256 * 256, 128), (4, 128 * 128, 256), (4, 64 * 64, 512),
           (4, 32 * 32, 512), (4, 512 * 512, 64), (2, 32 * 32, 128),
           (2, 4 * 4, 512), (3, 37 * 29, 64), (3, 4113, 512), (1, 7, 3),
-          (4, 512 * 512, 27)]
+          (4, 512 * 512, 27), (4, 384 * 384, 128), (12, 384 * 384, 128),
+          (4, 192 * 192, 256), (12, 96 * 96, 512), (6, 48 * 48, 512),
+          (4, 768 * 768, 27)]
 
 
-@pytest.mark.parametrize("route", ["wgmma", "cuda_core", "tf32x3",
-                                   "narrow"])
+@pytest.mark.parametrize("route", ["wgmma", "tf32x3", "narrow"])
 @pytest.mark.parametrize("bsz,pixels,c", SPLITS)
 def test_gram_split_covers_pixels(route, bsz, pixels, c):
     edge, triangle, step, min_slice, _ = kconv.GRAM_PLAN[route]
@@ -266,3 +289,42 @@ def test_k2_plan_counts_pad_pixels_at_ragged_widths(bsz, h, wd, box, pixels):
     (10, 512, 128), (66, 256, 128), (30, 384, 128)])
 def test_k2_bn(tiles_m, cout, bn):
     assert kconv.k2_bn(tiles_m, cout) == bn
+
+
+# The (Cin, Cout) of VGG-19's 16 convs (VGG-16's first seven, which the
+# NNFM block runs, are among them), the pre-pool convs that C and D take,
+# and the style Grams ``get_features`` takes: the taps' widths and conv1_1's
+# 27-wide patch Gram with stage 1 off.
+VGG_CONVS = vgg.conv_shapes()
+_CFG_CONVS = [i for i, v in enumerate(vgg.VGG19_CFG) if v != "M"]
+VGG_POOLED = [VGG_CONVS[n] for n, i in enumerate(_CFG_CONVS)
+              if vgg.VGG19_CFG[i + 1:i + 2] == ("M",)]
+VGG_GRAMS = sorted({VGG_CONVS[i][1] for i in vgg.TAP_CONV_INDEX.values()}
+                   | {ks1.K27})
+# Each route function with the argument tuples VGG gives it: forward and
+# input gradient (the transposed conv) for K2, C forward and D backward
+# (pooled C, Cin), the Grams, conv1_1's Cout for A/B, and E/F's dtype alone.
+VGG_CALLS = {
+    "conv_route": (kconv.conv_route,
+                   VGG_CONVS + [(co, ci) for ci, co in VGG_CONVS]),
+    "relu_pool_route": (kconv.relu_pool_route, VGG_POOLED),
+    "pool_route": (kconv.pool_route, [(co, ci) for ci, co in VGG_POOLED]),
+    "gram_route": (kconv.gram_route, [(c,) for c in VGG_GRAMS]),
+    "c11_route": (ks1.c11_route, [(VGG_CONVS[0][1],)]),
+    "v3_route": (ks3.v3_route, [()]),
+}
+TENSOR_CORE_ROUTES = {BF16: {"wgmma", "narrow_wgmma", "narrow"},
+                      F32: {"tf32x3", "narrow_tf32x3", "narrow"}}
+
+
+@pytest.mark.parametrize("fn", sorted(VGG_CALLS))
+@pytest.mark.parametrize("dtype", [F32, BF16])
+def test_every_vgg_width_has_a_tensor_core_route(fn, dtype):
+    """Every width VGG meets, in both compute dtypes, takes a tensor-core
+    kernel of that dtype: no route function refuses one."""
+    route, calls = VGG_CALLS[fn]
+    assert VGG_POOLED == [(64, 64), (128, 128), (256, 256), (512, 512),
+                          (512, 512)]
+    assert VGG_GRAMS == [27, 64, 128, 256, 512]
+    for args in calls:
+        assert route(dtype, *args) in TENSOR_CORE_ROUTES[dtype], (fn, args)

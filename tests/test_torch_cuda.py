@@ -44,15 +44,12 @@ def test_raster_kernel_equals_plain(dev):
 
 CONV_KEYS = {"wgmma": "conv3x3_wgmma", "tf32x3": "conv3x3_tf32x3",
              "narrow_wgmma": "conv3x3_narrow_wgmma",
-             "narrow_tf32x3": "conv3x3_narrow_tf32x3",
-             "cuda_core": "conv3x3_nhwc"}
-POOL_KEYS = {"wgmma": "pool_route_wgmma", "tf32x3": "pool_route_tf32x3",
-             "cuda_core": "pool_route_conv3x3_bwd"}
+             "narrow_tf32x3": "conv3x3_narrow_tf32x3"}
+POOL_KEYS = {"wgmma": "pool_route_wgmma", "tf32x3": "pool_route_tf32x3"}
 RELU_POOL_KEYS = {"wgmma": "conv3x3_relu_pool_wgmma",
-                  "tf32x3": "conv3x3_relu_pool_tf32x3",
-                  "cuda_core": "conv3x3_relu_pool"}
+                  "tf32x3": "conv3x3_relu_pool_tf32x3"}
 GRAM_KEYS = {"wgmma": "gram_wgmma", "tf32x3": "gram_tf32x3",
-             "narrow": "gram_narrow", "cuda_core": "gram_nhwc"}
+             "narrow": "gram_narrow"}
 
 
 def _launched(n0):
@@ -338,8 +335,7 @@ def _rel_err(got, ref):
 
 
 C11_KEYS = {"wgmma": ("conv1_1_stats_wgmma", "conv1_1_bwd_wgmma"),
-            "tf32x3": ("conv1_1_stats_tf32x3", "conv1_1_bwd_tf32x3"),
-            "cuda_core": ("conv1_1_stats", "conv1_1_bwd")}
+            "tf32x3": ("conv1_1_stats_tf32x3", "conv1_1_bwd_tf32x3")}
 
 
 def _s1_launched(n0):
@@ -631,7 +627,7 @@ def test_conv3x3_relu_pool_kernel_matches_plain(dev, dtype, tol, shape, cout):
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 1e-2),
                                        (torch.float32, 1e-4)])
 @pytest.mark.parametrize("shape,cout", [((2, 24, 40, 64), 64),
-                                        ((1, 18, 26, 24), 40)])
+                                        ((1, 18, 26, 24), 48)])
 def test_pool_route_bwd_kernel_matches_plain(dev, dtype, tol, shape, cout):
     g = torch.Generator(device=dev).manual_seed(6)
     x = torch.randn(shape, generator=g, device=dev).to(dtype)
@@ -1091,8 +1087,7 @@ def test_render_gradients_match_plain_path(dev, mode):
 # ---------------------------------------------------------------------------
 
 V3_KEYS = {"wgmma": ("conv1_1_gram_wgmma", "conv1_1_gram_bwd_wgmma"),
-           "tf32x3": ("conv1_1_gram_tf32x3", "conv1_1_gram_bwd_tf32x3"),
-           "cuda_core": ("conv1_1_gram", "conv1_1_gram_bwd")}
+           "tf32x3": ("conv1_1_gram_tf32x3", "conv1_1_gram_bwd_tf32x3")}
 
 
 def _v3_launched(n0):
@@ -1143,9 +1138,8 @@ def test_conv1_1_gram_bwd_kernel_matches_plain(dev, dtype, tol, shape):
     assert dx.dtype == dtype and _rel_err(dx, ref) <= tol
 
 
-# E and F on their bf16 tensor-core route against their CUDA-core twins
-# (``conv1_1_gram_cuda_core``, ``conv1_1_gram_bwd_cuda_core``) and the plain
-# versions: one E tile (4 x 32), one F tile (14 x 22), ragged tiles both
+# E and F on their bf16 tensor-core route against the plain versions: one
+# E tile (4 x 32), one F tile (14 x 22), ragged tiles both
 # ways (37 x 19, 37 x 29) and 24 x 40; at 4 x 128 x 136 more tiles than
 # blocks, so that E's blocks walk several tiles and F's cross images. On
 # exact data (x in halves, weights and bias in eighths up to 1/8, dz in
@@ -1153,7 +1147,7 @@ def test_conv1_1_gram_bwd_kernel_matches_plain(dev, dtype, tol, shape):
 # and F is exact in float32 in any order (|y| <= 3.5, the Gram's sums
 # below 2^14 in units of 2^-8 up to 960 pixels an image, |dP| below 2^7
 # and dx below 2^11 in units of 2^-13), and S needs no lo part: z, g64 and
-# dx equal the twins and the plain versions bit for bit, ReLU boundary
+# dx equal the plain versions bit for bit, ReLU boundary
 # (y = 0) included. On random data: z within one bf16 step, g64 within
 # 1e-5 relative Frobenius, dx within 1e-2 of the largest value (d is
 # rounded from float32 sums taken in other orders, and S's hi + lo is S to
@@ -1190,12 +1184,9 @@ def test_conv1_1_gram_wgmma_bit_equal_on_exact_data(dev, shape):
                                 "conv1_1_gram_bwd_wgmma": 1}
     z_p, g_p = ks3.conv1_1_gram_plain(x, w, b)
     dx_p = ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)
-    z_t, g_t = ks3.conv1_1_gram_cuda_core(x, w, b)
-    dx_t = ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
     assert bool((z_p == 0).any()) and bool((z_p > 0).any())
-    for got, plain, twin in ((z, z_p, z_t), (g64, g_p, g_t),
-                             (dx, dx_p, dx_t)):
-        assert torch.equal(got, plain) and torch.equal(got, twin)
+    for got, plain in ((z, z_p), (g64, g_p), (dx, dx_p)):
+        assert torch.equal(got, plain)
     # The Gram cotangent matters: without it dx moves.
     assert not torch.equal(
         ks3.conv1_1_gram_bwd_plain(x, dz, w, b, torch.zeros_like(sym)), dx)
@@ -1205,7 +1196,7 @@ def test_conv1_1_gram_wgmma_bit_equal_on_exact_data(dev, shape):
 
 
 @pytest.mark.parametrize("shape", V3_TILE_SHAPES + [(4, 128, 136)])
-def test_conv1_1_gram_wgmma_matches_twin_and_plain(dev, shape):
+def test_conv1_1_gram_wgmma_matches_plain(dev, shape):
     from st3d_torch.kernels import stage1v3 as ks3
 
     g = torch.Generator(device=dev).manual_seed(32)
@@ -1223,25 +1214,21 @@ def test_conv1_1_gram_wgmma_matches_twin_and_plain(dev, shape):
     torch.cuda.synchronize()
     assert _v3_launched(n0) == {"conv1_1_gram_wgmma": 1,
                                 "conv1_1_gram_bwd_wgmma": 1}
-    for z_r, g_r, dx_r in (
-            ks3.conv1_1_gram_plain(x, w, b)
-            + (ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym),),
-            ks3.conv1_1_gram_cuda_core(x, w, b)
-            + (ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym),)):
-        assert _within_one_bf16_step(z, z_r)
-        assert torch.linalg.norm(g64 - g_r) <= 1e-5 * torch.linalg.norm(g_r)
-        assert _rel_err(dx, dx_r) <= 1e-2
+    z_r, g_r = ks3.conv1_1_gram_plain(x, w, b)
+    assert _within_one_bf16_step(z, z_r)
+    assert torch.linalg.norm(g64 - g_r) <= 1e-5 * torch.linalg.norm(g_r)
+    assert _rel_err(dx, ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)) <= 1e-2
     assert torch.equal(ks3.conv1_1_gram(x, w, b)[1], g64)   # deterministic
     assert torch.equal(ks3.conv1_1_gram_bwd(x, dz, w, b, sym), dx)
 
 
-# E and F on their float32 tensor-core route (3xTF32) against their
-# CUDA-core twins and the plain versions, on the tile shapes above. On the
+# E and F on their float32 tensor-core route (3xTF32) against the plain
+# versions, on the tile shapes above. On the
 # exact data of ``_v3_exact`` in float32 (every value exact in TF32, so
 # every lo part of x, W, b, dz and S is zero; y is exact in TF32 too, and
 # M = S Wᵀ, in units of 2^-9 below 2^-1, in float32; every sum exact in
-# float32 in any order, as above) z, g64 and dx equal the twins and the
-# plain versions bit for bit, ReLU boundary included. On random data: z
+# float32 in any order, as above) z, g64 and dx equal the plain versions
+# bit for bit, ReLU boundary included. On random data: z
 # within 1e-4 of the largest value, g64 within 1e-4 relative Frobenius and
 # bit-identical on a second call, and dx within 1e-4 of the largest value
 # against the plain function masked by E's own z > 0 (F recomputes y by
@@ -1263,13 +1250,10 @@ def test_conv1_1_gram_tf32x3_bit_equal_on_exact_data(dev, shape):
                                 "conv1_1_gram_bwd_tf32x3": 1}
     z_p, g_p = ks3.conv1_1_gram_plain(x, w, b)
     dx_p = ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)
-    z_t, g_t = ks3.conv1_1_gram_cuda_core(x, w, b)
-    dx_t = ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
     assert bool((z_p == 0).any()) and bool((z_p > 0).any())
-    for got, plain, twin in ((z, z_p, z_t), (g64, g_p, g_t),
-                             (dx, dx_p, dx_t)):
+    for got, plain in ((z, z_p), (g64, g_p), (dx, dx_p)):
         assert got.dtype == torch.float32
-        assert torch.equal(got, plain) and torch.equal(got, twin)
+        assert torch.equal(got, plain)
     assert not torch.equal(
         ks3.conv1_1_gram_bwd_plain(x, dz, w, b, torch.zeros_like(sym)), dx)
     again = ks3.conv1_1_gram(x, w, b)
@@ -1303,13 +1287,6 @@ def test_conv1_1_gram_tf32x3_within_1e4_on_random_data(dev, shape):
     y = patches27(x) @ w.reshape(27, 64) + b
     flips = (z > 0) != (y > 0)
     assert bool((y[flips].abs() <= 1e-5 * y.abs().max()).all())
-    # The twins on the same inputs, held as before.
-    z_t, g_t = ks3.conv1_1_gram_cuda_core(x, w, b)
-    assert _rel_err(z_t, z_p) <= 1e-4
-    assert torch.linalg.norm(g_t - g_p) <= 1e-4 * torch.linalg.norm(g_p)
-    dx_t = ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
-    assert _rel_err(dx_t, ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym)) \
-        <= 1e-4
     assert torch.equal(ks3.conv1_1_gram(x, w, b)[1], g64)   # deterministic
     assert torch.equal(ks3.conv1_1_gram_bwd(x, dz, w, b, sym), dx)
 
@@ -1500,20 +1477,6 @@ def test_conv_narrow_bit_equal_on_exact_data(dev, dtype, shape, cin, cout):
     for got, args in _narrow_pair(dev, dtype, shape, cin, cout, True, x, w,
                                   b, ct):
         assert torch.equal(got, kconv.conv3x3_nhwc_plain(*args))
-
-
-def test_conv_cuda_core_kernel_matches_plain(dev):
-    """The CUDA-core K2, launched by no route since the narrow kernels,
-    still held against its plain version (3 -> 64, bf16)."""
-    g = torch.Generator(device=dev).manual_seed(44)
-    x = torch.randn((2, 12, 20, 3), generator=g, device=dev).bfloat16()
-    w = (torch.randn((3, 3, 3, 64), generator=g, device=dev) * 0.3).bfloat16()
-    b = torch.randn((64,), generator=g, device=dev).bfloat16()
-    n0 = dict(kconv.LAUNCHES)
-    y = kconv.conv3x3_cuda_core(x, w, b, True)
-    torch.cuda.synchronize()
-    assert _launched(n0) == {"conv3x3_nhwc": 1}
-    assert _rel_err(y, kconv.conv3x3_nhwc_plain(x, w, b, True)) <= 1e-2
 
 
 def _stretched_faces(dev, level, size, views=2, seed=0):

@@ -46,16 +46,18 @@ def _one_torch_thread():
 @pytest.mark.parametrize("c", WIDTHS)
 def test_narrow_route(dtype, c):
     """bf16 with C % 8 != 0 and float32 with C % 4 != 0 take "narrow" up to
-    32, the TMA routes keep their widths, and 33 stays on the CUDA cores."""
-    route = kconv.gram_route(dtype, c)
+    32, the TMA routes keep their widths, and 33 has no kernel."""
     tma = (c % 8 == 0) if dtype == BF16 else (c % 4 == 0)
+    if not tma and c > kconv.NARROW_GRAM_C:
+        with pytest.raises(ValueError, match=f"c={c}"):
+            kconv.gram_route(dtype, c)
+        return
+    route = kconv.gram_route(dtype, c)
     if tma:
         assert route == ("wgmma" if dtype == BF16 else "tf32x3")
-    elif c <= kconv.NARROW_GRAM_C:
+    else:
         assert route == "narrow"
         assert kconv.GRAM_LIBS[route] == "gram_narrow"
-    else:
-        assert route == "cuda_core"
 
 
 @pytest.mark.parametrize("route", sorted(kconv.GRAM_PLAN))

@@ -225,13 +225,16 @@ def _dp_f64(x, dz, z, w, sym, ds):
 
 @pytest.mark.parametrize("cout,want", [
     (64, "tf32x3"), (4, "tf32x3"), (8, "tf32x3"), (60, "tf32x3"),
-    (6, "cuda_core"), (62, "cuda_core"), (68, "cuda_core"),
-    (128, "cuda_core")])
+    (6, None), (62, None), (68, None), (128, None)])
 def test_c11_route_float32(cout, want):
     """float32 takes the 3xTF32 kernels with Cout a multiple of 4 up to
-    ``C11_TF32_MAX_COUT``; every other float32 width the CUDA cores."""
-    assert ks1.c11_route(torch.float32, cout) == want
+    ``C11_TF32_MAX_COUT``; every other float32 width (None) is refused."""
     assert ks1.C11_TF32_MAX_COUT == 64
+    if want is None:
+        with pytest.raises(ValueError, match=f"cout={cout}"):
+            ks1.c11_route(torch.float32, cout)
+    else:
+        assert ks1.c11_route(torch.float32, cout) == want
 
 
 @pytest.mark.parametrize("source", ["conv1_1_stats_tf32x3.cu",

@@ -205,11 +205,17 @@ def _rel_fro(got, ref):
 
 @pytest.mark.parametrize("dtype,cout,want", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 8, "wgmma"),
-    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 60, "cuda_core"),
-    (torch.bfloat16, 136, "cuda_core"), (torch.float32, 64, "tf32x3"),
-    (torch.float32, 6, "cuda_core")])
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 60, None),
+    (torch.bfloat16, 136, None), (torch.float32, 64, "tf32x3"),
+    (torch.float32, 6, None)])
 def test_c11_route(dtype, cout, want):
-    assert ks1.c11_route(dtype, cout) == want
+    """A and B take the tensor cores; any other dtype or Cout (None) is
+    refused with a ``ValueError`` naming it."""
+    if want is None:
+        with pytest.raises(ValueError, match=f"c11_route: .*cout={cout}"):
+            ks1.c11_route(dtype, cout)
+    else:
+        assert ks1.c11_route(dtype, cout) == want
 
 
 @pytest.mark.parametrize("bsz,size", [(4, 512), (4, 768), (4, 1024),

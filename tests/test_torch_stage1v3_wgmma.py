@@ -222,10 +222,16 @@ def _rel_fro(got, ref):
 
 @pytest.mark.parametrize("dtype,want", [(torch.bfloat16, "wgmma"),
                                         (torch.float32, "tf32x3"),
-                                        (torch.float16, "cuda_core"),
-                                        (torch.float64, "cuda_core")])
+                                        (torch.float16, None),
+                                        (torch.float64, None)])
 def test_v3_route(dtype, want):
-    assert ks3.v3_route(dtype) == want
+    """E and F take the tensor cores in bf16 and float32; any other dtype
+    (None) is refused with a ``ValueError`` naming it."""
+    if want is None:
+        with pytest.raises(ValueError, match=f"v3_route: .*{dtype}"):
+            ks3.v3_route(dtype)
+    else:
+        assert ks3.v3_route(dtype) == want
 
 
 @pytest.mark.parametrize("bsz,h,wd", [(4, 512, 512), (4, 768, 768),
@@ -510,19 +516,4 @@ def test_cpu_bf16_takes_the_plain_versions():
         assert torch.equal(got, want)
     assert torch.equal(ks3.conv1_1_gram_bwd(x, dz, w, b, sym),
                        ks3.conv1_1_gram_bwd_plain(x, dz, w, b, sym))
-    assert ks3.LAUNCHES == before
-
-
-@pytest.mark.parametrize("twin", ["E", "F"])
-def test_cuda_core_twins_take_cuda_tensors_only(twin):
-    """The CUDA-core twins, which the card's checks time beside the
-    tensor-core kernels, raise on CPU tensors rather than fall back."""
-    x, w, b = _operands(17, (1, 8, 8))
-    dz, sym = _bwd_operands(18, (1, 8, 8))
-    before = dict(ks3.LAUNCHES)
-    with pytest.raises(ValueError, match="CUDA"):
-        if twin == "E":
-            ks3.conv1_1_gram_cuda_core(x, w, b)
-        else:
-            ks3.conv1_1_gram_bwd_cuda_core(x, dz, w, b, sym)
     assert ks3.LAUNCHES == before
