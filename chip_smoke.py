@@ -48,12 +48,15 @@ Phases; any failure raises and the script exits non-zero:
    plain versions), each timed beside its bf16 bound and ``F.conv2d`` in
    bf16 with its box, BN, tiles, CTAs and waves;
    ARF's NNFM kernels at the NNFM cell's shapes (``nnfm_check``): the
-   3xTF32 matching ``nnfm_match_tf32x3`` of 4 and 2 views' 36,864 rows
-   against 36,864 style rows at 768 channels, on 8,192 rows the columns of
-   float64's argmax and values within 2e-6, timed beside its 3xTF32 bound
-   and the plain blockwise float32 matmul + argmax (TF32 off), which it
-   must beat; the centring and the loss rows with their backward against
-   their plain versions;
+   certified matching (hi x hi filter, float64 re-score, fallback) and
+   the 3xTF32 matching ``nnfm_match_tf32x3`` over every pair, of 4 and 2
+   views' 36,864 rows against 36,864 style rows at 768 channels, on 8,192
+   rows the columns of float64's argmax and values within 2e-6, timed
+   (the certified one by kernel too, the filter beside its one-product
+   bound) beside the 3xTF32 bound and the plain blockwise float32 matmul +
+   argmax (TF32 off), which it must beat, with the pairs re-scored and the
+   rows scored in full; the centring and the loss rows with their
+   backward against their plain versions;
    K2 at the widths TMA cannot stride (``narrow_check``): 3 -> 64 and 64 ->
    3 at 512² x 4, 5 -> 12 and 12 -> 5 at 128² x 4, forward and dx, on
    ``conv3x3_narrow_wgmma`` (bf16) and ``conv3x3_narrow_tf32x3`` (f32) with
@@ -1553,13 +1556,17 @@ NNFM_CHANNELS = 768
 
 def nnfm_check(dev):
     """ARF's NNFM kernels (``csrc/nnfm_match_tf32x3.cu``) at the NNFM
-    cell's shapes: the matching of both batches (4 and 2 views of 36,864
-    positions against the style's 36,864, 768 channels) against float64 on
-    its first 8,192 rows (the same columns, values within 2e-6), timed
-    (CUDA events) beside its 3xTF32 bound and the plain blockwise float32
-    ``torch.matmul`` + ``argmax`` with TF32 off, which it must beat; the
-    centring, the loss rows and their backward against their plain
-    versions. The totals are one epoch's."""
+    cell's shapes: the certified matching (``match``: the hi x hi filter,
+    the float64 re-score and the fallback) and the 3xTF32 matching over
+    every pair (``match_full``) of both batches (4 and 2 views of 36,864
+    positions against the style's 36,864, 768 channels), each against
+    float64 on its first 8,192 rows (the same columns, values within 2e-6),
+    timed (CUDA events; the certified one also by kernel under the
+    profiler, the filter beside its one-product bound) beside the 3xTF32
+    bound and the plain blockwise float32 ``torch.matmul`` + ``argmax``
+    with TF32 off, which it must beat, with the pairs re-scored and the
+    rows scored in full; the centring, the loss rows and their backward
+    against their plain versions. The totals are one epoch's."""
     import torch
     from st3d_torch.kernels import nnfm as kn
 
@@ -1572,32 +1579,43 @@ def nnfm_check(dev):
                           + 0.3)
 
     style = kn.style_operand(kn.center_normalize(block(1)))
-    tot = {"ms": 0.0, "plain": 0.0, "bound": 0.0, "rows": 0.0}
+    tot = {"ms": 0.0, "full": 0.0, "plain": 0.0, "bound": 0.0, "rows": 0.0,
+           "filter": 0.0, "rescore": 0.0, "fallback": 0.0}
     err = 0.0
     for bsz in F32_CELL_BATCHES:
         f = block(bsz)
         before = dict(kn.LAUNCHES)
         fh = kn.center_normalize(f)
-        idx, val = kn.match(fh, style)
+        stats = torch.zeros(2, dtype=torch.int64, device=dev)
+        idx, val = kn.match(fh, style, stats)
         torch.cuda.synchronize()
         if {k: v - before[k] for k, v in kn.LAUNCHES.items()
                 if v != before[k]} != {"nnfm_normalize": 1,
-                                       "nnfm_match_tf32x3": 1}:
+                                       "nnfm_match_certified": 1}:
             fail(f"NNFM x {bsz}: launched {kn.LAUNCHES} from {before}")
         ref_i, ref_v = kn.match_plain(fh[:8192].double(),
                                       style.hat.double(), 1024)
-        flips = int((idx[:8192].long() != ref_i).sum())
-        verr = float((val[:8192].double() - ref_v).abs().max())
-        if flips or not verr < 2e-6:
-            fail(f"NNFM match x {bsz}: {flips} of 8192 rows off float64's "
-                 f"argmax, values {verr:.3g} off")
+        full_i, full_v = kn.match_full(fh, style)
+        for what, (gi, gv) in (("certified", (idx, val)),
+                               ("full", (full_i, full_v))):
+            flips = int((gi[:8192].long() != ref_i).sum())
+            verr = float((gv[:8192].double() - ref_v).abs().max())
+            if flips or not verr < 2e-6:
+                fail(f"NNFM match ({what}) x {bsz}: {flips} of 8192 rows "
+                     f"off float64's argmax, values {verr:.3g} off")
+            err = max(err, verr)
         nerr = float((fh - kn.center_normalize_plain(f)).abs().max())
         t_k = cuda_ms(lambda: kn.match(fh, style), 3, 1)
+        _, per = profiled_ms(lambda: kn.match(fh, style), 3)
+        t_f = cuda_ms(lambda: kn.match_full(fh, style), 3, 1)
         t_p = cuda_ms(lambda: kn.match_plain(fh, style.hat), 1, 1)
         t_n = cuda_ms(lambda: kn.center_normalize(f), 3, 1)
         m = bsz * p
         flops = 2 * m * p * c
         t_b = bound(3 * flops, 4 * c * (m + 2 * p) + 8 * m, TF32_FLOPS)[0]
+        t_b1 = bound(flops, 4 * c * (m + p), TF32_FLOPS)[0]
+        part = {k: sum(v for n, v in per.items() if f"nnfm_{k}" in n)
+                for k in ("filter", "rescore", "fallback")}
         rows = f.reshape(m, c)
         content = torch.rand((m, c), generator=gen, device=dev)
         leaf = rows.clone().requires_grad_(True)
@@ -1623,27 +1641,33 @@ def nnfm_check(dev):
                          0.005 / (m * c)).sum().backward()
 
         t_r = cuda_ms(loss_step, 3, 1)
-        err = max(err, verr)
-        for k, v in (("ms", t_k), ("plain", t_p), ("bound", t_b),
-                     ("rows", t_n + t_r)):
+        for k, v in (("ms", t_k), ("full", t_f), ("plain", t_p),
+                     ("bound", t_b), ("rows", t_n + t_r), *part.items()):
             tot[k] += v
-        print(f"NNFM x {bsz} ({m} x {p} x {c}): match {t_k:.3f} ms, 3xTF32 "
-              f"bound {t_b:.3f} ms ({t_b / t_k:.0%} of it; one product a "
-              f"FLOP {t_b / 3 / t_k:.1%}), plain float32 {t_p:.3f} ms; "
-              f"centring {t_n:.3f} ms, loss rows fwd + bwd {t_r:.3f} ms; "
-              f"value err {verr:.3g}, loss {lerr:.3g}, grad {gerr:.3g}")
+        cand, full = (int(v) for v in stats.tolist())
+        print(f"NNFM x {bsz} ({m} x {p} x {c}): match {t_k:.3f} ms (filter "
+              f"{part['filter']:.3f}, {t_b1 / part['filter']:.1%} of its "
+              f"one-product bound {t_b1:.3f}; re-score "
+              f"{part['rescore']:.3f}; fallback {part['fallback']:.3f}); "
+              f"{cand / m:.2f} pairs re-scored a row, {full} rows in full; "
+              f"3xTF32 over every pair {t_f:.3f} ms (bound {t_b:.3f}); "
+              f"plain float32 {t_p:.3f} ms; centring {t_n:.3f} ms, loss "
+              f"rows fwd + bwd {t_r:.3f} ms; value err {err:.3g}, loss "
+              f"{lerr:.3g}, grad {gerr:.3g}")
     if not tot["ms"] < tot["plain"]:
         fail(f"NNFM match {tot['ms']:.3f} ms an epoch, not under the plain "
              f"float32 route's {tot['plain']:.3f}")
-    print(f"NNFM, one epoch: match {tot['ms']:.3f} ms (3xTF32 bound "
-          f"{tot['bound']:.3f}, plain float32 {tot['plain']:.3f}); centring "
-          f"and loss rows {tot['rows']:.3f} ms")
-    return [{"name": "nnfm_match_tf32x3 (NNFM cell)", "route": "cuda",
+    print(f"NNFM, one epoch: match {tot['ms']:.3f} ms (filter "
+          f"{tot['filter']:.3f}, re-score {tot['rescore']:.3f}, fallback "
+          f"{tot['fallback']:.3f}); 3xTF32 over every pair {tot['full']:.3f} "
+          f"(bound {tot['bound']:.3f}); plain float32 {tot['plain']:.3f}; "
+          f"centring and loss rows {tot['rows']:.3f} ms")
+    return [{"name": "nnfm_match_certified (NNFM cell)", "route": "cuda",
              "source": "st3d_torch/csrc/nnfm_match_tf32x3.cu",
              "replaces": None, "dtype": "float32", "max_abs_err": err,
              "ms": tot["ms"], "plain_ms": tot["plain"], "library_ms": None,
-             "bound_ms": tot["bound"], "bound_by": "operations",
-             "rows_ms": tot["rows"]}]
+             "bound_ms": tot["bound"] / 3, "bound_by": "operations",
+             "full_ms": tot["full"], "rows_ms": tot["rows"]}]
 
 
 # (Cin, Cout, H) of K2 at the widths TMA cannot stride: conv1_1 and its

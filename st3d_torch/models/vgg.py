@@ -97,6 +97,8 @@ LAST_TAP_CONV = max(TAP_CONV_INDEX.values())
 BLOCK3_CONV_INDEX: Dict[str, int] = {"conv3_1": 4, "conv3_2": 5,
                                      "conv3_3": 6}
 BLOCK3_CONVS = max(BLOCK3_CONV_INDEX.values()) + 1
+# The matching's counters kept on the device (``trace.device_counts``).
+MATCH_COUNTERS = ("nnfm.candidates", "nnfm.full_rows")
 # Style taps whose Gram is taken right after the conv (K3) when gram1=True.
 FUSED_GRAM_CONVS = frozenset(
     TAP_CONV_INDEX[n] for n in ("conv2_1", "conv3_1", "conv4_1", "conv5_1"))
@@ -412,10 +414,14 @@ def _match_block(f: torch.Tensor, style: StyleOperand
                  ) -> Dict[str, torch.Tensor]:
     """The matching of the block ``f`` (B, P, C) against ``style``, with no
     gradient: span ``st3d.nnfm``, counters ``nnfm.rows`` (render positions
-    matched) and ``nnfm.pairs`` (rows times style rows scored)."""
+    matched), ``nnfm.pairs`` (rows times style rows scored) and, on a card,
+    ``nnfm.candidates`` (pairs re-scored) and ``nnfm.full_rows`` (rows
+    scored against every style row), those two kept on the device."""
     bsz, p, _ = f.shape
     with trace.span("nnfm"), torch.no_grad():
-        nn, cos = match(center_normalize(f.detach()), style)
+        stats = (trace.device_counts(MATCH_COUNTERS, f.device)
+                 if f.device.type == "cuda" else None)
+        nn, cos = match(center_normalize(f.detach()), style, stats)
         trace.count("nnfm.rows", bsz * p)
         trace.count("nnfm.pairs", bsz * p * style.rows)
     return {"relu3:nn": nn.reshape(bsz, p), "relu3:nn_cos": cos.reshape(bsz, p)}

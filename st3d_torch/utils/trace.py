@@ -11,6 +11,10 @@ to the profiler's Unix-ns clock (``to_unix``, ``write``). Spans close on
 exceptions. Off, ``span()`` returns one shared null context after one flag
 check and ``count()`` returns at once: nothing is allocated.
 
+``device_counts(names, device)`` gives, while tracing is on, an int64
+tensor on the device that the port's kernels add counters to with no
+sync; ``counters()`` reads it (one sync, at read time).
+
 The kernel counters are read from ``kernels/build.py`` itself:
 ``kernels.loaded`` is the number of libraries loaded (``_LIBS``),
 ``kernels.built`` the number nvcc built in this process
@@ -28,7 +32,7 @@ import functools
 import json
 import threading
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,6 +42,7 @@ _on = False
 _NULL = contextlib.nullcontext()
 _records: List[list] = []
 _counts: Dict[str, int] = {}
+_device_counts: Dict[Tuple[Tuple[str, ...], str], torch.Tensor] = {}
 _anchor = (0, 0)
 _lock = threading.Lock()
 _local = threading.local()
@@ -51,6 +56,7 @@ def enable() -> None:
         return
     _records.clear()
     _counts.clear()
+    _device_counts.clear()
     _anchor = (time.perf_counter_ns(), time.time_ns())
     _on = True
 
@@ -120,11 +126,32 @@ def count(name: str, n: int = 1) -> None:
             _counts[name] = _counts.get(name, 0) + n
 
 
+def device_counts(names: Tuple[str, ...], device) -> Optional[torch.Tensor]:
+    """While tracing is on, the int64 tensor (len(names),) on ``device``
+    that holds the counters ``names``, for a kernel to add to on the device
+    (zeros at its first request after ``enable``); None while off."""
+    if not _on:
+        return None
+    key = (tuple(names), str(device))
+    with _lock:
+        t = _device_counts.get(key)
+        if t is None:
+            t = _device_counts[key] = torch.zeros(len(names),
+                                                  dtype=torch.int64,
+                                                  device=device)
+    return t
+
+
 def counters() -> Dict[str, int]:
-    """The counters, with the kernel libraries loaded and built."""
+    """The counters, the device's read here, with the kernel libraries
+    loaded and built."""
     from st3d_torch.kernels import build
 
-    return {**_counts, "kernels.loaded": len(build._LIBS),
+    out = dict(_counts)
+    for (names, _), t in _device_counts.items():
+        for name, v in zip(names, t.tolist()):
+            out[name] = out.get(name, 0) + int(v)
+    return {**out, "kernels.loaded": len(build._LIBS),
             "kernels.built": len(build.BUILD_SECONDS)}
 
 

@@ -8,9 +8,15 @@ through a second-approach step, and ``relu3:nn`` / ``relu3:nn_cos`` where
 every match beats the second best by a clear gap. ``get_features`` stops
 at conv3_3 and reads only the seven convs of a VGG-16 file; the Gram
 path's taps and routes stay as they were; every entry point without NNFM
-refuses ``--loss nnfm`` while parsing. On a card (``cuda`` marker, skipped
-here) the matching kernel against a float64 blockwise argmax at edge
-shapes and at one view of the cell's 36,864 x 36,864 x 768.
+refuses ``--loss nnfm`` while parsing. The certified matching's plain
+versions (``filter_plain``, ``match_certified_plain``) and a model of the
+kernel's per-lane lists: the bound covers |H - exact| on random data and on
+a pair that H misorders, the exact argmax is always a candidate, a row past
+``CAP`` is marked, and the answer equals ``match_plain``, ties included. On
+a card (``cuda`` marker, skipped here) both matching kernels against a
+float64 blockwise argmax at edge shapes, on near-copies of a style row
+that force the fallback, and at one view of the cell's 36,864 x 36,864 x
+768.
 """
 
 import importlib.util
@@ -279,6 +285,267 @@ def test_entries_without_nnfm_refuse_it_while_parsing(entry, capsys):
 
 
 # ---------------------------------------------------------------------------
+# The certified matching's plain versions
+# ---------------------------------------------------------------------------
+
+def _smooth_rows(seed, n, c, per=100):
+    """Centred, normalised rows along a path through random anchors,
+    ``per`` rows from one anchor to the next: neighbours nearly equal, as a
+    smooth style's positions are, so rows have many near-best columns."""
+    g = torch.Generator().manual_seed(seed)
+    anchors = torch.randn((n // per + 2, c), generator=g)
+    t = torch.arange(n, dtype=torch.float32) / per
+    k = t.floor().long()
+    w = (t - k)[:, None]
+    rows = (1 - w) * anchors[k] + w * anchors[k + 1]
+    return knnfm.center_normalize(torch.relu(rows + 0.5)[None])
+
+
+def _exact(fhat, shat):
+    return fhat.double() @ shat.double().t()
+
+
+def test_the_nearest_split_is_exact_and_rounds_to_nearest():
+    """``split_tf32_nearest``: hi the tf32 value nearest t (of the one
+    truncation gives and the next one away from zero; a tie goes away from
+    zero), hi + lo == t bit for bit, -0.0 included."""
+    from st3d_torch.kernels.conv import split_tf32
+
+    g = torch.Generator().manual_seed(3)
+    t = torch.randn(4096, generator=g) * torch.logspace(-3, 3, 4096)
+    half = 2.0 ** -11                       # half a tf32 step at 1
+    t[:6] = torch.tensor([-0.0, 0.0, 1.0 + half, -(1.0 + half),
+                          1.0 + 0.99 * half, 1.0 + 1.01 * half])
+    hi, lo = knnfm.split_tf32_nearest(t)
+    assert torch.equal((hi + lo).view(torch.int32), t.view(torch.int32))
+    trunc, _ = split_tf32(t)
+    up = (trunc.view(torch.int32) + 8192).view(torch.float32)
+    nearer_up = ((up.double() - t.double()).abs()
+                 <= (t.double() - trunc.double()).abs())
+    assert torch.equal(hi, torch.where(nearer_up, up, trunc))
+    assert hi[2:6].tolist() == [1.0 + 2 * half, -(1.0 + 2 * half), 1.0,
+                                1.0 + 2 * half]
+
+
+@pytest.mark.parametrize("seed,c", [(0, 64), (1, 64), (2, 768), (3, 36)])
+def test_the_row_bound_covers_the_hi_product(seed, c):
+    g = torch.Generator().manual_seed(seed)
+    fh = knnfm.center_normalize(torch.relu(torch.randn((1, 200, c),
+                                                       generator=g) + 0.3))
+    sh = _smooth_rows(seed + 10, 300, c)
+    h, eps, _ = knnfm.filter_plain(fh, sh)
+    gap = (h.double() - _exact(fh, sh)).abs()
+    assert bool((gap <= eps.double()[:, None]).all())
+
+
+def _misordered_pair(c=768):
+    """A render row a and style rows b1, b2 with a . b1 > a . b2 exactly but
+    a_hi . b1_hi < a_hi . b2_hi: b1 sits just under half a tf32 step above
+    a tf32 value in every channel (its hi rounds down to it), b2 on that
+    value in most channels and just over half a step above it in a few
+    (rounds up a whole step). The other style rows are far from a."""
+    g = torch.Generator().manual_seed(7)
+    a = torch.nn.functional.normalize(torch.rand((c,), generator=g) + 0.5,
+                                      dim=0)
+    base = torch.nn.functional.normalize(a + 0.05 * torch.rand(
+        (c,), generator=g), dim=0)
+    hi, _ = knnfm.split_tf32_nearest(base)
+    ulp = (hi.view(torch.int32) + 8192).view(torch.float32) - hi
+    b1 = hi + 0.49 * ulp
+    b2 = hi.clone()
+    b2[:3] = hi[:3] + 0.51 * ulp[:3]
+    others = knnfm.center_normalize(torch.randn((1, 50, c), generator=g))
+    return a[None], torch.cat([others[:20], b1[None], b2[None], others[20:]])
+
+
+def test_the_row_bound_covers_a_misordered_pair():
+    a, sh = _misordered_pair()
+    h, eps, cand = knnfm.filter_plain(a, sh)
+    e = _exact(a, sh)
+    assert float(e[0, 20]) > float(e[0, 21])            # b1 wins exactly
+    assert float(h[0, 20]) < float(h[0, 21])            # H says b2
+    assert bool(((h.double() - e).abs() <= eps.double()[:, None]).all())
+    assert bool(cand[0, 20]) and bool(cand[0, 21])
+    idx, val, full = knnfm.match_certified_plain(a, sh)
+    assert int(idx[0]) == 20 and not bool(full[0])
+    assert abs(float(val[0]) - float(e[0, 20])) < 2e-6
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_the_exact_argmax_is_always_a_candidate(seed):
+    sh = _smooth_rows(seed, 600, 64)
+    g = torch.Generator().manual_seed(seed + 100)
+    pick = torch.randint(0, 600, (400,), generator=g)
+    fh = torch.nn.functional.normalize(
+        sh[pick] + 0.002 * torch.randn((400, 64), generator=g), dim=1)
+    _, _, cand = knnfm.filter_plain(fh, sh)
+    best = _exact(fh, sh).argmax(dim=1)
+    assert bool(cand[torch.arange(400), best].all())
+    assert float(cand.sum(1).float().mean()) > 2     # the lists are busy
+
+
+def _near_copies(seed, n_copies, c=64, n=400, m=120):
+    """Style rows with ``n_copies`` near-copies of one row (1e-4 apart) and
+    render rows near that row: each of those has every copy within its
+    bound."""
+    g = torch.Generator().manual_seed(seed)
+    sh = knnfm.center_normalize(torch.randn((1, n, c), generator=g))
+    sh[100:100 + n_copies] = sh[100] + 1e-4 * torch.randn(
+        (n_copies, c), generator=g)
+    fh = knnfm.center_normalize(torch.randn((1, m, c), generator=g))
+    fh[:m // 2] = torch.nn.functional.normalize(
+        sh[100] + 1e-3 * torch.randn((m // 2, c), generator=g), dim=1)
+    return fh, sh
+
+
+def test_an_overflowing_row_is_marked():
+    fh, sh = _near_copies(5, knnfm.CAP + 20)
+    _, _, cand = knnfm.filter_plain(fh, sh)
+    idx, val, full = knnfm.match_certified_plain(fh, sh)
+    assert bool((cand.sum(1) > knnfm.CAP).eq(full).all())
+    assert bool(full[:60].all()) and not bool(full[60:].any())
+    e = _exact(fh, sh)
+    assert torch.equal(idx.long(), e.argmax(dim=1))
+    assert float((val.double() - e.max(dim=1).values).abs().max()) < 2e-6
+    # Under CAP copies, no row is marked.
+    fh, sh = _near_copies(5, knnfm.CAP // 2)
+    assert not bool(knnfm.match_certified_plain(fh, sh)[2].any())
+
+
+@pytest.mark.parametrize("dup", [False, True])
+def test_the_certified_match_equals_match_plain(dup):
+    g = torch.Generator().manual_seed(11)
+    m, n = 1024, 700
+    fh = knnfm.center_normalize(torch.randn((1, m, 64), generator=g))
+    sh = knnfm.center_normalize(torch.randn((1, n, 64), generator=g))
+    if dup:
+        # As the card test: style rows 3 and n // 2 equal, half the render
+        # rows equal to them; exact ties, which the lowest row wins.
+        sh[n // 2] = sh[3]
+        fh[:m // 2] = sh[3]
+    idx, val, full = knnfm.match_certified_plain(fh, sh)
+    want_i, want_v = knnfm.match_plain(fh, sh)
+    assert torch.equal(idx, want_i)
+    assert float((val - want_v).abs().max()) < 2e-6
+    assert not bool(full.any())
+    if dup:
+        assert bool((idx[:m // 2] == 3).all())
+
+
+def _lane_lists(h, eps, chunks, chunk_tiles, slots, cap):
+    """The filter kernel's lists for one row of H (N,) with bound eps, in
+    the order its items run: the row's chunks in lockstep, a column tile
+    (``FILTER_TILE``) each a step, the lanes' columns in order (lane
+    (j % 8) // 2 of the tile). Each chunk keeps a running max, shares it
+    through rmax (read back one tile late), takes every H >= max - 2 eps
+    into its lane's ``slots`` (the first slot fallen below the threshold;
+    a full list is flushed to the row's list first) and at its end appends
+    what stays above the final threshold. The flush that takes the count
+    past ``cap`` marks the row dead: that lane stops at once, the row's
+    other chunks once they read rmax back, and a dead row appends nothing
+    at its end. Returns the row's count and its columns."""
+    n, tile = h.shape[0], knnfm.FILTER_TILE
+    n_tiles = -(-n // tile)
+    twice = 2.0 * eps
+    rmax, dead = -float("inf"), False
+    top = [-float("inf")] * chunks
+    seen = [float("nan")] * chunks
+    seen_dead = [False] * chunks
+    lane_dead = [[False] * 4 for _ in range(chunks)]
+    lists = [[[(-float("inf"), 0)] * slots for _ in range(4)]
+             for _ in range(chunks)]
+    out, count = [], 0
+
+    def flush(lst):
+        nonlocal count, dead
+        out.extend(col for _, col in lst)
+        count += len(lst)
+        dead = dead or count > cap
+        return count > cap
+
+    for step in range(chunk_tiles):
+        for c in range(chunks):
+            nt = c * chunk_tiles + step
+            if nt >= n_tiles:
+                continue
+            cols = range(nt * tile, min(n, nt * tile + tile))
+            tm = max(float(h[j]) for j in cols)
+            other = seen[c]
+            top[c] = max(top[c], tm, other if other == other else tm)
+            thr = top[c] - twice
+            chunk_dead = seen_dead[c]
+            seen[c], rmax = rmax, max(rmax, top[c])
+            seen_dead[c] = seen_dead[c] or dead
+            for lane in range(4):
+                lst = lists[c][lane]
+                for j in (j for j in cols if (j % 8) // 2 == lane):
+                    x = float(h[j])
+                    if chunk_dead or lane_dead[c][lane] or x < thr:
+                        continue
+                    slot = next((s for s, (v, _) in enumerate(lst)
+                                 if v < thr), None)
+                    if slot is None:
+                        lane_dead[c][lane] = flush(lst)
+                        lst[:] = [(-float("inf"), 0)] * slots
+                        slot = 0
+                    lst[slot] = (x, j)
+    for c in range(chunks):
+        other, rmax = rmax, max(rmax, top[c])
+        t_end = max(top[c], other) - twice
+        for lane in range(4):
+            if not (dead or lane_dead[c][lane]):
+                flush([e for e in lists[c][lane] if e[0] >= t_end])
+    return count, out[:cap]
+
+
+@pytest.mark.parametrize("slots", [2, knnfm.LIST])
+def test_the_lane_lists_keep_every_candidate(slots):
+    """The kernel's list mechanics (``_lane_lists``) on smooth style rows,
+    with few slots (many flushes) and the kernel's: every plain candidate
+    of a row under CAP is listed, a row with more is marked, and
+    re-scoring the lists gives the exact argmax."""
+    sh = _smooth_rows(4, 1100, 64, per=300)
+    g = torch.Generator().manual_seed(40)
+    pick = torch.randint(0, 1100, (48,), generator=g)
+    fh = torch.nn.functional.normalize(
+        sh[pick] + 0.002 * torch.randn((48, 64), generator=g), dim=1)
+    h, eps, cand = knnfm.filter_plain(fh, sh)
+    chunks, chunk_tiles = knnfm.match_chunks(1100, knnfm.FILTER_TILE)
+    e = _exact(fh, sh)
+    marked = 0
+    for i in range(48):
+        count, cols = _lane_lists(h[i], float(eps[i]), chunks, chunk_tiles,
+                                  slots, knnfm.CAP)
+        want = set(torch.nonzero(cand[i])[:, 0].tolist())
+        if count > knnfm.CAP:
+            marked += 1
+            assert len(want) > knnfm.CAP or slots < knnfm.LIST
+            continue
+        assert want <= set(cols)
+        assert max(cols, key=lambda j: (float(e[i, j]), -j)) \
+            == int(e[i].argmax())
+    assert marked < 48
+
+
+@pytest.mark.parametrize("slots", [2, knnfm.LIST])
+def test_the_lane_lists_mark_a_row_past_cap(slots):
+    """Near-copies of one style row past CAP: the model's lists mark the
+    rows near them (count past CAP, which stops their lanes) and list
+    every candidate of the others."""
+    fh, sh = _near_copies(8, knnfm.CAP + 40, n=700, m=40)
+    h, eps, cand = knnfm.filter_plain(fh, sh)
+    chunks, chunk_tiles = knnfm.match_chunks(700, knnfm.FILTER_TILE)
+    for i in range(40):
+        count, cols = _lane_lists(h[i], float(eps[i]), chunks, chunk_tiles,
+                                  slots, knnfm.CAP)
+        if i < 20:
+            assert count > knnfm.CAP
+        else:
+            assert count <= knnfm.CAP
+            assert set(torch.nonzero(cand[i])[:, 0].tolist()) <= set(cols)
+
+
+# ---------------------------------------------------------------------------
 # On a card
 # ---------------------------------------------------------------------------
 
@@ -290,7 +557,12 @@ def card():
     return torch.device("cuda", 0)
 
 
-def _kernel_against_float64(dev, m, n, k, dup, seed=0):
+ROUTES = {"certified": (lambda fh, st: knnfm.match(fh, st),
+                         "nnfm_match_certified"),
+          "full": (knnfm.match_full, "nnfm_match_tf32x3")}
+
+
+def _kernel_against_float64(dev, m, n, k, dup, route, seed=0):
     g = torch.Generator(device=dev).manual_seed(seed)
     fh = knnfm.center_normalize(torch.randn((1, m, k), generator=g,
                                             device=dev))
@@ -301,10 +573,11 @@ def _kernel_against_float64(dev, m, n, k, dup, seed=0):
         # them: exact ties, which the lowest row wins.
         sh[n // 2] = sh[3]
         fh[:m // 2] = sh[3]
-    n0 = knnfm.LAUNCHES["nnfm_match_tf32x3"]
-    idx, val = knnfm.match(fh, knnfm.style_operand(sh))
+    fn, key = ROUTES[route]
+    n0 = knnfm.LAUNCHES[key]
+    idx, val = fn(fh, knnfm.style_operand(sh))
     torch.cuda.synchronize()
-    assert knnfm.LAUNCHES["nnfm_match_tf32x3"] == n0 + 1
+    assert knnfm.LAUNCHES[key] == n0 + 1
     ref_idx, ref_val = knnfm.match_plain(fh.double(), sh.double(), 2048)
     return idx, val, ref_idx, ref_val
 
@@ -316,13 +589,35 @@ def _kernel_against_float64(dev, m, n, k, dup, seed=0):
     (384, 1000, 768, True),     # three row tiles; ties across chunks
     (300, 129, 36, False),      # a slab past C, zero-filled
     (1, 300, 64, False)])
-def test_the_match_kernel_takes_float64s_argmax(card, m, n, k, dup):
-    idx, val, ref_idx, ref_val = _kernel_against_float64(card, m, n, k, dup)
+@pytest.mark.parametrize("route", ["certified", "full"])
+def test_the_match_kernel_takes_float64s_argmax(card, m, n, k, dup, route):
+    idx, val, ref_idx, ref_val = _kernel_against_float64(card, m, n, k, dup,
+                                                         route)
     assert idx.dtype == torch.int32 and idx.shape == (m,)
     assert torch.equal(idx.long(), ref_idx)
     assert float((val.double() - ref_val).abs().max()) < 2e-6
     if dup:
         assert bool((idx[:m // 2] == 3).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [768, 64])
+def test_the_match_kernel_falls_back_on_near_copies(card, c):
+    """200 near-copies (1e-4 apart) of one style row, and render rows near
+    it: every copy lies within those rows' bounds, so they pass CAP and are
+    scored in full; the answer is float64's where its best beats its
+    runner-up by over 4e-6."""
+    fh, sh = _near_copies(6, 200, c=c, n=3000, m=1000)
+    fh, sh = fh.to(card), sh.to(card)
+    stats = torch.zeros(2, dtype=torch.int64, device=card)
+    idx, val = knnfm.match(fh, knnfm.style_operand(sh), stats)
+    e = _exact(fh, sh)
+    top2 = e.topk(2, dim=1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 4e-6
+    assert torch.equal(idx.long()[clear], e.argmax(dim=1)[clear])
+    assert float((val.double() - top2[:, 0]).abs().max()) < 2e-6
+    cand, full = (int(v) for v in stats.tolist())
+    assert full >= 500 and cand > 0
 
 
 @pytest.mark.cuda

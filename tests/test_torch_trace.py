@@ -5,7 +5,8 @@ their forward, backward and optim phases and the epoch's end); losses and
 leaves bit-equal with tracing on and off; each span a ``user_annotation``
 of ``torch.profiler`` whose anchored Unix-ns start lies within 1 ms of
 kineto's; spans closed when an optimiser hook raises; the kernel counters
-read from ``kernels/build.py``; and ``--profile``'s ``spans.json``."""
+read from ``kernels/build.py``; counters kept in a tensor (``device_counts``)
+read with the others; and ``--profile``'s ``spans.json``."""
 
 import json
 import os
@@ -230,6 +231,30 @@ def test_spans_close_when_an_optimiser_hook_raises(scene, tmp_path):
     with trace.span("after"):
         pass
     assert trace.records()[-1][1] == -1
+
+
+def test_device_counters_are_read_with_the_others():
+    """``device_counts`` is None while off; on, one zeroed tensor a set of
+    names and device, the same at each request, whose values
+    ``counters()`` adds to the host's, still after ``disable``; ``enable``
+    starts them afresh."""
+    names = ("nnfm.candidates", "nnfm.full_rows")
+    assert trace.device_counts(names, torch.device("cpu")) is None
+    trace.enable()
+    t = trace.device_counts(names, torch.device("cpu"))
+    assert t.dtype == torch.int64 and t.tolist() == [0, 0]
+    assert trace.device_counts(names, torch.device("cpu")) is t
+    t += torch.tensor([7, 1])
+    t += torch.tensor([5, 0])
+    trace.count("nnfm.rows", 3)
+    counts = trace.counters()
+    assert (counts["nnfm.candidates"], counts["nnfm.full_rows"],
+            counts["nnfm.rows"]) == (12, 1, 3)
+    trace.disable()
+    assert trace.counters()["nnfm.candidates"] == 12
+    trace.enable()
+    assert "nnfm.candidates" not in trace.counters()
+    assert trace.device_counts(names, torch.device("cpu")).tolist() == [0, 0]
 
 
 def test_kernel_counters_read_the_build_registry(monkeypatch):
